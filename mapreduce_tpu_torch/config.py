@@ -1,0 +1,164 @@
+"""Runtime configuration of the port.
+
+Counterpart of :mod:`mapreduce_tpu.config`: the fields the word-count main
+path reads, at the JAX package's defaults and with its names, so a JAX
+``Config`` maps across one to one (:func:`...convert.config_from_dict`).
+The backend names stay ``'pallas'`` and ``'xla'``: here ``'pallas'`` means
+the hand-written CUDA kernel path and ``'xla'`` the plain PyTorch
+tokenizer.  Values the port does not run yet raise ``ValueError`` naming
+the ``ROADMAP.md`` item that will port them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from mapreduce_tpu_torch.ops.cuda import tokenize as kernel_tok
+
+
+def _not_ported(what: str, item: str) -> ValueError:
+    return ValueError(f"{what} is not ported to the PyTorch package yet "
+                      f"(ROADMAP.md item {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Sizing knobs for a run (see the JAX package's ``Config`` for each).
+
+    Attributes:
+      chunk_bytes: bytes per streaming step (default 32 MB).
+      table_capacity: distinct keys the running table holds.
+      batch_unique_capacity: distinct keys one chunk's table holds (None:
+        ``min(chunk_bytes // 2 + 1, table_capacity)``).
+      backend: 'pallas' (the CUDA kernel path; tokens longer than
+        ``pallas_max_token`` go through the overlong rescue), 'xla' (the
+        plain tokenizer, any token length) or 'auto' (pallas whenever
+        ``pallas_min_chunk <= chunk_bytes <= 2**26``).
+      pallas_max_token: W, the kernel's lookback bound (1..63).
+      sort_mode: 'stable2' (default: stable 2-key sort over the kernel's
+        byte-ordered stream) or 'sort3' (3-key sort).
+      compact_slots: None (compact mode, the kernel's slot budget) or 0
+        (pair mode only).
+      rescue_overlong / rescue_overlong_max / rescue_window: the overlong
+        rescue budgets (None: 1024, then ``chunk_bytes >> 10`` clamped to
+        [1024, 65536]) and its lookback in bytes.
+    """
+
+    chunk_bytes: int = 1 << 25
+    table_capacity: int = 1 << 18
+    batch_unique_capacity: Optional[int] = None
+    backend: str = "auto"
+    pallas_max_token: int = 32
+    sort_mode: str = "stable2"
+    sort_impl: str = "xla"
+    map_impl: str = "split"
+    compact_slots: Optional[int] = None
+    rescue_overlong: Optional[int] = None
+    rescue_overlong_max: Optional[int] = None
+    rescue_window: int = 192
+    merge_every: int = 1
+    combiner: str = "off"
+    geometry: object = None
+
+    def __post_init__(self) -> None:
+        if self.chunk_bytes % 128 != 0:
+            raise ValueError(f"chunk_bytes must be a multiple of 128, got "
+                             f"{self.chunk_bytes}")
+        if self.table_capacity < 2:
+            raise ValueError("table_capacity must be >= 2")
+        if self.backend not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.sort_mode == "segmin":
+            raise _not_ported("sort_mode='segmin'", "A14")
+        if self.sort_mode not in ("sort3", "stable2"):
+            raise ValueError(f"unknown sort_mode {self.sort_mode!r}")
+        if self.sort_impl in ("radix", "radix_partition"):
+            raise _not_ported(f"sort_impl={self.sort_impl!r}", "A12")
+        if self.sort_impl != "xla":
+            raise ValueError(f"unknown sort_impl {self.sort_impl!r}")
+        if self.map_impl == "fused":
+            raise _not_ported("map_impl='fused'", "A10")
+        if self.map_impl != "split":
+            raise ValueError(f"unknown map_impl {self.map_impl!r}")
+        if self.combiner in ("hot-cache", "salt", "auto"):
+            raise _not_ported(f"combiner={self.combiner!r}", "A10")
+        if self.combiner != "off":
+            raise ValueError(f"unknown combiner {self.combiner!r}")
+        if self.merge_every > 1:
+            raise _not_ported("merge_every > 1", "A14")
+        if self.merge_every < 1:
+            raise ValueError(f"merge_every must be >= 1, got "
+                             f"{self.merge_every}")
+        if self.geometry is not None:
+            raise _not_ported("a kernel geometry preset", "A14")
+        if self.compact_slots not in (None, 0):
+            raise ValueError(
+                "compact_slots must be None (the kernel's own budget: "
+                f"{kernel_tok.COMPACT_SLOTS} rows per {kernel_tok.WINDOW}-"
+                f"byte window) or 0 (pair mode), got {self.compact_slots}")
+        for name in ("rescue_overlong", "rescue_overlong_max"):
+            v = getattr(self, name)
+            if v is not None and v < 0:
+                raise ValueError(f"{name} must be >= 0, got {v}")
+        if self.rescue_slots:
+            if self.backend != "xla" \
+                    and self.rescue_window <= self.pallas_max_token + 1:
+                raise ValueError(
+                    f"rescue_window ({self.rescue_window}) must exceed "
+                    f"pallas_max_token + 1 ({self.pallas_max_token + 1}) "
+                    "to rescue anything")
+            if self.rescue_window > 4096:
+                raise ValueError(f"rescue_window must be <= 4096, got "
+                                 f"{self.rescue_window}")
+        if self.backend != "xla" and not 1 <= self.pallas_max_token <= 63:
+            raise ValueError(f"pallas_max_token must be in [1, 63], got "
+                             f"{self.pallas_max_token}")
+        if self.backend == "pallas" \
+                and not self.pallas_min_chunk <= self.chunk_bytes <= (1 << 26):
+            raise ValueError(
+                f"pallas backend needs {self.pallas_min_chunk} <= "
+                f"chunk_bytes <= {1 << 26}, got {self.chunk_bytes}")
+
+    @property
+    def rescue_slots(self) -> int:
+        """The resolved overlong-rescue budget (see ``rescue_overlong``)."""
+        return 1024 if self.rescue_overlong is None else self.rescue_overlong
+
+    @property
+    def rescue_slots_max(self) -> int:
+        """The resolved second-tier rescue budget (>= rescue_slots; 0 when
+        rescue is off)."""
+        if not self.rescue_slots:
+            return 0
+        if self.rescue_overlong_max is not None:
+            return max(self.rescue_overlong_max, self.rescue_slots)
+        return max(min(self.chunk_bytes >> 10, 1 << 16), self.rescue_slots)
+
+    @property
+    def resolved_compact_slots(self) -> int:
+        """Rows per kernel window in compact mode (0: pair mode only)."""
+        return kernel_tok.COMPACT_SLOTS if self.compact_slots is None else 0
+
+    @property
+    def pallas_min_chunk(self) -> int:
+        """Smallest buffer the kernel path pads to, as in the JAX package."""
+        return 128 * (2 * self.pallas_max_token + 2)
+
+    def resolved_backend(self) -> str:
+        """'auto' resolves to the kernel path whenever the chunk fits its
+        envelope; nothing here looks at the device."""
+        if self.backend != "auto":
+            return self.backend
+        if self.pallas_min_chunk <= self.chunk_bytes <= (1 << 26):
+            return "pallas"
+        return "xla"
+
+    @property
+    def batch_uniques(self) -> int:
+        if self.batch_unique_capacity is not None:
+            return self.batch_unique_capacity
+        return min(self.chunk_bytes // 2 + 1, self.table_capacity)
+
+
+DEFAULT_CONFIG = Config()

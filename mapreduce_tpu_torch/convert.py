@@ -1,0 +1,55 @@
+"""Carry state across from the JAX package: count tables and configs.
+
+A JAX ``CountTable`` is a NamedTuple of uint32 arrays; the port holds the
+same fields as int64 tensors with values in ``[0, 2**32)``.  These helpers
+move one across as numpy arrays, so both packages can start from one state
+and their results compare field by field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from mapreduce_tpu_torch.config import Config
+from mapreduce_tpu_torch.ops.table import CountTable
+from mapreduce_tpu_torch.runtime.platform import resolve_device
+
+
+def table_from_numpy(fields: Mapping[str, Any], device=None) -> CountTable:
+    """A port table from a JAX table's fields (``{name: uint32 array}``,
+    e.g. ``{f: np.asarray(getattr(t, f)) for f in t._fields}``)."""
+    dev = resolve_device(device)
+    missing = set(CountTable._fields) - set(fields)
+    if missing:
+        raise ValueError(f"table fields missing: {sorted(missing)}")
+    return CountTable(**{
+        f: torch.as_tensor(np.asarray(fields[f], dtype=np.uint32)
+                           .astype(np.int64), device=dev)
+        for f in CountTable._fields})
+
+
+def table_to_numpy(table: CountTable) -> dict[str, np.ndarray]:
+    """The table's fields as uint32 numpy arrays (the JAX layout)."""
+    return {f: getattr(table, f).cpu().numpy().astype(np.uint32)
+            for f in CountTable._fields}
+
+
+def config_from_dict(d: Mapping[str, Any]) -> Config:
+    """A port Config from a JAX Config's fields (``dataclasses.asdict``).
+
+    Fields the port has are taken as they are, so a value the port does not
+    run yet raises.  An explicit JAX ``compact_slots`` > 0 sizes the TPU
+    kernel's window; it maps to the port kernel's own budget (None), since
+    the spill fallback makes the result independent of it.  The JAX
+    pipeline knobs (superstep, in-flight groups, prefetch, ledger, faults)
+    change no result and are not read.
+    """
+    names = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in d.items() if k in names}
+    if kw.get("compact_slots"):
+        kw["compact_slots"] = None
+    return Config(**kw)

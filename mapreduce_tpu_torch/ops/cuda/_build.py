@@ -1,0 +1,79 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
+plain C interface, loaded with :mod:`ctypes`.  The build runs at first use
+into ``mapreduce_tpu_torch/_build/`` (git-ignored), named by a hash of the
+source and the flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: $CUDA_HOME/bin, then PATH, then the
+    toolkit's usual install directory."""
+    candidates = [os.path.join(os.environ[v], "bin", "nvcc")
+                  for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels build on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for its current text."""
+    digest = hashlib.sha256(
+        (CSRC_DIR / f"{name}.cu").read_bytes()
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
+    library path and the compiler's report (ptxas registers and shared
+    memory; empty when nothing was compiled)."""
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)[0]))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,57 @@
+"""The MapReduce engine on one device.
+
+Counterpart of :class:`mapreduce_tpu.parallel.mapreduce.Engine` for a single
+card: no mesh, no collectives, no ``step_many``.  A job supplies
+``init_state``, ``map_chunk(chunk, chunk_id)``, ``combine``, ``merge`` and
+``finalize``; the engine feeds it one chunk per step with ``chunk_id`` =
+the step index, the JAX package's numbering on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from mapreduce_tpu_torch.runtime.platform import resolve_device
+
+
+class Engine:
+    """Runs a job over a stream of chunks on one device.
+
+    Usage::
+
+        eng = Engine(job)
+        state = eng.init_states()
+        for step, batch in enumerate(reader):   # batch: uint8[1, chunk_bytes]
+            state = eng.step(state, batch, step)
+        result = eng.finish(state)
+    """
+
+    def __init__(self, job, device=None):
+        self.job = job
+        self.device = resolve_device(device)
+
+    def init_states(self) -> Any:
+        return self.job.init_state()
+
+    def step(self, state: Any, chunk: np.ndarray, step_index: int) -> Any:
+        """One map + combine step over ``chunk`` (uint8, ``[1, C]`` or
+        ``[C]``, host or device)."""
+        t = torch.as_tensor(chunk).reshape(-1)
+        if t.dtype != torch.uint8:
+            raise TypeError(f"chunks must be uint8, got {t.dtype}")
+        update = self.job.map_chunk(t.to(self.device), step_index)
+        return self.job.combine(state, update)
+
+    def finish(self, state: Any) -> Any:
+        """Finalize the state (one device: there is nothing to merge)."""
+        return self.job.finalize(state)
+
+    def run(self, batches) -> Any:
+        """Fold an iterable of chunks and finish."""
+        state = self.init_states()
+        for i, batch in enumerate(batches):
+            state = self.step(state, batch, i)
+        return self.finish(state)

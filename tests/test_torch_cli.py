@@ -1,0 +1,107 @@
+"""The port's CLI against the JAX package's, on the CPU.
+
+``python -m mapreduce_tpu_torch ... --platform cpu`` must print stdout
+byte-identical to ``./main`` (the JAX CLI) for the flags the port takes,
+refuse every other JAX flag with a usage error, and refuse to run without a
+card unless asked for the CPU.  Outputs are compared as bytes: exact.
+"""
+
+import contextlib
+import functools
+import io
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from mapreduce_tpu import cli as jcli
+from mapreduce_tpu_torch import cli
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _run(argv: list[str], cwd=REPO, **env) -> subprocess.CompletedProcess:
+    full_env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu",
+                **env}
+    return subprocess.run(argv, cwd=cwd, env=full_env, capture_output=True,
+                          timeout=300)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stdout(*args: str) -> bytes:
+    """The JAX CLI's stdout, run in-process (as tests/test_cli.py runs it)
+    from the repo root."""
+    out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8", write_through=True)
+    old = os.getcwd()
+    os.chdir(REPO)
+    try:
+        with contextlib.redirect_stdout(out):
+            assert jcli.main(list(args)) == 0
+    finally:
+        os.chdir(old)
+    return out.buffer.getvalue()
+
+
+def _port_stdout(*args: str) -> bytes:
+    proc = _run([sys.executable, "-m", "mapreduce_tpu_torch", *args,
+                 "--platform", "cpu"])
+    assert proc.returncode == 0, proc.stderr.decode()
+    return proc.stdout
+
+
+@pytest.mark.parametrize("fmt", ["reference", "json"])
+def test_stdout_identical_to_jax_cli(fmt):
+    want = _jax_stdout("test.txt", "--format", fmt)
+    assert _port_stdout("test.txt", "--format", fmt) == want
+    if fmt == "reference":
+        assert want.endswith(b"Total Count:9\n")
+
+
+def test_in_process_flags_match_jax_cli(capsysbinary, tmp_path):
+    """tsv, --no-echo, top-k, stream, several files: the port in-process
+    against the JAX CLI's stdout (a streamed run against the JAX CLI's
+    single-buffer run: the JAX streamed executor's compile alone would
+    cost more than this file's time budget; the two print the same)."""
+    other = tmp_path / "more.txt"
+    other.write_bytes(b"Good Good\tbye\nHello")
+    files = ["test.txt", str(other)]
+    cases = [["--no-echo", "--top-k", "3"] + files,
+             ["--stream", "--chunk-bytes", "4096", "--format", "tsv"] + files]
+    old = os.getcwd()
+    os.chdir(REPO)
+    try:
+        for args in cases:
+            assert cli.main(args + ["--platform", "cpu"]) == 0
+            got = capsysbinary.readouterr().out
+            jax_args = [a for a in args if a not in ("--stream", "4096",
+                                                     "--chunk-bytes")]
+            assert got == _jax_stdout(*jax_args), args
+    finally:
+        os.chdir(old)
+
+
+@pytest.mark.parametrize("flag", [["--ngram", "2"], ["--stats"],
+                                  ["--backend", "xla"], ["--top"]])
+def test_other_jax_flags_are_refused(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["test.txt", "--platform", "cpu", *flag])
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_missing_file_and_bad_config(capsys):
+    assert cli.main(["no-such-file.txt", "--platform", "cpu"]) == 2
+    assert "cannot read" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main([str(REPO / "test.txt"), "--chunk-bytes", "100",
+                  "--platform", "cpu"])
+
+
+def test_gpu_is_the_default_and_is_not_faked(monkeypatch, capsys):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([str(REPO / "test.txt")]) == 3
+    assert "no CUDA device" in capsys.readouterr().err
