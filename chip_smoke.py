@@ -6,30 +6,52 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It imports only the port (``mapreduce_tpu_torch``), never JAX, and exits
-non-zero when no card is present.  Phases, each printing one JSON line:
+non-zero when no card is present.  Phases, each printing JSON lines:
 
-1. build   -- compile ``mapreduce_tpu_torch/csrc/tokenize.cu`` with nvcc;
-2. kernel  -- the tokenize kernel's public wrappers (compact and pair mode)
-              against its plain PyTorch version on the card: a 32 MB Zipf
-              chunk, a dense chunk
-              that must spill, overlong runs at window and chunk edges, and
-              a chunk of exactly ``pallas_min_chunk`` bytes; exact equality;
+1. build   -- compile every ``mapreduce_tpu_torch/csrc/*.cu`` with nvcc,
+              one process per source, all started together;
+2. kernel  -- each kernel's public wrapper against its plain PyTorch
+              version on the card, exact equality:
+              the tokenize kernel in compact and pair mode (a 32 MB Zipf
+              chunk, a dense chunk that must spill, overlong runs at window
+              and chunk edges, a chunk of exactly ``pallas_min_chunk``
+              bytes); its fused mode against the compact plain version
+              on the same probes; the hot-key combiner kernel (stream, cache planes and
+              counters) on the 32 MB chunk, ``b"a b "`` (two keys: the cache
+              takes every occurrence), a chunk of two-letter tokens whose
+              thinned windows must spill, runs at combiner window and
+              segment edges, and a 4 MB single-key chunk; the radix
+              partition on the 32 MB chunk's compact stream, the same rows
+              in one bucket, random triples with ``key_hi >= 2**31`` and
+              an all-dead stream, each level on its own against a plain
+              partition (bucket ends and each bucket's rows) and the whole
+              seam, both impls, against the 3-key sort;
 3. words   -- ``count_words`` at ``Config()`` defaults (32 MB chunk, table
               capacity 2**18) on a seeded 32 MB corpus, equal to the oracle;
 4. stream  -- ``count_file`` over a seeded corpus of at least 128 MB
               (4 chunks or more), equal to the oracle;
-5. times   -- the kernel's median time per 32 MB chunk beside its bound,
-              its plain version's time, and the chunk's end-to-end time by
-              stage.
+5. paths   -- the same entry points under ``map_impl='fused'``; under
+              ``combiner='hot-cache'`` (``count_words`` on 32 MB and
+              ``count_file`` on 66 MB, each with a dense region of more
+              distinct keys than the cache holds, so one chunk takes the
+              combiner-free pair rerun); and under ``sort_impl``
+              'radix_partition' and 'radix'; each equal to the oracle;
+6. times   -- each kernel's median time per 32 MB chunk beside its bound,
+              its plain version's time and a library call's where one
+              exists; the chunk's end-to-end time by stage; the step time
+              (map + merge) of every path's configuration on one chunk;
+7. profile -- where the device time of a default, a combiner and a
+              radix_partition step goes.
 
-Phases 3 and 4 each drive a main path (``count_words``, and the streamed
-``count_file``): the kernel launch counters are set to 0 just before each
-and read just after it, and each must have launched both modes (both
-corpora hold a dense region that takes the spill fallback).  The
-``launches`` of the kernels line are ``count_words``'s, one 32 MB chunk;
-``launches_by_path`` gives both.  Before the last line it prints one
-``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.
+Phases 3 to 5 each drive a main path: the launch counters are set to 0
+just before each and read just after it, and each must have launched
+every kernel of its path (the dense regions take the spill fallback, so
+pair mode too; the radix paths one partition level per chunk, two under
+'radix').  A kernel's ``launches`` in the kernels line are those of the
+first path that runs it; ``launches_by_path`` gives every path.  Before the
+last line it prints one ``{"kernels": [...]}`` line and the card's
+``nvidia-smi`` name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -47,6 +69,10 @@ ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 MB = 1 << 20
+LETTERS = b"etaoinshrdlcumwfgypbvkjxqz"
+# Two-letter tokens: 676 keys, so a window keeps most of its 1,024 rows
+# under an 8-key cache and spills.
+PAIRS = b" ".join(bytes([a, b]) for a in LETTERS for b in LETTERS) + b" "
 
 
 def emit(phase: str, **kw) -> None:
@@ -68,7 +94,7 @@ def make_corpus(n_bytes: int, seed: int, dense_at: int | None = None,
     ranks = np.arange(1, vocab_n + 1)
     lens = 1 + (np.log2(ranks + 1) * 0.45).astype(int) \
         + rng.integers(0, 3, vocab_n)
-    letters = np.frombuffer(b"etaoinshrdlcumwfgypbvkjxqz", np.uint8)
+    letters = np.frombuffer(LETTERS, np.uint8)
     vocab = [bytes(letters[rng.integers(0, 26, n)]) for n in lens]
     n_urls = 4096
     url_lens = rng.integers(40, 121, n_urls)
@@ -92,6 +118,15 @@ def make_corpus(n_bytes: int, seed: int, dense_at: int | None = None,
     if dense_at is not None:
         data[dense_at:dense_at + 64 * 1024] = b"a b c d " * (8 * 1024)
     return bytes(data)
+
+
+def with_pairs(data: bytes, at: int) -> bytes:
+    """``data`` with 64 KB of two-letter tokens at ``at``: more keys than
+    the hot-key cache holds, so the thinned window still spills."""
+    buf = bytearray(data)
+    region = (PAIRS * (64 * 1024 // len(PAIRS) + 1))[:64 * 1024]
+    buf[at:at + len(region)] = region
+    return bytes(buf)
 
 
 def edge_chunk(n: int, w: int, window: int) -> bytes:
@@ -133,6 +168,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def max_err(want, got) -> int:
+    """Largest absolute difference over paired int64 tensors (exactness:
+    must be 0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    return max(int((a - b).abs().max()) if a.numel() else 0
+               for a, b in zip(want, got))
+
+
 def main() -> int:
     import torch
 
@@ -148,23 +193,34 @@ def main() -> int:
     from mapreduce_tpu_torch.models import wordcount as wc
     from mapreduce_tpu_torch.ops import table as table_ops
     from mapreduce_tpu_torch.ops.cuda import _build
+    from mapreduce_tpu_torch.ops.cuda import radix
     from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
     from mapreduce_tpu_torch.utils import oracle
 
     dev = torch.device("cuda")
     cfg = Config()
     w = cfg.pallas_max_token
+    cslots = Config(map_impl="fused", combiner="hot-cache") \
+        .resolved_combiner_slots
     modes = {"tokenize_compact": ktok.COMPACT_SLOTS,
              "tokenize_pair": ktok.PAIR_SLOTS}
+    errs = {k: 0 for k in ("tokenize_compact", "tokenize_pair",
+                           "tokenize_fused", "tokenize_combiner",
+                           "radix_partition")}
 
-    # 1. build
+    def on_card(data: bytes) -> torch.Tensor:
+        return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+
+    # 1. build: every kernel source, in parallel
     t0 = time.perf_counter()
-    lib_path, report = _build.build("tokenize")
+    built = _build.build_all()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         library=str(lib_path.relative_to(ROOT)),
-         ptxas=[ln for ln in report.splitlines() if "ptxas" in ln][-3:])
+         libraries={k: str(p.relative_to(ROOT)) for k, (p, _) in built.items()},
+         ptxas={k: [ln for ln in r.splitlines() if "ptxas info" in ln
+                    and ("Used" in ln or "Function properties" in ln)][-6:]
+                for k, (_, r) in built.items()})
 
-    # 2. the wrappers the main path calls against the plain version
+    # 2. the wrappers the main paths call against the plain versions
     # (launches here do not count: the counters are cleared after)
     chunk32 = make_corpus(32 * MB, SEED, dense_at=None)
     probes = {
@@ -173,11 +229,11 @@ def main() -> int:
         "edges": edge_chunk(4 * MB + 77, w, ktok.WINDOW),
         "min_chunk": make_corpus(cfg.pallas_min_chunk, SEED + 1),
     }
-    max_err = {m: 0 for m in modes}
     for name, data in probes.items():
-        t = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+        t = on_card(data)
+        wants = {}
         for mode, slots in modes.items():
-            want = ktok.tokenize_windows_plain(t, w, slots)
+            want = wants[mode] = ktok.tokenize_windows_plain(t, w, slots)
             if mode == "tokenize_compact":
                 stream, over, spill = ktok.tokenize_split_compact(t, w)
             else:
@@ -185,12 +241,11 @@ def main() -> int:
                 spill = want[5]  # pair mode returns none: checked below
             got = (stream.key_hi, stream.key_lo, stream.packed, over,
                    stream.total, spill)
-            torch.cuda.synchronize()
-            errs = [int((a - b).abs().max()) for a, b in zip(want, got)]
-            max_err[mode] = max(max_err[mode], *errs)
-            if any(errs):
+            err = max_err(want, got)
+            errs[mode] = max(errs[mode], err)
+            if err:
                 raise SystemExit(f"kernel {mode} differs from its plain "
-                                 f"version on {name}: {errs}")
+                                 f"version on {name}: {err}")
             over, ntok, spill = (int(x) for x in got[3:])
             emit("kernel", probe=name, mode=mode, bytes=len(data),
                  overlong=over, tokens=ntok, spill=spill, equal=True)
@@ -199,72 +254,259 @@ def main() -> int:
                 raise SystemExit("dense probe did not spill")
             if mode == "tokenize_pair" and spill:
                 raise SystemExit("pair mode spilled")
+        # K1c: the fused mode is the compact stream (the halo kernel
+        # resolves every seam), held against the compact plain version.
+        fused, over, spill = ktok.tokenize_fused(t, max_token_bytes=w)
+        err = max_err(wants["tokenize_compact"],
+                      (fused.key_hi, fused.key_lo, fused.packed, over,
+                       fused.total, spill))
+        errs["tokenize_fused"] = max(errs["tokenize_fused"], err)
+        if err:
+            raise SystemExit(f"fused mode differs from its plain version on "
+                             f"{name}: {err}")
+        emit("kernel", probe=name, mode="tokenize_fused", equal=True)
 
-    # 3 + 4. the main paths, with the launch counters read around each
+    # K1d: the combiner kernel against its plain version.  The edge chunk's
+    # segments are 11 combiner windows, so every segment edge is a window
+    # edge and carries a run across it.
+    n_edge = ktok.SEGMENTS * 11 * ktok.WINDOW
+    n_pairs = ktok.SEGMENTS * 3 * ktok.WINDOW  # three full windows a segment
+    comb_probes = {
+        "zipf_32MB": chunk32,
+        "dense_ab": probes["dense_spills"],
+        "dense_pairs_spills": (PAIRS * (n_pairs // len(PAIRS) + 1))[:n_pairs],
+        "edges": edge_chunk(n_edge, w, ktok.WINDOW),
+        "single_key_4MB": b"hot " * MB,
+    }
+    comb_counts = {}
+    for name, data in comb_probes.items():
+        t = on_card(data)
+        want = ktok.tokenize_combiner_plain(t, w, ktok.COMBINER_SLOTS, cslots)
+        got = ktok.tokenize_fused(t, max_token_bytes=w, combiner_slots=cslots)
+        got = (got[0].key_hi, got[0].key_lo, got[0].packed, got[1],
+               got[0].total, got[2], *got[3])
+        err = max_err((*want[:6], *want[6]), got)
+        errs["tokenize_combiner"] = max(errs["tokenize_combiner"], err)
+        if err:
+            raise SystemExit(f"combiner kernel differs from its plain "
+                             f"version on {name}: {err}")
+        over, ntok, spill = (int(x) for x in got[3:6])
+        hits = int(got[8].sum())
+        flushes = int((got[8] > 0).sum())
+        comb_counts[name] = {"tokens_left": ntok, "hits": hits,
+                             "flush_rows": flushes,
+                             "stream_rows": got[0].shape[0]}
+        emit("kernel", probe=name, mode="tokenize_combiner", bytes=len(data),
+             overlong=over, spill=spill, **comb_counts[name], equal=True)
+        if (spill > 0) != (name == "dense_pairs_spills"):
+            raise SystemExit(f"combiner spill {spill} on {name}")
+        if name == "single_key_4MB" and ntok:
+            raise SystemExit("single-key chunk left tokens in the stream")
+
+    # K2: the radix partition, both impls, against the 3-key sort.
+    k1a = ktok.tokenize_split_compact(on_card(chunk32), w)[0]
+    rows = (k1a.key_hi, k1a.key_lo, k1a.packed)
+    live = ~((rows[0] == ktok._SENT) & (rows[1] == ktok._SENT))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_rand = 4 * MB
+    radix_probes = {
+        "k1a_stream_32MB": rows,
+        "one_bucket": (torch.where(live, 0x8765_4321, rows[0]), *rows[1:]),
+        "random_high_keys": (
+            torch.randint(1 << 31, (1 << 32) - 1, (n_rand,), device=dev,
+                          generator=gen),
+            torch.randint(0, 1 << 32, (n_rand,), device=dev, generator=gen),
+            torch.randperm(n_rand, device=dev, generator=gen) << 6 | 5),
+        "all_dead": tuple(torch.full((MB,), ktok._SENT, dtype=torch.int64,
+                                     device=dev) for _ in range(3)),
+    }
+    bits = radix.DEFAULT_BITS
+    for name, planes in radix_probes.items():
+        # Each level on its own against the plain partition: the same
+        # bucket ends and the same rows in every bucket.  The second level
+        # reads the first level's kernel output.
+        level_in, ends = planes, None
+        for level in (1, 2):
+            shift = 32 - level * bits
+            want = radix.partition_level_plain(*level_in, shift, bits, ends)
+            got = radix.partition_level(*level_in, shift, bits, ends)
+            err = max_err((want[1],), (got[1],)) or max_err(
+                radix.canonical_partition(*want),
+                radix.canonical_partition(*got))
+            errs["radix_partition"] = max(errs["radix_partition"], err)
+            if err:
+                raise SystemExit(f"radix level {level} differs from the "
+                                 f"plain partition on {name}: {err}")
+            emit("kernel", probe=name, mode="radix_partition", level=level,
+                 rows=level_in[0].shape[0], live_rows=got[0][0].shape[0],
+                 equal=True)
+            level_in, ends = got
+            if not level_in[0].shape[0]:
+                break
+        want = radix.radix_sort3_plain(*planes)
+        for impl in radix.IMPLS:
+            err = max_err(want, radix.radix_sort3(*planes, impl=impl))
+            errs["radix_partition"] = max(errs["radix_partition"], err)
+            if err:
+                raise SystemExit(f"radix {impl} differs from the 3-key sort "
+                                 f"on {name}: {err}")
+            emit("kernel", probe=name, mode="radix_partition", impl=impl,
+                 rows=planes[0].shape[0], equal=True)
+
+    # 3 - 5. the main paths, with the launch counters read around each
+    by_path: dict[str, dict] = {}
+    branches: dict[str, dict] = {}
+
+    def drive(path: str, fn, want_words: dict, need: dict):
+        """Run one main path between cleared counters; check it against the
+        oracle and against the kernels it must have launched."""
+        torch.cuda.synchronize()
+        ktok.LAUNCHES.clear()
+        radix.LAUNCHES.clear()
+        wc.BRANCHES.clear()
+        t_a = time.perf_counter()
+        got = fn()
+        seconds = time.perf_counter() - t_a
+        by_path[path] = {**ktok.LAUNCHES, **radix.LAUNCHES}
+        branches[path] = dict(wc.BRANCHES)
+        if got.as_dict() != want_words or list(got.words) != list(want_words) \
+                or got.total != sum(want_words.values()):
+            raise SystemExit(f"{path} differs from the oracle")
+        for kernel, count in need.items():
+            n = by_path[path].get(kernel, 0)
+            if not n or (count is not None and n != count):
+                raise SystemExit(f"{path} launched {kernel} {n} times")
+        return got, seconds
+
     words_data = make_corpus(32 * MB, SEED + 2, dense_at=7 * MB)
-    torch.cuda.synchronize()
-    ktok.LAUNCHES.clear()
-    wc.BRANCHES.clear()
-    t0 = time.perf_counter()
-    got = count_words(words_data, cfg)
-    words_s = time.perf_counter() - t0
-    by_path = {"count_words": dict(ktok.LAUNCHES)}
     want = oracle.word_counts(words_data)
-    if got.as_dict() != want or got.total != sum(want.values()) \
-            or list(got.words) != list(want):
-        raise SystemExit("count_words differs from the oracle")
+    both = {"tokenize_compact": None, "tokenize_pair": None}
+    got, words_s = drive("count_words", lambda: count_words(words_data, cfg),
+                         want, both)
     emit("words", bytes=len(words_data), tokens=got.total,
          distinct=got.distinct, dropped_count=got.dropped_count,
          seconds=round(words_s, 4), launches=by_path["count_words"],
-         branches=dict(wc.BRANCHES), equal_to_oracle=True)
+         branches=branches["count_words"], equal_to_oracle=True)
 
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         path = Path(tmp) / "corpus.txt"
         stream_data = make_corpus(130 * MB, SEED + 3, dense_at=70 * MB)
         path.write_bytes(stream_data)
-        torch.cuda.synchronize()
-        ktok.LAUNCHES.clear()
-        wc.BRANCHES.clear()
-        t0 = time.perf_counter()
-        got = count_file(str(path), cfg)
-        stream_s = time.perf_counter() - t0
-        by_path["count_file"] = dict(ktok.LAUNCHES)
-    want = oracle.word_counts(stream_data)
-    if got.as_dict() != want or list(got.words) != list(want):
-        raise SystemExit("count_file differs from the oracle")
-    emit("stream", bytes=len(stream_data),
-         chunks=-(-len(stream_data) // cfg.chunk_bytes), tokens=got.total,
-         distinct=got.distinct, seconds=round(stream_s, 4),
-         gb_per_s=round(len(stream_data) / stream_s / 1e9, 4),
-         launches=by_path["count_file"], branches=dict(wc.BRANCHES),
-         equal_to_oracle=True)
-    for path_name, launches in by_path.items():
-        for mode in modes:
-            if not launches.get(mode):
-                raise SystemExit(f"{path_name} never launched {mode}")
+        want_stream = oracle.word_counts(stream_data)
+        got, stream_s = drive("count_file",
+                              lambda: count_file(str(path), cfg),
+                              want_stream, both)
+        emit("stream", bytes=len(stream_data),
+             chunks=-(-len(stream_data) // cfg.chunk_bytes), tokens=got.total,
+             distinct=got.distinct, seconds=round(stream_s, 4),
+             gb_per_s=round(len(stream_data) / stream_s / 1e9, 4),
+             launches=by_path["count_file"], branches=branches["count_file"],
+             equal_to_oracle=True)
+        del want_stream
 
-    # 5. times at the main path's shape: one 32 MB chunk
-    t = torch.frombuffer(bytearray(chunk32), dtype=torch.uint8).to(dev)
+        fused_cfg = Config(map_impl="fused")
+        comb_cfg = Config(map_impl="fused", combiner="hot-cache")
+        comb_words = with_pairs(words_data, 7 * MB)
+        comb_file_data = with_pairs(stream_data[:66 * MB], 40 * MB)
+        del stream_data
+        comb_path = Path(tmp) / "combiner.txt"
+        comb_path.write_bytes(comb_file_data)
+        comb_need = {"tokenize_combiner": None, "tokenize_pair": None}
+        runs = [
+            ("count_words_fused", lambda: count_words(words_data, fused_cfg),
+             want, {"tokenize_fused": None, "tokenize_pair": None},
+             len(words_data)),
+            ("count_words_combiner",
+             lambda: count_words(comb_words, comb_cfg),
+             oracle.word_counts(comb_words), comb_need, len(comb_words)),
+            ("count_file_combiner",
+             lambda: count_file(str(comb_path), comb_cfg),
+             oracle.word_counts(comb_file_data), comb_need,
+             len(comb_file_data)),
+            ("count_words_radix_partition",
+             lambda: count_words(words_data,
+                                 Config(sort_impl="radix_partition")),
+             want, {**both, "radix_partition": 1}, len(words_data)),
+            ("count_words_radix",
+             lambda: count_words(words_data, Config(sort_impl="radix")),
+             want, {**both, "radix_partition": 2}, len(words_data)),
+        ]
+        for name, fn, want_words, need, n_bytes in runs:
+            got, seconds = drive(name, fn, want_words, need)
+            emit("paths", path=name, bytes=n_bytes, tokens=got.total,
+                 distinct=got.distinct, seconds=round(seconds, 4),
+                 launches=by_path[name], branches=branches[name],
+                 equal_to_oracle=True)
+        del comb_words, comb_file_data
+
+    # 6. times at the main path's shape: one 32 MB chunk
+    t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
-    for mode, slots in modes.items():
-        rows = -(-n // ktok.WINDOW) * slots
-        bytes_moved = n + 3 * 8 * rows + 3 * 8  # read chunk, write planes
-        plain_ms = cuda_ms(lambda: ktok.tokenize_windows_plain(t, w, slots),
-                           iters=5)
-        ms = cuda_ms(lambda: ktok.tokenize_windows_kernel(t, w, slots))
+
+    def first_path(kernel: str) -> int:
+        return next((v[kernel] for v in by_path.values() if v.get(kernel)), 0)
+
+    def row(name, source, replaces, ms, plain_ms, bytes_moved,
+            library_ms=None, **extra):
         kernels.append({
-            "name": mode, "route": "cuda",
-            "source": "mapreduce_tpu_torch/csrc/tokenize.cu",
-            "replaces": "mapreduce_tpu/ops/pallas/tokenize.py:231",
-            "launches": by_path["count_words"].get(mode, 0),
-            "launches_by_path": {k: v.get(mode, 0)
+            "name": name, "route": "cuda",
+            "source": f"mapreduce_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": first_path(name),
+            "launches_by_path": {k: v.get(name, 0)
                                  for k, v in by_path.items()},
-            "max_abs_err": max_err[mode], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None})
-        emit("times", kernel=mode, chunk_bytes=n, ms=ms, plain_ms=plain_ms,
-             bound_ms=kernels[-1]["bound_ms"], bytes_moved=bytes_moved)
+            "bound_by": "bytes", "library_ms": library_ms})
+        emit("times", kernel=name, chunk_bytes=n, ms=ms, plain_ms=plain_ms,
+             bound_ms=kernels[-1]["bound_ms"], bytes_moved=bytes_moved,
+             library_ms=library_ms, **extra)
+
+    tok_site = "mapreduce_tpu/ops/pallas/tokenize.py:231"
+    for mode, slots in modes.items():
+        rows_out = -(-n // ktok.WINDOW) * slots
+        row(mode, "tokenize.cu", tok_site,
+            cuda_ms(lambda: ktok.tokenize_windows_kernel(t, w, slots)),
+            cuda_ms(lambda: ktok.tokenize_windows_plain(t, w, slots),
+                    iters=5),
+            n + 3 * 8 * rows_out + 3 * 8)  # read chunk, write planes
+    rows_out = -(-n // ktok.WINDOW) * ktok.COMPACT_SLOTS
+    row("tokenize_fused", "tokenize.cu",
+        "mapreduce_tpu/ops/pallas/tokenize.py:871",
+        cuda_ms(lambda: ktok.tokenize_fused(t, max_token_bytes=w)),
+        cuda_ms(lambda: ktok.tokenize_windows_plain(t, w,
+                                                    ktok.COMPACT_SLOTS),
+                iters=5),
+        n + 3 * 8 * rows_out + 3 * 8)
+    comb_rows = comb_counts["zipf_32MB"]["stream_rows"]
+    row("tokenize_combiner", "tokenize.cu",
+        "mapreduce_tpu/ops/pallas/tokenize.py:388",
+        cuda_ms(lambda: ktok.tokenize_combiner_kernel(
+            t, w, ktok.COMBINER_SLOTS, cslots)),
+        cuda_ms(lambda: ktok.tokenize_combiner_plain(
+            t, w, ktok.COMBINER_SLOTS, cslots), iters=5),
+        n + 3 * 8 * comb_rows + 4 * 8 * cslots * ktok.SEGMENTS + 3 * 8,
+        stream_rows=comb_rows, compact_rows=rows_out,
+        hits=comb_counts["zipf_32MB"]["hits"],
+        flush_rows=comb_counts["zipf_32MB"]["flush_rows"])
+    # K2 on the compact stream of the chunk: the partition seam
+    # (radix_sort3) against its plain version, the 3-key sort, and the
+    # port's own 3-key sort call (table._lexsort, the sort3 build's).
+    n_rows = rows[0].shape[0]
+    n_live = int(live.sum())
+    row("radix_partition", "radix.cu",
+        "mapreduce_tpu/ops/pallas/radix.py:104",
+        cuda_ms(lambda: radix.radix_sort3(*rows, impl="radix_partition")),
+        cuda_ms(lambda: radix.radix_sort3_plain(*rows), iters=5),
+        2 * 3 * 8 * n_rows,  # read three planes, write them sorted
+        library_ms=cuda_ms(lambda: table_ops._lexsort(
+            table_ops._key64(rows[0], rows[1]), rows[2])),
+        rows=n_rows, live_rows=n_live,
+        radix_ms=cuda_ms(lambda: radix.radix_sort3(*rows, impl="radix")),
+        level_ms=cuda_ms(lambda: radix.partition_level(
+            *rows, 32 - radix.DEFAULT_BITS, radix.DEFAULT_BITS)),
+        level_bound_ms=(3 * 8 * n_rows + 3 * 8 * n_live)
+        / HBM_BYTES_PER_S * 1e3)
 
     # The chunk's end-to-end time, by stage (each stage synchronised).
     stage = {"tokenize": [], "aggregate": [], "merge": [], "step": []}
@@ -293,34 +535,69 @@ def main() -> int:
          step_ms=med["step"], step_gb_per_s=n / med["step"] / 1e6,
          overlong=int(overlong), spill=int(spill))
 
-    # Where a step's device time goes: torch.profiler over 3 steps, device
-    # kernels only (the aten ops that launch them would count twice).  The
-    # busy share divides it by the unprofiled step time measured above.
+    # The step (map + merge) of each path's configuration on the same
+    # device-resident chunk, in turns so drift spreads over all of them.
+    step_cfgs = {"default": cfg, "fused": fused_cfg, "combiner": comb_cfg,
+                 "radix_partition": Config(sort_impl="radix_partition"),
+                 "radix": Config(sort_impl="radix")}
+    steps = {k: [] for k in step_cfgs}
+    chunk = torch.from_numpy(host.copy()).to(dev)
+    for rep in range(6):
+        for name, c in step_cfgs.items():
+            torch.cuda.synchronize()
+            wc.BRANCHES.clear()
+            t_a = time.perf_counter()
+            upd = wc._map_stream(chunk, c, c.batch_uniques, pos_hi=0)
+            run = table_ops.merge(running, upd, capacity=c.table_capacity)
+            torch.cuda.synchronize()
+            if rep:
+                steps[name].append((time.perf_counter() - t_a) * 1e3)
+            if name == "combiner":
+                comb_branches = dict(wc.BRANCHES)
+    emit("times", chunk_bytes=n,
+         step_ms={k: statistics.median(v) for k, v in steps.items()},
+         step_ms_all={k: [round(x, 3) for x in v] for k, v in steps.items()},
+         combiner_per_chunk={
+             "hits": comb_branches.get("combiner_hits", 0),
+             "flush_rows": comb_branches.get("combiner_flushes", 0),
+             "stream_rows": comb_rows, "compact_stream_rows": rows_out,
+             "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
+
+    # 7. Where a step's device time goes, for the default, combiner and
+    # radix configurations: torch.profiler over 3 steps, device kernels
+    # only (the aten ops that launch them would count twice).  The busy
+    # share divides it by the unprofiled step time measured above.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    chunk = torch.from_numpy(host.copy()).to(dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_a = time.perf_counter()
-        for _ in range(3):
-            upd = wc._map_stream(chunk, cfg, cfg.batch_uniques, pos_hi=0)
-            running = table_ops.merge(running, upd,
-                                      capacity=cfg.table_capacity)
+    step_med = {k: statistics.median(v) for k, v in steps.items()}
+    for name in ("default", "combiner", "radix_partition"):
+        c = step_cfgs[name]
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t_a) * 1e6
-    by_kernel = sorted(
-        ((e.key, e.self_device_time_total / 3e3, e.count // 3)
-         for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total),
-        key=lambda r: -r[1])
-    device_us = sum(r[1] for r in by_kernel) * 3e3
-    emit("profile", steps=3, profiled_wall_ms_per_step=wall_us / 3e3,
-         device_ms_per_step=device_us / 3e3,
-         device_busy_share=device_us / 3e3 / med["step"],
-         top=[{"op": k[:60], "ms_per_step": round(ms, 4), "calls": c}
-              for k, ms, c in by_kernel[:12]])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_a = time.perf_counter()
+            for _ in range(3):
+                upd = wc._map_stream(chunk, c, c.batch_uniques, pos_hi=0)
+                run = table_ops.merge(running, upd,
+                                      capacity=c.table_capacity)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t_a) * 1e6
+        by_kernel = sorted(
+            ((e.key, e.self_device_time_total / 3e3, e.count // 3)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total),
+            key=lambda r: -r[1])
+        device_ms = sum(r[1] for r in by_kernel)
+        emit("profile", config=name, steps=3,
+             profiled_wall_ms_per_step=wall_us / 3e3,
+             device_ms_per_step=device_ms,
+             device_launches_per_step=sum(r[2] for r in by_kernel),
+             device_busy_share=device_ms / step_med[name],
+             top=[{"op": k[:60], "ms_per_step": round(ms, 4), "calls": n_}
+                  for k, ms, n_ in by_kernel[:12]])
+    del run
 
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

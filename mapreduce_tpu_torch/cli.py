@@ -40,6 +40,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="suppress the 'Input Data:' echo")
     p.add_argument("--stream", action="store_true",
                    help="stream the files chunk by chunk (large inputs)")
+    p.add_argument("--sort-impl", choices=("xla", "radix", "radix_partition"),
+                   default="xla",
+                   help="aggregation sort (identical results): 'xla' = the "
+                        "torch sort; 'radix_partition' / 'radix' = the CUDA "
+                        "radix partition (1 / 2 digit levels) before a sort "
+                        "of the live rows")
+    p.add_argument("--map-impl", choices=("split", "fused"), default="split",
+                   help="map-phase kernel path (identical results); "
+                        "'fused' carries --combiner hot-cache")
+    p.add_argument("--combiner", choices=("off", "hot-cache", "salt", "auto"),
+                   default="off",
+                   help="map-side combiner (identical results): 'hot-cache' "
+                        "= with --map-impl fused, the kernel counts each "
+                        "chunk segment's first --combiner-slots distinct "
+                        "keys in place and leaves them out of the sort; "
+                        "'salt' and 'auto' are not ported yet")
+    p.add_argument("--combiner-slots", type=int, default=None, metavar="C",
+                   help="hot-key cache entries per segment for --combiner "
+                        "hot-cache (multiple of 8 in [8, 32]; default 8)")
     p.add_argument("--platform", choices=("gpu", "cpu"), default="gpu",
                    help="'gpu' (default) runs on the card and fails without "
                         "one; 'cpu' runs on the host")
@@ -91,7 +110,10 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     try:
         config = Config(chunk_bytes=args.chunk_bytes,
-                        table_capacity=args.table_capacity)
+                        table_capacity=args.table_capacity,
+                        sort_impl=args.sort_impl, map_impl=args.map_impl,
+                        combiner=args.combiner,
+                        combiner_slots=args.combiner_slots)
     except ValueError as e:
         parser.error(str(e))
     try:

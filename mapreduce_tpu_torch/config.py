@@ -38,6 +38,19 @@ class Config:
       pallas_max_token: W, the kernel's lookback bound (1..63).
       sort_mode: 'stable2' (default: stable 2-key sort over the kernel's
         byte-ordered stream) or 'sort3' (3-key sort).
+      sort_impl: 'xla' (default: the torch sort) or 'radix_partition' /
+        'radix' (the CUDA radix partition, one or two digit levels, then a
+        torch sort of the live rows; identical tables).
+      radix_bits: digit bits per radix level (1..5, default 3).
+      map_impl: 'split' (default) or 'fused'.  The port's kernel emits the
+        same one stream either way; 'fused' is what carries the combiner.
+      combiner: 'off' (default) or 'hot-cache': under ``map_impl='fused'``
+        on the kernel path in compact mode, the kernel counts each
+        segment's first ``combiner_slots`` distinct keys in place and
+        leaves them out of the stream (identical results); elsewhere a
+        no-op, as in the JAX package.
+      combiner_slots: cache entries per segment (multiple of 8 in [8, 32];
+        None: 8).
       compact_slots: None (compact mode, the kernel's slot budget) or 0
         (pair mode only).
       rescue_overlong / rescue_overlong_max / rescue_window: the overlong
@@ -52,6 +65,7 @@ class Config:
     pallas_max_token: int = 32
     sort_mode: str = "stable2"
     sort_impl: str = "xla"
+    radix_bits: int = 3
     map_impl: str = "split"
     compact_slots: Optional[int] = None
     rescue_overlong: Optional[int] = None
@@ -59,6 +73,7 @@ class Config:
     rescue_window: int = 192
     merge_every: int = 1
     combiner: str = "off"
+    combiner_slots: Optional[int] = None
     geometry: object = None
 
     def __post_init__(self) -> None:
@@ -73,18 +88,24 @@ class Config:
             raise _not_ported("sort_mode='segmin'", "A14")
         if self.sort_mode not in ("sort3", "stable2"):
             raise ValueError(f"unknown sort_mode {self.sort_mode!r}")
-        if self.sort_impl in ("radix", "radix_partition"):
-            raise _not_ported(f"sort_impl={self.sort_impl!r}", "A12")
-        if self.sort_impl != "xla":
+        if self.sort_impl not in ("xla", "radix", "radix_partition"):
             raise ValueError(f"unknown sort_impl {self.sort_impl!r}")
-        if self.map_impl == "fused":
-            raise _not_ported("map_impl='fused'", "A10")
-        if self.map_impl != "split":
+        if not 1 <= self.radix_bits <= 5:
+            raise ValueError(f"radix_bits must be in [1, 5], got "
+                             f"{self.radix_bits}")
+        if self.map_impl not in ("split", "fused"):
             raise ValueError(f"unknown map_impl {self.map_impl!r}")
-        if self.combiner in ("hot-cache", "salt", "auto"):
+        if self.combiner in ("salt", "auto"):
             raise _not_ported(f"combiner={self.combiner!r}", "A10")
-        if self.combiner != "off":
+        if self.combiner not in ("off", "hot-cache"):
             raise ValueError(f"unknown combiner {self.combiner!r}")
+        if self.combiner_slots is not None:
+            if self.combiner_slots % 8 or not 8 <= self.combiner_slots <= 32:
+                raise ValueError(f"combiner_slots must be a multiple of 8 in "
+                                 f"[8, 32], got {self.combiner_slots}")
+            if self.combiner != "hot-cache":
+                raise ValueError("combiner_slots sizes the hot-key cache; set "
+                                 "combiner='hot-cache' to use it")
         if self.merge_every > 1:
             raise _not_ported("merge_every > 1", "A14")
         if self.merge_every < 1:
@@ -139,6 +160,17 @@ class Config:
     def resolved_compact_slots(self) -> int:
         """Rows per kernel window in compact mode (0: pair mode only)."""
         return kernel_tok.COMPACT_SLOTS if self.compact_slots is None else 0
+
+    @property
+    def resolved_combiner_slots(self) -> int:
+        """Hot-key cache entries per segment (0: no cache).  Nonzero only
+        where the cache exists: the kernel path, ``map_impl='fused'``,
+        compact mode, ``combiner='hot-cache'``."""
+        if self.combiner != "hot-cache" or self.map_impl != "fused" \
+                or not self.resolved_compact_slots \
+                or self.resolved_backend() != "pallas":
+            return 0
+        return 8 if self.combiner_slots is None else self.combiner_slots
 
     @property
     def pallas_min_chunk(self) -> int:

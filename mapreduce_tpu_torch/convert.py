@@ -1,4 +1,5 @@
-"""Carry state across from the JAX package: count tables and configs.
+"""Carry state across from the JAX package: count tables, combiner caches
+and configs.
 
 A JAX ``CountTable`` is a NamedTuple of uint32 arrays; the port holds the
 same fields as int64 tensors with values in ``[0, 2**32)``.  These helpers
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from mapreduce_tpu_torch.config import Config
+from mapreduce_tpu_torch.ops.cuda.tokenize import CombinerCache
 from mapreduce_tpu_torch.ops.table import CountTable
 from mapreduce_tpu_torch.runtime.platform import resolve_device
 
@@ -38,18 +40,47 @@ def table_to_numpy(table: CountTable) -> dict[str, np.ndarray]:
             for f in CountTable._fields}
 
 
+def combiner_cache_to_numpy(cache: CombinerCache) -> dict[str, np.ndarray]:
+    """The flushed cache's planes as ``(C, 128)`` uint32 numpy arrays, the
+    layout of the JAX package's ``CombinerCache``."""
+    return {f: getattr(cache, f).cpu().numpy().astype(np.uint32)
+            for f in CombinerCache._fields}
+
+
+def combiner_cache_from_numpy(fields: Mapping[str, Any],
+                              device=None) -> CombinerCache:
+    """A port cache from a JAX ``CombinerCache``'s fields."""
+    dev = resolve_device(device)
+    return CombinerCache(**{
+        f: torch.as_tensor(np.asarray(fields[f], dtype=np.uint32)
+                           .astype(np.int64), device=dev)
+        for f in CombinerCache._fields})
+
+
 def config_from_dict(d: Mapping[str, Any]) -> Config:
     """A port Config from a JAX Config's fields (``dataclasses.asdict``).
 
     Fields the port has are taken as they are, so a value the port does not
     run yet raises.  An explicit JAX ``compact_slots`` > 0 sizes the TPU
     kernel's window; it maps to the port kernel's own budget (None), since
-    the spill fallback makes the result independent of it.  The JAX
-    pipeline knobs (superstep, in-flight groups, prefetch, ledger, faults)
-    change no result and are not read.
+    the spill fallback makes the result independent of it.  Of a JAX
+    kernel geometry (a ``Geometry``, which ``asdict`` makes a dict) the
+    port takes ``radix_bits`` and, under the combiner, ``combiner_slots``;
+    its window heights, slot budgets and radix slab sizes are TPU layout
+    knobs with no counterpart (the results do not depend on them).  A
+    geometry preset name still raises.  The JAX pipeline knobs (superstep,
+    in-flight groups, prefetch, ledger, faults) change no result and are
+    not read.
     """
     names = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in d.items() if k in names}
     if kw.get("compact_slots"):
         kw["compact_slots"] = None
+    geometry = kw.get("geometry")
+    if isinstance(geometry, Mapping):
+        del kw["geometry"]
+        kw["radix_bits"] = geometry["radix_bits"]
+        if kw.get("combiner") == "hot-cache" \
+                and kw.get("combiner_slots") is None:
+            kw["combiner_slots"] = geometry["combiner_slots"]
     return Config(**kw)

@@ -1,16 +1,19 @@
 """WordCount: the flagship model, on the card.
 
 Counterpart of :mod:`mapreduce_tpu.models.wordcount` for the word-count main
-path: tokenize + hash (the hand-written CUDA kernel, or the plain tokenizer
-on the ``xla`` backend), a sort + segment reduce into a fixed-capacity
-:class:`...ops.table.CountTable`, the overlong rescue, and host-side string
-recovery from first-occurrence positions.
+path: tokenize + hash (the hand-written CUDA kernels, or the plain tokenizer
+on the ``xla`` backend; under ``combiner='hot-cache'`` the kernel's flushed
+hot-key cache folds back in as one small table merge), a sort (torch's, or
+the CUDA radix partition under ``sort_impl``) + segment reduce into a
+fixed-capacity :class:`...ops.table.CountTable`, the overlong rescue, and
+host-side string recovery from first-occurrence positions.
 
 Control flow.  The JAX package wraps the spill fallback and the overlong
 rescue in ``lax.cond``.  Eager PyTorch has no device-side cond, so each
 becomes a host ``if``: :func:`_map_kernel` reads the chunk's ``spill`` and
 ``overlong`` scalars in ONE device-to-host copy (one sync per chunk) and
-branches on them.
+branches on them.  The radix sort seam adds one read-back of its live-row
+count (``ops/cuda/radix.py``).
 
 No seam table.  The JAX split map emits a column stream plus a seam stream
 (the 128-lane seams of its TPU layout) and folds the seam table in a
@@ -35,8 +38,10 @@ from mapreduce_tpu_torch.ops.cuda import tokenize as kernel_tok
 from mapreduce_tpu_torch.runtime.platform import resolve_device
 
 #: Host-side branch counts of the kernel path: "chunks", "spill_fallbacks"
-#: (compact spill -> pair rerun), "rescue_passes" (overlong > 0) and
-#: "rescue_escalations" (overlong > rescue_slots: the R_max tier).
+#: (compact spill -> pair rerun), "rescue_passes" (overlong > 0),
+#: "rescue_escalations" (overlong > rescue_slots: the R_max tier), and under
+#: the combiner "combiner_hits" (occurrences the cache absorbed) and
+#: "combiner_flushes" (cache rows folded back), read in the chunk's one sync.
 BRANCHES: Counter = Counter()
 
 
@@ -75,30 +80,86 @@ def _accounted(t: table_ops.CountTable, n_over) -> table_ops.CountTable:
                       dropped_count=t.dropped_count + n_over)
 
 
-def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi):
-    """The kernel branch of the JAX ``_map_stream``: compact tokenize, the
-    exact pair-mode rerun when a window spilled, the packed aggregation
-    sort and the tiered overlong rescue."""
+def _combiner_table(cache: kernel_tok.CombinerCache,
+                    pos_hi) -> table_ops.CountTable:
+    """One chunk's flushed hot-key cache as an exact small table: one row
+    per resident entry, with its count and first in-segment occurrence.  A
+    key resident in several segments coalesces in the generic build
+    (counts add, the smallest position wins), so merging this table with
+    the thinned stream's gives the uncombined build.  Capacity is the
+    plane size, so the build cannot spill."""
+    khi, klo, cnt, packed = (x.reshape(-1) for x in cache)
+    live = cnt > 0
+    stream = tok_ops.TokenStream(
+        key_hi=torch.where(live, khi, tok_ops.SENT),
+        key_lo=torch.where(live, klo, tok_ops.SENT),
+        count=torch.where(live, cnt, 0),
+        pos=torch.where(live, packed >> 6, tok_ops.POS_INF),
+        length=torch.where(live, packed & 63, 0))
+    return table_ops.from_stream(stream, khi.shape[0], pos_hi=pos_hi)
+
+
+def _tokenize(chunk: torch.Tensor, config: Config):
+    """The configured kernel mode: ``(stream, overlong, spill, cache)``,
+    ``cache`` None unless the hot-key combiner runs."""
     w = config.pallas_max_token
+    cslots = config.resolved_combiner_slots
+    if cslots:
+        return kernel_tok.tokenize_fused(chunk, max_token_bytes=w,
+                                         combiner_slots=cslots)
+    if config.map_impl == "fused":
+        return (*kernel_tok.tokenize_fused(
+            chunk, compact=bool(config.resolved_compact_slots),
+            max_token_bytes=w), None)
     if config.resolved_compact_slots:
-        stream, overlong, spill = kernel_tok.tokenize_split_compact(chunk, w)
-    else:
-        stream, overlong = kernel_tok.tokenize_split(chunk, w)
-        spill = torch.zeros_like(overlong)
-    # The one host sync of the chunk: both branch predicates in one copy.
-    spill_h, over_h = torch.stack([spill, overlong]).tolist()
+        return (*kernel_tok.tokenize_split_compact(chunk, w), None)
+    stream, overlong = kernel_tok.tokenize_split(chunk, w)
+    return stream, overlong, torch.zeros_like(overlong), None
+
+
+def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi):
+    """The kernel branch of the JAX ``_map_stream``: compact (or fused, or
+    combiner) tokenize, the exact pair-mode rerun when a window spilled, the
+    packed aggregation sort, the tiered overlong rescue and, under the
+    combiner, the fold of the flushed cache."""
+    w = config.pallas_max_token
+    stream, overlong, spill, cache = _tokenize(chunk, config)
+    # The one host sync of the chunk: both branch predicates (and the
+    # combiner's hit and flush counts) in one copy.
+    flags = [spill, overlong]
+    if cache is not None:
+        flags += [cache.count.sum(), (cache.count > 0).sum()]
+    spill_h, over_h, *cached = torch.stack(flags).tolist()
     BRANCHES["chunks"] += 1
     if spill_h:
         # Some window overflowed its slots, so the compact stream is
-        # incomplete: rerun at full resolution, which cannot spill.  Both
-        # modes see the same overlong runs, so over_h stands.
+        # incomplete: rerun at full resolution, which cannot spill.  The
+        # rerun is combiner-free, so the aborted pass's cache goes too:
+        # exactness never depends on it.  Both modes see the same overlong
+        # runs, so over_h stands.
         BRANCHES["spill_fallbacks"] += 1
         stream, overlong = kernel_tok.tokenize_split(chunk, w)
-    # Both modes emit in global byte order, so stable2 holds for either.
+        cache = None
+    elif cache is not None:
+        BRANCHES["combiner_hits"] += cached[0]
+        BRANCHES["combiner_flushes"] += cached[1]
+    t = _aggregate(chunk, stream, overlong, over_h, config, capacity, pos_hi)
+    if cache is None:
+        return t
+    return table_ops.merge(t, _combiner_table(cache, pos_hi),
+                           capacity=capacity)
+
+
+def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
+               capacity: int, pos_hi) -> table_ops.CountTable:
+    """One packed build of a complete stream and the tiered rescue."""
+    w = config.pallas_max_token
+    # Every mode emits in global byte order, so stable2 holds for each.
     built = table_ops.from_stream(
         stream, capacity, pos_hi=pos_hi, max_token_bytes=w,
         max_pos=int(chunk.shape[0]), sort_mode=config.sort_mode,
-        rescue_slots=config.rescue_slots_max)
+        rescue_slots=config.rescue_slots_max, sort_impl=config.sort_impl,
+        radix_bits=config.radix_bits)
     if not config.rescue_slots:
         return _accounted(built, overlong)
     t, rescue_packed = built

@@ -47,27 +47,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
-    library path and the compiler's report (ptxas registers and shared
-    memory; empty when nothing was compiled)."""
-    out = library_path(name)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-            capture_output=True, text=True)
+def sources() -> list[str]:
+    """Names of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def build_all(names=None) -> dict[str, tuple[Path, str]]:
+    """Compile each ``csrc/<name>.cu`` (default: all of them) whose library
+    does not exist, one ``nvcc`` per source, all started together.  Returns
+    ``{name: (library path, compiler report)}``; the report (ptxas
+    registers and shared memory) is empty for a library that was there."""
+    names = sources() if names is None else list(names)
+    done = {name: (library_path(name), "") for name in names}
+    todo = [name for name, (out, _) in done.items() if not out.exists()]
+    if todo:
+        compiler = nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, done[name][0])
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        report = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    finally:
+            failed.append(f"nvcc failed on {name}.cu:\n{report}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+            done[name] = (out, report)
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists (see
+    :func:`build_all`)."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,9 +1,11 @@
-"""K1: the tokenize + hash kernel, hand-written in CUDA for Hopper.
+"""K1: the tokenize + hash kernels, hand-written in CUDA for Hopper.
 
 Counterpart of :mod:`mapreduce_tpu.ops.pallas.tokenize` in its compact
-lane-major mode (:func:`tokenize_split_compact`) and its pair mode
-(:func:`tokenize_split`, the exact spill fallback).  The kernel itself is
-``mapreduce_tpu_torch/csrc/tokenize.cu``; its note says what bounds it.
+lane-major mode (:func:`tokenize_split_compact`), its pair mode
+(:func:`tokenize_split`, the exact spill fallback), its fused mode
+(:func:`tokenize_fused`) and its hot-key combiner mode (``tokenize_fused``
+with ``combiner_slots``).  The kernels are in
+``mapreduce_tpu_torch/csrc/tokenize.cu``; its note says what bounds them.
 
 What is kept from the TPU kernel is the stream contract, not the layout:
 the same multiset of ``(key_hi, key_lo, packed = start << 6 | len)`` rows,
@@ -12,7 +14,9 @@ than W included, the same ``overlong`` and token totals, and a flattened
 stream in global byte order.  The TPU kernel's 128-lane column view, its
 sequential-grid carry and its XLA seam pass do not exist here: one CUDA
 block owns each :data:`WINDOW` contiguous bytes and reads its lookback halo
-directly, so the port emits ONE stream and no seam stream.
+directly, so the port emits ONE stream and no seam stream.  That stream is
+already what the TPU's fused mode emits, so ``tokenize_fused`` without a
+combiner launches the same kernel as compact mode.
 
 Geometry: :data:`COMPACT_SLOTS` rows per window in compact mode — the JAX
 package's density of 128 slots per 384 bytes, over a window 8x longer, so
@@ -20,11 +24,16 @@ a spill needs a whole 3 KB run of text averaging under 3 bytes per token
 plus separator.  Pair mode gives each window ``WINDOW // 2`` rows, which
 cannot spill.  Limits from the packed row word stay: chunks of at most
 2**26 bytes and ``1 <= W <= 63``.  The TPU layout's limits (``n % 128``,
-``block_rows``, even rows) are gone.
+``block_rows``, even rows) are gone, except under the combiner: its cache
+belongs to one of :data:`SEGMENTS` contiguous segments (the TPU kernel's
+lanes), so the chunk length must be a multiple of 128 for its flushed
+planes to equal the JAX package's.  Under the combiner a window holds
+:data:`COMBINER_SLOTS` rows (the JAX package's 128 per 512 bytes there).
 
-Dispatch: a CPU tensor goes to :func:`tokenize_windows_plain`, the plain
-PyTorch version of the same function; a CUDA tensor launches the kernel or
-raises.  There is no fallback between the two.
+Dispatch: a CPU tensor goes to the plain PyTorch version of the same
+function (:func:`tokenize_windows_plain`, :func:`tokenize_combiner_plain`);
+a CUDA tensor launches the kernel or raises.  There is no fallback between
+the two.
 """
 
 from __future__ import annotations
@@ -38,10 +47,13 @@ import torch
 from mapreduce_tpu_torch import constants
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
 from mapreduce_tpu_torch.ops.cuda import _build
+from mapreduce_tpu_torch.ops.table import _key64, _lexsort
 
 WINDOW = 3072  # bytes per CUDA block; csrc/tokenize.cu kWindow
 COMPACT_SLOTS = 1024  # compact mode rows per window
 PAIR_SLOTS = WINDOW // 2  # pair mode rows per window: never spills
+COMBINER_SLOTS = 768  # rows per window under the hot-key combiner
+SEGMENTS = 128  # combiner cache segments per chunk; csrc kSegments
 DEFAULT_MAX_TOKEN = 32  # W
 MAX_CHUNK = 1 << 26  # positions are packed into 26 bits
 
@@ -49,8 +61,23 @@ _SENT = tok_ops.SENT
 _ALL_ONES = 0xFFFFFFFF
 
 #: Kernel launches on the card, by wrapper ("tokenize_compact",
-#: "tokenize_pair").  CPU calls run the plain version and count nothing.
+#: "tokenize_pair", "tokenize_fused", "tokenize_combiner").  CPU calls run
+#: the plain version and count nothing.
 LAUNCHES: Counter = Counter()
+
+
+class CombinerCache(NamedTuple):
+    """Flushed hot-key cache of one chunk: four ``(C, 128)`` int64 planes
+    holding uint32, the JAX package's ``CombinerCache``.  Column j is
+    segment j; slot c holds the segment's (c+1)-th distinct key, ``count``
+    its occurrences in the segment and ``packed`` its first occurrence
+    (``start << 6 | len``, in-chunk positions).  An empty slot holds the
+    sentinel keys, count 0 and all-ones ``packed``."""
+
+    key_hi: torch.Tensor
+    key_lo: torch.Tensor
+    count: torch.Tensor
+    packed: torch.Tensor
 
 
 class PackedTokenStream(NamedTuple):
@@ -106,18 +133,12 @@ def _resolve_args(data: torch.Tensor, max_token_bytes: int) -> int:
     return w
 
 
-def tokenize_windows_plain(data: torch.Tensor, w: int, slots: int):
-    """Plain PyTorch version of the kernel: same outputs, same geometry.
-
-    A vectorised k = 0..W lookback at every live position, then a
-    per-window ``cumsum`` rank compacts the live rows into their window's
-    ``slots`` rows.  Returns ``(key_hi, key_lo, packed, overlong, ntok,
-    spill)``: three int64 planes of ``ceil(n / WINDOW) * slots`` rows and
-    three int64 scalars.
-    """
+def _token_ends(data: torch.Tensor, w: int):
+    """Every live row of the chunk, in ascending position: a vectorised
+    k = 0..W lookback at each token end.  Returns ``(p, key_hi, key_lo,
+    packed, over)``, ``over`` marking the poison rows."""
     n = data.shape[0]
     dev = data.device
-    grid = -(-n // WINDOW)
     # W+1 separator bytes before the chunk and one after: the lookback and
     # the next-byte test never leave the buffer.
     buf = torch.zeros(w + 2 + n, dtype=torch.uint8, device=dev)
@@ -145,36 +166,135 @@ def tokenize_windows_plain(data: torch.Tensor, w: int, slots: int):
     key_hi = torch.where(over, _SENT, key_hi)
     key_lo = torch.where(over, _SENT - 1, key_lo)
     packed = torch.where(over, p << 6, ((p + 1 - ln) << 6) | ln)
+    return p, key_hi, key_lo, packed, over
 
-    win = p // WINDOW
-    per_win = torch.bincount(win, minlength=grid)
+
+def _compact(win: torch.Tensor, windows: int, slots: int, rows):
+    """Rows (ascending in ``win``, the window of each) into ``slots`` rows
+    per window, dead filler after them.  Returns the three planes and the
+    spill (rows beyond a window's budget)."""
+    per_win = torch.bincount(win, minlength=windows)
     first = torch.cumsum(per_win, 0) - per_win
-    rank = torch.arange(p.shape[0], device=dev) - first[win]
+    rank = torch.arange(win.shape[0], device=win.device) - first[win]
     keep = rank < slots
     slot = (win * slots + rank)[keep]
     out = []
-    for vals, fill in ((key_hi, _SENT), (key_lo, _SENT), (packed, _ALL_ONES)):
-        plane = torch.full((grid * slots,), fill, dtype=torch.int64, device=dev)
+    for vals, fill in zip(rows, (_SENT, _SENT, _ALL_ONES)):
+        plane = torch.full((windows * slots,), fill, dtype=torch.int64,
+                           device=win.device)
         plane[slot] = vals[keep]
         out.append(plane)
+    return (*out, (per_win - slots).clamp(min=0).sum())
+
+
+def tokenize_windows_plain(data: torch.Tensor, w: int, slots: int):
+    """Plain PyTorch version of ``tokenize_windows``: same outputs, same
+    geometry.
+
+    :func:`_token_ends`, then a per-window ``cumsum`` rank compacts the live
+    rows into their window's ``slots`` rows.  Returns ``(key_hi, key_lo,
+    packed, overlong, ntok, spill)``: three int64 planes of ``ceil(n /
+    WINDOW) * slots`` rows and three int64 scalars.
+    """
+    p, key_hi, key_lo, packed, over = _token_ends(data, w)
+    khi, klo, pck, spill = _compact(p // WINDOW, -(-data.shape[0] // WINDOW),
+                                    slots, (key_hi, key_lo, packed))
     n_over = over.sum()
-    spill = (per_win - slots).clamp(min=0).sum()
-    return (*out, n_over, p.shape[0] - n_over, spill)
+    return khi, klo, pck, n_over, p.shape[0] - n_over, spill
 
 
-def _kernel_fn():
-    """The kernel's C entry point, built and bound on first use."""
+def tokenize_combiner_plain(data: torch.Tensor, w: int, slots: int,
+                            cslots: int):
+    """Plain PyTorch version of ``tokenize_combiner``, vectorised.
+
+    :func:`_token_ends`; a stable sort of the emissions by (segment, key)
+    gives each key's first position and count in each segment; ranking
+    those by first position keeps each segment's first ``cslots`` distinct
+    keys; their rows leave the stream and the rest are compacted
+    ``[segment][window][slot]``.  Returns ``(key_hi, key_lo, packed,
+    overlong, ntok, spill, cache)`` in the kernel's layout.
+    """
+    n = data.shape[0]
+    dev = data.device
+    seg_len = n // SEGMENTS
+    wps = -(-seg_len // WINDOW)  # windows per segment
+    p, key_hi, key_lo, packed, over = _token_ends(data, w)
+    seg = p // seg_len
+    emit = torch.nonzero(~over).squeeze(1)
+    e_seg = seg[emit]
+    k = _key64(key_hi[emit], key_lo[emit])
+    srt = _lexsort(e_seg, k)  # ties keep ascending position
+    order, k, e_seg = emit[srt], k[srt], e_seg[srt]
+    head = torch.ones_like(order, dtype=torch.bool)
+    head[1:] = (k[1:] != k[:-1]) | (e_seg[1:] != e_seg[:-1])
+    group = torch.cumsum(head, 0) - 1
+    heads = order[head]  # each (segment, key)'s first row, as a row index
+    hits = torch.bincount(group, minlength=heads.shape[0])
+    by_first = torch.argsort(p[heads])  # ascending first position
+    g_seg = seg[heads][by_first]
+    per_seg = torch.bincount(g_seg, minlength=SEGMENTS)
+    start = torch.cumsum(per_seg, 0) - per_seg
+    rank = torch.empty_like(by_first)
+    rank[by_first] = torch.arange(by_first.shape[0], device=dev) \
+        - start[g_seg]
+    cached = rank < cslots
+    at = (rank * SEGMENTS + seg[heads])[cached]
+    cache = []
+    for vals, fill in ((key_hi[heads], _SENT), (key_lo[heads], _SENT),
+                       (hits, 0), (packed[heads], _ALL_ONES)):
+        plane = torch.full((cslots * SEGMENTS,), fill, dtype=torch.int64,
+                           device=dev)
+        plane[at] = vals[cached]
+        cache.append(plane.reshape(cslots, SEGMENTS))
+    gone = torch.zeros_like(p, dtype=torch.bool)
+    gone[order] = cached[group]
+    left = ~gone
+    pl = p[left]
+    win = (pl // seg_len) * wps + (pl % seg_len) // WINDOW
+    khi, klo, pck, spill = _compact(
+        win, SEGMENTS * wps, slots,
+        (key_hi[left], key_lo[left], packed[left]))
+    n_over = over.sum()
+    n_tok = (left & ~over).sum()
+    return khi, klo, pck, n_over, n_tok, spill, CombinerCache(*cache)
+
+
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "mr_tokenize_windows": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            _P, _P, _P, _P, _P],
+    "mr_tokenize_combiner": [_P, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P],
+}
+
+
+def _kernel_fn(name: str):
+    """A kernel's C entry point, built and bound on first use."""
     lib = _build.load("tokenize")
-    fn = lib.mr_tokenize_windows
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         if lib.mr_tokenize_window_bytes() != WINDOW:
             raise RuntimeError("csrc/tokenize.cu and ops/cuda/tokenize.py "
                                "disagree on WINDOW")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
     return fn
+
+
+def _check_cuda(data: torch.Tensor) -> None:
+    if data.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
+                         f"{data.device}")
+
+
+def _planes(rows: int, dev, k: int = 3):
+    return [torch.empty(rows, dtype=torch.int64, device=dev) for _ in range(k)]
+
+
+def _launched(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def tokenize_windows_kernel(data: torch.Tensor, w: int, slots: int):
@@ -184,23 +304,40 @@ def tokenize_windows_kernel(data: torch.Tensor, w: int, slots: int):
     ``key_lo`` and ``packed`` planes and the ``overlong``, token and
     ``spill`` scalars, as int64 tensors holding uint32 values (the kernel
     stores them so).  Does not synchronise."""
-    if data.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
-                         f"{data.device}")
-    fn = _kernel_fn()
+    _check_cuda(data)
+    fn = _kernel_fn("mr_tokenize_windows")
     n = data.shape[0]
-    rows = -(-n // WINDOW) * slots
     dev = data.device
-    khi = torch.empty(rows, dtype=torch.int64, device=dev)
-    klo = torch.empty(rows, dtype=torch.int64, device=dev)
-    packed = torch.empty(rows, dtype=torch.int64, device=dev)
+    khi, klo, packed = _planes(-(-n // WINDOW) * slots, dev)
     counters = torch.zeros(3, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(data.data_ptr(), n, w, slots, khi.data_ptr(), klo.data_ptr(),
-             packed.data_ptr(), counters.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"tokenize kernel launch failed: CUDA error {err}")
+    _launched(fn(data.data_ptr(), n, w, slots, khi.data_ptr(),
+                 klo.data_ptr(), packed.data_ptr(), counters.data_ptr(),
+                 stream), "tokenize")
     return khi, klo, packed, counters[0], counters[1], counters[2]
+
+
+def tokenize_combiner_kernel(data: torch.Tensor, w: int, slots: int,
+                             cslots: int):
+    """Launch the combiner kernel on ``data``'s device and current stream.
+
+    Returns what :func:`tokenize_combiner_plain` returns.  Does not
+    synchronise."""
+    _check_cuda(data)
+    fn = _kernel_fn("mr_tokenize_combiner")
+    n = data.shape[0]
+    dev = data.device
+    rows = SEGMENTS * -(-(n // SEGMENTS) // WINDOW) * slots
+    khi, klo, packed = _planes(rows, dev)
+    cache = _planes(cslots * SEGMENTS, dev, 4)
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launched(fn(data.data_ptr(), n, w, slots, cslots, khi.data_ptr(),
+                 klo.data_ptr(), packed.data_ptr(),
+                 *(c.data_ptr() for c in cache), counters.data_ptr(),
+                 stream), "tokenize_combiner")
+    return (khi, klo, packed, counters[0], counters[1], counters[2],
+            CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in cache)))
 
 
 def _tokenize_windows(data: torch.Tensor, w: int, slots: int, mode: str):
@@ -237,3 +374,50 @@ def tokenize_split(data: torch.Tensor,
     khi, klo, packed, over, ntok, _ = _tokenize_windows(
         data, w, PAIR_SLOTS, "tokenize_pair")
     return PackedTokenStream(khi, klo, packed, ntok), over
+
+
+def tokenize_fused(data: torch.Tensor, *, compact: bool = True,
+                   max_token_bytes: int = DEFAULT_MAX_TOKEN,
+                   combiner_slots: int = 0):
+    """The fused map path: ``(stream, overlong, spill)``, plus the flushed
+    :class:`CombinerCache` when ``combiner_slots`` > 0.
+
+    Without a combiner this is compact mode (pair mode with ``compact =
+    False``): the port's halo kernel already resolves every seam, so its
+    one stream is the TPU fused mode's.  Launches count under
+    ``"tokenize_fused"``.
+
+    ``combiner_slots`` = C (needs ``compact``; a multiple of 8 in [8, 32];
+    ``len(data) % 128 == 0``) runs the hot-key combiner: each of the
+    chunk's 128 segments counts every occurrence of its first C distinct
+    keys in the cache instead of the stream, so ``stream.total`` counts only
+    the rows left in the stream, and the window holds
+    :data:`COMBINER_SLOTS` rows.  The cache's ``packed`` records in-chunk
+    positions (the caller applies the chunk id as ``pos_hi``).  A nonzero
+    ``spill`` means the thinned stream is incomplete: discard it AND the
+    cache, and rerun with :func:`tokenize_split` (combiner-free).
+    """
+    w = _resolve_args(data, max_token_bytes)
+    if not combiner_slots:
+        khi, klo, packed, over, ntok, spill = _tokenize_windows(
+            data, w, COMPACT_SLOTS if compact else PAIR_SLOTS,
+            "tokenize_fused")
+        return PackedTokenStream(khi, klo, packed, ntok), over, spill
+    if not compact:
+        raise ValueError("combiner_slots requires the compact path (the pair "
+                         "fallback is the combiner-free exactness escape)")
+    if combiner_slots % 8 or not 8 <= combiner_slots <= 32:
+        raise ValueError(f"combiner_slots must be a multiple of 8 in [8, 32], "
+                         f"got {combiner_slots}")
+    if data.shape[0] % SEGMENTS:
+        raise ValueError(f"the combiner needs a chunk of a multiple of "
+                         f"{SEGMENTS} bytes (its cache is per segment), got "
+                         f"{data.shape[0]}")
+    if data.device.type == "cpu":
+        out = tokenize_combiner_plain(data, w, COMBINER_SLOTS, combiner_slots)
+    else:
+        out = tokenize_combiner_kernel(data, w, COMBINER_SLOTS,
+                                       combiner_slots)
+        LAUNCHES["tokenize_combiner"] += 1
+    khi, klo, packed, over, ntok, spill, cache = out
+    return PackedTokenStream(khi, klo, packed, ntok), over, spill, cache

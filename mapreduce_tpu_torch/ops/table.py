@@ -3,7 +3,9 @@
 Counterpart of :mod:`mapreduce_tpu.ops.table`.  Group-by-key-and-sum is a
 sort + segment reduce, and :func:`merge` is associative, as in the JAX
 package; the sorts are ``torch.sort(stable=True)`` (the JAX package left
-its sorts to XLA, outside any Pallas kernel).
+its sorts to XLA), except that ``sort_impl`` can route the packed build's
+sort through the CUDA radix partition (:mod:`...ops.cuda.radix`), as the
+JAX package's can through its Pallas one.
 
 Invariants of a well-formed table (established by every constructor here):
   * entries are sorted ascending by 64-bit key;
@@ -220,7 +222,8 @@ def _build(key_hi, key_lo, pos_hi, pos_lo, count, count_hi, length,
 
 def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
                      pos_hi, len_bits: int = 6, sort_mode: str = "sort3",
-                     rescue_slots: int = 0):
+                     rescue_slots: int = 0, sort_impl: str = "xla",
+                     radix_bits: int = 3):
     """Aggregate pre-packed single-occurrence rows (the sort-lean path).
 
     ``packed`` = ``pos << len_bits | length`` per live row (all-ones for
@@ -234,14 +237,29 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
     values of the poison segment (reserved key (sent, sent-1), which sorts
     just before the dead filler): the overlong-end positions, smallest
     first, for :func:`mapreduce_tpu_torch.ops.rescue.rescue_table`.
+
+    ``sort_impl`` 'radix_partition' / 'radix' sorts through
+    :func:`mapreduce_tpu_torch.ops.cuda.radix.radix_sort3` (``radix_bits``
+    per level), the 3-key sort with ties by ``packed``: sort3 outright, and
+    the order stability gives under stable2's position-ordered input, so
+    one branch serves both modes.
     """
     if sort_mode not in ("sort3", "stable2"):
         raise ValueError(f"unsupported sort_mode {sort_mode!r}")
+    if sort_impl not in ("xla", "radix", "radix_partition"):
+        raise ValueError(f"unknown sort_impl {sort_impl!r}")
     n = key_hi.shape[0]
-    k = _key64(key_hi, key_lo)
-    order = _lexsort(k, packed) if sort_mode == "sort3" \
-        else torch.argsort(k, stable=True)
-    k, packed = k[order], packed[order]
+    if sort_impl != "xla":
+        from mapreduce_tpu_torch.ops.cuda import radix as radix_ops
+
+        key_hi, key_lo, packed = radix_ops.radix_sort3(
+            key_hi, key_lo, packed, impl=sort_impl, bits=radix_bits)
+        k = _key64(key_hi, key_lo)
+    else:
+        k = _key64(key_hi, key_lo)
+        order = _lexsort(k, packed) if sort_mode == "sort3" \
+            else torch.argsort(k, stable=True)
+        k, packed = k[order], packed[order]
 
     _, rank = _segment_boundaries(k)
     head = _segment_heads(rank, capacity)
@@ -280,19 +298,21 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
 def from_stream(stream, capacity: int, pos_hi=0,
                 max_token_bytes: int | None = None,
                 max_pos: int | None = None, sort_mode: str = "sort3",
-                rescue_slots: int = 0):
+                rescue_slots: int = 0, sort_impl: str = "xla",
+                radix_bits: int = 3):
     """Aggregate a token stream into a fresh table.
 
     When ``max_token_bytes <= 63`` and ``max_pos <= 2**26`` the packed fast
     path (:func:`from_packed_rows`) runs; a stream that carries ``packed``
     and ``total`` (the kernel's) feeds them straight in.  Otherwise the
     generic 4-key build runs, which has no poison rows (``rescue_slots``
-    must be 0).
+    must be 0) and where ``sort_impl`` does not apply, as in the JAX
+    package.
     """
     if (max_token_bytes is not None and max_token_bytes <= 63
             and max_pos is not None and max_pos <= (1 << 26)):
         return _from_stream_packed(stream, capacity, pos_hi, sort_mode,
-                                   rescue_slots)
+                                   rescue_slots, sort_impl, radix_bits)
     if rescue_slots:
         raise ValueError("rescue_slots requires the packed fast path "
                          "(bounded max_token_bytes/max_pos)")
@@ -306,7 +326,7 @@ def from_stream(stream, capacity: int, pos_hi=0,
 
 
 def _from_stream_packed(stream, capacity: int, pos_hi, sort_mode: str,
-                        rescue_slots: int):
+                        rescue_slots: int, sort_impl: str, radix_bits: int):
     packed = getattr(stream, "packed", None)
     if packed is None:
         packed = torch.where(stream.count > 0,
@@ -316,7 +336,8 @@ def _from_stream_packed(stream, capacity: int, pos_hi, sort_mode: str,
         total = stream.count.sum()
     return from_packed_rows(stream.key_hi, stream.key_lo, packed, total,
                             capacity, pos_hi, len_bits=6, sort_mode=sort_mode,
-                            rescue_slots=rescue_slots)
+                            rescue_slots=rescue_slots, sort_impl=sort_impl,
+                            radix_bits=radix_bits)
 
 
 def merge(a: CountTable, b: CountTable, capacity: int | None = None,

@@ -59,6 +59,28 @@ def test_stdout_identical_to_jax_cli(fmt):
         assert want.endswith(b"Total Count:9\n")
 
 
+@pytest.mark.parametrize("flags", [
+    ("--map-impl", "fused", "--combiner", "hot-cache"),
+    ("--map-impl", "fused", "--combiner", "hot-cache", "--combiner-slots",
+     "16", "--format", "json"),
+    ("--sort-impl", "radix_partition"),
+    ("--sort-impl", "radix", "--format", "json"),
+])
+def test_kernel_flags_stdout_identical_to_jax_cli(flags):
+    """The fused map with the hot-key combiner and the radix sort seam:
+    the same bytes as the JAX CLI with the same flags."""
+    want = _jax_stdout("test.txt", *flags)
+    assert _port_stdout("test.txt", *flags) == want
+
+
+@pytest.mark.parametrize("mode", ["salt", "auto"])
+def test_unported_combiners_are_refused(mode, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["test.txt", "--platform", "cpu", "--combiner", mode])
+    assert e.value.code == 2
+    assert "ROADMAP.md item A10" in capsys.readouterr().err
+
+
 def test_in_process_flags_match_jax_cli(capsysbinary, tmp_path):
     """tsv, --no-echo, top-k, stream, several files: the port in-process
     against the JAX CLI's stdout (a streamed run against the JAX CLI's

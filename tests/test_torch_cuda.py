@@ -1,4 +1,4 @@
-"""The port on the card: the CUDA kernel against its plain version.
+"""The port on the card: the CUDA kernels against their plain versions.
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; where
 ``torch.cuda.is_available()`` is false each one skips with the reason.  The
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from mapreduce_tpu_torch.models import wordcount as wc
+from mapreduce_tpu_torch.ops.cuda import radix
 from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
 from mapreduce_tpu_torch.runtime import executor
 from mapreduce_tpu_torch.utils import oracle
@@ -110,5 +111,127 @@ def test_count_words_and_count_file_on_the_card(cuda_device, tmp_path):
     path = tmp_path / "corpus.txt"
     path.write_bytes(corpus)
     got = executor.count_file(str(path), wc.Config(chunk_bytes=1 << 14))
+    assert got.as_dict() == oracle.word_counts(corpus)
+    assert list(got.words) == list(oracle.word_counts(corpus))
+
+
+# Segments of two combiner windows: every segment edge is a window edge,
+# and _edges puts runs across each of them.
+N_SEG = ktok.SEGMENTS * 2 * ktok.WINDOW
+LETTERS = b"abcdefghijklmnopqrstuvwxyz"
+
+COMBINER_CASES = {
+    "zipf": lambda: _zipf_text(0, 1 << 20),
+    "edges": lambda: _edges(N_SEG),
+    "dense": lambda: b"a b " * (1 << 16),  # two keys: all cached
+    # 676 two-letter keys, 1,024 a window: the thinned windows spill
+    "dense_pairs": lambda: (b" ".join(bytes([a, b]) for a in LETTERS
+                                      for b in LETTERS) * 400)[:N_SEG],
+    "single": lambda: b"hot " * (N_SEG // 4),
+}
+
+
+def _dev_bytes(data: bytes, device) -> torch.Tensor:
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(COMBINER_CASES))
+@pytest.mark.parametrize("cslots", [8, 32])
+def test_combiner_kernel_matches_plain_version(cuda_device, case, cslots):
+    data = _dev_bytes(COMBINER_CASES[case](), cuda_device)
+    want = ktok.tokenize_combiner_plain(data, W, ktok.COMBINER_SLOTS, cslots)
+    got = ktok.tokenize_combiner_kernel(data, W, ktok.COMBINER_SLOTS, cslots)
+    torch.cuda.synchronize()
+    for a, b in zip(want[:6], got[:6]):
+        assert torch.equal(a.cpu(), b.cpu())
+    for a, b in zip(want[6], got[6]):
+        assert torch.equal(a.cpu(), b.cpu())
+    spill = int(got[5])
+    assert (spill > 0) == (case == "dense_pairs"), spill
+    if case == "single":
+        assert int(got[4]) == 0  # every occurrence cached
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zipf", "edges", "dense"])
+def test_fused_mode_is_the_compact_stream(cuda_device, case):
+    data = _dev_bytes(CASES[case](), cuda_device)
+    before = ktok.LAUNCHES["tokenize_fused"]
+    fused = ktok.tokenize_fused(data, max_token_bytes=W)
+    compact = ktok.tokenize_split_compact(data, W)
+    torch.cuda.synchronize()
+    assert ktok.LAUNCHES["tokenize_fused"] == before + 1
+    for a, b in zip((*fused[0][:4], *fused[1:]), (*compact[0][:4],
+                                                  *compact[1:])):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def _radix_probes(device):
+    stream = ktok.tokenize_split_compact(
+        _dev_bytes(_zipf_text(0, 1 << 20), device), W)[0]
+    rows = (stream.key_hi, stream.key_lo, stream.packed)
+    live = ~((rows[0] == ktok._SENT) & (rows[1] == ktok._SENT))
+    one_key = torch.where(live, 0x8765_4321, rows[0])
+    g = torch.Generator().manual_seed(5)
+    n = 200_000
+    high = (torch.randint(1 << 31, (1 << 32) - 1, (n,), generator=g),
+            torch.randint(0, 1 << 32, (n,), generator=g),
+            torch.randperm(n, generator=g) << 6 | 3)
+    dead = torch.full((5000,), ktok._SENT, dtype=torch.int64)
+    return {"stream": rows, "one_bucket": (one_key, *rows[1:]),
+            "high_keys": tuple(x.to(device) for x in high),
+            "all_dead": tuple(dead.clone().to(device) for _ in range(3))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", radix.IMPLS)
+@pytest.mark.parametrize("bits", [1, 3, 5])
+def test_radix_kernel_matches_plain_version(cuda_device, impl, bits):
+    for name, planes in _radix_probes(cuda_device).items():
+        want = radix.radix_sort3_plain(*planes)
+        before = radix.LAUNCHES["radix_partition"]
+        got = radix.radix_sort3(*planes, impl=impl, bits=bits)
+        torch.cuda.synchronize()
+        for a, b in zip(want, got):
+            assert torch.equal(a.cpu(), b.cpu()), (name, impl, bits)
+        levels = radix.LAUNCHES["radix_partition"] - before
+        if name != "all_dead":
+            assert levels == (2 if impl == "radix" else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 3, 5])
+def test_radix_partition_level_matches_plain_partition(cuda_device, bits):
+    """Each level on its own: the same bucket ends as the plain partition
+    and the same rows in every bucket; the second level reads the first
+    level's kernel output and ends."""
+    for name, planes in _radix_probes(cuda_device).items():
+        ends = None
+        for level in (1, 2):
+            shift = 32 - level * bits
+            want = radix.partition_level_plain(*planes, shift, bits, ends)
+            got = radix.partition_level(*planes, shift, bits, ends)
+            assert torch.equal(got[1].cpu(), want[1].cpu()), (name, level)
+            for a, b in zip(radix.canonical_partition(*got),
+                            radix.canonical_partition(*want)):
+                assert torch.equal(a.cpu(), b.cpu()), (name, level)
+            planes, ends = got
+            if not planes[0].shape[0]:
+                break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"map_impl": "fused", "combiner": "hot-cache"},
+    {"map_impl": "fused", "combiner": "hot-cache", "combiner_slots": 32},
+    {"sort_impl": "radix_partition"},
+    {"sort_impl": "radix", "sort_mode": "sort3"},
+])
+def test_new_paths_on_the_card(cuda_device, kw):
+    corpus = _zipf_text(2, 1 << 20) + b" " + b" ".join(
+        bytes([c]) for c in LETTERS * 3000)
+    cfg = wc.Config(chunk_bytes=1 << 19, **kw)
+    got = wc.count_words(corpus, cfg)
     assert got.as_dict() == oracle.word_counts(corpus)
     assert list(got.words) == list(oracle.word_counts(corpus))

@@ -51,8 +51,7 @@ def _jax_config(capacity: int) -> JConfig:
 
 
 def _port_config(capacity: int, **kw):
-    d = {**dataclasses.asdict(_jax_config(capacity)), "map_impl": "split",
-         **kw}
+    d = {**dataclasses.asdict(_jax_config(capacity)), **kw}
     return convert.config_from_dict(d)
 
 
@@ -138,7 +137,8 @@ def test_count_table_matches_jax_field_by_field():
 def test_pair_mode_and_sort3_give_the_same_result():
     data = _data("rescue_tier2")
     want = wc.count_words(data, _port_config(4096), device="cpu")
-    for kw in ({"compact_slots": 0}, {"sort_mode": "sort3"}):
+    for kw in ({"compact_slots": 0}, {"sort_mode": "sort3"},
+               {"map_impl": "split"}):
         _assert_results_equal(
             want, wc.count_words(data, _port_config(4096, **kw),
                                  device="cpu"))
@@ -269,6 +269,11 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     code = ("import sys; import mapreduce_tpu_torch as m; "
             "r = m.count_words(b'a b a', device='cpu'); "
             "assert r.as_dict() == {b'a': 2, b'b': 1}; "
+            "c = m.Config(map_impl='fused', combiner='hot-cache', "
+            "sort_impl='radix'); "
+            "r = m.count_words(b'a b a', c, device='cpu'); "
+            "assert r.as_dict() == {b'a': 2, b'b': 1}; "
+            "import mapreduce_tpu_torch.ops.cuda.radix; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'mapreduce_tpu')]; "
             "assert not bad, bad")
@@ -283,5 +288,23 @@ def test_config_from_jax_dict():
     assert cfg == wc.Config()
     assert cfg.rescue_slots_max == JConfig().rescue_slots_max == 32768
     assert cfg.batch_uniques == JConfig().batch_uniques
-    with pytest.raises(ValueError, match="ROADMAP"):
-        convert.config_from_dict(dataclasses.asdict(JConfig(map_impl="fused")))
+    for kw in ({"combiner": "salt"}, {"combiner": "auto"},
+               {"geometry": "combiner16"}, {"sort_mode": "segmin"}):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
+    # The fused map, the hot-key combiner and the radix seam map across.
+    jcfg = JConfig(map_impl="fused", combiner="hot-cache", combiner_slots=16,
+                   sort_impl="radix")
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    assert (cfg.map_impl, cfg.combiner, cfg.combiner_slots, cfg.sort_impl) \
+        == ("fused", "hot-cache", 16, "radix")
+    assert cfg.resolved_combiner_slots == jcfg.resolved_combiner_slots == 16
+    # A JAX geometry gives its radix bits and cache depth; its TPU window
+    # and slab sizes map to nothing.
+    from mapreduce_tpu.config import Geometry
+
+    jcfg = JConfig(map_impl="fused", combiner="hot-cache",
+                   geometry=Geometry(combiner_slots=24, radix_bits=2,
+                                     radix_block_rows=128))
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    assert (cfg.combiner_slots, cfg.radix_bits, cfg.geometry) == (24, 2, None)
