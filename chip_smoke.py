@@ -20,12 +20,17 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               counters) on the 32 MB chunk, ``b"a b "`` (two keys: the cache
               takes every occurrence), a chunk of two-letter tokens whose
               thinned windows must spill, runs at combiner window and
-              segment edges, and a 4 MB single-key chunk; the radix
-              partition on the 32 MB chunk's compact stream, the same rows
-              in one bucket, random triples with ``key_hi >= 2**31`` and
-              an all-dead stream, each level on its own against a plain
-              partition (bucket ends and each bucket's rows) and the whole
-              seam, both impls, against the 3-key sort;
+              segment edges, a 4 MB single-key chunk and a 32 MB chunk
+              dominated by one word, and each of its three launches
+              (heads, merge, thin) against its plain version on the two
+              32 MB chunks; the radix seam on the 32 MB chunk's compact
+              stream, the one-word chunk's, the same rows in one bucket,
+              random triples with ``key_hi >= 2**31``, random triples with
+              one hot key and an all-dead stream: each level on its own
+              against the plain partition row for row, the segmented sort
+              against its plain version, and the whole seam, both impls,
+              against the 3-key sort (key-only under stable2's
+              position-ordered input);
 3. words   -- ``count_words`` at ``Config()`` defaults (32 MB chunk, table
               capacity 2**18) on a seeded 32 MB corpus, equal to the oracle;
 4. stream  -- ``count_file`` over a seeded corpus of at least 128 MB
@@ -38,8 +43,10 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               'radix_partition' and 'radix'; each equal to the oracle;
 6. times   -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
-              exists; the chunk's end-to-end time by stage; the step time
-              (map + merge) of every path's configuration on one chunk;
+              exists, and the time of each launch of the combiner and the
+              radix seam (CUDA events between launches); the chunk's
+              end-to-end time by stage; the step time (map + merge) of
+              every path's configuration on one chunk;
 7. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
@@ -47,7 +54,7 @@ Phases 3 to 5 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (the dense regions take the spill fallback, so
 pair mode too; the radix paths one partition level per chunk, two under
-'radix').  A kernel's ``launches`` in the kernels line are those of the
+'radix', and one segmented sort).  A kernel's ``launches`` in the kernels line are those of the
 first path that runs it; ``launches_by_path`` gives every path.  Before the
 last line it prints one ``{"kernels": [...]}`` line and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -150,6 +157,44 @@ def edge_chunk(n: int, w: int, window: int) -> bytes:
     return bytes(buf)
 
 
+def one_word_corpus(n_bytes: int, seed: int) -> bytes:
+    """Seeded text in which one word is 90 % of the tokens (the rest a
+    Zipf draw over 1,000 words): the hot-key probe of both kernels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = np.array([b"the"] + [b"w%d" % i for i in range(1000)],
+                     dtype=object)
+    m = n_bytes // 3
+    ids = np.where(rng.random(m) < 0.9, 0, 1 + rng.zipf(1.2, m) % 1000)
+    return b" ".join(vocab[ids].tolist())[:n_bytes].ljust(n_bytes, b" ")
+
+
+def staged_ms(fn, iters: int = 10, warmup: int = 2) -> dict:
+    """Median milliseconds of each stage of ``fn(timer)``: ``timer(label)``
+    records a CUDA event after the stage's launches, and a stage's time is
+    the device time from the previous event to its own."""
+    import torch
+
+    times: dict = {}
+    for it in range(warmup + iters):
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+        labels = []
+
+        def timer(label):
+            labels.append(label)
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+        fn(timer)
+        torch.cuda.synchronize()
+        if it >= warmup:
+            for label, a, b in zip(labels, marks, marks[1:]):
+                times.setdefault(label, []).append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of ``fn()`` on the card (CUDA events)."""
     import torch
@@ -206,7 +251,7 @@ def main() -> int:
              "tokenize_pair": ktok.PAIR_SLOTS}
     errs = {k: 0 for k in ("tokenize_compact", "tokenize_pair",
                            "tokenize_fused", "tokenize_combiner",
-                           "radix_partition")}
+                           "radix_partition", "radix_sort")}
 
     def on_card(data: bytes) -> torch.Tensor:
         return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
@@ -277,6 +322,7 @@ def main() -> int:
         "dense_pairs_spills": (PAIRS * (n_pairs // len(PAIRS) + 1))[:n_pairs],
         "edges": edge_chunk(n_edge, w, ktok.WINDOW),
         "single_key_4MB": b"hot " * MB,
+        "one_word_32MB": one_word_corpus(32 * MB, SEED + 5),
     }
     comb_counts = {}
     for name, data in comb_probes.items():
@@ -302,56 +348,95 @@ def main() -> int:
             raise SystemExit(f"combiner spill {spill} on {name}")
         if name == "single_key_4MB" and ntok:
             raise SystemExit("single-key chunk left tokens in the stream")
+        if name not in ("zipf_32MB", "one_word_32MB"):
+            continue
+        # Each launch on its own against its plain version, same inputs.
+        heads, scratch = ktok.combiner_heads_kernel(t, w, cslots)
+        cache = ktok.combiner_merge_kernel(heads, t.shape[0], cslots)
+        thin = ktok.combiner_thin_kernel(
+            t.shape[0], ktok.COMBINER_SLOTS,
+            cache._replace(count=cache.count.clone()), scratch)
+        err = max(max_err(ktok.combiner_heads_plain(t, w, cslots), heads),
+                  max_err(ktok.combiner_merge_plain(heads, cslots), cache),
+                  max_err(ktok.combiner_thin_plain(t, w, ktok.COMBINER_SLOTS,
+                                                   cache), thin))
+        errs["tokenize_combiner"] = max(errs["tokenize_combiner"], err)
+        if err:
+            raise SystemExit(f"a combiner phase differs from its plain "
+                             f"version on {name}: {err}")
+        emit("kernel", probe=name, mode="tokenize_combiner",
+             phases=["heads", "merge", "thin"], equal=True)
 
-    # K2: the radix partition, both impls, against the 3-key sort.
+    # K2: the radix seam, each launch kind and both impls, against the
+    # plain versions and the 3-key sort.
     k1a = ktok.tokenize_split_compact(on_card(chunk32), w)[0]
     rows = (k1a.key_hi, k1a.key_lo, k1a.packed)
     live = ~((rows[0] == ktok._SENT) & (rows[1] == ktok._SENT))
+    one_word = ktok.tokenize_split_compact(
+        on_card(comb_probes["one_word_32MB"]), w)[0]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_rand = 4 * MB
+
+    def rand_keys(lo_bound):
+        return torch.randint(lo_bound, (1 << 32) - 1, (n_rand,), device=dev,
+                             generator=gen)
+
+    hot = torch.rand(n_rand, device=dev, generator=gen) < 0.6
+    rand_pk = torch.randperm(n_rand, device=dev, generator=gen) << 6 | 5
     radix_probes = {
-        "k1a_stream_32MB": rows,
-        "one_bucket": (torch.where(live, 0x8765_4321, rows[0]), *rows[1:]),
-        "random_high_keys": (
-            torch.randint(1 << 31, (1 << 32) - 1, (n_rand,), device=dev,
-                          generator=gen),
-            torch.randint(0, 1 << 32, (n_rand,), device=dev, generator=gen),
-            torch.randperm(n_rand, device=dev, generator=gen) << 6 | 5),
-        "all_dead": tuple(torch.full((MB,), ktok._SENT, dtype=torch.int64,
-                                     device=dev) for _ in range(3)),
+        "k1a_stream_32MB": (rows, True),
+        "one_word_stream_32MB": ((one_word.key_hi, one_word.key_lo,
+                                  one_word.packed), True),
+        "one_bucket": ((torch.where(live, 0x8765_4321, rows[0]), *rows[1:]),
+                       True),
+        "random_high_keys": ((rand_keys(1 << 31), rand_keys(0), rand_pk),
+                             False),
+        "random_hot_key": ((torch.where(hot, 0xC0DE_0001, rand_keys(0)),
+                            torch.where(hot, 0x0BAD_F00D, rand_keys(0)),
+                            rand_pk), False),
+        "all_dead": (tuple(torch.full((MB,), ktok._SENT, dtype=torch.int64,
+                                      device=dev) for _ in range(3)), True),
     }
     bits = radix.DEFAULT_BITS
-    for name, planes in radix_probes.items():
-        # Each level on its own against the plain partition: the same
-        # bucket ends and the same rows in every bucket.  The second level
-        # reads the first level's kernel output.
+    for name, (planes, ordered) in radix_probes.items():
+        # Each level on its own against the plain partition, row for row
+        # (both are stable); the second level reads the first level's
+        # kernel output.  Then the segmented sort of the plain partition.
         level_in, ends = planes, None
         for level in (1, 2):
             shift = 32 - level * bits
             want = radix.partition_level_plain(*level_in, shift, bits, ends)
             got = radix.partition_level(*level_in, shift, bits, ends)
-            err = max_err((want[1],), (got[1],)) or max_err(
-                radix.canonical_partition(*want),
-                radix.canonical_partition(*got))
+            err = max_err((want[1], *want[0]), (got[1], *got[0]))
             errs["radix_partition"] = max(errs["radix_partition"], err)
             if err:
                 raise SystemExit(f"radix level {level} differs from the "
                                  f"plain partition on {name}: {err}")
+            sort_err = max_err(
+                radix.segmented_sort_plain(*want[0], want[1], level * bits),
+                radix.segmented_sort(*want[0], want[1], level * bits))
+            errs["radix_sort"] = max(errs["radix_sort"], sort_err)
+            if sort_err:
+                raise SystemExit(f"segmented sort after level {level} "
+                                 f"differs from its plain version on {name}: "
+                                 f"{sort_err}")
             emit("kernel", probe=name, mode="radix_partition", level=level,
-                 rows=level_in[0].shape[0], live_rows=got[0][0].shape[0],
-                 equal=True)
+                 rows=level_in[0].shape[0], live_rows=int(got[1][-1]),
+                 segmented_sort_equal=True, equal=True)
             level_in, ends = got
-            if not level_in[0].shape[0]:
-                break
         want = radix.radix_sort3_plain(*planes)
         for impl in radix.IMPLS:
-            err = max_err(want, radix.radix_sort3(*planes, impl=impl))
-            errs["radix_partition"] = max(errs["radix_partition"], err)
-            if err:
-                raise SystemExit(f"radix {impl} differs from the 3-key sort "
-                                 f"on {name}: {err}")
-            emit("kernel", probe=name, mode="radix_partition", impl=impl,
-                 rows=planes[0].shape[0], equal=True)
+            runs = [("3-key", False)] + ([("key-only", True)] if ordered
+                                         else [])
+            for what, packed_ordered in runs:
+                err = max_err(want, radix.radix_sort3(
+                    *planes, impl=impl, packed_ordered=packed_ordered))
+                errs["radix_partition"] = max(errs["radix_partition"], err)
+                if err:
+                    raise SystemExit(f"radix {impl} ({what}) differs from the "
+                                     f"3-key sort on {name}: {err}")
+                emit("kernel", probe=name, mode="radix_partition", impl=impl,
+                     sort=what, rows=planes[0].shape[0], equal=True)
 
     # 3 - 5. the main paths, with the launch counters read around each
     by_path: dict[str, dict] = {}
@@ -426,10 +511,12 @@ def main() -> int:
             ("count_words_radix_partition",
              lambda: count_words(words_data,
                                  Config(sort_impl="radix_partition")),
-             want, {**both, "radix_partition": 1}, len(words_data)),
+             want, {**both, "radix_partition": 1, "radix_sort": 1},
+             len(words_data)),
             ("count_words_radix",
              lambda: count_words(words_data, Config(sort_impl="radix")),
-             want, {**both, "radix_partition": 2}, len(words_data)),
+             want, {**both, "radix_partition": 2, "radix_sort": 1},
+             len(words_data)),
         ]
         for name, fn, want_words, need, n_bytes in runs:
             got, seconds = drive(name, fn, want_words, need)
@@ -479,6 +566,7 @@ def main() -> int:
                 iters=5),
         n + 3 * 8 * rows_out + 3 * 8)
     comb_rows = comb_counts["zipf_32MB"]["stream_rows"]
+    one_word_chunk = on_card(comb_probes["one_word_32MB"])
     row("tokenize_combiner", "tokenize.cu",
         "mapreduce_tpu/ops/pallas/tokenize.py:388",
         cuda_ms(lambda: ktok.tokenize_combiner_kernel(
@@ -488,12 +576,30 @@ def main() -> int:
         n + 3 * 8 * comb_rows + 4 * 8 * cslots * ktok.SEGMENTS + 3 * 8,
         stream_rows=comb_rows, compact_rows=rows_out,
         hits=comb_counts["zipf_32MB"]["hits"],
-        flush_rows=comb_counts["zipf_32MB"]["flush_rows"])
-    # K2 on the compact stream of the chunk: the partition seam
-    # (radix_sort3) against its plain version, the 3-key sort, and the
-    # port's own 3-key sort call (table._lexsort, the sort3 build's).
+        flush_rows=comb_counts["zipf_32MB"]["flush_rows"],
+        windows=ktok.SEGMENTS * ktok._combiner_geometry(n)[1],
+        phase_ms=staged_ms(lambda timer: ktok.tokenize_combiner_kernel(
+            t, w, ktok.COMBINER_SLOTS, cslots, timer=timer)),
+        one_word_ms=cuda_ms(lambda: ktok.tokenize_combiner_kernel(
+            one_word_chunk, w, ktok.COMBINER_SLOTS, cslots)))
+    # K2 on the compact stream of the chunk: the seam (radix_sort3, 3-key)
+    # against its plain version, the 3-key sort; yardsticks the port's own
+    # 3-key sort call (table._lexsort, the sort3 build's) and the default
+    # build's stable argsort of the sign-flipped key with its gathers.
     n_rows = rows[0].shape[0]
     n_live = int(live.sum())
+    hbm_ms = 1e3 / HBM_BYTES_PER_S
+
+    def default_sort():
+        k = table_ops._key64(rows[0], rows[1])
+        order = torch.argsort(k, stable=True)
+        return k[order], rows[2][order]
+
+    seam_stages = {
+        impl: staged_ms(lambda timer, impl=impl: radix.radix_sort3_kernel(
+            *rows, impl, radix.DEFAULT_BITS, packed_ordered=True,
+            timer=timer))
+        for impl in radix.IMPLS}
     row("radix_partition", "radix.cu",
         "mapreduce_tpu/ops/pallas/radix.py:104",
         cuda_ms(lambda: radix.radix_sort3(*rows, impl="radix_partition")),
@@ -502,11 +608,35 @@ def main() -> int:
         library_ms=cuda_ms(lambda: table_ops._lexsort(
             table_ops._key64(rows[0], rows[1]), rows[2])),
         rows=n_rows, live_rows=n_live,
+        stable2_seam_ms=cuda_ms(lambda: radix.radix_sort3(
+            *rows, impl="radix_partition", packed_ordered=True)),
         radix_ms=cuda_ms(lambda: radix.radix_sort3(*rows, impl="radix")),
+        radix_stable2_ms=cuda_ms(lambda: radix.radix_sort3(
+            *rows, impl="radix", packed_ordered=True)),
+        argsort_ms=cuda_ms(default_sort),
         level_ms=cuda_ms(lambda: radix.partition_level(
             *rows, 32 - radix.DEFAULT_BITS, radix.DEFAULT_BITS)),
-        level_bound_ms=(3 * 8 * n_rows + 3 * 8 * n_live)
-        / HBM_BYTES_PER_S * 1e3)
+        level_bound_ms=2 * 3 * 8 * n_rows * hbm_ms,
+        stage_ms=seam_stages,
+        # a seam level reads 24 B a row and writes 12 B a live row; a sort
+        # pass reads and writes 12 B a live row (the last writes int64
+        # planes of every row)
+        stage_bound_ms={"level_1": (24 * n_rows + 12 * n_live) * hbm_ms,
+                        "level_2": 24 * n_live * hbm_ms,
+                        "sort_pass": 24 * n_live * hbm_ms,
+                        "last_pass": (12 * n_live + 24 * n_rows) * hbm_ms})
+    lvl, lvl_ends = radix.partition_level(*rows, 32 - radix.DEFAULT_BITS,
+                                          radix.DEFAULT_BITS)
+    row("radix_sort", "radix.cu", "mapreduce_tpu/ops/pallas/radix.py:306",
+        cuda_ms(lambda: radix.segmented_sort(*lvl, lvl_ends,
+                                             radix.DEFAULT_BITS)),
+        cuda_ms(lambda: radix.segmented_sort_plain(*lvl, lvl_ends,
+                                                   radix.DEFAULT_BITS),
+                iters=5),
+        3 * 8 * n_live + 3 * 8 * n_rows,  # read the live rows, write all
+        rows=n_rows, live_rows=n_live, passes=len(radix.sort_passes(
+            radix.DEFAULT_BITS, with_packed=True)))
+    del lvl
 
     # The chunk's end-to-end time, by stage (each stage synchronised).
     stage = {"tokenize": [], "aggregate": [], "merge": [], "step": []}
@@ -542,7 +672,7 @@ def main() -> int:
                  "radix": Config(sort_impl="radix")}
     steps = {k: [] for k in step_cfgs}
     chunk = torch.from_numpy(host.copy()).to(dev)
-    for rep in range(6):
+    for rep in range(16):
         for name, c in step_cfgs.items():
             torch.cuda.synchronize()
             wc.BRANCHES.clear()
@@ -564,14 +694,14 @@ def main() -> int:
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
     # 7. Where a step's device time goes, for the default, combiner and
-    # radix configurations: torch.profiler over 3 steps, device kernels
+    # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step_med = {k: statistics.median(v) for k, v in steps.items()}
-    for name in ("default", "combiner", "radix_partition"):
+    for name in ("default", "combiner", "radix_partition", "radix"):
         c = step_cfgs[name]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

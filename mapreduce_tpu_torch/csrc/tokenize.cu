@@ -21,17 +21,34 @@
 // slots hold (sent, sent, 0xFFFFFFFF).  There is no seam pass: the CTA reads
 // a halo of W + 1 bytes before its window and one byte after it.
 //
-// tokenize_combiner.  The chunk splits into gridDim.x = 128 segments of
-// seg_len bytes (the TPU kernel's lanes); a token belongs to the segment
-// that holds its end byte.  One CTA per segment walks it window by window
-// (the windows above, cut at the segment's end) and keeps a cache of the
-// segment's first C distinct keys in shared memory: their every occurrence
-// is counted there and left out of the stream, and the first occurrence's
-// `packed` is kept.  Poison rows are never cached.  Rows left in each window
-// are written as tokenize_windows writes them, laid out [segment][window]
-// [slot] (global byte order), and the cache is flushed as four (C, 128)
-// planes.  Exactness never depends on the cache: a spill sends the caller
-// to the combiner-free pair mode.
+// The hot-key combiner.  The chunk splits into 128 segments of seg_len
+// bytes (the TPU kernel's lanes); a token belongs to the segment that holds
+// its end byte, and each segment is cut into the windows above, the last
+// one short.  The cache of a segment is its first C distinct keys: their
+// every occurrence is counted there and left out of the stream, and the
+// first occurrence's `packed` is kept.  Poison rows are never cached.  Rows
+// left in each window are written as tokenize_windows writes them, laid out
+// [segment][window][slot] (global byte order), and the cache is flushed as
+// four (C, 128) planes.  Exactness never depends on the cache: a spill
+// sends the caller to the combiner-free pair mode.  Three launches, two of
+// them one CTA per window:
+//
+//   combiner_heads  hashes its window, keeps its ranked rows in a scratch
+//                   (12 B a row) and writes the window's first C distinct
+//                   emission keys in rank order, each with its first
+//                   `packed` (one warp walks the ranked rows);
+//   combiner_merge  one warp per segment walks its windows' short lists in
+//                   window order and keeps the first C distinct keys: the
+//                   cache's key and `packed` planes, counts zeroed;
+//   combiner_thin   reads its window's rows back from the scratch, drops
+//                   every emission whose key is cached (warp-aggregated hit
+//                   counts, then one atomic per slot per CTA into the count
+//                   plane) and compacts the rest.
+//
+// Exact because a key among a segment's first C distinct keys is among the
+// first C distinct keys of the window where it first appears: fewer than C
+// distinct keys of that window precede it there, each an earlier key of
+// the segment.
 //
 // Each uint32 word is stored zero-extended into an int64 element, the form
 // in which the PyTorch side carries uint32 (torch has no uint32 shifts or
@@ -40,13 +57,12 @@
 // Bound on this card: device-memory bytes.  A kernel reads the chunk's N
 // bytes and writes 24 bytes per output row.  Each input byte is read from
 // device memory once (plus the 65-byte halo per 3072-byte window) and every
-// lookback is served from shared memory.  The combiner kernel runs only 128
-// CTAs, one per segment, each walking its windows in turn: it is bounded by
-// that serial walk, not by the card (ROADMAP.md names its parallel design).
+// lookback is served from shared memory.  The combiner hashes each byte
+// once, writes and reads back 12 B a live row in its scratch, and writes
+// only the rows it leaves.
 //
 // Bytes before 0 and at or after N are separators (PAD_BYTE 0x00 is one).
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -60,21 +76,19 @@ constexpr int kMaxW = 63;                  // length is packed into 6 bits
 constexpr int kHalo = kMaxW + 1;           // bytes kept before the window
 constexpr int kBuf = kHalo + kWindow + 1;  // plus one byte after it
 constexpr int kMaxRows = kWindow / 2;      // token ends in one window
-constexpr int kRowsPer = kMaxRows / kThreads;  // rows per thread, by rank
+constexpr int kRowsPer = kMaxRows / kThreads;  // scratch rows per thread
 constexpr int kMaxCache = 32;              // combiner slots per segment
 constexpr int kSegments = 128;             // combiner segments per chunk
+constexpr int kMergeWarps = 4;             // segments per merge CTA
 constexpr uint32_t kSent = 0xFFFFFFFFu;
 constexpr uint32_t kBase1 = 16777619u;     // constants.HASH_BASE_1
 constexpr uint32_t kBase2 = 2654435761u;   // constants.HASH_BASE_2
 
 static_assert(kWindow % kThreads == 0, "window must split evenly");
 static_assert(kPer <= 32, "live flags of a thread fit one word");
-static_assert(kMaxRows % kThreads == 0, "rows must split evenly");
-
-// Row states in the combiner's window.
-constexpr uint8_t kPoison = 0;
-constexpr uint8_t kEmit = 1;
-constexpr uint8_t kCached = 2;
+static_assert(kMaxCache <= 32, "a warp holds one cache slot per lane");
+static_assert(kSegments % kMergeWarps == 0, "merge CTAs split evenly");
+static_assert(kMaxRows % kThreads == 0, "scratch rows split evenly");
 
 // constants.SEPARATOR_BYTES: NUL, TAB, LF, VT, FF, CR, space.
 __device__ __forceinline__ bool is_sep(uint8_t b) {
@@ -100,19 +114,6 @@ __device__ __forceinline__ int block_sum(int v, int* scratch) {
   int s = 0;
   for (int i = 0; i < kWarps; ++i) s += scratch[i];
   return s;
-}
-
-// Minimum of `v` over the CTA; every thread gets the result.
-__device__ __forceinline__ int block_min(int v, int* scratch) {
-  for (int d = 16; d > 0; d >>= 1)
-    v = min(v, __shfl_down_sync(0xffffffffu, v, d));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int m = INT_MAX;
-  for (int i = 0; i < kWarps; ++i) m = min(m, scratch[i]);
-  return m;
 }
 
 // buf[i] = byte at base - kHalo + i, separators outside [0, n).
@@ -262,143 +263,235 @@ tokenize_windows(const uint8_t* __restrict__ data, long long n, int w,
   }
 }
 
+__device__ __forceinline__ bool is_poison(uint32_t hi, uint32_t lo) {
+  return hi == kSent && lo == kSent - 1u;  // emissions are clamped below it
+}
+
 __global__ void __launch_bounds__(kThreads)
-tokenize_combiner(const uint8_t* __restrict__ data, long long n,
-                  long long seg_len, int w, int slots, int cslots,
-                  int64_t* __restrict__ khi, int64_t* __restrict__ klo,
-                  int64_t* __restrict__ packed, int64_t* __restrict__ c_khi,
-                  int64_t* __restrict__ c_klo, int64_t* __restrict__ c_cnt,
-                  int64_t* __restrict__ c_pk,
-                  unsigned long long* __restrict__ counters) {
+combiner_heads(const uint8_t* __restrict__ data, long long n,
+               long long seg_len, int windows, int w, int cslots,
+               int64_t* __restrict__ h_hi, int64_t* __restrict__ h_lo,
+               int64_t* __restrict__ h_pk, int* __restrict__ h_n,
+               uint32_t* __restrict__ rows, int* __restrict__ rows_n) {
   __shared__ uint8_t buf[kBuf];
   __shared__ int warp_off[kWarps];
   __shared__ int row_total;
-  __shared__ int scratch[kWarps];
   // The window's live rows by rank (ascending position).
   __shared__ uint32_t row_hi[kMaxRows], row_lo[kMaxRows], row_pk[kMaxRows];
-  __shared__ uint8_t row_state[kMaxRows];
-  // The segment's cache: slot c holds its (c + 1)-th distinct key.
-  __shared__ uint32_t cache_hi[kMaxCache], cache_lo[kMaxCache],
-      cache_pk[kMaxCache];
-  __shared__ int cache_cnt[kMaxCache];
+  // Its first distinct emission keys, in rank order.
+  __shared__ uint32_t head_hi[kMaxCache], head_lo[kMaxCache],
+      head_pk[kMaxCache];
 
-  const int seg = blockIdx.x;
+  // CTA blockIdx.x is window `win` of segment `seg`; windows are cut at
+  // segment ends.
+  const int seg = blockIdx.x / windows, win = blockIdx.x % windows;
   const long long seg0 = static_cast<long long>(seg) * seg_len;
+  const long long base = seg0 + static_cast<long long>(win) * kWindow;
   const long long seg_end = seg0 + seg_len;
-  const int windows = static_cast<int>((seg_len + kWindow - 1) / kWindow);
-  const int r0 = threadIdx.x * kRowsPer;  // this thread's ranks
-  int filled = 0;                          // the same in every thread
-  int n_over = 0, n_emit = 0, n_spill = 0;
-
-  for (int win = 0; win < windows; ++win) {
-    const long long base = seg0 + static_cast<long long>(win) * kWindow;
-    __syncthreads();  // the previous window's readers are done
-    load_window(buf, data, base, n);
-    __syncthreads();
-    int live;
-    const uint32_t live_bits = live_flags(buf, base, seg_end, &live);
-    int rank = block_scan(live, warp_off, &row_total);
-    const int total = row_total;
-    const int first = threadIdx.x * kPer;
-    for (int j = 0; j < kPer; ++j) {
-      if (!((live_bits >> j) & 1u)) continue;
-      uint32_t hi, lo, pk;
-      const bool over = hash_row(buf, kHalo + first + j, base + first + j, w,
-                                 &hi, &lo, &pk);
-      row_hi[rank] = hi;
-      row_lo[rank] = lo;
-      row_pk[rank] = pk;
-      row_state[rank] = over ? kPoison : kEmit;
-      ++rank;
-    }
-    __syncthreads();
-    const int r1 = min(r0 + kRowsPer, total);
-
-    // Hit pass: resident keys absorb their occurrences.
-    for (int r = r0; r < r1; ++r) {
-      if (row_state[r] != kEmit) continue;
-      for (int c = 0; c < filled; ++c) {
-        if (row_hi[r] == cache_hi[c] && row_lo[r] == cache_lo[c]) {
-          atomicAdd(&cache_cnt[c], 1);
-          row_state[r] = kCached;
-          break;
-        }
-      }
-    }
-    // Fill pass: an empty slot adopts the first remaining emission's key,
-    // a key new to the segment, with every occurrence of it here.
-    while (filled < cslots) {
-      int head = INT_MAX;
-      for (int r = r0; r < r1; ++r) {
-        if (row_state[r] == kEmit) {
-          head = r;
-          break;
-        }
-      }
-      head = block_min(head, scratch);
-      if (head == INT_MAX) break;
-      const uint32_t hi = row_hi[head], lo = row_lo[head];
-      int hits = 0;
-      for (int r = r0; r < r1; ++r) {
-        if (row_state[r] == kEmit && row_hi[r] == hi && row_lo[r] == lo) {
-          row_state[r] = kCached;
-          ++hits;
-        }
-      }
-      hits = block_sum(hits, scratch);
-      if (threadIdx.x == 0) {
-        cache_hi[filled] = hi;
-        cache_lo[filled] = lo;
-        cache_pk[filled] = row_pk[head];
-        cache_cnt[filled] = hits;
-      }
-      ++filled;
-    }
-    __syncthreads();
-
-    // Compact the rows left into the window's slots, in rank order.
-    int keep = 0;
-    for (int r = r0; r < r1; ++r) {
-      const uint8_t s = row_state[r];
-      keep += s != kCached;
-      n_emit += s == kEmit;
-      n_over += s == kPoison;
-    }
-    int slot = block_scan(keep, warp_off, &row_total);
-    const int kept = row_total;
-    const long long out0 =
-        (static_cast<long long>(seg) * windows + win) * slots;
-    for (int r = r0; r < r1; ++r) {
-      if (row_state[r] == kCached) continue;
-      if (slot < slots)
-        put_row(khi, klo, packed, out0 + slot, row_hi[r], row_lo[r],
-                row_pk[r]);
-      ++slot;
-    }
-    fill_dead(khi, klo, packed, out0, min(kept, slots), slots);
-    if (kept > slots) n_spill += kept - slots;  // the same in every thread
-  }
-
-  // Flush: one plane row per slot, planes (cslots, 128).
+  load_window(buf, data, base, n);
   __syncthreads();
-  for (int c = threadIdx.x; c < cslots; c += kThreads) {
-    const long long at = static_cast<long long>(c) * gridDim.x + seg;
-    const bool full = c < filled;
-    c_khi[at] = full ? cache_hi[c] : kSent;
-    c_klo[at] = full ? cache_lo[c] : kSent;
-    c_cnt[at] = full ? cache_cnt[c] : 0;
-    c_pk[at] = full ? cache_pk[c] : 0xFFFFFFFFu;
+  int live;
+  const uint32_t live_bits = live_flags(buf, base, seg_end, &live);
+  int rank = block_scan(live, warp_off, &row_total);
+  const int total = row_total;
+  const int first = threadIdx.x * kPer;
+  for (int j = 0; j < kPer; ++j) {
+    if (!((live_bits >> j) & 1u)) continue;
+    hash_row(buf, kHalo + first + j, base + first + j, w, &row_hi[rank],
+             &row_lo[rank], &row_pk[rank]);
+    ++rank;
   }
-  const int over_sum = block_sum(n_over, scratch);
+  __syncthreads();
+  // The ranked rows for combiner_thin, [window][plane][rank].
+  uint32_t* out = rows + static_cast<long long>(blockIdx.x) * 3 * kMaxRows;
+  for (int r = threadIdx.x; r < total; r += kThreads) {
+    out[r] = row_hi[r];
+    out[kMaxRows + r] = row_lo[r];
+    out[2 * kMaxRows + r] = row_pk[r];
+  }
+  if (threadIdx.x == 0) rows_n[blockIdx.x] = total;
+  if (threadIdx.x >= 32) return;  // warp 0 walks the rows, 32 at a time
+
+  const int lane = threadIdx.x;
+  int found = 0;  // the same in every lane
+  for (int r0 = 0; r0 < total && found < cslots; r0 += 32) {
+    const int r = r0 + lane;
+    uint32_t hi = kSent, lo = kSent, pk = 0;
+    bool fresh = false;
+    if (r < total) {
+      hi = row_hi[r];
+      lo = row_lo[r];
+      pk = row_pk[r];
+      fresh = !is_poison(hi, lo);
+    }
+    for (int c = 0; c < found; ++c)
+      if (head_hi[c] == hi && head_lo[c] == lo) fresh = false;
+    // Only the lowest lane of a key new to the window adopts it.
+    const unsigned long long key =
+        fresh ? (static_cast<unsigned long long>(hi) << 32 | lo) : ~0ull;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    fresh = fresh && lane == __ffs(peers) - 1;
+    const unsigned adopt = __ballot_sync(0xffffffffu, fresh);
+    const int at = found + __popc(adopt & ((1u << lane) - 1u));
+    __syncwarp();
+    if (fresh && at < cslots) {
+      head_hi[at] = hi;
+      head_lo[at] = lo;
+      head_pk[at] = pk;
+    }
+    __syncwarp();
+    found = min(cslots, found + __popc(adopt));
+  }
+  const long long out0 = static_cast<long long>(blockIdx.x) * cslots;
+  if (lane < cslots) {
+    const bool full = lane < found;
+    h_hi[out0 + lane] = full ? head_hi[lane] : kSent;
+    h_lo[out0 + lane] = full ? head_lo[lane] : kSent;
+    h_pk[out0 + lane] = full ? head_pk[lane] : 0xFFFFFFFFu;
+  }
+  if (lane == 0) h_n[blockIdx.x] = found;
+}
+
+__global__ void __launch_bounds__(kMergeWarps * 32)
+combiner_merge(const int64_t* __restrict__ h_hi,
+               const int64_t* __restrict__ h_lo,
+               const int64_t* __restrict__ h_pk, const int* __restrict__ h_n,
+               int windows, int cslots, int64_t* __restrict__ c_khi,
+               int64_t* __restrict__ c_klo, int64_t* __restrict__ c_cnt,
+               int64_t* __restrict__ c_pk) {
+  __shared__ uint32_t s_hi[kMergeWarps][kMaxCache],
+      s_lo[kMergeWarps][kMaxCache], s_pk[kMergeWarps][kMaxCache];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seg = blockIdx.x * kMergeWarps + warp;
+  int found = 0;  // the same in every lane of the warp
+  for (int win = 0; win < windows && found < cslots; ++win) {
+    const long long wi = static_cast<long long>(seg) * windows + win;
+    const int m = h_n[wi];
+    uint32_t hi = 0, lo = 0, pk = 0;
+    bool fresh = lane < m;
+    if (fresh) {
+      hi = static_cast<uint32_t>(h_hi[wi * cslots + lane]);
+      lo = static_cast<uint32_t>(h_lo[wi * cslots + lane]);
+      pk = static_cast<uint32_t>(h_pk[wi * cslots + lane]);
+      for (int c = 0; c < found; ++c)
+        if (s_hi[warp][c] == hi && s_lo[warp][c] == lo) fresh = false;
+    }
+    // A window's list holds distinct keys: its new ones append in order.
+    const unsigned adopt = __ballot_sync(0xffffffffu, fresh);
+    const int at = found + __popc(adopt & ((1u << lane) - 1u));
+    __syncwarp();
+    if (fresh && at < cslots) {
+      s_hi[warp][at] = hi;
+      s_lo[warp][at] = lo;
+      s_pk[warp][at] = pk;
+    }
+    __syncwarp();
+    found = min(cslots, found + __popc(adopt));
+  }
+  for (int c = lane; c < cslots; c += 32) {
+    const long long at = static_cast<long long>(c) * kSegments + seg;
+    const bool full = c < found;
+    c_khi[at] = full ? s_hi[warp][c] : kSent;
+    c_klo[at] = full ? s_lo[warp][c] : kSent;
+    c_cnt[at] = 0;
+    c_pk[at] = full ? s_pk[warp][c] : 0xFFFFFFFFu;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+combiner_thin(const uint32_t* __restrict__ rows,
+              const int* __restrict__ rows_n, int slots, int cslots,
+              const int64_t* __restrict__ c_khi,
+              const int64_t* __restrict__ c_klo, int64_t* __restrict__ c_cnt,
+              int64_t* __restrict__ khi, int64_t* __restrict__ klo,
+              int64_t* __restrict__ packed,
+              unsigned long long* __restrict__ counters) {
+  __shared__ int warp_off[kWarps];
+  __shared__ int row_total;
+  __shared__ int scratch[kWarps];
+  __shared__ uint32_t cache_hi[kMaxCache], cache_lo[kMaxCache];
+  __shared__ int hits[kMaxCache];
+
+  const int seg = blockIdx.x / (gridDim.x / kSegments);
+  for (int c = threadIdx.x; c < cslots; c += kThreads) {
+    const long long at = static_cast<long long>(c) * kSegments + seg;
+    cache_hi[c] = static_cast<uint32_t>(c_khi[at]);
+    cache_lo[c] = static_cast<uint32_t>(c_klo[at]);
+    hits[c] = 0;
+  }
+  __syncthreads();
+
+  // Which of this thread's ranks stay: poison rows and emissions of
+  // uncached keys.  Hits count once per (warp, slot) in each step.
+  const uint32_t* in = rows + static_cast<long long>(blockIdx.x) * 3 * kMaxRows;
+  const int total = rows_n[blockIdx.x];
+  const int r0 = threadIdx.x * kRowsPer;
+  const int lane = threadIdx.x & 31;
+  uint32_t keep_bits = 0;
+  int keep = 0, n_over = 0, n_emit = 0;
+  for (int j = 0; j < kRowsPer; ++j) {
+    const bool live = r0 + j < total;
+    uint32_t hi = 0, lo = 0;
+    int slot = -1;
+    if (live) {
+      hi = in[r0 + j];
+      lo = in[kMaxRows + r0 + j];
+      if (!is_poison(hi, lo))
+        for (int c = 0; c < cslots; ++c)
+          if (cache_hi[c] == hi && cache_lo[c] == lo) {
+            slot = c;
+            break;
+          }
+    }
+    if (__ballot_sync(0xffffffffu, slot >= 0)) {
+      const unsigned peers = __match_any_sync(0xffffffffu, slot);
+      if (slot >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&hits[slot], __popc(peers));
+    }
+    if (live && slot < 0) {
+      keep_bits |= 1u << j;
+      ++keep;
+      if (is_poison(hi, lo)) ++n_over; else ++n_emit;
+    }
+  }
+
+  // Compact the rows left into the window's slots, in rank order.
+  int at = block_scan(keep, warp_off, &row_total);
+  const int kept = row_total;
+  const long long out0 = static_cast<long long>(blockIdx.x) * slots;
+  for (int j = 0; j < kRowsPer; ++j) {
+    if (!((keep_bits >> j) & 1u)) continue;
+    if (at < slots)
+      put_row(khi, klo, packed, out0 + at, in[r0 + j], in[kMaxRows + r0 + j],
+              in[2 * kMaxRows + r0 + j]);
+    ++at;
+  }
+  fill_dead(khi, klo, packed, out0, min(kept, slots), slots);
+
+  const int over_sum = block_sum(n_over, scratch);  // also orders the hits
   const int emit_sum = block_sum(n_emit, scratch);
+  for (int c = threadIdx.x; c < cslots; c += kThreads)
+    if (hits[c])
+      atomicAdd(reinterpret_cast<unsigned long long*>(
+                    &c_cnt[static_cast<long long>(c) * kSegments + seg]),
+                static_cast<unsigned long long>(hits[c]));
   if (threadIdx.x == 0) {
     if (over_sum)
       atomicAdd(&counters[0], static_cast<unsigned long long>(over_sum));
     if (emit_sum)
       atomicAdd(&counters[1], static_cast<unsigned long long>(emit_sum));
-    if (n_spill)
-      atomicAdd(&counters[2], static_cast<unsigned long long>(n_spill));
+    if (kept > slots)
+      atomicAdd(&counters[2], static_cast<unsigned long long>(kept - slots));
   }
+}
+
+bool bad_combiner(long long n, int w, int cslots) {
+  return n <= 0 || n % kSegments || w < 1 || w > kMaxW || cslots < 1 ||
+         cslots > kMaxCache;
+}
+
+int combiner_windows(long long n) {
+  return static_cast<int>((n / kSegments + kWindow - 1) / kWindow);
 }
 
 }  // namespace
@@ -423,24 +516,65 @@ extern "C" int mr_tokenize_windows(const void* data, long long n, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the combiner over a chunk of n = 128 * seg_len bytes.  Stream
-// planes hold 128 * ceil(seg_len / 3072) * slots rows, cache planes
-// cslots * 128; counters as above, zeroed by the caller.
-extern "C" int mr_tokenize_combiner(const void* data, long long n, int w,
-                                    int slots, int cslots, void* khi,
-                                    void* klo, void* packed, void* c_khi,
-                                    void* c_klo, void* c_cnt, void* c_pk,
-                                    void* counters, void* stream) {
-  if (n <= 0 || n % kSegments || w < 1 || w > kMaxW || slots < 1 ||
-      slots > kWindow || cslots < 1 || cslots > kMaxCache)
+// The combiner over a chunk of n = 128 * seg_len bytes, in three launches
+// on `stream`, each returning cudaGetLastError().  Windows: 128 *
+// mr_combiner_windows(n), segment-major.  Heads: int64 planes of windows *
+// cslots rows and an int32 count per window.  Row scratch: uint32
+// [windows][3][mr_combiner_window_rows()] and an int32 count per window.
+extern "C" int mr_combiner_windows(long long n) { return combiner_windows(n); }
+
+extern "C" int mr_combiner_window_rows() { return kMaxRows; }
+
+extern "C" int mr_combiner_heads(const void* data, long long n, int w,
+                                 int cslots, void* h_hi, void* h_lo,
+                                 void* h_pk, void* h_n, void* rows,
+                                 void* rows_n, void* stream) {
+  if (bad_combiner(n, w, cslots) || !rows || !rows_n)
     return static_cast<int>(cudaErrorInvalidValue);
-  tokenize_combiner<<<kSegments, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), n, n / kSegments, w, slots, cslots,
-      static_cast<int64_t*>(khi), static_cast<int64_t*>(klo),
-      static_cast<int64_t*>(packed), static_cast<int64_t*>(c_khi),
+  const int windows = combiner_windows(n);
+  combiner_heads<<<kSegments * windows, kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), n, n / kSegments, windows, w, cslots,
+      static_cast<int64_t*>(h_hi), static_cast<int64_t*>(h_lo),
+      static_cast<int64_t*>(h_pk), static_cast<int*>(h_n),
+      static_cast<uint32_t*>(rows), static_cast<int*>(rows_n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Cache planes: int64 (cslots, 128); counts zeroed here.
+extern "C" int mr_combiner_merge(long long n, int cslots, const void* h_hi,
+                                 const void* h_lo, const void* h_pk,
+                                 const void* h_n, void* c_khi, void* c_klo,
+                                 void* c_cnt, void* c_pk, void* stream) {
+  if (bad_combiner(n, 1, cslots))
+    return static_cast<int>(cudaErrorInvalidValue);
+  combiner_merge<<<kSegments / kMergeWarps, kMergeWarps * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(h_hi), static_cast<const int64_t*>(h_lo),
+      static_cast<const int64_t*>(h_pk), static_cast<const int*>(h_n),
+      combiner_windows(n), cslots, static_cast<int64_t*>(c_khi),
       static_cast<int64_t*>(c_klo), static_cast<int64_t*>(c_cnt),
-      static_cast<int64_t*>(c_pk),
+      static_cast<int64_t*>(c_pk));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stream planes hold windows * slots rows; counters as for
+// mr_tokenize_windows, zeroed by the caller; rows/rows_n: the scratch
+// mr_combiner_heads filled.
+extern "C" int mr_combiner_thin(long long n, int slots, int cslots,
+                                const void* rows, const void* rows_n,
+                                const void* c_khi, const void* c_klo,
+                                void* c_cnt, void* khi, void* klo,
+                                void* packed, void* counters, void* stream) {
+  if (bad_combiner(n, 1, cslots) || slots < 1 || slots > kWindow)
+    return static_cast<int>(cudaErrorInvalidValue);
+  combiner_thin<<<kSegments * combiner_windows(n), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), static_cast<const int*>(rows_n),
+      slots, cslots, static_cast<const int64_t*>(c_khi),
+      static_cast<const int64_t*>(c_klo), static_cast<int64_t*>(c_cnt),
+      static_cast<int64_t*>(khi), static_cast<int64_t*>(klo),
+      static_cast<int64_t*>(packed),
       static_cast<unsigned long long*>(counters));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,8 @@ Control flow.  The JAX package wraps the spill fallback and the overlong
 rescue in ``lax.cond``.  Eager PyTorch has no device-side cond, so each
 becomes a host ``if``: :func:`_map_kernel` reads the chunk's ``spill`` and
 ``overlong`` scalars in ONE device-to-host copy (one sync per chunk) and
-branches on them.  The radix sort seam adds one read-back of its live-row
-count (``ops/cuda/radix.py``).
+branches on them.  The radix sort seam reads nothing back
+(``ops/cuda/radix.py``).
 
 No seam table.  The JAX split map emits a column stream plus a seam stream
 (the 128-lane seams of its TPU layout) and folds the seam table in a

@@ -1,4 +1,4 @@
-"""K2: the radix partition of the aggregation stream, hand-written in CUDA.
+"""K2: the radix sort seam of the aggregation stream, hand-written in CUDA.
 
 Counterpart of :mod:`mapreduce_tpu.ops.pallas.radix`: :func:`radix_sort3`
 returns exactly the 3-key sort of ``(key_hi, key_lo, packed)`` read as
@@ -6,27 +6,28 @@ uint32 — dead ``(sent, sent)`` rows last with all-ones ``packed``, the
 poison segment ``(sent, sent-1)`` just before them in ascending ``packed``,
 ties resolved by ``packed`` — which serves ``sort_mode`` 'sort3' outright
 and 'stable2' under its position-ordered input.  The kernels are in
-``mapreduce_tpu_torch/csrc/radix.cu``.
+``mapreduce_tpu_torch/csrc/radix.cu``; its note says what bounds them.
 
-Each partition level (:func:`partition_level`) is a histogram kernel, an
-exclusive ``cumsum`` of the (bucket, CTA) counts (the JAX package leaves
-its scans to XLA) and a scatter kernel that moves every live row to its
-bucket's region, so the dead rows leave the stream at the first level.
-``impl='radix_partition'`` runs one level on the top ``bits`` of
-``key_hi``; ``impl='radix'`` runs a second one that splits each
-first-level bucket, where the first level put its rows, by the next
-``bits``.  Then each bucket is sorted on its own (:func:`_sort_buckets`),
-as the JAX package's finishing ``lax.sort`` sorts each group's slab: a row
-sorts inside the bucket the partition wrote it to, so a misplaced row
-shows in the result.  Hopper scatters, so there are no static slabs,
-nothing spills and no fallback exists: the TPU version's spill branch has
-no counterpart.
+The seam is a chain of stable counting passes.  Each partition level
+(:func:`partition_level`) splits each bucket of the previous level (one
+segment at the first) by ``bits`` more of ``key_hi`` and drops the dead
+rows, so the dead rows leave the stream at the first level.
+``impl='radix_partition'`` runs one level on the top ``bits``;
+``impl='radix'`` runs a second one on the next ``bits``.  Then
+:func:`segmented_sort` sorts each bucket on its own, as the JAX package's
+finishing ``lax.sort`` sorts each group's slab: an LSD radix sort on the
+key bits below the digits the levels decided (and first on ``packed``,
+unless the caller says its input is already in ``packed`` order), inside
+buckets taken from the row's position, so a misplaced row shows in the
+result.  Hopper scatters, so there are no static slabs, nothing spills and
+no fallback exists: the TPU version's spill branch has no counterpart.
 
-The first level reads its live-row count back to the host to size its
-output: one sync per call, which keeps the dead rows (half of a compact
-stream) out of the finishing sort.  Dispatch: CPU tensors take the plain
-versions (:func:`radix_sort3_plain`, :func:`partition_level_plain`); CUDA
-tensors launch the kernels or raise.
+Nothing is read back to the host: the live count and the bucket ends stay
+on the card, every output keeps all ``n`` rows with the dead fill at
+``[live, n)``, and every grid is sized from ``n``.  Dispatch: CPU tensors
+take the plain versions (:func:`radix_sort3_plain`,
+:func:`partition_level_plain`, :func:`segmented_sort_plain`); CUDA tensors
+launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -42,20 +43,26 @@ from mapreduce_tpu_torch.ops.tokenize import SENT
 
 DEFAULT_BITS = 3  # 8 buckets per level
 IMPLS = ("radix_partition", "radix")
+MAX_ROWS = (1 << 26) - 1  # counts in the look-back status word
 _ALL_ONES = 0xFFFFFFFF
+_KEY, _LO, _PACKED = 0, 1, 2  # the word a pass reads
 
-#: Partition levels launched on the card ("radix_partition"), one per level.
-#: CPU calls run the plain version and count nothing.
+#: Kernel launches on the card, by kernel: "radix_partition" (one per
+#: partition level) and "radix_sort" (one per segmented sort).  CPU calls
+#: run the plain versions and count nothing.
 LAUNCHES: Counter = Counter()
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = {
-    "mr_radix_grid": ([_LL], _LL),
-    "mr_radix_histogram": ([_P, _P, _LL, _I, _I, _I, _P, _P, _P], _I),
-    "mr_radix_scatter": ([_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P,
-                          _P], _I),
+    "mr_sort_grid": ([_LL, _I], _LL),
+    "mr_sort_tiles": ([_P, _I, _LL, _P, _P], _I),
+    "mr_sort_hist": ([_P, _P, _P, _I, _I, _P, _I, _LL, _P, _P, _I, _P, _P],
+                     _I),
+    "mr_sort_scan": ([_P, _P, _I, _LL, _P, _I, _P, _P, _P], _I),
+    "mr_sort_scatter": ([_P, _P, _P, _I, _I, _P, _I, _LL, _P, _I, _P, _I, _P,
+                         _I, _P, _P, _P, _P, _I, _P, _P], _I),
 }
 
 
@@ -64,6 +71,12 @@ def _fn(name: str):
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES[name]
     return fn
+
+
+def _call(name: str, *args) -> None:
+    err = _fn(name)(*args)
+    if err:
+        raise RuntimeError(f"radix kernel {name} failed: CUDA error {err}")
 
 
 def _check(key_hi, key_lo, packed, impl: str, bits: int) -> None:
@@ -81,6 +94,23 @@ def _check(key_hi, key_lo, packed, impl: str, bits: int) -> None:
         raise ValueError("radix_sort3 planes must share one device")
 
 
+def _check_cuda(planes) -> None:
+    if planes[0].device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{planes[0].device}")
+    if planes[0].shape[0] > MAX_ROWS:
+        raise ValueError(f"the radix kernels take at most {MAX_ROWS} rows, "
+                         f"got {planes[0].shape[0]}")
+
+
+def _with_dead_tail(planes, n: int):
+    """``planes`` followed by dead ``(sent, sent, all-ones)`` rows up to
+    ``n`` rows."""
+    tail = n - planes[0].shape[0]
+    return tuple(torch.cat([p, p.new_full((tail,), fill)])
+                 for p, fill in zip(planes, (SENT, SENT, _ALL_ONES)))
+
+
 def radix_sort3_plain(key_hi, key_lo, packed):
     """Plain PyTorch version: the 3-key sort itself, over the sign-flipped
     64-bit key and ``packed``."""
@@ -90,8 +120,8 @@ def radix_sort3_plain(key_hi, key_lo, packed):
 
 def partition_level_plain(key_hi, key_lo, packed, shift: int, bits: int,
                           group_ends=None):
-    """Plain version of :func:`partition_level`: the live rows, stably
-    sorted by bucket."""
+    """Plain version of :func:`partition_level`: the live rows stably
+    sorted by bucket, then the dead fill."""
     n = key_hi.shape[0]
     live = ~((key_hi == SENT) & (key_lo == SENT))
     groups = 1 if group_ends is None else group_ends.shape[0]
@@ -104,113 +134,262 @@ def partition_level_plain(key_hi, key_lo, packed, shift: int, bits: int,
     bucket = ((group << bits) | ((key_hi >> shift) & ((1 << bits) - 1)))[live]
     idx = live.nonzero()[:, 0][torch.argsort(bucket, stable=True)]
     ends = torch.cumsum(torch.bincount(bucket, minlength=groups << bits), 0)
-    return (key_hi[idx], key_lo[idx], packed[idx]), ends
+    return _with_dead_tail((key_hi[idx], key_lo[idx], packed[idx]), n), ends
 
 
-def canonical_partition(planes, ends):
-    """Each row's bucket, then the planes, with the rows of each bucket
-    sorted by (key, ``packed``).  Two partitions with equal ``ends`` put the
-    same multiset of rows in every bucket exactly when these are equal:
-    how the tests and the smoke hold :func:`partition_level` to
-    :func:`partition_level_plain`."""
-    key_hi, key_lo, packed = planes
-    rows = torch.arange(key_hi.shape[0], dtype=torch.int64,
-                        device=key_hi.device)
-    bucket = torch.searchsorted(ends, rows, right=True)
-    order = _lexsort(bucket, _key64(key_hi, key_lo), packed)
-    return bucket[order], key_hi[order], key_lo[order], packed[order]
+def segmented_sort_plain(key_hi, key_lo, packed, ends, digit_bits: int,
+                         with_packed: bool = True):
+    """Plain version of :func:`segmented_sort`: the rows before ``ends[-1]``
+    sorted stably within each bucket (from the row's position) on the
+    ``key_hi`` bits below the top ``digit_bits``, then ``key_lo``, then
+    ``packed`` when ``with_packed``; the dead fill after them."""
+    n = key_hi.shape[0]
+    live = int(ends[-1])
+    rows = torch.arange(live, dtype=torch.int64, device=key_hi.device)
+    keys = [torch.searchsorted(ends, rows, right=True),
+            key_hi[:live] & ((1 << (32 - digit_bits)) - 1), key_lo[:live]]
+    if with_packed:
+        keys.append(packed[:live])
+    order = _lexsort(*keys)
+    return _with_dead_tail(tuple(p[:live][order]
+                                 for p in (key_hi, key_lo, packed)), n)
+
+
+def _spec(word: int, shift: int, width: int) -> int:
+    return word << 16 | shift << 8 | width
+
+
+def sort_passes(digit_bits: int, with_packed: bool) -> list[int]:
+    """The 8-bit LSD passes of :func:`segmented_sort`, least significant
+    first: ``packed`` (when asked), ``key_lo``, then ``key_hi`` below its top
+    ``digit_bits``."""
+    specs = [_spec(_PACKED, s, 8) for s in range(0, 32, 8)] \
+        if with_packed else []
+    specs += [_spec(_LO, s, 8) for s in range(0, 32, 8)]
+    top = 32 - digit_bits
+    return specs + [_spec(_KEY, s, min(8, top - s)) for s in range(0, top, 8)]
+
+
+class _Call:
+    """Device scratch of one seam call: the zeroed look-back status, shared
+    by every pass through its epoch, and one tile counter per pass."""
+
+    def __init__(self, n: int, max_segs: int, dev):
+        self.n, self.dev = n, dev
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        grid = _fn("mr_sort_grid")(n, max_segs)
+        self.status = torch.zeros(grid * 256 + 16, dtype=torch.int32,
+                                  device=dev)
+        self.epoch = 0
+
+    def next_pass(self) -> tuple[int, int]:
+        """(epoch, address of the pass's zeroed tile counter)."""
+        self.epoch += 1
+        return self.epoch, self.status[-16 + self.epoch].data_ptr()
+
+    def u32(self):
+        return tuple(torch.empty(self.n, dtype=torch.int32, device=self.dev)
+                     for _ in range(3))
+
+    def i64(self):
+        return tuple(torch.empty(self.n, dtype=torch.int64, device=self.dev)
+                     for _ in range(3))
+
+
+def _ptrs(planes):
+    return tuple(p.data_ptr() for p in planes)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _is64(planes) -> int:
+    return int(planes[0].dtype == torch.int64)
+
+
+def _tiles(call: _Call, ends, segs: int):
+    tile_start = torch.empty(segs + 1, dtype=torch.int32, device=call.dev)
+    _call("mr_sort_tiles", _ptr(ends), segs, call.n, tile_start.data_ptr(),
+          call.stream)
+    return tile_start
+
+
+def _digit_starts(call: _Call, src, drop_dead: bool, ends, segs: int,
+                  tile_start, specs, bucket_ends=None):
+    """Every pass's digit counts per segment in one read of ``src``, then
+    each digit's first output row."""
+    arr = (ctypes.c_int * len(specs))(*specs)
+    hist = torch.zeros(segs * len(specs) * 256, dtype=torch.int32,
+                       device=call.dev)
+    _call("mr_sort_hist", *_ptrs(src), _is64(src), int(drop_dead), _ptr(ends),
+          segs, call.n, tile_start.data_ptr(), arr, len(specs),
+          hist.data_ptr(), call.stream)
+    starts = torch.empty_like(hist)
+    _call("mr_sort_scan", hist.data_ptr(), _ptr(ends), segs, call.n, arr,
+          len(specs), starts.data_ptr(), _ptr(bucket_ends), call.stream)
+    return starts
+
+
+def _scatter(call: _Call, src, drop_dead: bool, ends, segs: int, tile_start,
+             spec: int, starts, dstride: int, dst, fill_from=None) -> None:
+    epoch, counter = call.next_pass()
+    _call("mr_sort_scatter", *_ptrs(src), _is64(src), int(drop_dead),
+          _ptr(ends), segs, call.n, tile_start.data_ptr(), spec,
+          starts.data_ptr(), dstride, call.status.data_ptr(), epoch, counter,
+          *_ptrs(dst), _is64(dst), _ptr(fill_from), call.stream)
+
+
+def _level(call: _Call, src, shift: int, bits: int, group_ends, dst,
+           fill: bool):
+    """One partition level of ``src`` into ``dst``; returns the bucket
+    ends (on the card)."""
+    groups = 1 if group_ends is None else group_ends.shape[0]
+    tile_start = _tiles(call, group_ends, groups)
+    spec = _spec(_KEY, shift, bits)
+    ends = torch.empty(groups << bits, dtype=torch.int64, device=call.dev)
+    starts = _digit_starts(call, src, True, group_ends, groups, tile_start,
+                           [spec], ends)
+    _scatter(call, src, True, group_ends, groups, tile_start, spec, starts,
+             256, dst, ends[-1:] if fill else None)
+    LAUNCHES["radix_partition"] += 1
+    return ends
+
+
+def _sort(call: _Call, src, ends, digit_bits: int, with_packed: bool, spare,
+          out, timer=None) -> None:
+    """The segmented LSD sort of ``src``'s buckets into the int64 ``out``,
+    ping-ponging through the uint32 buffers ``spare`` (two, neither
+    ``src``)."""
+    segs = ends.shape[0]
+    specs = sort_passes(digit_bits, with_packed)
+    tile_start = _tiles(call, ends, segs)
+    starts = _digit_starts(call, src, False, ends, segs, tile_start, specs)
+    if timer:
+        timer("sort_hist")
+    cur = src
+    for q, spec in enumerate(specs):
+        last = q == len(specs) - 1
+        dst = out if last else (spare[0] if cur is not spare[0] else spare[1])
+        _scatter(call, cur, False, ends, segs, tile_start, spec,
+                 starts[q * 256:], len(specs) * 256, dst,
+                 ends[-1:] if last else None)
+        cur = dst
+        if timer:
+            timer(f"sort_pass_{q}")
+    LAUNCHES["radix_sort"] += 1
+
+
+def partition_level_kernel(key_hi, key_lo, packed, shift: int, bits: int,
+                           group_ends=None):
+    """:func:`partition_level` on the card."""
+    planes = (key_hi, key_lo, packed)
+    _check_cuda(planes)
+    call = _Call(key_hi.shape[0], 1 if group_ends is None
+                 else group_ends.shape[0], key_hi.device)
+    out = call.i64()
+    ends = _level(call, planes, shift, bits, group_ends, out, fill=True)
+    return out, ends
 
 
 def partition_level(key_hi, key_lo, packed, shift: int, bits: int,
                     group_ends=None):
-    """One partition level: the live rows of the three planes grouped by
-    ascending bucket ``g * 2**bits + ((key_hi >> shift) & (2**bits - 1))``,
-    where ``g`` is the group that holds the row's input position
-    (``group_ends``: each group's end row, the previous level's bucket ends;
-    None for one group).  Returns the grouped planes and each bucket's end
-    row (int64, on the planes' device).  Within a bucket rows keep no set
-    order.
-
-    Only the first level's input holds dead rows: there the live count is
-    read back to size the output.  A later level's input is all live."""
+    """One partition level: the live rows of the three planes stably
+    grouped by ascending bucket ``g * 2**bits + ((key_hi >> shift) &
+    (2**bits - 1))``, where ``g`` is the group that holds the row's input
+    position (``group_ends``: each group's end row, the previous level's
+    bucket ends; None for one group), then the dead fill: all ``n`` rows.
+    Returns the planes and each bucket's end row (int64, on the planes'
+    device; the last is the live count).  A later level's input holds its
+    dead rows at ``[group_ends[-1], n)``, as a level writes them."""
     if key_hi.device.type == "cpu":
         return partition_level_plain(key_hi, key_lo, packed, shift, bits,
                                      group_ends)
-    n = key_hi.shape[0]
-    dev = key_hi.device
-    groups = 1 if group_ends is None else group_ends.shape[0]
-    ends_ptr = None if group_ends is None else group_ends.data_ptr()
-    grid = _fn("mr_radix_grid")(n)
-    hist = torch.empty((groups << bits, grid), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn("mr_radix_histogram")(key_hi.data_ptr(), key_lo.data_ptr(), n,
-                                    shift, bits, groups, ends_ptr,
-                                    hist.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"radix histogram launch failed: CUDA error {err}")
-    counts = hist.to(torch.int64)
-    flat = counts.reshape(-1)
-    offsets = torch.cumsum(flat, 0) - flat
-    ends = torch.cumsum(counts.sum(1), 0)
-    n_out = n if group_ends is not None else int(ends[-1])
-    out = [torch.empty(n_out, dtype=torch.int64, device=dev)
-           for _ in range(3)]
-    err = _fn("mr_radix_scatter")(
-        key_hi.data_ptr(), key_lo.data_ptr(), packed.data_ptr(), n, shift,
-        bits, groups, ends_ptr, offsets.data_ptr(),
-        *(o.data_ptr() for o in out), stream)
-    if err:
-        raise RuntimeError(f"radix scatter launch failed: CUDA error {err}")
-    LAUNCHES["radix_partition"] += 1
-    return out, ends
+    return partition_level_kernel(key_hi, key_lo, packed, shift, bits,
+                                  group_ends)
 
 
-def _sort_buckets(key_hi, key_lo, packed, ends, digit_bits: int):
-    """The finishing 3-key sort of each bucket on its own.  A row's bucket
-    comes from its position (``ends``) and takes the place of the top
-    ``digit_bits`` of its key, which every row of a right bucket shares:
-    the rows then sort on (bucket, the key's other bits, ``packed``) in one
-    2-key sort, and a row the partition misplaced sorts among its bucket's
-    rows, not at its key."""
-    rows = torch.arange(key_hi.shape[0], dtype=torch.int64,
-                        device=key_hi.device)
-    bucket = torch.searchsorted(ends, rows, right=True)
-    low = _key64(key_hi, key_lo) & ((1 << (64 - digit_bits)) - 1)
-    # (bucket - half) * 2**(64 - digit_bits) + low, in int64 range: for a
-    # right bucket this is _key64 itself.
-    half = 1 << (digit_bits - 1)
-    key = (bucket - half) * (1 << (63 - digit_bits)) * 2 + low
-    order = _lexsort(key, packed)
-    return key_hi[order], key_lo[order], packed[order]
+def segmented_sort_kernel(key_hi, key_lo, packed, ends, digit_bits: int,
+                          with_packed: bool = True):
+    """:func:`segmented_sort` on the card."""
+    planes = (key_hi, key_lo, packed)
+    _check_cuda(planes)
+    call = _Call(key_hi.shape[0], ends.shape[0], key_hi.device)
+    out = call.i64()
+    _sort(call, planes, ends, digit_bits, with_packed,
+          (call.u32(), call.u32()), out)
+    return out
 
 
-def radix_sort3_seam(key_hi, key_lo, packed, impl: str, bits: int):
-    """The partition levels, then the finishing sort of each bucket; dead
-    rows fill the tail.  On CPU tensors the levels are the plain
-    partitions."""
-    n = key_hi.shape[0]
-    planes, ends = partition_level(key_hi, key_lo, packed, 32 - bits, bits)
+def segmented_sort(key_hi, key_lo, packed, ends, digit_bits: int,
+                   with_packed: bool = True):
+    """Sort the rows of each bucket (``ends``: bucket end rows, the last
+    the live count; later rows are dead) on its own, stably, on the
+    ``key_hi`` bits below its top ``digit_bits`` (which the partition
+    decided), ``key_lo``, and ``packed`` when ``with_packed``.  All ``n``
+    rows come back, the dead fill after the live ones."""
+    if key_hi.device.type == "cpu":
+        return segmented_sort_plain(key_hi, key_lo, packed, ends, digit_bits,
+                                    with_packed)
+    return segmented_sort_kernel(key_hi, key_lo, packed, ends, digit_bits,
+                                 with_packed)
+
+
+def radix_sort3_kernel(key_hi, key_lo, packed, impl: str, bits: int,
+                       packed_ordered: bool = False, timer=None):
+    """The seam on the card: the levels into uint32 scratch, then the
+    segmented sort into int64 planes.  ``timer(label)``, when given, is
+    called after each stage is enqueued."""
+    planes = (key_hi, key_lo, packed)
+    _check_cuda(planes)
+    levels = 2 if impl == "radix" else 1
+    call = _Call(key_hi.shape[0], 1 << (bits * levels), key_hi.device)
+    a, b = call.u32(), call.u32()
+    ends = _level(call, planes, 32 - bits, bits, None, a, fill=False)
+    if timer:
+        timer("level_1")
+    if levels == 2:
+        ends = _level(call, a, 32 - 2 * bits, bits, ends, b, fill=False)
+        a, b = b, a
+        if timer:
+            timer("level_2")
+    out = call.i64()
+    _sort(call, a, ends, levels * bits, not packed_ordered, (b, call.u32()),
+          out, timer)
+    return out
+
+
+def radix_sort3_seam(key_hi, key_lo, packed, impl: str, bits: int,
+                     packed_ordered: bool = False):
+    """The partition levels, then the segmented sort of each bucket.  On
+    CPU tensors every stage is its plain version."""
+    if key_hi.device.type != "cpu":
+        return radix_sort3_kernel(key_hi, key_lo, packed, impl, bits,
+                                  packed_ordered)
+    planes, ends = partition_level_plain(key_hi, key_lo, packed, 32 - bits,
+                                         bits)
     digit_bits = bits
-    if impl == "radix" and planes[0].shape[0]:
-        planes, ends = partition_level(*planes, 32 - 2 * bits, bits,
-                                       group_ends=ends)
+    if impl == "radix":
+        planes, ends = partition_level_plain(*planes, 32 - 2 * bits, bits,
+                                             group_ends=ends)
         digit_bits = 2 * bits
-    sorted_ = _sort_buckets(*planes, ends, digit_bits)
-    tail = n - sorted_[0].shape[0]
-    return tuple(torch.cat([p, p.new_full((tail,), fill)])
-                 for p, fill in zip(sorted_, (SENT, SENT, _ALL_ONES)))
+    return segmented_sort_plain(*planes, ends, digit_bits,
+                                with_packed=not packed_ordered)
 
 
 def radix_sort3(key_hi, key_lo, packed, *, impl: str = "radix_partition",
-                bits: int = DEFAULT_BITS):
+                bits: int = DEFAULT_BITS, packed_ordered: bool = False):
     """Radix-partitioned equivalent of the 3-key sort of ``(key_hi,
     key_lo, packed)`` (int64 planes holding uint32), bit-identical with
     ties.  Relies on the packed-stream contract that a ``(sent, sent)`` row
-    carries all-ones ``packed``."""
+    carries all-ones ``packed``.  ``packed_ordered=True`` promises rows of
+    equal key in ascending ``packed`` order (stable2's position-ordered
+    stream): every pass is stable, so the sort then skips the passes over
+    ``packed``."""
     _check(key_hi, key_lo, packed, impl, bits)
     if key_hi.shape[0] == 0:
         return key_hi, key_lo, packed
     if key_hi.device.type == "cpu":
         return radix_sort3_plain(key_hi, key_lo, packed)
-    return radix_sort3_seam(key_hi.contiguous(), key_lo.contiguous(),
-                            packed.contiguous(), impl, bits)
+    return radix_sort3_kernel(key_hi.contiguous(), key_lo.contiguous(),
+                              packed.contiguous(), impl, bits, packed_ordered)

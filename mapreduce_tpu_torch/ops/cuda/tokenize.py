@@ -29,6 +29,10 @@ belongs to one of :data:`SEGMENTS` contiguous segments (the TPU kernel's
 lanes), so the chunk length must be a multiple of 128 for its flushed
 planes to equal the JAX package's.  Under the combiner a window holds
 :data:`COMBINER_SLOTS` rows (the JAX package's 128 per 512 bytes there).
+The combiner runs in three launches whose grids scale with the windows
+(heads, merge, thin: :func:`tokenize_combiner_kernel`), each with its own
+plain version; :func:`tokenize_combiner_plain` is the one-pass definition
+they are held to.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version of the same
 function (:func:`tokenize_windows_plain`, :func:`tokenize_combiner_plain`);
@@ -203,69 +207,170 @@ def tokenize_windows_plain(data: torch.Tensor, w: int, slots: int):
     return khi, klo, pck, n_over, p.shape[0] - n_over, spill
 
 
+def _first_distinct(group, key, order, n_groups: int):
+    """Rows ``(group, key)`` with a unique ``order`` each: every row's
+    (group, key) class, each class's first row (smallest ``order``) and each
+    class's rank among its group's classes by that first ``order``."""
+    srt = _lexsort(group, key, order)
+    g, k = group[srt], key[srt]
+    head = torch.ones_like(srt, dtype=torch.bool)
+    head[1:] = (k[1:] != k[:-1]) | (g[1:] != g[:-1])
+    cls = torch.empty_like(srt)
+    cls[srt] = torch.cumsum(head, 0) - 1
+    first = srt[head]
+    by_first = torch.argsort(order[first])
+    g_first = group[first][by_first]
+    per = torch.bincount(g_first, minlength=n_groups)
+    start = torch.cumsum(per, 0) - per
+    rank = torch.empty_like(by_first)
+    rank[by_first] = torch.arange(by_first.shape[0], device=srt.device) \
+        - start[g_first]
+    return cls, first, rank
+
+
+def _slot_planes(at, planes_fills, rows: int):
+    """Planes of ``rows`` rows, each its fill, with ``vals`` at ``at``."""
+    out = []
+    for vals, fill in planes_fills:
+        plane = torch.full((rows,), fill, dtype=torch.int64, device=at.device)
+        plane[at] = vals
+        out.append(plane)
+    return out
+
+
+def _combiner_geometry(n: int) -> tuple[int, int]:
+    """(segment length, windows per segment) of an n-byte chunk."""
+    seg_len = n // SEGMENTS
+    return seg_len, -(-seg_len // WINDOW)
+
+
+def _leftover_stream(p, key_hi, key_lo, packed, left, seg_len: int,
+                     wps: int, slots: int):
+    """The rows in ``left`` compacted ``[segment][window][slot]``."""
+    pl = p[left]
+    win = (pl // seg_len) * wps + (pl % seg_len) // WINDOW
+    return _compact(win, SEGMENTS * wps, slots,
+                    (key_hi[left], key_lo[left], packed[left]))
+
+
 def tokenize_combiner_plain(data: torch.Tensor, w: int, slots: int,
                             cslots: int):
-    """Plain PyTorch version of ``tokenize_combiner``, vectorised.
+    """Plain PyTorch version of the combiner, in one pass and vectorised.
 
     :func:`_token_ends`; a stable sort of the emissions by (segment, key)
     gives each key's first position and count in each segment; ranking
     those by first position keeps each segment's first ``cslots`` distinct
     keys; their rows leave the stream and the rest are compacted
     ``[segment][window][slot]``.  Returns ``(key_hi, key_lo, packed,
-    overlong, ntok, spill, cache)`` in the kernel's layout.
+    overlong, ntok, spill, cache)`` in the kernels' layout.
     """
-    n = data.shape[0]
-    dev = data.device
-    seg_len = n // SEGMENTS
-    wps = -(-seg_len // WINDOW)  # windows per segment
+    seg_len, wps = _combiner_geometry(data.shape[0])
     p, key_hi, key_lo, packed, over = _token_ends(data, w)
     seg = p // seg_len
     emit = torch.nonzero(~over).squeeze(1)
-    e_seg = seg[emit]
-    k = _key64(key_hi[emit], key_lo[emit])
-    srt = _lexsort(e_seg, k)  # ties keep ascending position
-    order, k, e_seg = emit[srt], k[srt], e_seg[srt]
-    head = torch.ones_like(order, dtype=torch.bool)
-    head[1:] = (k[1:] != k[:-1]) | (e_seg[1:] != e_seg[:-1])
-    group = torch.cumsum(head, 0) - 1
-    heads = order[head]  # each (segment, key)'s first row, as a row index
-    hits = torch.bincount(group, minlength=heads.shape[0])
-    by_first = torch.argsort(p[heads])  # ascending first position
-    g_seg = seg[heads][by_first]
-    per_seg = torch.bincount(g_seg, minlength=SEGMENTS)
-    start = torch.cumsum(per_seg, 0) - per_seg
-    rank = torch.empty_like(by_first)
-    rank[by_first] = torch.arange(by_first.shape[0], device=dev) \
-        - start[g_seg]
+    cls, first, rank = _first_distinct(
+        seg[emit], _key64(key_hi[emit], key_lo[emit]), p[emit], SEGMENTS)
+    heads = emit[first]  # each (segment, key)'s first row
+    hits = torch.bincount(cls, minlength=first.shape[0])
     cached = rank < cslots
-    at = (rank * SEGMENTS + seg[heads])[cached]
-    cache = []
-    for vals, fill in ((key_hi[heads], _SENT), (key_lo[heads], _SENT),
-                       (hits, 0), (packed[heads], _ALL_ONES)):
-        plane = torch.full((cslots * SEGMENTS,), fill, dtype=torch.int64,
-                           device=dev)
-        plane[at] = vals[cached]
-        cache.append(plane.reshape(cslots, SEGMENTS))
+    cache = _slot_planes((rank * SEGMENTS + seg[heads])[cached], (
+        (key_hi[heads][cached], _SENT), (key_lo[heads][cached], _SENT),
+        (hits[cached], 0), (packed[heads][cached], _ALL_ONES)),
+        cslots * SEGMENTS)
     gone = torch.zeros_like(p, dtype=torch.bool)
-    gone[order] = cached[group]
+    gone[emit] = cached[cls]
     left = ~gone
-    pl = p[left]
-    win = (pl // seg_len) * wps + (pl % seg_len) // WINDOW
-    khi, klo, pck, spill = _compact(
-        win, SEGMENTS * wps, slots,
-        (key_hi[left], key_lo[left], packed[left]))
-    n_over = over.sum()
-    n_tok = (left & ~over).sum()
-    return khi, klo, pck, n_over, n_tok, spill, CombinerCache(*cache)
+    khi, klo, pck, spill = _leftover_stream(p, key_hi, key_lo, packed, left,
+                                            seg_len, wps, slots)
+    return (khi, klo, pck, over.sum(), (left & ~over).sum(), spill,
+            CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in cache)))
+
+
+def combiner_heads_plain(data: torch.Tensor, w: int, cslots: int):
+    """Plain version of ``combiner_heads``: each window's first ``cslots``
+    distinct emission keys in position order, with their first ``packed``.
+    Returns three int64 planes of ``windows * cslots`` rows (window-major,
+    empty slots ``(sent, sent, all-ones)``) and each window's int32 count."""
+    seg_len, wps = _combiner_geometry(data.shape[0])
+    p, key_hi, key_lo, packed, over = _token_ends(data, w)
+    win = (p // seg_len) * wps + (p % seg_len) // WINDOW
+    emit = torch.nonzero(~over).squeeze(1)
+    _, first, rank = _first_distinct(
+        win[emit], _key64(key_hi[emit], key_lo[emit]), p[emit],
+        SEGMENTS * wps)
+    heads = emit[first][rank < cslots]
+    at = win[heads] * cslots + rank[rank < cslots]
+    planes = _slot_planes(at, ((key_hi[heads], _SENT), (key_lo[heads], _SENT),
+                               (packed[heads], _ALL_ONES)),
+                          SEGMENTS * wps * cslots)
+    count = torch.bincount(win[heads], minlength=SEGMENTS * wps)
+    return (*planes, count.to(torch.int32))
+
+
+def combiner_merge_plain(heads, cslots: int) -> CombinerCache:
+    """Plain version of ``combiner_merge``: each segment's first ``cslots``
+    distinct keys over its windows' head lists in window order; counts 0."""
+    h_hi, h_lo, h_pk, h_n = heads
+    wps = h_n.shape[0] // SEGMENTS
+    idx = torch.arange(h_hi.shape[0], device=h_hi.device)
+    rows = idx[(idx % cslots) < h_n.to(torch.int64)[idx // cslots]]
+    seg = rows // (wps * cslots)
+    _, first, rank = _first_distinct(seg, _key64(h_hi[rows], h_lo[rows]),
+                                     rows, SEGMENTS)
+    keep = rank < cslots
+    hr = rows[first][keep]
+    at = rank[keep] * SEGMENTS + seg[first][keep]
+    planes = _slot_planes(at, ((h_hi[hr], _SENT), (h_lo[hr], _SENT),
+                               (torch.zeros_like(hr), 0),
+                               (h_pk[hr], _ALL_ONES)), cslots * SEGMENTS)
+    return CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in planes))
+
+
+def combiner_thin_plain(data: torch.Tensor, w: int, slots: int,
+                        cache: CombinerCache):
+    """Plain version of ``combiner_thin``: every emission whose key is in
+    its segment's cache leaves the stream and counts in that slot.  Returns
+    ``(key_hi, key_lo, packed, overlong, ntok, spill, counts)``, ``counts``
+    the (C, 128) hits."""
+    seg_len, wps = _combiner_geometry(data.shape[0])
+    p, key_hi, key_lo, packed, over = _token_ends(data, w)
+    seg = p // seg_len
+    cached = _key64(cache.key_hi, cache.key_lo)[:, seg].T \
+        == _key64(key_hi, key_lo)[:, None]
+    cached &= ~over[:, None]  # empty slots hold (sent, sent): no emission
+    hit = cached.any(1)
+    slot = cached.to(torch.int8).argmax(1)
+    cslots = cache.key_hi.shape[0]
+    counts = torch.bincount((slot * SEGMENTS + seg)[hit],
+                            minlength=cslots * SEGMENTS)
+    left = ~hit
+    khi, klo, pck, spill = _leftover_stream(p, key_hi, key_lo, packed, left,
+                                            seg_len, wps, slots)
+    return (khi, klo, pck, over.sum(), (left & ~over).sum(), spill,
+            counts.reshape(cslots, SEGMENTS))
+
+
+def tokenize_combiner_phases_plain(data: torch.Tensor, w: int, slots: int,
+                                   cslots: int):
+    """The three plain phases in a row, the kernels' way: what
+    :func:`tokenize_combiner_plain` returns."""
+    cache = combiner_merge_plain(combiner_heads_plain(data, w, cslots),
+                                 cslots)
+    *out, counts = combiner_thin_plain(data, w, slots, cache)
+    return (*out, cache._replace(count=counts))
 
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "mr_tokenize_windows": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                             _P, _P, _P, _P, _P],
-    "mr_tokenize_combiner": [_P, ctypes.c_longlong, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _P],
+    "mr_combiner_heads": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          _P, _P, _P, _P, _P, _P, _P],
+    "mr_combiner_window_rows": [],
+    "mr_combiner_merge": [ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P],
+    "mr_combiner_thin": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -292,6 +397,10 @@ def _planes(rows: int, dev, k: int = 3):
     return [torch.empty(rows, dtype=torch.int64, device=dev) for _ in range(k)]
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launched(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -310,34 +419,90 @@ def tokenize_windows_kernel(data: torch.Tensor, w: int, slots: int):
     dev = data.device
     khi, klo, packed = _planes(-(-n // WINDOW) * slots, dev)
     counters = torch.zeros(3, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     _launched(fn(data.data_ptr(), n, w, slots, khi.data_ptr(),
                  klo.data_ptr(), packed.data_ptr(), counters.data_ptr(),
-                 stream), "tokenize")
+                 _stream(data)), "tokenize")
     return khi, klo, packed, counters[0], counters[1], counters[2]
 
 
-def tokenize_combiner_kernel(data: torch.Tensor, w: int, slots: int,
-                             cslots: int):
-    """Launch the combiner kernel on ``data``'s device and current stream.
+class RowScratch(NamedTuple):
+    """Each combiner window's hashed rows, kept by phase 1 for phase 3:
+    uint32 ``[window][key_hi, key_lo, packed][rank]`` (in an int32 tensor)
+    and each window's row count."""
 
-    Returns what :func:`tokenize_combiner_plain` returns.  Does not
-    synchronise."""
+    rows: torch.Tensor
+    count: torch.Tensor
+
+
+def combiner_heads_kernel(data: torch.Tensor, w: int, cslots: int):
+    """Phase 1 of the combiner on the card: what
+    :func:`combiner_heads_plain` returns, and the :class:`RowScratch` for
+    phase 3.  Does not synchronise."""
     _check_cuda(data)
-    fn = _kernel_fn("mr_tokenize_combiner")
     n = data.shape[0]
     dev = data.device
-    rows = SEGMENTS * -(-(n // SEGMENTS) // WINDOW) * slots
-    khi, klo, packed = _planes(rows, dev)
-    cache = _planes(cslots * SEGMENTS, dev, 4)
+    windows = SEGMENTS * _combiner_geometry(n)[1]
+    heads = _planes(windows * cslots, dev)
+    count = torch.empty(windows, dtype=torch.int32, device=dev)
+    per = _kernel_fn("mr_combiner_window_rows")()
+    scratch = RowScratch(
+        torch.empty(windows * 3 * per, dtype=torch.int32, device=dev),
+        torch.empty(windows, dtype=torch.int32, device=dev))
+    _launched(_kernel_fn("mr_combiner_heads")(
+        data.data_ptr(), n, w, cslots, *(h.data_ptr() for h in heads),
+        count.data_ptr(), scratch.rows.data_ptr(), scratch.count.data_ptr(),
+        _stream(data)), "combiner_heads")
+    return (*heads, count), scratch
+
+
+def combiner_merge_kernel(heads, n: int, cslots: int) -> CombinerCache:
+    """Phase 2 on the card, for a chunk of ``n`` bytes: what
+    :func:`combiner_merge_plain` returns."""
+    _check_cuda(heads[0])
+    cache = _planes(cslots * SEGMENTS, heads[0].device, 4)
+    _launched(_kernel_fn("mr_combiner_merge")(
+        n, cslots, *(h.data_ptr() for h in heads),
+        *(c.data_ptr() for c in cache), _stream(heads[0])), "combiner_merge")
+    return CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in cache))
+
+
+def combiner_thin_kernel(n: int, slots: int, cache: CombinerCache,
+                         scratch: RowScratch):
+    """Phase 3 on the card, for a chunk of ``n`` bytes, from phase 1's
+    rows: what :func:`combiner_thin_plain` returns.  The hits are added to
+    ``cache.count`` in place (phase 2 zeroes it), which is returned as
+    ``counts``."""
+    _check_cuda(scratch.rows)
+    dev = scratch.rows.device
+    khi, klo, packed = _planes(
+        SEGMENTS * _combiner_geometry(n)[1] * slots, dev)
     counters = torch.zeros(3, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched(fn(data.data_ptr(), n, w, slots, cslots, khi.data_ptr(),
-                 klo.data_ptr(), packed.data_ptr(),
-                 *(c.data_ptr() for c in cache), counters.data_ptr(),
-                 stream), "tokenize_combiner")
+    _launched(_kernel_fn("mr_combiner_thin")(
+        n, slots, cache.key_hi.shape[0], scratch.rows.data_ptr(),
+        scratch.count.data_ptr(), cache.key_hi.data_ptr(),
+        cache.key_lo.data_ptr(), cache.count.data_ptr(), khi.data_ptr(),
+        klo.data_ptr(), packed.data_ptr(), counters.data_ptr(),
+        _stream(scratch.rows)), "combiner_thin")
     return (khi, klo, packed, counters[0], counters[1], counters[2],
-            CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in cache)))
+            cache.count)
+
+
+def tokenize_combiner_kernel(data: torch.Tensor, w: int, slots: int,
+                             cslots: int, timer=None):
+    """The three combiner launches on ``data``'s device and current stream:
+    what :func:`tokenize_combiner_plain` returns.  ``timer(label)``, when
+    given, is called after each launch is enqueued.  Does not
+    synchronise."""
+    heads, scratch = combiner_heads_kernel(data, w, cslots)
+    if timer:
+        timer("heads")
+    cache = combiner_merge_kernel(heads, data.shape[0], cslots)
+    if timer:
+        timer("merge")
+    out = combiner_thin_kernel(data.shape[0], slots, cache, scratch)
+    if timer:
+        timer("thin")
+    return (*out[:6], cache)
 
 
 def _tokenize_windows(data: torch.Tensor, w: int, slots: int, mode: str):

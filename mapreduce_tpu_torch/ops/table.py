@@ -242,7 +242,8 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
     :func:`mapreduce_tpu_torch.ops.cuda.radix.radix_sort3` (``radix_bits``
     per level), the 3-key sort with ties by ``packed``: sort3 outright, and
     the order stability gives under stable2's position-ordered input, so
-    one branch serves both modes.
+    one branch serves both modes; under stable2 it is told so and skips its
+    passes over ``packed``.
     """
     if sort_mode not in ("sort3", "stable2"):
         raise ValueError(f"unsupported sort_mode {sort_mode!r}")
@@ -253,7 +254,8 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
         from mapreduce_tpu_torch.ops.cuda import radix as radix_ops
 
         key_hi, key_lo, packed = radix_ops.radix_sort3(
-            key_hi, key_lo, packed, impl=sort_impl, bits=radix_bits)
+            key_hi, key_lo, packed, impl=sort_impl, bits=radix_bits,
+            packed_ordered=sort_mode == "stable2")
         k = _key64(key_hi, key_lo)
     else:
         k = _key64(key_hi, key_lo)

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from mapreduce_tpu.config import Config as JConfig
 from mapreduce_tpu.models import wordcount as jwc
@@ -93,6 +95,49 @@ def test_flushed_cache_planes_match_jax(kind):
     assert int(stream.total) == int(want_stream.total)
     if kind == "single":
         assert int(stream.total) == 0  # every segment caches the one key
+
+
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+def test_three_phases_match_one_pass_and_jax(kind):
+    """The card's three phases (window heads, the merge of each segment's
+    head lists, the thin pass), as plain versions, equal the one-pass plain
+    version field for field and the JAX cache planes."""
+    data = _u8(_corpus(kind))
+    phases = ktok.tokenize_combiner_phases_plain(data, 32,
+                                                 ktok.COMBINER_SLOTS, 8)
+    one = ktok.tokenize_combiner_plain(data, 32, ktok.COMBINER_SLOTS, 8)
+    for a, b in zip((*phases[:6], *phases[6]), (*one[:6], *one[6])):
+        assert torch.equal(a, b)
+    got = convert.combiner_cache_to_numpy(phases[6])
+    want_cache = _jax_combined(kind)[3]
+    for f in want_cache._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(want_cache, f)),
+                                      got[f], err_msg=f)
+    heads = ktok.combiner_heads_plain(data, 32, 8)
+    assert int(heads[3].max()) <= 8  # one short list per window
+
+
+def _first_distinct(keys, c):
+    out = []
+    for k in keys:
+        if k not in out and len(out) < c:
+            out.append(k)
+    return out
+
+
+@settings(max_examples=200, deadline=None)
+@given(keys=st.lists(st.integers(0, 7), max_size=48),
+       window=st.integers(1, 9), c=st.integers(1, 5))
+def test_window_heads_lemma(keys, window, c):
+    """A segment's first C distinct keys are the first C distinct keys of
+    its windows' own first-C lists taken in window order: what lets each
+    window find its heads alone."""
+    merged = []
+    for i in range(0, len(keys), window):
+        for k in _first_distinct(keys[i:i + window], c):
+            if k not in merged and len(merged) < c:
+                merged.append(k)
+    assert merged == _first_distinct(keys, c)
 
 
 def _occurrences(stream, cache=None):

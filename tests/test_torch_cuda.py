@@ -168,6 +168,11 @@ def test_fused_mode_is_the_compact_stream(cuda_device, case):
 
 
 def _radix_probes(device):
+    """The compact stream of a Zipf MB, the same rows in one top-level
+    bucket, random triples with ``key_hi >= 2**31``, a hot key holding over
+    half the live rows, one key in every live row (every pass sees one
+    digit), a stream of poison rows ``(sent, sent-1)`` in shuffled
+    ``packed`` order, and an all-dead stream."""
     stream = ktok.tokenize_split_compact(
         _dev_bytes(_zipf_text(0, 1 << 20), device), W)[0]
     rows = (stream.key_hi, stream.key_lo, stream.packed)
@@ -178,10 +183,25 @@ def _radix_probes(device):
     high = (torch.randint(1 << 31, (1 << 32) - 1, (n,), generator=g),
             torch.randint(0, 1 << 32, (n,), generator=g),
             torch.randperm(n, generator=g) << 6 | 3)
+    hot = torch.rand(rows[0].shape[0], generator=g).to(device) < 0.6
+    poison = (torch.full((n,), ktok._SENT, dtype=torch.int64),
+              torch.full((n,), ktok._SENT - 1, dtype=torch.int64),
+              torch.randperm(n, generator=g) << 6)
     dead = torch.full((5000,), ktok._SENT, dtype=torch.int64)
     return {"stream": rows, "one_bucket": (one_key, *rows[1:]),
             "high_keys": tuple(x.to(device) for x in high),
+            "hot_key": (torch.where(live & hot, 0x9000_0001, rows[0]),
+                        torch.where(live & hot, 0x1234_5678, rows[1]),
+                        rows[2]),
+            "single_key": (torch.where(live, 0xF000_0000, rows[0]),
+                           torch.where(live, 7, rows[1]), rows[2]),
+            "poison": tuple(x.to(device) for x in poison),
             "all_dead": tuple(dead.clone().to(device) for _ in range(3))}
+
+
+def _equal(want, got, what):
+    for a, b in zip(want, got):
+        assert torch.equal(a.cpu(), b.cpu()), what
 
 
 @pytest.mark.cuda
@@ -190,21 +210,21 @@ def _radix_probes(device):
 def test_radix_kernel_matches_plain_version(cuda_device, impl, bits):
     for name, planes in _radix_probes(cuda_device).items():
         want = radix.radix_sort3_plain(*planes)
-        before = radix.LAUNCHES["radix_partition"]
+        before = dict(radix.LAUNCHES)
         got = radix.radix_sort3(*planes, impl=impl, bits=bits)
         torch.cuda.synchronize()
-        for a, b in zip(want, got):
-            assert torch.equal(a.cpu(), b.cpu()), (name, impl, bits)
-        levels = radix.LAUNCHES["radix_partition"] - before
-        if name != "all_dead":
-            assert levels == (2 if impl == "radix" else 1)
+        _equal(want, got, (name, impl, bits))
+        levels = radix.LAUNCHES["radix_partition"] \
+            - before.get("radix_partition", 0)
+        assert levels == (2 if impl == "radix" else 1)
+        assert radix.LAUNCHES["radix_sort"] == before.get("radix_sort", 0) + 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [1, 3, 5])
 def test_radix_partition_level_matches_plain_partition(cuda_device, bits):
-    """Each level on its own: the same bucket ends as the plain partition
-    and the same rows in every bucket; the second level reads the first
+    """Each level on its own, row for row (both are stable), with the same
+    bucket ends and the dead fill; the second level reads the first
     level's kernel output and ends."""
     for name, planes in _radix_probes(cuda_device).items():
         ends = None
@@ -212,13 +232,62 @@ def test_radix_partition_level_matches_plain_partition(cuda_device, bits):
             shift = 32 - level * bits
             want = radix.partition_level_plain(*planes, shift, bits, ends)
             got = radix.partition_level(*planes, shift, bits, ends)
-            assert torch.equal(got[1].cpu(), want[1].cpu()), (name, level)
-            for a, b in zip(radix.canonical_partition(*got),
-                            radix.canonical_partition(*want)):
-                assert torch.equal(a.cpu(), b.cpu()), (name, level)
+            _equal((want[1], *want[0]), (got[1], *got[0]), (name, level))
             planes, ends = got
-            if not planes[0].shape[0]:
-                break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 3, 5])
+@pytest.mark.parametrize("with_packed", [True, False])
+def test_segmented_sort_kernel_matches_plain_version(cuda_device, bits,
+                                                     with_packed):
+    """The segmented sort on its own, on the plain partitions of every
+    probe: one level (the top ``bits`` decided) and two."""
+    for name, planes in _radix_probes(cuda_device).items():
+        ends = None
+        for level in (1, 2):
+            planes, ends = radix.partition_level_plain(
+                *planes, 32 - level * bits, bits, ends)
+            want = radix.segmented_sort_plain(*planes, ends, level * bits,
+                                              with_packed)
+            got = radix.segmented_sort(*planes, ends, level * bits,
+                                       with_packed)
+            torch.cuda.synchronize()
+            _equal(want, got, (name, level))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", radix.IMPLS)
+def test_radix_seam_reads_nothing_back(cuda_device, impl):
+    """The seam on a CUDA tensor never synchronises with the host: no
+    read-back of the live count, no torch sort or ``cat``."""
+    planes = _radix_probes(cuda_device)["stream"]
+    want = radix.radix_sort3_plain(*planes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = radix.radix_sort3(*planes, impl=impl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _equal(want, got, impl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(COMBINER_CASES))
+@pytest.mark.parametrize("cslots", [8, 32])
+def test_combiner_phases_match_plain_versions(cuda_device, case, cslots):
+    """Each combiner launch against its plain version, on the same input:
+    the window heads, the merge of the kernel's heads, and the thin pass
+    over phase 1's rows against the plain cache."""
+    data = _dev_bytes(COMBINER_CASES[case](), cuda_device)
+    w, slots = W, ktok.COMBINER_SLOTS
+    heads, scratch = ktok.combiner_heads_kernel(data, w, cslots)
+    _equal(ktok.combiner_heads_plain(data, w, cslots), heads, "heads")
+    cache = ktok.combiner_merge_kernel(heads, data.shape[0], cslots)
+    _equal(ktok.combiner_merge_plain(heads, cslots), cache, "merge")
+    got = ktok.combiner_thin_kernel(data.shape[0], slots, cache, scratch)
+    _equal(ktok.combiner_thin_plain(data, w, slots, cache), got, "thin")
 
 
 @pytest.mark.cuda

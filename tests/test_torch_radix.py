@@ -7,7 +7,9 @@ bit: ties by ``packed``, the poison segment, dead rows last and keys with
 ``key_hi >= 2**31``.  ``count_words`` under ``sort_impl`` 'radix_partition'
 and 'radix', with sort3 and stable2, must equal JAX ``count_words`` at
 ``sort_impl='xla'``, which the JAX package holds bit-identical to its radix
-path.  Tolerance zero.
+path.  The seam the card runs (stable partition levels, then the
+segmented sort of each bucket) is held here through its plain versions.
+Tolerance zero.
 """
 
 import dataclasses
@@ -32,19 +34,24 @@ N_ROWS = 3000  # one JAX compile per impl for every case
 
 
 def _triples(case: str):
-    """uint32 (key_hi, key_lo, packed) of N_ROWS rows."""
+    """uint32 (key_hi, key_lo, packed) of N_ROWS rows.  ``hot_key``: one
+    key holds over half the live rows; ``shuffled_ties``: three keys, so
+    nearly every row ties, in shuffled ``packed`` order."""
     rng = np.random.default_rng({"mixed": 0, "single_key": 1,
-                                 "high_keys": 2, "all_dead": 3}[case])
+                                 "high_keys": 2, "all_dead": 3, "hot_key": 4,
+                                 "shuffled_ties": 5}[case])
     n = N_ROWS
     if case == "high_keys":  # random triples, every key_hi >= 2**31
         khi = rng.integers(1 << 31, SENT, n, dtype=np.uint64)
         klo = rng.integers(0, 1 << 32, n, dtype=np.uint64)
         pck = rng.permutation(n).astype(np.uint64) << 6 | 7
         return tuple(x.astype(np.uint32) for x in (khi, klo, pck))
-    keys = rng.integers(0, SENT - 2, size=(1 if case == "single_key" else 60,
-                                           2), dtype=np.uint64)
+    n_keys = {"single_key": 1, "shuffled_ties": 3}.get(case, 60)
+    keys = rng.integers(0, SENT - 2, size=(n_keys, 2), dtype=np.uint64)
     keys[0, 0] = 0x9000_0000  # one key above 2**31 in every case
     idx = rng.integers(0, keys.shape[0], n)
+    if case == "hot_key":
+        idx[rng.random(n) < 0.6] = 0
     khi, klo = keys[idx, 0], keys[idx, 1]
     pck = (np.arange(n, dtype=np.uint64) << 6) | 5
     dead = rng.random(n) < (1.0 if case == "all_dead" else 0.3)
@@ -58,6 +65,7 @@ def _triples(case: str):
 
 
 CASES = ["mixed", "single_key", "high_keys", "all_dead"]
+SEAM_CASES = CASES + ["hot_key", "shuffled_ties"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,17 +95,43 @@ def test_radix_sort3_matches_jax(impl, case):
             np.testing.assert_array_equal(g, np.asarray(j))
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", SEAM_CASES)
 @pytest.mark.parametrize("impl", radix.IMPLS)
 def test_radix_seam_sorts_each_bucket(impl, case):
-    """The seam the card runs (levels, then the sort of each bucket), here
-    over the plain partitions, is the 3-key sort."""
+    """The seam the card runs (levels, then the segmented sort of each
+    bucket), here over the plain partitions and the plain segmented sort,
+    is the 3-key sort."""
     planes = _triples(case)
     want = radix.radix_sort3_plain(*(_t(p) for p in planes))
     for bits in (1, 3, 5):
         got = radix.radix_sort3_seam(*(_t(p) for p in planes), impl, bits)
         for g, w in zip(got, want):
             assert torch.equal(g, w), bits
+
+
+@pytest.mark.parametrize("case", ["mixed", "hot_key", "shuffled_ties"])
+@pytest.mark.parametrize("impl", radix.IMPLS)
+def test_key_only_sort_under_stable2_input(impl, case):
+    """Rows in ``packed`` order (stable2's position-ordered stream): the
+    stable key-only sort, which skips the passes over ``packed``, is the
+    3-key sort.  On shuffled ties it is not, so those passes are needed
+    there."""
+    planes = tuple(_t(p) for p in _triples(case))
+    order = torch.argsort(planes[2], stable=True)
+    ordered = tuple(p[order] for p in planes)
+    want = radix.radix_sort3_plain(*ordered)
+    for bits in (1, 3):
+        got = radix.radix_sort3_seam(*ordered, impl, bits,
+                                     packed_ordered=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), bits
+    if case == "shuffled_ties":
+        got = radix.radix_sort3_seam(*planes, impl, 3, packed_ordered=True)
+        want = radix.radix_sort3_plain(*planes)
+        assert not torch.equal(got[2], want[2])
+    assert radix.sort_passes(3, with_packed=False) == \
+        radix.sort_passes(3, with_packed=True)[4:]
+    assert len(radix.sort_passes(6, with_packed=True)) == 12
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,8 +177,12 @@ def test_partition_level_plain_matches_jax(case):
         assert int(spill) == 0
         counts = torch.diff(ends, prepend=ends.new_zeros(1))
         np.testing.assert_array_equal(counts.numpy(), np.asarray(hist))
-        bucket, key_hi = radix.canonical_partition(got, ends)[:2]
-        assert torch.equal(bucket, key_hi >> (32 - 2 * level))
+        live = int(ends[-1])
+        bucket = torch.searchsorted(ends, torch.arange(live), right=True)
+        assert torch.equal(bucket, got[0][:live] >> (32 - 2 * level))
+        # All N_ROWS rows come back: the dead fill after the live ones.
+        assert all(p.shape[0] == N_ROWS for p in got)
+        assert all(bool((p[live:] == SENT).all()) for p in got)
 
 
 def test_radix_sort3_checks_its_arguments():
