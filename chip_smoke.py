@@ -39,22 +39,26 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               ``combiner='hot-cache'`` (``count_words`` on 32 MB and
               ``count_file`` on 66 MB, each with a dense region of more
               distinct keys than the cache holds, so one chunk takes the
-              combiner-free pair rerun); and under ``sort_impl``
-              'radix_partition' and 'radix'; each equal to the oracle;
+              combiner-free rerun of the dense stream); and under
+              ``sort_impl`` 'radix_partition' and 'radix'; each equal to the
+              oracle;
 6. times   -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
               radix seam (CUDA events between launches); the chunk's
               end-to-end time by stage; the step time (map + merge) of
-              every path's configuration on one chunk;
+              every path's configuration on one chunk, with the rows each
+              step's sort sees;
 7. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
 Phases 3 to 5 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
-every kernel of its path (the dense regions take the spill fallback, so
-pair mode too; the radix paths one partition level per chunk, two under
-'radix', and one segmented sort).  A kernel's ``launches`` in the kernels line are those of the
+every kernel of its path (one tokenize launch per chunk; the radix paths
+one partition level per chunk, two under 'radix', and one segmented
+sort; the combiner paths the pair-mode rerun of the chunk that spills).
+No path but the combiner's may take a spill fallback: the dense regions
+of the other paths' corpora must not.  A kernel's ``launches`` in the kernels line are those of the
 first path that runs it; ``launches_by_path`` gives every path.  Before the
 last line it prints one ``{"kernels": [...]}`` line and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -195,8 +199,10 @@ def staged_ms(fn, iters: int = 10, warmup: int = 2) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` on the card (CUDA events)."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, batch: int = 5) -> float:
+    """Median milliseconds of one ``fn()`` on the card: CUDA events around
+    ``batch`` calls back to back, so the card's time, not the host's
+    enqueue time, is what a short call measures."""
     import torch
 
     for _ in range(warmup):
@@ -206,10 +212,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -247,8 +254,12 @@ def main() -> int:
     w = cfg.pallas_max_token
     cslots = Config(map_impl="fused", combiner="hot-cache") \
         .resolved_combiner_slots
-    modes = {"tokenize_compact": ktok.COMPACT_SLOTS,
-             "tokenize_pair": ktok.PAIR_SLOTS}
+    modes = {
+        "tokenize_compact": lambda t, w: ktok.tokenize_split_compact(t, w),
+        "tokenize_pair": lambda t, w: (*ktok.tokenize_split(t, w), None),
+        "tokenize_fused": lambda t, w: ktok.tokenize_fused(
+            t, max_token_bytes=w),
+    }
     errs = {k: 0 for k in ("tokenize_compact", "tokenize_pair",
                            "tokenize_fused", "tokenize_combiner",
                            "radix_partition", "radix_sort")}
@@ -268,48 +279,45 @@ def main() -> int:
     # 2. the wrappers the main paths call against the plain versions
     # (launches here do not count: the counters are cleared after)
     chunk32 = make_corpus(32 * MB, SEED, dense_at=None)
+    one_word32 = one_word_corpus(32 * MB, SEED + 5)
+    edges = edge_chunk(4 * MB + 77, w, ktok.TILE)
     probes = {
-        "zipf_32MB": chunk32,
-        "dense_spills": b"a b " * (MB // 4),
-        "edges": edge_chunk(4 * MB + 77, w, ktok.WINDOW),
-        "min_chunk": make_corpus(cfg.pallas_min_chunk, SEED + 1),
+        "zipf_32MB": (chunk32, w),
+        "dense": (b"a b " * (MB // 4), w),
+        "edges": (edges, w),
+        "edges_w1": (edges, 1),
+        "edges_w63": (edges, 63),
+        "min_chunk": (make_corpus(cfg.pallas_min_chunk, SEED + 1), w),
+        "separators": (b" \n\t " * (MB // 4), w),
+        "max_chunk_64MB": (chunk32 * 2, w),  # 2**26 bytes, the limit
+        "one_word_32MB": (one_word32, w),
     }
-    for name, data in probes.items():
+    for name, (data, pw) in probes.items():
         t = on_card(data)
-        wants = {}
-        for mode, slots in modes.items():
-            want = wants[mode] = ktok.tokenize_windows_plain(t, w, slots)
-            if mode == "tokenize_compact":
-                stream, over, spill = ktok.tokenize_split_compact(t, w)
-            else:
-                stream, over = ktok.tokenize_split(t, w)
-                spill = want[5]  # pair mode returns none: checked below
-            got = (stream.key_hi, stream.key_lo, stream.packed, over,
-                   stream.total, spill)
-            err = max_err(want, got)
+        want, want_over, want_spill = ktok.tokenize_stream_plain(t, pw)
+        for mode, wrapper in modes.items():
+            stream, over, spill = wrapper(t, pw)
+            if spill is None:  # pair mode returns none: the plain one's
+                spill = want_spill
+            cut = stream.cut()
+            err = max_err((want.key_hi, want.key_lo, want.packed, want.total,
+                           want.live, want_over, want_spill),
+                          (cut.key_hi, cut.key_lo, cut.packed, cut.total,
+                           stream.live, over, spill))
             errs[mode] = max(errs[mode], err)
             if err:
                 raise SystemExit(f"kernel {mode} differs from its plain "
                                  f"version on {name}: {err}")
-            over, ntok, spill = (int(x) for x in got[3:])
-            emit("kernel", probe=name, mode=mode, bytes=len(data),
-                 overlong=over, tokens=ntok, spill=spill, equal=True)
-            if name == "dense_spills" and mode == "tokenize_compact" \
-                    and not spill:
-                raise SystemExit("dense probe did not spill")
-            if mode == "tokenize_pair" and spill:
-                raise SystemExit("pair mode spilled")
-        # K1c: the fused mode is the compact stream (the halo kernel
-        # resolves every seam), held against the compact plain version.
-        fused, over, spill = ktok.tokenize_fused(t, max_token_bytes=w)
-        err = max_err(wants["tokenize_compact"],
-                      (fused.key_hi, fused.key_lo, fused.packed, over,
-                       fused.total, spill))
-        errs["tokenize_fused"] = max(errs["tokenize_fused"], err)
-        if err:
-            raise SystemExit(f"fused mode differs from its plain version on "
-                             f"{name}: {err}")
-        emit("kernel", probe=name, mode="tokenize_fused", equal=True)
+            live, over, spill = (int(x) for x in (stream.live, over, spill))
+            emit("kernel", probe=name, mode=mode, bytes=len(data), w=pw,
+                 live=live, overlong=over, tokens=int(cut.total),
+                 spill=spill, rows_allocated=stream.packed.shape[0],
+                 equal=True)
+            if spill:
+                raise SystemExit(f"{mode} spilled on {name}")
+            if name == "separators" and live:
+                raise SystemExit("the separator chunk has live rows")
+        del t, want
 
     # K1d: the combiner kernel against its plain version.  The edge chunk's
     # segments are 11 combiner windows, so every segment edge is a window
@@ -318,11 +326,11 @@ def main() -> int:
     n_pairs = ktok.SEGMENTS * 3 * ktok.WINDOW  # three full windows a segment
     comb_probes = {
         "zipf_32MB": chunk32,
-        "dense_ab": probes["dense_spills"],
+        "dense_ab": probes["dense"][0],
         "dense_pairs_spills": (PAIRS * (n_pairs // len(PAIRS) + 1))[:n_pairs],
         "edges": edge_chunk(n_edge, w, ktok.WINDOW),
         "single_key_4MB": b"hot " * MB,
-        "one_word_32MB": one_word_corpus(32 * MB, SEED + 5),
+        "one_word_32MB": one_word32,
     }
     comb_counts = {}
     for name, data in comb_probes.items():
@@ -369,11 +377,10 @@ def main() -> int:
 
     # K2: the radix seam, each launch kind and both impls, against the
     # plain versions and the 3-key sort.
-    k1a = ktok.tokenize_split_compact(on_card(chunk32), w)[0]
+    k1a = ktok.tokenize_split_compact(on_card(chunk32), w)[0].cut()
     rows = (k1a.key_hi, k1a.key_lo, k1a.packed)
     live = ~((rows[0] == ktok._SENT) & (rows[1] == ktok._SENT))
-    one_word = ktok.tokenize_split_compact(
-        on_card(comb_probes["one_word_32MB"]), w)[0]
+    one_word = ktok.tokenize_split_compact(on_card(one_word32), w)[0].cut()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_rand = 4 * MB
 
@@ -444,7 +451,8 @@ def main() -> int:
 
     def drive(path: str, fn, want_words: dict, need: dict):
         """Run one main path between cleared counters; check it against the
-        oracle and against the kernels it must have launched."""
+        oracle and against the kernels it must have launched.  Only the
+        combiner paths may take the spill fallback (pair mode)."""
         torch.cuda.synchronize()
         ktok.LAUNCHES.clear()
         radix.LAUNCHES.clear()
@@ -461,13 +469,16 @@ def main() -> int:
             n = by_path[path].get(kernel, 0)
             if not n or (count is not None and n != count):
                 raise SystemExit(f"{path} launched {kernel} {n} times")
+        if "tokenize_combiner" not in need and (
+                by_path[path].get("tokenize_pair")
+                or branches[path].get("spill_fallbacks")):
+            raise SystemExit(f"{path} took a spill fallback")
         return got, seconds
 
     words_data = make_corpus(32 * MB, SEED + 2, dense_at=7 * MB)
     want = oracle.word_counts(words_data)
-    both = {"tokenize_compact": None, "tokenize_pair": None}
     got, words_s = drive("count_words", lambda: count_words(words_data, cfg),
-                         want, both)
+                         want, {"tokenize_compact": 1})
     emit("words", bytes=len(words_data), tokens=got.total,
          distinct=got.distinct, dropped_count=got.dropped_count,
          seconds=round(words_s, 4), launches=by_path["count_words"],
@@ -480,7 +491,8 @@ def main() -> int:
         want_stream = oracle.word_counts(stream_data)
         got, stream_s = drive("count_file",
                               lambda: count_file(str(path), cfg),
-                              want_stream, both)
+                              want_stream, {"tokenize_compact": -(
+                                  -len(stream_data) // cfg.chunk_bytes)})
         emit("stream", bytes=len(stream_data),
              chunks=-(-len(stream_data) // cfg.chunk_bytes), tokens=got.total,
              distinct=got.distinct, seconds=round(stream_s, 4),
@@ -499,8 +511,7 @@ def main() -> int:
         comb_need = {"tokenize_combiner": None, "tokenize_pair": None}
         runs = [
             ("count_words_fused", lambda: count_words(words_data, fused_cfg),
-             want, {"tokenize_fused": None, "tokenize_pair": None},
-             len(words_data)),
+             want, {"tokenize_fused": 1}, len(words_data)),
             ("count_words_combiner",
              lambda: count_words(comb_words, comb_cfg),
              oracle.word_counts(comb_words), comb_need, len(comb_words)),
@@ -511,12 +522,12 @@ def main() -> int:
             ("count_words_radix_partition",
              lambda: count_words(words_data,
                                  Config(sort_impl="radix_partition")),
-             want, {**both, "radix_partition": 1, "radix_sort": 1},
-             len(words_data)),
+             want, {"tokenize_compact": 1, "radix_partition": 1,
+                    "radix_sort": 1}, len(words_data)),
             ("count_words_radix",
              lambda: count_words(words_data, Config(sort_impl="radix")),
-             want, {**both, "radix_partition": 2, "radix_sort": 1},
-             len(words_data)),
+             want, {"tokenize_compact": 1, "radix_partition": 2,
+                    "radix_sort": 1}, len(words_data)),
         ]
         for name, fn, want_words, need, n_bytes in runs:
             got, seconds = drive(name, fn, want_words, need)
@@ -549,24 +560,26 @@ def main() -> int:
              bound_ms=kernels[-1]["bound_ms"], bytes_moved=bytes_moved,
              library_ms=library_ms, **extra)
 
-    tok_site = "mapreduce_tpu/ops/pallas/tokenize.py:231"
-    for mode, slots in modes.items():
-        rows_out = -(-n // ktok.WINDOW) * slots
-        row(mode, "tokenize.cu", tok_site,
-            cuda_ms(lambda: ktok.tokenize_windows_kernel(t, w, slots)),
-            cuda_ms(lambda: ktok.tokenize_windows_plain(t, w, slots),
-                    iters=5),
-            n + 3 * 8 * rows_out + 3 * 8)  # read chunk, write planes
-    rows_out = -(-n // ktok.WINDOW) * ktok.COMPACT_SLOTS
-    row("tokenize_fused", "tokenize.cu",
-        "mapreduce_tpu/ops/pallas/tokenize.py:871",
-        cuda_ms(lambda: ktok.tokenize_fused(t, max_token_bytes=w)),
-        cuda_ms(lambda: ktok.tokenize_windows_plain(t, w,
-                                                    ktok.COMPACT_SLOTS),
-                iters=5),
-        n + 3 * 8 * rows_out + 3 * 8)
+    # The three tokenize modes are one kernel; each row times its wrapper
+    # (the zeroed work buffer and the launch).  Bound: the chunk read once,
+    # live + 1 rows of 24 B and the four counters written.
+    dense_rows = k1a.packed.shape[0]  # live + 1
+    # The TPU-shaped layout's rows for the same chunk (1,024 per 3,072-byte
+    # window, dead filler included), for comparison with dense_rows.
+    windowed_rows = -(-n // 3072) * 1024
+    one_word_chunk = on_card(one_word32)
+    tok_plain_ms = cuda_ms(lambda: ktok.tokenize_stream_plain(t, w), iters=5)
+    sites = {"tokenize_compact": "mapreduce_tpu/ops/pallas/tokenize.py:231",
+             "tokenize_pair": "mapreduce_tpu/ops/pallas/tokenize.py:231",
+             "tokenize_fused": "mapreduce_tpu/ops/pallas/tokenize.py:871"}
+    for mode, wrapper in modes.items():
+        row(mode, "tokenize.cu", sites[mode],
+            cuda_ms(lambda: wrapper(t, w)), tok_plain_ms,
+            n + 24 * dense_rows + 4 * 8, live_rows=dense_rows - 1,
+            rows=dense_rows, windowed_rows=windowed_rows,
+            tiles=-(-n // ktok.TILE),
+            one_word_ms=cuda_ms(lambda: wrapper(one_word_chunk, w)))
     comb_rows = comb_counts["zipf_32MB"]["stream_rows"]
-    one_word_chunk = on_card(comb_probes["one_word_32MB"])
     row("tokenize_combiner", "tokenize.cu",
         "mapreduce_tpu/ops/pallas/tokenize.py:388",
         cuda_ms(lambda: ktok.tokenize_combiner_kernel(
@@ -574,7 +587,7 @@ def main() -> int:
         cuda_ms(lambda: ktok.tokenize_combiner_plain(
             t, w, ktok.COMBINER_SLOTS, cslots), iters=5),
         n + 3 * 8 * comb_rows + 4 * 8 * cslots * ktok.SEGMENTS + 3 * 8,
-        stream_rows=comb_rows, compact_rows=rows_out,
+        stream_rows=comb_rows, dense_rows=dense_rows,
         hits=comb_counts["zipf_32MB"]["hits"],
         flush_rows=comb_counts["zipf_32MB"]["flush_rows"],
         windows=ktok.SEGMENTS * ktok._combiner_geometry(n)[1],
@@ -582,7 +595,7 @@ def main() -> int:
             t, w, ktok.COMBINER_SLOTS, cslots, timer=timer)),
         one_word_ms=cuda_ms(lambda: ktok.tokenize_combiner_kernel(
             one_word_chunk, w, ktok.COMBINER_SLOTS, cslots)))
-    # K2 on the compact stream of the chunk: the seam (radix_sort3, 3-key)
+    # K2 on the dense stream of the chunk: the seam (radix_sort3, 3-key)
     # against its plain version, the 3-key sort; yardsticks the port's own
     # 3-key sort call (table._lexsort, the sort3 build's) and the default
     # build's stable argsort of the sign-flipped key with its gathers.
@@ -672,6 +685,19 @@ def main() -> int:
                  "radix": Config(sort_impl="radix")}
     steps = {k: [] for k in step_cfgs}
     chunk = torch.from_numpy(host.copy()).to(dev)
+    # The rows each configuration's aggregation sort sees on this chunk:
+    # from_packed_rows records its input in one untimed step each.
+    sort_rows: dict = {}
+    build = table_ops.from_packed_rows
+    for name, c in step_cfgs.items():
+        def record(key_hi, *args, _name=name, **kw):
+            sort_rows.setdefault(_name, []).append(key_hi.shape[0])
+            return build(key_hi, *args, **kw)
+        table_ops.from_packed_rows = record
+        try:
+            wc._map_stream(chunk, c, c.batch_uniques, pos_hi=0)
+        finally:
+            table_ops.from_packed_rows = build
     for rep in range(16):
         for name, c in step_cfgs.items():
             torch.cuda.synchronize()
@@ -687,10 +713,11 @@ def main() -> int:
     emit("times", chunk_bytes=n,
          step_ms={k: statistics.median(v) for k, v in steps.items()},
          step_ms_all={k: [round(x, 3) for x in v] for k, v in steps.items()},
+         sort_rows=sort_rows, windowed_rows=windowed_rows,
          combiner_per_chunk={
              "hits": comb_branches.get("combiner_hits", 0),
              "flush_rows": comb_branches.get("combiner_flushes", 0),
-             "stream_rows": comb_rows, "compact_stream_rows": rows_out,
+             "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
     # 7. Where a step's device time goes, for the default, combiner and
@@ -720,7 +747,7 @@ def main() -> int:
              and e.self_device_time_total),
             key=lambda r: -r[1])
         device_ms = sum(r[1] for r in by_kernel)
-        emit("profile", config=name, steps=3,
+        emit("profile", config=name, steps=3, sort_rows=sort_rows[name],
              profiled_wall_ms_per_step=wall_us / 3e3,
              device_ms_per_step=device_ms,
              device_launches_per_step=sum(r[2] for r in by_kernel),

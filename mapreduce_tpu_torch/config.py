@@ -14,8 +14,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from mapreduce_tpu_torch.ops.cuda import tokenize as kernel_tok
-
 
 def _not_ported(what: str, item: str) -> ValueError:
     return ValueError(f"{what} is not ported to the PyTorch package yet "
@@ -51,8 +49,8 @@ class Config:
         no-op, as in the JAX package.
       combiner_slots: cache entries per segment (multiple of 8 in [8, 32];
         None: 8).
-      compact_slots: None (compact mode, the kernel's slot budget) or 0
-        (pair mode only).
+      compact_slots: None (compact mode) or 0 (pair mode).  Both give the
+        kernel's one dense stream; pair mode carries no combiner.
       rescue_overlong / rescue_overlong_max / rescue_window: the overlong
         rescue budgets (None: 1024, then ``chunk_bytes >> 10`` clamped to
         [1024, 65536]) and its lookback in bytes.
@@ -115,9 +113,9 @@ class Config:
             raise _not_ported("a kernel geometry preset", "A14")
         if self.compact_slots not in (None, 0):
             raise ValueError(
-                "compact_slots must be None (the kernel's own budget: "
-                f"{kernel_tok.COMPACT_SLOTS} rows per {kernel_tok.WINDOW}-"
-                f"byte window) or 0 (pair mode), got {self.compact_slots}")
+                "compact_slots must be None (compact mode) or 0 (pair mode): "
+                "the kernel's dense stream has no slots to size, got "
+                f"{self.compact_slots}")
         for name in ("rescue_overlong", "rescue_overlong_max"):
             v = getattr(self, name)
             if v is not None and v < 0:
@@ -157,9 +155,10 @@ class Config:
         return max(min(self.chunk_bytes >> 10, 1 << 16), self.rescue_slots)
 
     @property
-    def resolved_compact_slots(self) -> int:
-        """Rows per kernel window in compact mode (0: pair mode only)."""
-        return kernel_tok.COMPACT_SLOTS if self.compact_slots is None else 0
+    def compact(self) -> bool:
+        """Compact mode (else pair mode): the same stream, launched under
+        its mode's name; only compact mode carries the combiner."""
+        return self.compact_slots is None
 
     @property
     def resolved_combiner_slots(self) -> int:
@@ -167,7 +166,7 @@ class Config:
         where the cache exists: the kernel path, ``map_impl='fused'``,
         compact mode, ``combiner='hot-cache'``."""
         if self.combiner != "hot-cache" or self.map_impl != "fused" \
-                or not self.resolved_compact_slots \
+                or not self.compact \
                 or self.resolved_backend() != "pallas":
             return 0
         return 8 if self.combiner_slots is None else self.combiner_slots

@@ -62,8 +62,8 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
 
     Fields the port has are taken as they are, so a value the port does not
     run yet raises.  An explicit JAX ``compact_slots`` > 0 sizes the TPU
-    kernel's window; it maps to the port kernel's own budget (None), since
-    the spill fallback makes the result independent of it.  Of a JAX
+    kernel's window; it maps to compact mode (None): the port's dense
+    stream has no slots, and no result depends on them.  Of a JAX
     kernel geometry (a ``Geometry``, which ``asdict`` makes a dict) the
     port takes ``radix_bits`` and, under the combiner, ``combiner_slots``;
     its window heights, slot budgets and radix slab sizes are TPU layout

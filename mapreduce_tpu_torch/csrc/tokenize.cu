@@ -11,27 +11,47 @@
 // key_lo, packed = start << 6 | len).  A run longer than W is counted once,
 // at its end, as a poison row (sent, sent - 1, last_byte << 6).
 //
-// tokenize_windows.  One CTA per WINDOW contiguous bytes of the chunk.  The
-// CTA owns `slots` output rows; its live rows (token ends and poisons) are
-// written in ascending byte position, so flattening [cta][slot] gives a
-// stream in global byte order (the precondition of the stable 2-key
-// aggregation sort).  Rows beyond `slots` are counted into `spill` and not
-// written: the caller then reruns the chunk in pair mode, slots = WINDOW / 2,
-// which cannot spill (two adjacent bytes are never both token ends).  Unused
-// slots hold (sent, sent, 0xFFFFFFFF).  There is no seam pass: the CTA reads
-// a halo of W + 1 bytes before its window and one byte after it.
+// tokenize_stream (compact, pair and fused mode: one dense stream).  Every
+// live row of the chunk (token ends and poisons), in ascending byte
+// position, then ONE dead row (sent, sent, 0xFFFFFFFF) at index `live`;
+// nothing after it is written.  Global byte order is the precondition of
+// the stable 2-key aggregation sort, and the stream cannot overflow: two
+// adjacent bytes are never both token ends, so ceil(n / 2) + 1 rows hold
+// it.  The TPU kernel's slots per window, dead filler and spill are gone.
 //
-// The hot-key combiner.  The chunk splits into 128 segments of seg_len
-// bytes (the TPU kernel's lanes); a token belongs to the segment that holds
-// its end byte, and each segment is cut into the windows above, the last
-// one short.  The cache of a segment is its first C distinct keys: their
-// every occurrence is counted there and left out of the stream, and the
-// first occurrence's `packed` is kept.  Poison rows are never cached.  Rows
-// left in each window are written as tokenize_windows writes them, laid out
-// [segment][window][slot] (global byte order), and the cache is flushed as
-// four (C, 128) planes.  Exactness never depends on the cache: a spill
-// sends the caller to the combiner-free pair mode.  Three launches, two of
-// them one CTA per window:
+//   - A CTA takes its tile of kTile = 8 KB from an atomic ticket, so every
+//     tile its look-back waits for has started.  At most 32 registers a
+//     thread let 8 CTAs share an SM: a tile's loads, hashing and stores
+//     run one after another, so the card needs many tiles in flight.
+//   - It loads the tile, a halo of kTileHalo = W_max + 1 bytes before it
+//     and 16 bytes after it into shared memory, 16 bytes a thread per load
+//     (tiles sit on 16-byte boundaries of the buffer's address; only the
+//     chunk's two ragged ends are read byte by byte).
+//   - Each thread marks the token ends among its 32 bytes (a separator
+//     bitmask shifted against itself); ONE block-wide scan ranks them.
+//   - A decoupled look-back over the tiles' live counts (one warp, 32
+//     predecessors a step) gives the tile its first output row.
+//   - The threads then take the tile's rows in rank order, each row hashed
+//     from shared memory in one backward pass over at most W bytes, and
+//     write them to the int64 planes at offset + rank: neighbouring threads
+//     on neighbouring addresses, so the stores are coalesced.
+//   - One atomicAdd per CTA for the overlong and the token totals; the
+//     last tile writes the dead row and the live count.
+//
+// The hot-key combiner keeps windows of kWindow bytes, one CTA each, and
+// its own helpers; it shares only is_sep and fmix32 with tokenize_stream.
+// The chunk splits into 128 segments of seg_len bytes (the TPU kernel's
+// lanes); a token belongs to the segment that holds its end byte, and each
+// segment is cut into windows, the last one short.  The cache of a segment
+// is its first C distinct keys: their every occurrence is counted there and
+// left out of the stream, and the first occurrence's `packed` is kept.
+// Poison rows are never cached.  Rows left in each window are compacted,
+// in ascending position, into its `slots` rows, laid out
+// [segment][window][slot] (global byte order), with dead filler after them
+// and the rows past `slots` counted as spill; the cache is flushed as four
+// (C, 128) planes.  Exactness never depends on the cache: a spill sends the
+// caller to the combiner-free dense stream.  Three launches, two of them
+// one CTA per window:
 //
 //   combiner_heads  hashes its window, keeps its ranked rows in a scratch
 //                   (12 B a row) and writes the window's first C distinct
@@ -55,11 +75,11 @@
 // sorts), so no widening pass follows a kernel.
 //
 // Bound on this card: device-memory bytes.  A kernel reads the chunk's N
-// bytes and writes 24 bytes per output row.  Each input byte is read from
-// device memory once (plus the 65-byte halo per 3072-byte window) and every
-// lookback is served from shared memory.  The combiner hashes each byte
-// once, writes and reads back 12 B a live row in its scratch, and writes
-// only the rows it leaves.
+// bytes and writes 24 bytes per output row: tokenize_stream live + 1 rows.
+// Each input byte is read from device memory once (plus an 80-byte halo
+// per 8192-byte tile) and every lookback is served from shared memory.
+// The combiner hashes each byte once, writes and reads back 12 B a live
+// row in its scratch, and writes only the rows it leaves.
 //
 // Bytes before 0 and at or after N are separators (PAD_BYTE 0x00 is one).
 
@@ -89,6 +109,26 @@ static_assert(kPer <= 32, "live flags of a thread fit one word");
 static_assert(kMaxCache <= 32, "a warp holds one cache slot per lane");
 static_assert(kSegments % kMergeWarps == 0, "merge CTAs split evenly");
 static_assert(kMaxRows % kThreads == 0, "scratch rows split evenly");
+
+// tokenize_stream's geometry and look-back.
+constexpr int kTile = 8192;                          // bytes per tile
+constexpr int kTilePer = kTile / kThreads;           // bytes per thread
+constexpr int kTileBlocks = 8;  // CTAs an SM holds: at most 32 registers
+constexpr int kTileHalo = kMaxW + 1;                 // bytes before a tile
+constexpr int kTileGroups = (kTileHalo + kTile + 16) / 16;  // 16-byte loads
+constexpr int kTileRows = kTile / 2;                 // token ends in a tile
+// Look-back status word of a tile: flag (aggregate or inclusive prefix) in
+// the top 2 bits, a live count (<= 2**25 in a chunk) below.
+constexpr uint32_t kFlagAgg = 1u << 30;
+constexpr uint32_t kFlagPrefix = 2u << 30;
+constexpr uint32_t kCountMask = kFlagAgg - 1u;
+// Polls of a look-back before the kernel traps: a fault ends the launch
+// with an error instead of spinning forever.
+constexpr unsigned kMaxPolls = 1u << 26;
+
+static_assert(kTilePer % 16 == 0 && kTilePer <= 32,
+              "a thread owns one or two 16-byte groups of a tile");
+static_assert(kTileHalo % 16 == 0, "the halo is whole 16-byte groups");
 
 // constants.SEPARATOR_BYTES: NUL, TAB, LF, VT, FF, CR, space.
 __device__ __forceinline__ bool is_sep(uint8_t b) {
@@ -216,50 +256,175 @@ __device__ __forceinline__ void fill_dead(int64_t* khi, int64_t* klo,
     put_row(khi, klo, packed, out0 + s, kSent, kSent, 0xFFFFFFFFu);
 }
 
-__global__ void __launch_bounds__(kThreads)
-tokenize_windows(const uint8_t* __restrict__ data, long long n, int w,
-                 int slots, int64_t* __restrict__ khi,
-                 int64_t* __restrict__ klo, int64_t* __restrict__ packed,
-                 unsigned long long* __restrict__ counters) {
-  __shared__ uint8_t buf[kBuf];  // buf[i] = byte at base - kHalo + i
-  __shared__ int warp_off[kWarps];
-  __shared__ int live_total;
-  __shared__ int scratch[kWarps];
+// This tile's first output row: the live rows of every earlier tile.  A
+// decoupled look-back by one warp over 32 predecessors a step; publishes
+// the tile's aggregate first and its inclusive prefix last.  Warp-uniform
+// call; the result is in every lane.
+__device__ __forceinline__ uint32_t look_back(uint32_t* status, int tile,
+                                              uint32_t total) {
+  volatile uint32_t* st = status;
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) st[0] = kFlagPrefix | total;
+    return 0;
+  }
+  if (lane == 0) st[tile] = kFlagAgg | total;
+  uint32_t excl = 0;
+  unsigned polls = 0;
+  for (int last = tile - 1;; last -= 32) {
+    // Lane k reads tile last - k; "before tile 0" reads as a prefix of 0.
+    const int k = last - lane;
+    uint32_t v = kFlagPrefix;
+    if (k >= 0) v = st[k];
+    while (__any_sync(0xffffffffu, (v >> 30) == 0)) {
+      if (++polls > kMaxPolls) __trap();
+      if ((v >> 30) == 0) v = st[k];
+    }
+    // Sum down to the nearest inclusive prefix (the lowest such lane).
+    const unsigned pre = __ballot_sync(0xffffffffu, (v & kFlagPrefix) != 0);
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    excl += __reduce_add_sync(0xffffffffu, lane <= stop ? v & kCountMask : 0u);
+    if (pre) break;
+  }
+  if (lane == 0) st[tile] = kFlagPrefix | (excl + total);
+  return excl;
+}
 
-  const long long base = static_cast<long long>(blockIdx.x) * kWindow;
-  load_window(buf, data, base, n);
+// The dense stream.  `base` is the chunk's address rounded down to 16
+// bytes and `mis` the chunk's offset from it: byte p of the chunk is at
+// base + mis + p ("q-space" q = mis + p), and tile t covers q in
+// [t * kTile, (t + 1) * kTile).  ticket and status are zeroed per launch.
+__global__ void __launch_bounds__(kThreads, kTileBlocks)
+tokenize_stream(const uint8_t* __restrict__ base, int mis, long long n, int w,
+                int tiles, int64_t* __restrict__ khi,
+                int64_t* __restrict__ klo, int64_t* __restrict__ packed,
+                unsigned long long* __restrict__ counters,
+                unsigned* __restrict__ ticket, uint32_t* __restrict__ status) {
+  __shared__ uint4 buf4[kTileGroups];  // byte i: q = tile * kTile - halo + i
+  __shared__ uint16_t pos[kTileRows];  // the tile's live rows by rank
+  __shared__ int warp_tot[kWarps];
+  __shared__ int sh_tile, sh_poison;
+  __shared__ uint32_t sh_off;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    sh_tile = static_cast<int>(atomicAdd(ticket, 1u));
+    sh_poison = 0;
+  }
+  __syncthreads();
+  const int tile = sh_tile;
+
+  // Load the tile and its halo, separators outside the chunk.
+  const long long q_end = n + mis;
+  const long long q0 = static_cast<long long>(tile) * kTile - kTileHalo;
+  for (int g = threadIdx.x; g < kTileGroups; g += kThreads) {
+    const long long q = q0 + 16LL * g;
+    if (q >= mis && q + 16 <= q_end) {
+      buf4[g] = *reinterpret_cast<const uint4*>(base + q);
+    } else {
+      uint32_t word[4] = {0u, 0u, 0u, 0u};
+      for (int j = 0; j < 16; ++j)
+        if (q + j >= mis && q + j < q_end)
+          word[j >> 2] |= static_cast<uint32_t>(base[q + j]) << (8 * (j & 3));
+      buf4[g] = make_uint4(word[0], word[1], word[2], word[3]);
+    }
+  }
   __syncthreads();
 
-  int live;
-  const uint32_t live_bits = live_flags(buf, base, n, &live);
-  int slot = block_scan(live, warp_off, &live_total);
-  const int total = live_total;
-
-  // Hash each live row from shared memory and write it.
-  const int first = threadIdx.x * kPer;
-  const long long out0 = static_cast<long long>(blockIdx.x) * slots;
-  int n_over = 0, n_emit = 0;
-  for (int j = 0; j < kPer; ++j) {
-    if (!((live_bits >> j) & 1u)) continue;
-    uint32_t hi, lo, pk;
-    if (hash_row(buf, kHalo + first + j, base + first + j, w, &hi, &lo, &pk))
-      ++n_over;
-    else
-      ++n_emit;
-    if (slot < slots) put_row(khi, klo, packed, out0 + slot, hi, lo, pk);
-    ++slot;
+  // This thread's bytes: a token end is a non-separator followed by a
+  // separator (bit kTilePer is the next thread's first byte).
+  const uint8_t* buf = reinterpret_cast<const uint8_t*>(buf4);
+  uint64_t sep = is_sep(buf[kTileHalo + kTilePer * (threadIdx.x + 1)])
+                     ? 1ull << kTilePer : 0ull;
+#pragma unroll
+  for (int g = 0; g < kTilePer / 16; ++g) {
+    const uint4 v = buf4[kTileHalo / 16 + kTilePer / 16 * threadIdx.x + g];
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (is_sep(static_cast<uint8_t>(words[j >> 2] >> (8 * (j & 3)))))
+        sep |= 1ull << (16 * g + j);
   }
-  fill_dead(khi, klo, packed, out0, min(total, slots), slots);
+  const uint64_t live_bits = ~sep & (sep >> 1) & ((1ull << kTilePer) - 1ull);
+  const int live = __popcll(live_bits);
 
-  const int over_sum = block_sum(n_over, scratch);
-  const int emit_sum = block_sum(n_emit, scratch);
+  // The one block-wide pass: each thread's first rank and the tile total.
+  int incl = live;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += u;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int rank = incl - live, total = 0;
+  for (int k = 0; k < kWarps; ++k) {
+    const int t = warp_tot[k];
+    if (k < warp) rank += t;
+    total += t;
+  }
+
+  for (uint64_t b = live_bits; b; b &= b - 1ull)
+    pos[rank++] =
+        static_cast<uint16_t>(kTilePer * threadIdx.x + __ffsll(b) - 1);
+  if (warp == 0) {
+    const uint32_t off = look_back(status, tile, static_cast<uint32_t>(total));
+    if (lane == 0) sh_off = off;
+  }
+  __syncthreads();
+
+  // Hash the rows in rank order and write each at offset + rank.
+  const long long off = sh_off;
+  const long long p0 = static_cast<long long>(tile) * kTile - mis;
+  int n_poison = 0;
+  for (int r = threadIdx.x; r < total; r += kThreads) {
+    const int i = pos[r];
+    const uint8_t* end = buf + kTileHalo + i;  // the row's last byte
+    uint32_t h1 = 0, h2 = 0, pw1 = 1, pw2 = 1;
+    int len = 0;
+    // h = sum of (byte + 1) * base**k, k counted back from the end: the
+    // forward polynomial hash in one backward pass.
+    while (len < w && !is_sep(end[-len])) {
+      const uint32_t c = static_cast<uint32_t>(end[-len]) + 1u;
+      h1 += c * pw1;
+      h2 += c * pw2;
+      pw1 *= kBase1;
+      pw2 *= kBase2;
+      ++len;
+    }
+    const long long p = p0 + i;
+    uint32_t hi, lo, pk;
+    if (len == w && !is_sep(end[-w])) {  // the run is longer than W
+      hi = kSent;
+      lo = kSent - 1u;
+      pk = static_cast<uint32_t>(p) << 6;
+      ++n_poison;
+    } else {
+      const uint32_t ln = static_cast<uint32_t>(len);
+      hi = fmix32(h1 ^ ln);
+      lo = fmix32(h2 + 0x9E3779B9u * ln);
+      if (hi == kSent && lo >= kSent - 1u) lo = kSent - 2u;
+      pk = (static_cast<uint32_t>(p + 1 - len) << 6) | ln;
+    }
+    khi[off + r] = hi;
+    klo[off + r] = lo;
+    packed[off + r] = pk;
+  }
+  n_poison = __reduce_add_sync(0xffffffffu, n_poison);
+  if (lane == 0 && n_poison) atomicAdd(&sh_poison, n_poison);
+  __syncthreads();
+
   if (threadIdx.x == 0) {
-    if (over_sum)
-      atomicAdd(&counters[0], static_cast<unsigned long long>(over_sum));
-    if (emit_sum)
-      atomicAdd(&counters[1], static_cast<unsigned long long>(emit_sum));
-    if (total > slots)
-      atomicAdd(&counters[2], static_cast<unsigned long long>(total - slots));
+    const int emit = total - sh_poison;
+    if (sh_poison)
+      atomicAdd(&counters[0], static_cast<unsigned long long>(sh_poison));
+    if (emit) atomicAdd(&counters[1], static_cast<unsigned long long>(emit));
+    if (tile == tiles - 1) {  // the tile that ends the chunk
+      const long long live_rows = off + total;
+      khi[live_rows] = kSent;
+      klo[live_rows] = kSent;
+      packed[live_rows] = 0xFFFFFFFFu;
+      counters[3] = static_cast<unsigned long long>(live_rows);
+    }
   }
 }
 
@@ -496,23 +661,31 @@ int combiner_windows(long long n) {
 
 }  // namespace
 
-// Launch over a chunk of n bytes on `stream`.  Outputs are int64 planes of
-// ceil(n / 3072) * slots rows each, holding uint32 words; the int64
-// counters (overlong, tokens, spill) must be zeroed by the caller.  Returns
+// The dense stream of a chunk of n bytes on `stream`.  Outputs: int64
+// planes of at least ceil(n / 2) + 1 rows, holding uint32 words; rows up to
+// the live count and the dead row after it are written, nothing else.
+// Tiles: ceil((n + data % 16) / kTile).  work: int64 [4 + (tiles + 2) / 2],
+// zeroed by the caller: the counters (overlong, tokens, spill = 0, live),
+// then the uint32 ticket and the tiles' look-back status.  Returns
 // cudaGetLastError() after the launch.
-extern "C" int mr_tokenize_windows(const void* data, long long n, int w,
-                                   int slots, void* khi, void* klo,
-                                   void* packed, void* counters,
-                                   void* stream) {
-  if (n <= 0 || w < 1 || w > kMaxW || slots < 1 || slots > kWindow)
+extern "C" int mr_tokenize_stream(const void* data, long long n, int w,
+                                  void* khi, void* klo, void* packed,
+                                  void* work, long long work_words,
+                                  void* stream) {
+  if (n <= 0 || n > (1LL << 26) || w < 1 || w > kMaxW)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long grid = (n + kWindow - 1) / kWindow;
-  tokenize_windows<<<static_cast<unsigned>(grid), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), n, w, slots,
-      static_cast<int64_t*>(khi), static_cast<int64_t*>(klo),
-      static_cast<int64_t*>(packed),
-      static_cast<unsigned long long*>(counters));
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(data) & 15u);
+  const long long tiles = (n + mis + kTile - 1) / kTile;
+  if (work_words < 4 + (tiles + 2) / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* counters = static_cast<unsigned long long*>(work);
+  auto* ticket = reinterpret_cast<unsigned*>(counters + 4);
+  tokenize_stream<<<static_cast<unsigned>(tiles), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data) - mis, mis, n, w,
+      static_cast<int>(tiles), static_cast<int64_t*>(khi),
+      static_cast<int64_t*>(klo), static_cast<int64_t*>(packed), counters,
+      ticket, ticket + 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -558,8 +731,8 @@ extern "C" int mr_combiner_merge(long long n, int cslots, const void* h_hi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Stream planes hold windows * slots rows; counters as for
-// mr_tokenize_windows, zeroed by the caller; rows/rows_n: the scratch
+// Stream planes hold windows * slots rows; counters: int64 (overlong,
+// tokens, spill), zeroed by the caller; rows/rows_n: the scratch
 // mr_combiner_heads filled.
 extern "C" int mr_combiner_thin(long long n, int slots, int cslots,
                                 const void* rows, const void* rows_n,
@@ -579,5 +752,8 @@ extern "C" int mr_combiner_thin(long long n, int slots, int cslots,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes per CTA window, so the Python side can check its copy.
+// Bytes per combiner window and per stream tile, so the Python side can
+// check its copies.
 extern "C" int mr_tokenize_window_bytes() { return kWindow; }
+
+extern "C" int mr_tokenize_tile_bytes() { return kTile; }

@@ -10,10 +10,12 @@ host-side string recovery from first-occurrence positions.
 
 Control flow.  The JAX package wraps the spill fallback and the overlong
 rescue in ``lax.cond``.  Eager PyTorch has no device-side cond, so each
-becomes a host ``if``: :func:`_map_kernel` reads the chunk's ``spill`` and
-``overlong`` scalars in ONE device-to-host copy (one sync per chunk) and
-branches on them.  The radix sort seam reads nothing back
-(``ops/cuda/radix.py``).
+becomes a host ``if``: :func:`_map_kernel` reads the chunk's ``spill``,
+``overlong`` and token scalars in ONE device-to-host copy (one sync per
+chunk) and branches on them.  The same copy gives the live count that cuts
+the kernel's dense stream to its rows before the sort, so the sort sees
+``live + 1`` rows.  Only the combiner's windowed stream can spill.  The
+radix sort seam reads nothing back (``ops/cuda/radix.py``).
 
 No seam table.  The JAX split map emits a column stream plus a seam stream
 (the 128-lane seams of its TPU layout) and folds the seam table in a
@@ -38,7 +40,7 @@ from mapreduce_tpu_torch.ops.cuda import tokenize as kernel_tok
 from mapreduce_tpu_torch.runtime.platform import resolve_device
 
 #: Host-side branch counts of the kernel path: "chunks", "spill_fallbacks"
-#: (compact spill -> pair rerun), "rescue_passes" (overlong > 0),
+#: (combiner spill -> combiner-free rerun), "rescue_passes" (overlong > 0),
 #: "rescue_escalations" (overlong > rescue_slots: the R_max tier), and under
 #: the combiner "combiner_hits" (occurrences the cache absorbed) and
 #: "combiner_flushes" (cache rows folded back), read in the chunk's one sync.
@@ -108,10 +110,8 @@ def _tokenize(chunk: torch.Tensor, config: Config):
         return kernel_tok.tokenize_fused(chunk, max_token_bytes=w,
                                          combiner_slots=cslots)
     if config.map_impl == "fused":
-        return (*kernel_tok.tokenize_fused(
-            chunk, compact=bool(config.resolved_compact_slots),
-            max_token_bytes=w), None)
-    if config.resolved_compact_slots:
+        return (*kernel_tok.tokenize_fused(chunk, max_token_bytes=w), None)
+    if config.compact:
         return (*kernel_tok.tokenize_split_compact(chunk, w), None)
     stream, overlong = kernel_tok.tokenize_split(chunk, w)
     return stream, overlong, torch.zeros_like(overlong), None
@@ -119,30 +119,34 @@ def _tokenize(chunk: torch.Tensor, config: Config):
 
 def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi):
     """The kernel branch of the JAX ``_map_stream``: compact (or fused, or
-    combiner) tokenize, the exact pair-mode rerun when a window spilled, the
-    packed aggregation sort, the tiered overlong rescue and, under the
-    combiner, the fold of the flushed cache."""
+    combiner) tokenize, the exact combiner-free rerun when a combiner
+    window spilled, the packed aggregation sort, the tiered overlong rescue
+    and, under the combiner, the fold of the flushed cache."""
     w = config.pallas_max_token
     stream, overlong, spill, cache = _tokenize(chunk, config)
-    # The one host sync of the chunk: both branch predicates (and the
-    # combiner's hit and flush counts) in one copy.
-    flags = [spill, overlong]
+    # The one host sync of the chunk: both branch predicates, the token
+    # count (a dense stream's live rows are its tokens and its overlong
+    # runs) and the combiner's hit and flush counts, in one copy.
+    flags = [spill, overlong, stream.total]
     if cache is not None:
         flags += [cache.count.sum(), (cache.count > 0).sum()]
-    spill_h, over_h, *cached = torch.stack(flags).tolist()
+    spill_h, over_h, tokens_h, *cached = torch.stack(flags).tolist()
     BRANCHES["chunks"] += 1
     if spill_h:
-        # Some window overflowed its slots, so the compact stream is
-        # incomplete: rerun at full resolution, which cannot spill.  The
+        # A combiner window overflowed its slots, so the thinned stream is
+        # incomplete: rerun as the dense stream, which cannot spill.  The
         # rerun is combiner-free, so the aborted pass's cache goes too:
-        # exactness never depends on it.  Both modes see the same overlong
-        # runs, so over_h stands.
+        # exactness never depends on it.  Its tokens are the ones left in
+        # the thinned stream and the ones the cache took; both passes see
+        # the same overlong runs, so over_h stands.
         BRANCHES["spill_fallbacks"] += 1
         stream, overlong = kernel_tok.tokenize_split(chunk, w)
+        tokens_h += cached[0]
         cache = None
     elif cache is not None:
         BRANCHES["combiner_hits"] += cached[0]
         BRANCHES["combiner_flushes"] += cached[1]
+    stream = stream.cut(tokens_h + over_h)
     t = _aggregate(chunk, stream, overlong, over_h, config, capacity, pos_hi)
     if cache is None:
         return t
@@ -154,11 +158,17 @@ def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
                capacity: int, pos_hi) -> table_ops.CountTable:
     """One packed build of a complete stream and the tiered rescue."""
     w = config.pallas_max_token
+    # The poison rows sort just before the dense stream's one dead row and
+    # its end, so the rescue slice takes at most over_h + 1 rows: a longer
+    # one would be clamped back into real rows (``from_packed_rows``) and
+    # the first tier's cut would miss the poisons.  Fewer slots change no
+    # table: rows past the poisons are masked off by the rescue.
+    rescue_slots = min(config.rescue_slots_max, over_h + 1)
     # Every mode emits in global byte order, so stable2 holds for each.
     built = table_ops.from_stream(
         stream, capacity, pos_hi=pos_hi, max_token_bytes=w,
         max_pos=int(chunk.shape[0]), sort_mode=config.sort_mode,
-        rescue_slots=config.rescue_slots_max, sort_impl=config.sort_impl,
+        rescue_slots=rescue_slots, sort_impl=config.sort_impl,
         radix_bits=config.radix_bits)
     if not config.rescue_slots:
         return _accounted(built, overlong)

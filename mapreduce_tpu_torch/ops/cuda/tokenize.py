@@ -10,32 +10,36 @@ with ``combiner_slots``).  The kernels are in
 What is kept from the TPU kernel is the stream contract, not the layout:
 the same multiset of ``(key_hi, key_lo, packed = start << 6 | len)`` rows,
 poison rows ``(sent, sent-1, last_byte << 6)`` at the ends of runs longer
-than W included, the same ``overlong`` and token totals, and a flattened
-stream in global byte order.  The TPU kernel's 128-lane column view, its
-sequential-grid carry and its XLA seam pass do not exist here: one CUDA
-block owns each :data:`WINDOW` contiguous bytes and reads its lookback halo
-directly, so the port emits ONE stream and no seam stream.  That stream is
-already what the TPU's fused mode emits, so ``tokenize_fused`` without a
-combiner launches the same kernel as compact mode.
+than W included, the same ``overlong`` and token totals, and a stream in
+global byte order.  The TPU kernel's 128-lane column view, its
+sequential-grid carry, its XLA seam pass and its slots per window do not
+exist here.
 
-Geometry: :data:`COMPACT_SLOTS` rows per window in compact mode — the JAX
-package's density of 128 slots per 384 bytes, over a window 8x longer, so
-a spill needs a whole 3 KB run of text averaging under 3 bytes per token
-plus separator.  Pair mode gives each window ``WINDOW // 2`` rows, which
-cannot spill.  Limits from the packed row word stay: chunks of at most
-2**26 bytes and ``1 <= W <= 63``.  The TPU layout's limits (``n % 128``,
-``block_rows``, even rows) are gone, except under the combiner: its cache
-belongs to one of :data:`SEGMENTS` contiguous segments (the TPU kernel's
-lanes), so the chunk length must be a multiple of 128 for its flushed
-planes to equal the JAX package's.  Under the combiner a window holds
-:data:`COMBINER_SLOTS` rows (the JAX package's 128 per 512 bytes there).
+Compact, pair and fused mode are one kernel, ``tokenize_stream``, and one
+DENSE stream: every live row in ascending position, then one dead row at
+index ``live``, in planes of ``ceil(n / 2) + 1`` rows (two token ends are
+never adjacent, so it cannot overflow, and ``spill`` is always 0).  Rows
+past the dead row are never written.  The stream therefore carries its
+device-side live count (:attr:`PackedTokenStream.live`) and the CALLER cuts
+it with :meth:`PackedTokenStream.cut`, with the count it read in its own
+host sync: the wrappers never read back.  The modes differ only in the
+name their launches count under.
+
+Limits from the packed row word stay: chunks of at most 2**26 bytes and
+``1 <= W <= 63``.  The TPU layout's limits (``n % 128``, ``block_rows``,
+even rows) are gone, except under the combiner: its cache belongs to one
+of :data:`SEGMENTS` contiguous segments (the TPU kernel's lanes), so the
+chunk length must be a multiple of 128 for its flushed planes to equal the
+JAX package's.  Under the combiner a window of :data:`WINDOW` bytes holds
+:data:`COMBINER_SLOTS` rows (the JAX package's 128 per 512 bytes there),
+dead filler after its live rows, and a window that overflows spills.
 The combiner runs in three launches whose grids scale with the windows
 (heads, merge, thin: :func:`tokenize_combiner_kernel`), each with its own
 plain version; :func:`tokenize_combiner_plain` is the one-pass definition
 they are held to.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version of the same
-function (:func:`tokenize_windows_plain`, :func:`tokenize_combiner_plain`);
+function (:func:`tokenize_stream_plain`, :func:`tokenize_combiner_plain`);
 a CUDA tensor launches the kernel or raises.  There is no fallback between
 the two.
 """
@@ -53,9 +57,8 @@ from mapreduce_tpu_torch.ops import tokenize as tok_ops
 from mapreduce_tpu_torch.ops.cuda import _build
 from mapreduce_tpu_torch.ops.table import _key64, _lexsort
 
-WINDOW = 3072  # bytes per CUDA block; csrc/tokenize.cu kWindow
-COMPACT_SLOTS = 1024  # compact mode rows per window
-PAIR_SLOTS = WINDOW // 2  # pair mode rows per window: never spills
+TILE = 8192  # bytes per block of the dense stream; csrc/tokenize.cu kTile
+WINDOW = 3072  # bytes per combiner block; csrc/tokenize.cu kWindow
 COMBINER_SLOTS = 768  # rows per window under the hot-key combiner
 SEGMENTS = 128  # combiner cache segments per chunk; csrc kSegments
 DEFAULT_MAX_TOKEN = 32  # W
@@ -88,16 +91,38 @@ class PackedTokenStream(NamedTuple):
     """The kernel's rows as one stream (int64 tensors holding uint32).
 
     ``packed`` is ``start << 6 | len`` for a token, ``last_byte << 6`` for
-    a poison row and all-ones for dead filler; ``total`` is the exact token
+    a poison row and all-ones for a dead row; ``total`` is the exact token
     count.  The TokenStream view (``count``, ``pos``, ``length``) derives
     from ``packed`` on demand, so the aggregation path, which sorts
     ``packed`` directly, never materializes it.
+
+    ``live`` is set on the dense stream: the int64 device count of its
+    token and poison rows.  Its planes hold those rows, the dead row at
+    index ``live`` and, from the kernel, unwritten rows after it: read its
+    rows through :meth:`cut`.  It is None on a stream whose planes are
+    whole (the combiner's windows, or a stream already cut).
     """
 
     key_hi: torch.Tensor
     key_lo: torch.Tensor
     packed: torch.Tensor
     total: torch.Tensor
+    live: torch.Tensor | None = None
+
+    def cut(self, live: int | None = None) -> "PackedTokenStream":
+        """The stream's first ``live + 1`` rows (views, no copy).  ``live``
+        is the host value of :attr:`live` the caller has read in its own
+        sync; without it, it is read here, which waits for the card."""
+        if self.live is None:
+            return self
+        if live is None:
+            live = int(self.live)
+        elif self.live.device.type == "cpu" and live != int(self.live):
+            raise ValueError(f"the caller's live count {live} is not the "
+                             f"stream's {int(self.live)}")
+        return PackedTokenStream(self.key_hi[:live + 1],
+                                 self.key_lo[:live + 1],
+                                 self.packed[:live + 1], self.total)
 
     def _has_tok(self) -> torch.Tensor:
         return (self.packed != _ALL_ONES) & ((self.packed & 63) != 0)
@@ -191,20 +216,20 @@ def _compact(win: torch.Tensor, windows: int, slots: int, rows):
     return (*out, (per_win - slots).clamp(min=0).sum())
 
 
-def tokenize_windows_plain(data: torch.Tensor, w: int, slots: int):
-    """Plain PyTorch version of ``tokenize_windows``: same outputs, same
-    geometry.
+def tokenize_stream_plain(data: torch.Tensor, w: int):
+    """Plain PyTorch version of ``tokenize_stream``: :func:`_token_ends`
+    and the one dead row after them.
 
-    :func:`_token_ends`, then a per-window ``cumsum`` rank compacts the live
-    rows into their window's ``slots`` rows.  Returns ``(key_hi, key_lo,
-    packed, overlong, ntok, spill)``: three int64 planes of ``ceil(n /
-    WINDOW) * slots`` rows and three int64 scalars.
-    """
+    Returns ``(stream, overlong, spill)``: a :class:`PackedTokenStream` of
+    exactly ``live + 1`` rows with its ``live`` count, and two int64
+    scalars (``spill`` is 0)."""
     p, key_hi, key_lo, packed, over = _token_ends(data, w)
-    khi, klo, pck, spill = _compact(p // WINDOW, -(-data.shape[0] // WINDOW),
-                                    slots, (key_hi, key_lo, packed))
     n_over = over.sum()
-    return khi, klo, pck, n_over, p.shape[0] - n_over, spill
+    planes = (torch.cat([x, x.new_full((1,), fill)]) for x, fill in (
+        (key_hi, _SENT), (key_lo, _SENT), (packed, _ALL_ONES)))
+    live = torch.tensor(p.shape[0], dtype=torch.int64, device=data.device)
+    return (PackedTokenStream(*planes, live - n_over, live), n_over,
+            torch.zeros_like(n_over))
 
 
 def _first_distinct(group, key, order, n_groups: int):
@@ -362,8 +387,8 @@ def tokenize_combiner_phases_plain(data: torch.Tensor, w: int, slots: int,
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "mr_tokenize_windows": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                            _P, _P, _P, _P, _P],
+    "mr_tokenize_stream": [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
+                           _P, ctypes.c_longlong, _P],
     "mr_combiner_heads": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           _P, _P, _P, _P, _P, _P, _P],
     "mr_combiner_window_rows": [],
@@ -379,9 +404,10 @@ def _kernel_fn(name: str):
     lib = _build.load("tokenize")
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        if lib.mr_tokenize_window_bytes() != WINDOW:
+        if (lib.mr_tokenize_window_bytes(), lib.mr_tokenize_tile_bytes()) \
+                != (WINDOW, TILE):
             raise RuntimeError("csrc/tokenize.cu and ops/cuda/tokenize.py "
-                               "disagree on WINDOW")
+                               "disagree on WINDOW or TILE")
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
     return fn
@@ -406,23 +432,27 @@ def _launched(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def tokenize_windows_kernel(data: torch.Tensor, w: int, slots: int):
-    """Launch the CUDA kernel on ``data``'s device and current stream.
+def tokenize_stream_kernel(data: torch.Tensor, w: int):
+    """Launch ``tokenize_stream`` on ``data``'s device and current stream.
 
-    Returns what :func:`tokenize_windows_plain` returns: the ``key_hi``,
-    ``key_lo`` and ``packed`` planes and the ``overlong``, token and
-    ``spill`` scalars, as int64 tensors holding uint32 values (the kernel
-    stores them so).  Does not synchronise."""
+    Returns what :func:`tokenize_stream_plain` returns, except that the
+    stream's planes have ``ceil(n / 2) + 1`` rows, of which only the first
+    ``live + 1`` are written (:meth:`PackedTokenStream.cut`).  Does not
+    synchronise."""
     _check_cuda(data)
-    fn = _kernel_fn("mr_tokenize_windows")
     n = data.shape[0]
     dev = data.device
-    khi, klo, packed = _planes(-(-n // WINDOW) * slots, dev)
-    counters = torch.zeros(3, dtype=torch.int64, device=dev)
-    _launched(fn(data.data_ptr(), n, w, slots, khi.data_ptr(),
-                 klo.data_ptr(), packed.data_ptr(), counters.data_ptr(),
-                 _stream(data)), "tokenize")
-    return khi, klo, packed, counters[0], counters[1], counters[2]
+    tiles = -(-(n + data.data_ptr() % 16) // TILE)  # tiles sit on 16 B
+    # Counters (overlong, tokens, spill, live), then the uint32 ticket and
+    # look-back status words, zeroed in one fill.
+    work = torch.zeros(4 + (tiles + 2) // 2, dtype=torch.int64, device=dev)
+    khi, klo, packed = _planes(-(-n // 2) + 1, dev)
+    _launched(_kernel_fn("mr_tokenize_stream")(
+        data.data_ptr(), n, w, khi.data_ptr(), klo.data_ptr(),
+        packed.data_ptr(), work.data_ptr(), work.shape[0], _stream(data)),
+        "tokenize_stream")
+    return (PackedTokenStream(khi, klo, packed, work[1], work[3]), work[0],
+            work[2])
 
 
 class RowScratch(NamedTuple):
@@ -505,40 +535,37 @@ def tokenize_combiner_kernel(data: torch.Tensor, w: int, slots: int,
     return (*out[:6], cache)
 
 
-def _tokenize_windows(data: torch.Tensor, w: int, slots: int, mode: str):
+def _tokenize_stream(data: torch.Tensor, w: int, mode: str):
     if data.device.type == "cpu":
-        return tokenize_windows_plain(data, w, slots)
-    out = tokenize_windows_kernel(data, w, slots)
+        return tokenize_stream_plain(data, w)
+    out = tokenize_stream_kernel(data, w)
     LAUNCHES[mode] += 1
     return out
 
 
 def tokenize_split_compact(data: torch.Tensor,
                            max_token_bytes: int = DEFAULT_MAX_TOKEN):
-    """Compact mode: ``(stream, overlong, spill)``.
+    """Compact mode: ``(stream, overlong, spill)``, the dense stream.
 
-    ``stream`` holds :data:`COMPACT_SLOTS` rows per :data:`WINDOW` bytes in
-    global byte order.  A nonzero ``spill`` (live rows beyond a window's
-    budget) means the stream is INCOMPLETE: the caller must discard it and
-    run :func:`tokenize_split` instead.
+    ``spill`` is always 0 (kept for the callers of the TPU kernel's API,
+    whose compact windows could overflow); cut ``stream`` to its live rows
+    before reading them.
     """
     w = _resolve_args(data, max_token_bytes)
-    khi, klo, packed, over, ntok, spill = _tokenize_windows(
-        data, w, COMPACT_SLOTS, "tokenize_compact")
-    return PackedTokenStream(khi, klo, packed, ntok), over, spill
+    return _tokenize_stream(data, w, "tokenize_compact")
 
 
 def tokenize_split(data: torch.Tensor,
                    max_token_bytes: int = DEFAULT_MAX_TOKEN):
-    """Pair mode, the exact full-resolution path: ``(stream, overlong)``.
+    """Pair mode: ``(stream, overlong)``, the same dense stream.
 
     Every token of at most ``max_token_bytes`` bytes is emitted once; longer
     runs are tallied in ``overlong`` and leave a poison row at their end.
+    It is the combiner's exact fallback, launched under its own name.
     """
     w = _resolve_args(data, max_token_bytes)
-    khi, klo, packed, over, ntok, _ = _tokenize_windows(
-        data, w, PAIR_SLOTS, "tokenize_pair")
-    return PackedTokenStream(khi, klo, packed, ntok), over
+    stream, over, _ = _tokenize_stream(data, w, "tokenize_pair")
+    return stream, over
 
 
 def tokenize_fused(data: torch.Tensor, *, compact: bool = True,
@@ -547,10 +574,10 @@ def tokenize_fused(data: torch.Tensor, *, compact: bool = True,
     """The fused map path: ``(stream, overlong, spill)``, plus the flushed
     :class:`CombinerCache` when ``combiner_slots`` > 0.
 
-    Without a combiner this is compact mode (pair mode with ``compact =
-    False``): the port's halo kernel already resolves every seam, so its
-    one stream is the TPU fused mode's.  Launches count under
-    ``"tokenize_fused"``.
+    Without a combiner this is the dense stream of compact mode (``compact``
+    makes no difference to it): the port's halo kernel already resolves
+    every seam, so its one stream is the TPU fused mode's.  Launches count
+    under ``"tokenize_fused"``.
 
     ``combiner_slots`` = C (needs ``compact``; a multiple of 8 in [8, 32];
     ``len(data) % 128 == 0``) runs the hot-key combiner: each of the
@@ -560,14 +587,12 @@ def tokenize_fused(data: torch.Tensor, *, compact: bool = True,
     :data:`COMBINER_SLOTS` rows.  The cache's ``packed`` records in-chunk
     positions (the caller applies the chunk id as ``pos_hi``).  A nonzero
     ``spill`` means the thinned stream is incomplete: discard it AND the
-    cache, and rerun with :func:`tokenize_split` (combiner-free).
+    cache, and rerun with :func:`tokenize_split` (combiner-free).  The
+    thinned stream keeps its windows: its planes are whole.
     """
     w = _resolve_args(data, max_token_bytes)
     if not combiner_slots:
-        khi, klo, packed, over, ntok, spill = _tokenize_windows(
-            data, w, COMPACT_SLOTS if compact else PAIR_SLOTS,
-            "tokenize_fused")
-        return PackedTokenStream(khi, klo, packed, ntok), over, spill
+        return _tokenize_stream(data, w, "tokenize_fused")
     if not compact:
         raise ValueError("combiner_slots requires the compact path (the pair "
                          "fallback is the combiner-free exactness escape)")

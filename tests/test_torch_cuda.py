@@ -11,6 +11,7 @@ has only PyTorch:
 exact, tolerance zero: the kernel hashes and counts integers.
 """
 
+import functools
 import pathlib
 
 import numpy as np
@@ -44,12 +45,12 @@ def _zipf_text(seed: int, n: int) -> bytes:
     return text[:n]
 
 
-def _edges(n: int) -> bytes:
-    """Runs of W-1, W, W+1 and 3W bytes against every window edge and at
-    both ends of the chunk."""
+def _edges(n: int, every: int = ktok.WINDOW) -> bytes:
+    """Runs of W-1, W, W+1 and 3W bytes against every window edge (or
+    every ``every`` bytes) and at both ends of the chunk."""
     buf = bytearray((b"ab cd " * (n // 6 + 1))[:n])
     runs = [W - 1, W, W + 1, 3 * W]
-    for i, edge in enumerate(range(ktok.WINDOW, n - 4 * W, ktok.WINDOW)):
+    for i, edge in enumerate(range(every, n - 4 * W, every)):
         run = runs[i % 4]
         # Last byte before the edge, last byte at it, first byte at it,
         # across it.
@@ -65,32 +66,76 @@ def _edges(n: int) -> bytes:
 CASES = {
     "zipf": lambda: _zipf_text(0, 1 << 20),
     "edges": lambda: _edges((1 << 18) + 77),
+    "tile_edges": lambda: _edges((1 << 19) + 5, ktok.TILE),
     "dense": lambda: b"a b " * (1 << 16),
     "tiny": lambda: b"hello",
+    # One word over 1,024 tiles of equal counts: long look-back chains.
+    "one_word": lambda: b"the " * (1 << 20),
+    "separators": lambda: b" \n" * (1 << 17),  # live = 0: the dead row only
+    "max_chunk": lambda: _zipf_text(3, 1 << 22) * 16,  # 2**26 bytes
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _case_bytes(case: str) -> bytes:
+    return CASES[case]()
+
+
+def _stream_fields(stream, over, spill):
+    """A stream cut to its rows, as the tensors a comparison reads."""
+    cut = stream.cut()
+    return (cut.key_hi, cut.key_lo, cut.packed, cut.total, stream.live, over,
+            spill)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("slots", [ktok.COMPACT_SLOTS, ktok.PAIR_SLOTS])
-def test_kernel_matches_plain_version(cuda_device, case, slots):
-    data = torch.frombuffer(bytearray(CASES[case]()), dtype=torch.uint8)
-    data = data.to(cuda_device)
-    want = ktok.tokenize_windows_plain(data, W, slots)
-    got = ktok.tokenize_windows_kernel(data, W, slots)
+@pytest.mark.parametrize("w", [1, W, 63])
+def test_kernel_matches_plain_version(cuda_device, case, w):
+    """The planes up to ``live + 1`` and the counters, exactly; the planes
+    are sized for the densest stream."""
+    data = _dev_bytes(_case_bytes(case), cuda_device)
+    want = ktok.tokenize_stream_plain(data, w)
+    got = ktok.tokenize_stream_kernel(data, w)
     torch.cuda.synchronize()
-    for a, b in zip(want, got):
+    assert got[0].key_hi.shape[0] == -(-data.shape[0] // 2) + 1
+    for a, b in zip(_stream_fields(*want), _stream_fields(*got)):
         assert torch.equal(a.cpu(), b.cpu())
-    if slots == ktok.PAIR_SLOTS:
-        assert int(got[5]) == 0  # pair mode never spills
-    if case == "dense" and slots == ktok.COMPACT_SLOTS:
-        assert int(got[5]) > 0
+    assert int(got[2]) == 0  # no spill
+    if case == "separators":
+        assert int(got[0].live) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 7, 15])
+def test_kernel_on_a_misaligned_view(cuda_device, offset):
+    """A view that starts off a 16-byte boundary moves the tile edges."""
+    data = _dev_bytes(_zipf_text(4, 1 << 18), cuda_device)[offset:]
+    assert data.data_ptr() % 16 == offset
+    want = ktok.tokenize_stream_plain(data, W)
+    got = ktok.tokenize_stream_kernel(data, W)
+    for a, b in zip(_stream_fields(*want), _stream_fields(*got)):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_stream_wrappers_read_nothing_back(cuda_device):
+    """The wrappers leave the live count on the card: the caller cuts."""
+    data = _dev_bytes(_zipf_text(0, 1 << 20), cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stream, over, spill = ktok.tokenize_split_compact(data, W)
+        ktok.tokenize_split(data, W)
+        ktok.tokenize_fused(data, max_token_bytes=W)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(stream.live) == int(stream.total) + int(over)
 
 
 @pytest.mark.cuda
 def test_wrappers_count_launches_and_check_input(cuda_device):
-    data = torch.frombuffer(bytearray(CASES["zipf"]()), dtype=torch.uint8)
-    data = data.to(cuda_device)
+    data = _dev_bytes(CASES["zipf"](), cuda_device)
     before = dict(ktok.LAUNCHES)
     ktok.tokenize_split_compact(data, W)
     ktok.tokenize_split(data, W)
@@ -113,6 +158,21 @@ def test_count_words_and_count_file_on_the_card(cuda_device, tmp_path):
     got = executor.count_file(str(path), wc.Config(chunk_bytes=1 << 14))
     assert got.as_dict() == oracle.word_counts(corpus)
     assert list(got.words) == list(oracle.word_counts(corpus))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [
+    b" \n\t" * 4000,  # separators only: the stream is its dead row
+    b"a b c d " * 5000,  # the densest text: no fallback
+    b"ab " * 4000 + b" ".join([b"x" * 40, b"y" * 90, b"z" * 33]),  # poisons last
+])
+def test_count_words_on_edge_buffers_on_the_card(cuda_device, data):
+    wc.BRANCHES.clear()
+    got = wc.count_words(data)
+    assert got.as_dict() == oracle.word_counts(data)
+    assert got.total == oracle.total_count(data)
+    assert got.dropped_count == 0
+    assert not wc.BRANCHES["spill_fallbacks"]
 
 
 # Segments of two combiner windows: every segment edge is a window edge,
@@ -162,19 +222,18 @@ def test_fused_mode_is_the_compact_stream(cuda_device, case):
     compact = ktok.tokenize_split_compact(data, W)
     torch.cuda.synchronize()
     assert ktok.LAUNCHES["tokenize_fused"] == before + 1
-    for a, b in zip((*fused[0][:4], *fused[1:]), (*compact[0][:4],
-                                                  *compact[1:])):
+    for a, b in zip(_stream_fields(*fused), _stream_fields(*compact)):
         assert torch.equal(a.cpu(), b.cpu())
 
 
 def _radix_probes(device):
-    """The compact stream of a Zipf MB, the same rows in one top-level
+    """The dense stream of a Zipf MB, the same rows in one top-level
     bucket, random triples with ``key_hi >= 2**31``, a hot key holding over
     half the live rows, one key in every live row (every pass sees one
     digit), a stream of poison rows ``(sent, sent-1)`` in shuffled
     ``packed`` order, and an all-dead stream."""
     stream = ktok.tokenize_split_compact(
-        _dev_bytes(_zipf_text(0, 1 << 20), device), W)[0]
+        _dev_bytes(_zipf_text(0, 1 << 20), device), W)[0].cut()
     rows = (stream.key_hi, stream.key_lo, stream.packed)
     live = ~((rows[0] == ktok._SENT) & (rows[1] == ktok._SENT))
     one_key = torch.where(live, 0x8765_4321, rows[0])

@@ -1,6 +1,8 @@
 """The port's count tables against the JAX package's, on the CPU.
 
-``from_packed_rows`` (stable2 and sort3, with the rescue slice), the generic
+``from_packed_rows`` (stable2 and sort3, with the rescue slice; and on the
+kernel's dense stream, whose one dead row follows the poison rows, against
+the same rows padded with filler as the TPU layout leaves them), the generic
 ``from_stream`` build, ``merge`` (two-way and three-way), ``top_k``, the KMV
 estimate and the 64-bit totals, each fed the same seeded numpy rows as the
 JAX function and compared field by field.  Integer counting only: every
@@ -110,6 +112,48 @@ def test_rescue_slice_clamps_at_the_array_end():
                                rescue_slots=200)[1]
     np.testing.assert_array_equal(np.asarray(want).astype(np.uint32),
                                   got.numpy().astype(np.uint32))
+
+
+def _dense_stream(seed: int):
+    """A dense stream: the live rows of :func:`_packed_rows` in position
+    order, its last three turned into poison rows, then one dead row."""
+    (khi, klo, packed), _ = _packed_rows(seed, n=1500)
+    live = packed != SENT
+    khi, klo, packed = khi[live], klo[live], packed[live]
+    poison = (khi == SENT) & (klo == SENT - 1)
+    poison[-3:] = True
+    khi[poison], klo[poison] = SENT, SENT - 1
+    packed[poison] = packed[poison] >> 6 << 6
+    total = int((~poison).sum())
+    dead = np.array([SENT], np.uint32)
+    return [np.concatenate([a, dead]) for a in (khi, klo, packed)], total, \
+        int(poison.sum())
+
+
+@pytest.mark.parametrize("sort_mode", ["stable2", "sort3"])
+@pytest.mark.parametrize("seed", [3, 4, "empty"])
+def test_dense_stream_table_matches_filler_stream(sort_mode, seed):
+    """The dense stream builds the table that JAX builds from the same rows
+    followed by filler, and its rescue slice of ``overlong + 1`` rows holds
+    the poison positions that JAX's longer slice starts with; the empty
+    stream is its dead row alone."""
+    if seed == "empty":
+        rows, total, over = [np.array([SENT], np.uint32)] * 3, 0, 0
+    else:
+        rows, total, over = _dense_stream(seed)
+    filler = [np.concatenate([a, np.full(300, SENT, np.uint32)])
+              for a in rows]
+    want, want_r = _jax_packed(*filler, jnp.uint32(total), capacity=256,
+                               pos_hi=1, sort_mode=sort_mode,
+                               rescue_slots=200)
+    got, got_r = tbl.from_packed_rows(
+        *_port(*rows), torch.tensor(total), 256, 1, sort_mode=sort_mode,
+        rescue_slots=over + 1)
+    _assert_equal(want, got)
+    np.testing.assert_array_equal(
+        np.asarray(want_r)[:over + 1].astype(np.uint32),
+        got_r.numpy().astype(np.uint32))
+    assert (got_r.numpy()[:over] & 63 == 0).all()  # the poison rows
 
 
 @functools.lru_cache(maxsize=None)

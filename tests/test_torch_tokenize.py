@@ -8,7 +8,8 @@
   mode.  The two layouts differ, so the contract is the stream's: the same
   multiset of ``(key_hi, key_lo, packed)`` rows, poison rows included (the
   JAX column stream plus its seam stream), the same ``overlong`` and token
-  totals, the port's single stream in global byte order.
+  totals, the port's single dense stream in global byte order with one dead
+  row at index ``live`` and no spill.
 
 Everything here is integer hashing and counting: every comparison is exact,
 as uint32 or int64, with tolerance zero.  Inputs come from a seeded numpy
@@ -77,7 +78,11 @@ CASES = {
     "edges0": lambda: _edge_runs(0),
     "edges1": lambda: _edge_runs(1),
     "edges2": lambda: _edge_runs(2),
-    "dense": lambda: b"a " * (N // 2),  # one-letter tokens: compact spills
+    "dense": lambda: b"a " * (N // 2),  # one-letter tokens: the most rows
+    "separators": lambda: b" \n\t\r" * (N // 4),  # no row at all
+    # Overlong runs close the buffer: its last live rows are poisons.
+    "poison_end": lambda: (b"ab cd " * N)[:N - 3 * W - 2] + b" "
+    + b"p" * (W + 1) + b" " + b"q" * (2 * W - 1),
 }
 EDGES = ["edges0", "edges1", "edges2"]
 
@@ -125,51 +130,53 @@ def _jax_streams(case: str):
 
 
 def _port(case: str, mode: str):
+    """The port's stream of a case, cut to its live rows and dead row."""
     data = torch.from_numpy(np.frombuffer(CASES[case](), np.uint8).copy())
     if mode == "compact":
         stream, over, spill = ktok.tokenize_split_compact(data, W)
+    elif mode == "fused":
+        stream, over, spill = ktok.tokenize_fused(data, max_token_bytes=W)
     else:
         (stream, over), spill = ktok.tokenize_split(data, W), 0
-    return stream, int(over), int(spill)
+    return stream.cut(), int(over), int(spill)
 
 
-@pytest.mark.parametrize("case", ["zipf", *EDGES, "dense"])
+@pytest.mark.parametrize("case", ["zipf", *EDGES, "dense", "separators",
+                                  "poison_end"])
 @pytest.mark.parametrize("mode", ["compact", "pair"])
 def test_kernel_rows_match_pallas(case, mode):
     j_rows, j_over, j_ntok, j_spill = _jax_streams(case)
     assert j_spill == 0
     stream, over, spill = _port(case, mode)
-    assert over == j_over
+    assert (over, spill) == (j_over, 0)
     assert int(stream.total) == j_ntok
-    if spill:  # an incomplete compact stream: only the pair mode is exact
-        assert mode == "compact" and case == "dense"
-        return
     assert _rows(stream.key_hi, stream.key_lo, stream.packed) == j_rows
 
 
-@pytest.mark.parametrize("case", ["zipf", *EDGES])
+@pytest.mark.parametrize("case", ["zipf", *EDGES, "poison_end"])
 def test_overlong_runs_present(case):
-    """The edge corpus does hold overlong runs (poison rows) and W-byte
-    tokens; the Zipf corpus holds tokens of exactly W bytes."""
+    """The edge corpora do hold overlong runs (poison rows) and W-byte
+    tokens; the Zipf corpus holds tokens of exactly W bytes; the last
+    buffer ends in two overlong runs."""
     rows, over, _, _ = _jax_streams(case)
     lengths = [p & 63 for _, _, p in rows]
-    assert W in lengths
+    if case != "poison_end":
+        assert W in lengths
     if case != "zipf":
         assert over > 0 and lengths.count(0) == over
 
 
 def test_dense_text_spills():
-    """One-letter tokens fill half the bytes: past the compact budget of a
-    third, so the compact stream reports a spill (the JAX kernel's windows
-    on a buffer this short hold too few rows to spill)."""
-    _, _, spill = _port("dense", "compact")
-    # Each full window holds WINDOW/2 token ends against COMPACT_SLOTS
-    # slots; the last, partial window (N % WINDOW bytes) fits.
-    full = N // ktok.WINDOW
-    assert spill == full * (ktok.WINDOW // 2 - ktok.COMPACT_SLOTS)
+    """One-letter tokens fill half the bytes, the most rows a buffer can
+    give, where the TPU layout's compact windows overflow.  The dense
+    stream holds every row: spill 0, one row per token, equal to JAX."""
+    stream, over, spill = _port("dense", "compact")
+    assert (spill, over) == (0, 0)
+    assert int(stream.total) == N // 2 == _jax_streams("dense")[2]
+    assert stream.packed.shape[0] == N // 2 + 1
 
 
-@pytest.mark.parametrize("case", EDGES)
+@pytest.mark.parametrize("case", [*EDGES, "zipf", "dense", "poison_end"])
 @pytest.mark.parametrize("mode", ["compact", "pair"])
 def test_stream_in_global_byte_order(case, mode):
     stream, _, spill = _port(case, mode)
@@ -179,10 +186,39 @@ def test_stream_in_global_byte_order(case, mode):
     assert np.all(np.diff(pos) > 0)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("mode", ["compact", "pair", "fused"])
+def test_one_dead_row_at_live(case, mode):
+    """Every live row, then exactly one dead row, at index ``live``."""
+    data = torch.from_numpy(np.frombuffer(CASES[case](), np.uint8).copy())
+    stream = ktok.tokenize_fused(data, max_token_bytes=W)[0] \
+        if mode == "fused" else _port(case, mode)[0]
+    live = _jax_streams(case)[1] + _jax_streams(case)[2]  # poisons + tokens
+    if mode == "fused":
+        assert int(stream.live) == live
+        stream = stream.cut(live)
+    assert stream.live is None and stream.packed.shape[0] == live + 1
+    dead = (stream.packed == ONES).nonzero().reshape(-1).tolist()
+    assert dead == [live]
+    assert int(stream.key_hi[live]) == int(stream.key_lo[live]) == ONES
+
+
+def test_cut_checks_the_callers_count():
+    """``cut`` takes the count the caller read (here checked against the
+    stream's own, which a CPU tensor holds without a sync)."""
+    data = torch.from_numpy(np.frombuffer(CASES["zipf"](), np.uint8).copy())
+    stream, over, _ = ktok.tokenize_split_compact(data, W)
+    live = int(stream.total) + int(over)
+    assert int(stream.live) == live
+    assert torch.equal(stream.cut(live).packed, stream.cut().packed)
+    with pytest.raises(ValueError, match="live count"):
+        stream.cut(live + 1)
+
+
 def test_stream_views_and_filler():
     stream, _, _ = _port("zipf", "compact")
     rows = stream.packed.shape[0]
-    assert rows == -(-N // ktok.WINDOW) * ktok.COMPACT_SLOTS
+    assert rows == int(stream.total) + _jax_streams("zipf")[1] + 1
     dead = stream.packed == ONES
     assert torch.all(stream.key_hi[dead] == ONES)
     assert torch.all(stream.key_lo[dead] == ONES)
@@ -221,6 +257,7 @@ def test_kernel_has_no_layout_limits():
     data = torch.from_numpy(np.frombuffer(b"ab cd ef", np.uint8).copy())
     stream, over, spill = ktok.tokenize_split_compact(data, W)
     assert (int(stream.total), int(over), int(spill)) == (3, 0, 0)
+    assert stream.packed.shape[0] == 4  # three rows and the dead one
 
 
 # The kernel itself against this plain version: tests/test_torch_cuda.py,
@@ -285,6 +322,7 @@ def test_cuda_source_names_the_tpu_kernel():
     src = (ktok._build.CSRC_DIR / "tokenize.cu").read_text()
     assert "mapreduce_tpu/ops/pallas/tokenize.py:_tokenize_kernel" in src
     assert f"kWindow = {ktok.WINDOW};" in src
+    assert f"kTile = {ktok.TILE};" in src
     # The wrapper module builds nothing at import time.
     tree = ast.parse(open(ktok.__file__).read())
     top_calls = [n for n in tree.body if isinstance(n, ast.Expr)

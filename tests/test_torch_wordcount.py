@@ -2,9 +2,12 @@
 
 ``count_words`` runs the port's kernel path (on a CPU tensor, the kernel's
 plain PyTorch version) and the JAX package's Pallas path in interpret mode
-on the same seeded corpora: Zipf text, dense one-letter text (the compact
-spill and its exact fallback), overlong tokens (the tiered rescue, and the
-residual it leaves accounted) and table-capacity spill.  Every
+on the same seeded corpora: Zipf text, dense one-letter text (where the TPU
+layout's compact windows spill; the port's dense stream takes no
+fallback), overlong tokens (the tiered rescue, and the residual it leaves
+accounted), a buffer of separators only, a buffer that ends in overlong
+runs (the poison rows sort last, just before the stream's one dead row)
+and table-capacity spill.  Every
 ``WordCountResult`` field must be equal, exactly: this is integer hashing
 and counting, tolerance zero.
 
@@ -77,6 +80,10 @@ CORPORA = {
     "dense": lambda: b"a b " * 3000 + b" ".join(_zipf(1, 500)),
     "rescue_tier2": lambda: _with_overlong(2, 10),  # 4 < overlong <= 16
     "rescue_residual": lambda: _with_overlong(3, 40),  # overlong > 16
+    "separators": lambda: b" \n\t" * N,  # no token: the stream is its dead row
+    # Three overlong runs close the buffer (N bytes, no separator after).
+    "overlong_end": lambda: b" ".join(_zipf(4, 5000))[:N - 180] + b" "
+    + b" ".join([b"over007" * 4, b"L" * 45, b"over009" * 15])[:179],
 }
 
 
@@ -110,11 +117,21 @@ def test_count_words_matches_jax(case):
         assert got.as_dict() == oracle.word_counts(_data(case))
         assert not wc.BRANCHES["spill_fallbacks"]
     if case == "dense":
-        assert wc.BRANCHES["spill_fallbacks"] == 1
+        # The dense stream holds every row: no pair rerun.
+        assert wc.BRANCHES["spill_fallbacks"] == 0
         assert got.as_dict() == oracle.word_counts(_data(case))
     if case.startswith("rescue"):
         assert wc.BRANCHES["rescue_escalations"] == 1
         assert got.dropped_count > 0  # the 200-byte tokens stay accounted
+    if case == "separators":
+        assert (got.total, got.words) == (0, [])
+    if case == "overlong_end":
+        # All three are rescued at the first tier: the rescue slice found
+        # the poison rows at the end of the stream.
+        assert wc.BRANCHES["rescue_passes"] == 1
+        assert not wc.BRANCHES["rescue_escalations"]
+        assert got.dropped_count == 0
+        assert got.as_dict() == oracle.word_counts(_data(case))
 
 
 def test_capacity_spill_matches_jax():
