@@ -9,7 +9,8 @@ It imports only the port (``mapreduce_tpu_torch``), never JAX, and exits
 non-zero when no card is present.  Phases, each printing JSON lines:
 
 1. build   -- compile every ``mapreduce_tpu_torch/csrc/*.cu`` with nvcc,
-              one process per source, all started together;
+              one process per source, all started together, and the host
+              chunker ``mapreduce_tpu_torch/native/chunker.cpp`` with g++;
 2. kernel  -- each kernel's public wrapper against its plain PyTorch
               version on the card, exact equality:
               the tokenize kernel in compact and pair mode (a 32 MB Zipf
@@ -33,8 +34,8 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               position-ordered input);
 3. words   -- ``count_words`` at ``Config()`` defaults (32 MB chunk, table
               capacity 2**18) on a seeded 32 MB corpus, equal to the oracle;
-4. stream  -- ``count_file`` over a seeded corpus of at least 128 MB
-              (4 chunks or more), equal to the oracle;
+4. stream  -- ``count_file`` (through ``run_job``) over a seeded corpus
+              of at least 128 MB (4 chunks or more), equal to the oracle;
 5. paths   -- the same entry points under ``map_impl='fused'``; under
               ``combiner='hot-cache'`` (``count_words`` on 32 MB and
               ``count_file`` on 66 MB, each with a dense region of more
@@ -42,21 +43,39 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               combiner-free rerun of the dense stream); and under
               ``sort_impl`` 'radix_partition' and 'radix'; each equal to the
               oracle;
-6. times   -- each kernel's median time per 32 MB chunk beside its bound,
+6. stream_pipeline -- the pipelined executor (``run_job``: prefetching
+              reader with the native chunker, pinned staging, H2D on a
+              copy stream, a window of groups retired through CUDA events)
+              over the phase-4 file passed 8 times as one corpus (~1.09 GB,
+              40 chunks; each file's end is a token boundary, so the
+              expected result is phase 4's oracle with every count x 8):
+              three turns of the default window (4) and the serial control
+              (``inflight_groups=1``, ``prefetch_depth=1``), each printing
+              GB/s, every phase, the window statistics, the overlap
+              fraction, the pinned H2D ms a chunk and the native
+              chunker's fills (one a chunk, or it fails); pinned against
+              pageable H2D of one 32 MB chunk; a ``torch.profiler`` profile
+              of a streamed run over two of the files (the card's busy
+              share and the idle gap after each chunk's host read); and a
+              subprocess running ``run_job`` with a snapshot every 8 steps,
+              killed with SIGKILL once its first snapshot and ``.sum``
+              landed, then resumed here;
+7. times   -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
               radix seam (CUDA events between launches); the chunk's
               end-to-end time by stage; the step time (map + merge) of
               every path's configuration on one chunk, with the rows each
               step's sort sees;
-7. profile -- where the device time of a default, a combiner and a
+8. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 5 each drive a main path: the launch counters are set to 0
+Phases 3 to 6 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
-sort; the combiner paths the pair-mode rerun of the chunk that spills).
+sort; the combiner paths the pair-mode rerun of the chunk that spills;
+every streamed run one launch a chunk).
 No path but the combiner's may take a spill fallback: the dense regions
 of the other paths' corpora must not.  A kernel's ``launches`` in the kernels line are those of the
 first path that runs it; ``launches_by_path`` gives every path.  Before the
@@ -230,6 +249,205 @@ def max_err(want, got) -> int:
                for a, b in zip(want, got))
 
 
+# A run_job in its own process, killed by the smoke once its first
+# snapshot has landed: argv = repo root, checkpoint path, corpus files.
+CRASH_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from mapreduce_tpu_torch import Config
+from mapreduce_tpu_torch.models.wordcount import WordCountJob
+from mapreduce_tpu_torch.runtime.executor import run_job
+cfg = Config()
+run_job(WordCountJob(cfg), sys.argv[3:], cfg, checkpoint_path=sys.argv[2],
+        checkpoint_every=8)
+"""
+
+
+# The executor's phase spans (``obs/spans.py``), as named in a profile.
+SPANS = ("read_wait", "stage", "dispatch", "host_read", "retire_wait",
+         "h2d_tail", "compute_tail", "checkpoint", "reduce", "recover")
+
+
+def idle_gaps(prof) -> dict:
+    """The card's busy share and idle gaps in a profile: the union of every
+    device event's interval, its share of the device span, and the gaps
+    that follow a device-to-host copy (the chunk's host read; the recovery
+    copies come after the stream)."""
+    from torch.autograd import DeviceType
+
+    # The profiler mirrors each record_function span onto the device
+    # timeline as a user annotation over the kernels it launched: leave
+    # those out, they are not device work.
+    dev = sorted(((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.name not in SPANS
+                  and e.time_range.end > e.time_range.start),
+                 key=lambda r: r[0])
+    if not dev:
+        raise SystemExit("the profile holds no device events")
+    busy, gaps, after_read = 0.0, [], []
+    cur_s, cur_e, cur_name = dev[0]
+    for start, end, name in dev[1:]:
+        if start > cur_e:
+            busy += cur_e - cur_s
+            gaps.append(start - cur_e)
+            if "DtoH" in cur_name:
+                after_read.append(start - cur_e)
+            cur_s, cur_e, cur_name = start, end, name
+        elif end > cur_e:
+            cur_e, cur_name = end, name
+    busy += cur_e - cur_s
+    span_us = cur_e - dev[0][0]
+    return {"device_span_ms": span_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / span_us, "gaps": len(gaps),
+            "gap_ms_total": sum(gaps) / 1e3,
+            "gap_ms_top": sorted((round(g / 1e3, 3) for g in gaps),
+                                 reverse=True)[:8],
+            "gaps_after_host_read": len(after_read),
+            "gap_ms_after_host_read_total": sum(after_read) / 1e3,
+            "gap_ms_after_host_read_median":
+                statistics.median(after_read) / 1e3 if after_read else None}
+
+
+def stream_pipeline(drive, tmp: Path, path: Path, stream_data: bytes,
+                    want_stream: dict, chunk32: bytes, dev) -> None:
+    """Phase 6: the pipelined executor over the phase-4 file passed 8 times
+    (see the module docstring)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mapreduce_tpu_torch import Config, count_file, native
+    from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
+
+    cfg = Config()
+    serial = Config(inflight_groups=1, prefetch_depth=1)
+    corpus = [str(path)] * 8
+    n_bytes = 8 * len(stream_data)
+    per_file = -(-len(stream_data) // cfg.chunk_bytes)
+    want = {w: 8 * c for w, c in want_stream.items()}
+    if native.token_count(np.frombuffer(stream_data, np.uint8)) \
+            != sum(want_stream.values()):
+        raise SystemExit("the native chunker's token count differs from "
+                         "the oracle's")
+    # The reader fills every chunk through the native chunker (it has no
+    # other fill): count its calls in each timed run, one a chunk.
+    fills: list = []
+    real_fill = native.fill_batch
+
+    def counted_fill(*args):
+        fills.append(1)
+        return real_fill(*args)
+
+    native.fill_batch = counted_fill
+    try:
+        for turn in range(3):
+            for name, c in (("run_job", cfg), ("run_job_serial", serial)):
+                fills.clear()
+                got, seconds = drive(name, lambda c=c: count_file(corpus, c),
+                                     want, {"tokenize_compact": 8 * per_file})
+                if len(fills) != 8 * per_file:
+                    raise SystemExit(f"{name} filled {len(fills)} chunks "
+                                     f"with the native chunker, not "
+                                     f"{8 * per_file}")
+                run = got.run
+                emit("stream_pipeline", run=name, turn=turn, bytes=n_bytes,
+                     chunks=run.bases.shape[0], seconds=round(seconds, 4),
+                     gb_per_s=n_bytes / seconds / 1e9,
+                     run_job_gb_per_s=run.metrics.gb_per_s,
+                     phases=run.metrics.phases, pipeline=run.pipeline,
+                     overlap_fraction=run.pipeline["overlap_fraction"],
+                     h2d_ms_per_chunk=run.pipeline["h2d_ms_per_chunk"],
+                     native_fills=len(fills), equal_to_expected=True)
+    finally:
+        native.fill_batch = real_fill
+
+    # One 32 MB chunk to the card from pageable and from pinned memory:
+    # host clock around a synchronised copy, median of 10.
+    host = np.frombuffer(chunk32, np.uint8).copy()
+    pinned = torch.empty(host.shape[0], dtype=torch.uint8, pin_memory=True)
+    pinned.numpy()[:] = host
+    target = torch.empty(host.shape[0], dtype=torch.uint8, device=dev)
+    h2d = {}
+    for name, src in (("pageable", torch.from_numpy(host)),
+                      ("pinned", pinned)):
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            target.copy_(src, non_blocking=name == "pinned")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_a) * 1e3)
+        h2d[name] = statistics.median(times[2:])
+    if not torch.equal(target.cpu(), torch.from_numpy(host)):
+        raise SystemExit("the pinned H2D copy differs from its source")
+    emit("stream_pipeline", h2d_chunk_bytes=host.shape[0],
+         pageable_h2d_ms=h2d["pageable"], pinned_h2d_ms=h2d["pinned"],
+         pinned_gb_per_s=host.shape[0] / h2d["pinned"] / 1e6)
+    del pinned, target
+
+    # Where the card idles while streaming: a profile of two of the files,
+    # beside the same run unprofiled (the profiler slows the host).
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    count_file(corpus[:2], cfg)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t_a) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        got = count_file(corpus[:2], cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_a) * 1e3
+    if got.as_dict() != {w: 2 * c for w, c in want_stream.items()}:
+        raise SystemExit("the profiled streamed run differs from the oracle")
+    spans = {e.key: {"ms": round(e.cpu_time_total / 1e3, 3),
+                     "count": e.count}
+             for e in prof.key_averages()
+             if e.key in SPANS and e.device_type == DeviceType.CPU}
+    gaps = idle_gaps(prof)
+    emit("stream_pipeline", profile="count_file", files=2,
+         chunks=got.run.bases.shape[0], profiled_wall_ms=wall_ms,
+         unprofiled_wall_ms=plain_wall_ms, **gaps,
+         device_busy_share_of_unprofiled_wall=gaps["device_busy_ms"]
+         / plain_wall_ms, spans=spans)
+
+    # Crash and resume: a subprocess streams with a snapshot every 8 steps
+    # and is killed with SIGKILL once its first snapshot has landed.
+    ck = tmp / "crash.npz"
+    log = tmp / "crash.log"
+    with open(log, "wb") as err:
+        child = subprocess.Popen([sys.executable, "-c", CRASH_CHILD,
+                                  str(ROOT), str(ck), *corpus],
+                                 stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            deadline = time.monotonic() + 600
+            while child.poll() is None and time.monotonic() < deadline:
+                if os.path.exists(ckpt_mod.integrity_path(str(ck))):
+                    child.kill()
+                    break
+                time.sleep(0.002)
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+    if child.returncode != -9:
+        raise SystemExit(f"the crash run was not killed mid-stream (exit "
+                         f"{child.returncode}):\n"
+                         + log.read_text(errors="replace")[-3000:])
+    _, step, offset, _, _ = ckpt_mod.load(str(ck))
+    got, seconds = drive("run_job_resumed", lambda: count_file(
+        corpus, cfg, checkpoint_path=str(ck), checkpoint_every=8), want,
+        {"tokenize_compact": 8 * per_file - step})
+    emit("stream_pipeline", crash="SIGKILL", resumed_from_step=step,
+         resumed_from_offset=offset, resumed_chunks=8 * per_file - step,
+         seconds=round(seconds, 4),
+         bytes_after_resume=got.run.metrics.bytes_processed,
+         equal_to_expected=True)
+
+
 def main() -> int:
     import torch
 
@@ -241,7 +459,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from mapreduce_tpu_torch import Config, count_file, count_words
+    from mapreduce_tpu_torch import Config, count_file, count_words, native
     from mapreduce_tpu_torch.models import wordcount as wc
     from mapreduce_tpu_torch.ops import table as table_ops
     from mapreduce_tpu_torch.ops.cuda import _build
@@ -267,11 +485,13 @@ def main() -> int:
     def on_card(data: bytes) -> torch.Tensor:
         return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
 
-    # 1. build: every kernel source, in parallel
+    # 1. build: every kernel source, in parallel, and the host chunker
     t0 = time.perf_counter()
     built = _build.build_all()
+    native.load()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          libraries={k: str(p.relative_to(ROOT)) for k, (p, _) in built.items()},
+         native_chunker=str(native.library_path().relative_to(ROOT)),
          ptxas={k: [ln for ln in r.splitlines() if "ptxas info" in ln
                     and ("Used" in ln or "Function properties" in ln)][-6:]
                 for k, (_, r) in built.items()})
@@ -445,7 +665,7 @@ def main() -> int:
                 emit("kernel", probe=name, mode="radix_partition", impl=impl,
                      sort=what, rows=planes[0].shape[0], equal=True)
 
-    # 3 - 5. the main paths, with the launch counters read around each
+    # 3 - 6. the main paths, with the launch counters read around each
     by_path: dict[str, dict] = {}
     branches: dict[str, dict] = {}
 
@@ -499,13 +719,11 @@ def main() -> int:
              gb_per_s=round(len(stream_data) / stream_s / 1e9, 4),
              launches=by_path["count_file"], branches=branches["count_file"],
              equal_to_oracle=True)
-        del want_stream
 
         fused_cfg = Config(map_impl="fused")
         comb_cfg = Config(map_impl="fused", combiner="hot-cache")
         comb_words = with_pairs(words_data, 7 * MB)
         comb_file_data = with_pairs(stream_data[:66 * MB], 40 * MB)
-        del stream_data
         comb_path = Path(tmp) / "combiner.txt"
         comb_path.write_bytes(comb_file_data)
         comb_need = {"tokenize_combiner": None, "tokenize_pair": None}
@@ -537,7 +755,12 @@ def main() -> int:
                  equal_to_oracle=True)
         del comb_words, comb_file_data
 
-    # 6. times at the main path's shape: one 32 MB chunk
+        # 6. the pipelined executor over ~1 GB
+        stream_pipeline(drive, Path(tmp), path, stream_data, want_stream,
+                        chunk32, dev)
+        del stream_data, want_stream
+
+    # 7. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -720,7 +943,7 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
-    # 7. Where a step's device time goes, for the default, combiner and
+    # 8. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

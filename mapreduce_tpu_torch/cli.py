@@ -3,7 +3,8 @@
 Counterpart of :mod:`mapreduce_tpu.cli` for word count.  Its stdout is
 byte-identical to the JAX CLI's for the flags it takes; every other flag
 of the JAX CLI is refused with a usage error.  The run goes to the card
-unless ``--platform cpu`` asks for the CPU.
+unless ``--platform cpu`` asks for the CPU.  Progress logs and ``--stats``
+go to stderr.
 """
 
 from __future__ import annotations
@@ -12,12 +13,22 @@ import argparse
 import json
 import os
 import sys
+import time
 
 from mapreduce_tpu_torch.config import Config
 
 _CTRL_ESCAPES = str.maketrans({"\t": "\\t", "\n": "\\n", "\r": "\\r",
                                "\x00": "\\x00", "\x0b": "\\x0b",
                                "\x0c": "\\x0c"})
+
+
+#: Flags of the JAX CLI's streamed executor whose planes (failure policy,
+#: fault plan, window-boundary merges, autotuner, ledger) are not ported.
+_A8B_FLAGS = {"--retry": {"type": int, "metavar": "N"},
+              "--fault-plan": {"metavar": "SPEC"},
+              "--merge-overlap": {"action": "store_const", "const": True},
+              "--autotune": {"action": "store_const", "const": True},
+              "--ledger": {"metavar": "PATH"}}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,7 +50,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-echo", action="store_true",
                    help="suppress the 'Input Data:' echo")
     p.add_argument("--stream", action="store_true",
-                   help="stream the files chunk by chunk (large inputs)")
+                   help="stream the files chunk by chunk through the "
+                        "pipelined executor (large inputs)")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="with --stream: checkpoint state to PATH and resume "
+                        "from it")
+    p.add_argument("--checkpoint-every", type=int, default=25,
+                   metavar="STEPS")
+    p.add_argument("--superstep", type=int, default=1, metavar="K",
+                   help="with --stream: fold K chunks into one dispatch")
+    p.add_argument("--inflight", type=int, default=Config.inflight_groups,
+                   metavar="W",
+                   help="with --stream: keep up to W superstep groups "
+                        "dispatched-but-unretired, so reader/staging/H2D "
+                        "and device compute of different groups overlap "
+                        "(1 = serialized dispatch, the safe fallback and "
+                        "A/B control; default %(default)s)")
+    p.add_argument("--prefetch-depth", type=int, default=None, metavar="N",
+                   help="with --stream: batches the background reader may "
+                        "run ahead (default auto: superstep * inflight, "
+                        "clamped to [2, 16] — co-tuned with the window)")
+    p.add_argument("--stats", action="store_true",
+                   help="print timing/throughput to stderr")
+    for flag, kw in _A8B_FLAGS.items():
+        p.add_argument(flag, default=None,
+                       help="not ported yet (ROADMAP.md item A8b)", **kw)
     p.add_argument("--sort-impl", choices=("xla", "radix", "radix_partition"),
                    default="xla",
                    help="aggregation sort (identical results): 'xla' = the "
@@ -94,6 +129,12 @@ def main(argv: list[str] | None = None) -> int:
 
     parser = build_parser()
     args = parser.parse_args(argv)
+    for flag in _A8B_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            parser.error(f"{flag} is not ported to the PyTorch package yet "
+                         "(ROADMAP.md item A8b)")
+    if args.checkpoint and not args.stream:
+        parser.error("--checkpoint requires --stream")
     paths = args.input
     try:
         chunks = []
@@ -113,7 +154,10 @@ def main(argv: list[str] | None = None) -> int:
                         table_capacity=args.table_capacity,
                         sort_impl=args.sort_impl, map_impl=args.map_impl,
                         combiner=args.combiner,
-                        combiner_slots=args.combiner_slots)
+                        combiner_slots=args.combiner_slots,
+                        superstep=args.superstep,
+                        inflight_groups=args.inflight,
+                        prefetch_depth=args.prefetch_depth)
     except ValueError as e:
         parser.error(str(e))
     try:
@@ -122,16 +166,21 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 3
 
+    t0 = time.perf_counter()
     if args.stream:
         from mapreduce_tpu_torch.runtime.executor import count_file
 
-        result = count_file(paths, config, device, top_k=args.top_k or None)
+        result = count_file(
+            paths, config, device, top_k=args.top_k or None,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every if args.checkpoint else 0)
     else:
         from mapreduce_tpu_torch.models import wordcount
 
         result = wordcount.count_words(data, config, device)
         if args.top_k:
             result = wordcount.apply_top_k(result, args.top_k)
+    elapsed = time.perf_counter() - t0
 
     out = sys.stdout
     display = _decode(result.words)
@@ -154,6 +203,15 @@ def main(argv: list[str] | None = None) -> int:
             "dropped_uniques": result.dropped_uniques,
             "dropped_count": result.dropped_count,
         }) + "\n")
+    if args.stats:
+        n_bytes = sum(os.path.getsize(p) for p in paths)
+        print(f"[stats] {n_bytes} bytes, {result.total} words, "
+              f"{elapsed:.3f}s, {n_bytes / 1e9 / elapsed:.3f} GB/s",
+              file=sys.stderr)
+        if result.run is not None:
+            print("[stats] " + json.dumps({
+                "phases": result.run.metrics.as_dict()["phases"],
+                "pipeline": result.run.pipeline}), file=sys.stderr)
     return 0
 
 

@@ -54,6 +54,13 @@ class Config:
       rescue_overlong / rescue_overlong_max / rescue_window: the overlong
         rescue budgets (None: 1024, then ``chunk_bytes >> 10`` clamped to
         [1024, 65536]) and its lookback in bytes.
+      superstep: chunks per group of the streamed executor, the unit its
+        window holds and retires (one ``Engine.step`` each; identical
+        results).
+      inflight_groups: superstep groups the streamed executor keeps
+        dispatched but unretired (1: serial, the A/B control).
+      prefetch_depth: batches the reader thread may run ahead (None:
+        ``superstep * inflight_groups`` clamped to [2, 16]).
     """
 
     chunk_bytes: int = 1 << 25
@@ -73,6 +80,9 @@ class Config:
     combiner: str = "off"
     combiner_slots: Optional[int] = None
     geometry: object = None
+    superstep: int = 1
+    inflight_groups: int = 4
+    prefetch_depth: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.chunk_bytes % 128 != 0:
@@ -130,6 +140,14 @@ class Config:
             if self.rescue_window > 4096:
                 raise ValueError(f"rescue_window must be <= 4096, got "
                                  f"{self.rescue_window}")
+        if self.superstep < 1:
+            raise ValueError(f"superstep must be >= 1, got {self.superstep}")
+        if self.inflight_groups < 1:
+            raise ValueError(
+                f"inflight_groups must be >= 1, got {self.inflight_groups}")
+        if self.prefetch_depth is not None and self.prefetch_depth < 1:
+            raise ValueError(
+                f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
         if self.backend != "xla" and not 1 <= self.pallas_max_token <= 63:
             raise ValueError(f"pallas_max_token must be in [1, 63], got "
                              f"{self.pallas_max_token}")
@@ -153,6 +171,14 @@ class Config:
         if self.rescue_overlong_max is not None:
             return max(self.rescue_overlong_max, self.rescue_slots)
         return max(min(self.chunk_bytes >> 10, 1 << 16), self.rescue_slots)
+
+    @property
+    def resolved_prefetch_depth(self) -> int:
+        """The reader's prefetch depth: deep enough to feed a full window,
+        bounded so host memory stays O(window)."""
+        if self.prefetch_depth is not None:
+            return self.prefetch_depth
+        return min(16, max(2, self.superstep * self.inflight_groups))
 
     @property
     def compact(self) -> bool:

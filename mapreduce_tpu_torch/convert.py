@@ -4,7 +4,9 @@ and configs.
 A JAX ``CountTable`` is a NamedTuple of uint32 arrays; the port holds the
 same fields as int64 tensors with values in ``[0, 2**32)``.  These helpers
 move one across as numpy arrays, so both packages can start from one state
-and their results compare field by field.
+and their results compare field by field.  :func:`table_to_leaves` gives a
+table the layout of a one-device JAX engine state (the checkpoint's
+leaves), so a snapshot from either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from mapreduce_tpu_torch.config import Config
+from mapreduce_tpu_torch.config import Config, _not_ported
 from mapreduce_tpu_torch.ops.cuda.tokenize import CombinerCache
 from mapreduce_tpu_torch.ops.table import CountTable
 from mapreduce_tpu_torch.runtime.platform import resolve_device
@@ -40,6 +42,25 @@ def table_to_numpy(table: CountTable) -> dict[str, np.ndarray]:
             for f in CountTable._fields}
 
 
+def table_to_leaves(table: CountTable) -> list[np.ndarray]:
+    """The table as a one-device JAX engine state's leaves: one uint32
+    array per field, in ``CountTable`` field order, each with a leading
+    device axis of 1.  The cast runs on the device, before the copy."""
+    return [getattr(table, f).to(torch.int32).cpu().numpy()
+            .view(np.uint32).reshape(1, *getattr(table, f).shape)
+            for f in CountTable._fields]
+
+
+def leaves_to_table(leaves, device=None) -> CountTable:
+    """A port table from a one-device engine state's leaves (see
+    :func:`table_to_leaves`)."""
+    if len(leaves) != len(CountTable._fields):
+        raise ValueError(f"a CountTable has {len(CountTable._fields)} "
+                         f"leaves, got {len(leaves)}")
+    return table_from_numpy({f: np.asarray(leaf)[0] for f, leaf
+                             in zip(CountTable._fields, leaves)}, device)
+
+
 def combiner_cache_to_numpy(cache: CombinerCache) -> dict[str, np.ndarray]:
     """The flushed cache's planes as ``(C, 128)`` uint32 numpy arrays, the
     layout of the JAX package's ``CombinerCache``."""
@@ -57,6 +78,12 @@ def combiner_cache_from_numpy(fields: Mapping[str, Any],
         for f in CombinerCache._fields})
 
 
+#: JAX ``Config`` fields of the streamed executor's failure and tuning planes,
+#: not ported yet, at the values the port behaves as.
+_A8B_DEFAULTS = {"fault_plan": None, "failure_policy": None,
+                 "merge_overlap": False, "autotune": "off"}
+
+
 def config_from_dict(d: Mapping[str, Any]) -> Config:
     """A port Config from a JAX Config's fields (``dataclasses.asdict``).
 
@@ -68,10 +95,14 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     port takes ``radix_bits`` and, under the combiner, ``combiner_slots``;
     its window heights, slot budgets and radix slab sizes are TPU layout
     knobs with no counterpart (the results do not depend on them).  A
-    geometry preset name still raises.  The JAX pipeline knobs (superstep,
-    in-flight groups, prefetch, ledger, faults) change no result and are
-    not read.
+    geometry preset name still raises.  The pipeline knobs (superstep,
+    in-flight groups, prefetch) carry across; a failure policy, fault plan,
+    window-boundary merge or autotuner away from its default raises
+    (ROADMAP A8b).
     """
+    for name, default in _A8B_DEFAULTS.items():
+        if d.get(name, default) != default:
+            raise _not_ported(f"{name}={d[name]!r}", "A8b")
     names = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in d.items() if k in names}
     if kw.get("compact_slots"):

@@ -1,25 +1,29 @@
 """Boundary-aligned ingest: a file as a stream of token-aligned chunks.
 
-Counterpart of the numpy path of :mod:`mapreduce_tpu.data.reader` (the JAX
-package's native chunker is not used).  A row may only end at a separator
-byte, so no token spans two chunks; a separator-free run longer than
-``max_token_bytes`` is force-split at the ideal cut.  Every batch carries
-the absolute file offset of its rows, so device positions map back to exact
-byte ranges for string recovery.
+Counterpart of :mod:`mapreduce_tpu.data.reader`.  A row may only end at a
+separator byte, so no token spans two chunks; a separator-free run longer
+than ``max_token_bytes`` is force-split at the ideal cut.  Every batch
+carries the absolute (virtual, for a multi-file corpus) offset of its rows,
+so device positions map back to exact byte ranges for string recovery.
+
+The batch fill runs in the native chunker (:mod:`...native`), which gives
+the JAX reader's batches byte for byte.  ``out`` lets the caller supply
+each batch's data buffer, so the executor's pinned staging buffers are
+filled in place with no second host copy.  :func:`prefetch` runs the
+reader in a thread ahead of the consumer.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Iterator
+import queue
+import threading
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
-from mapreduce_tpu_torch import constants
-
-_SEP_LUT = np.zeros(256, dtype=bool)
-_SEP_LUT[list(constants.SEPARATOR_BYTES)] = True
+from mapreduce_tpu_torch import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,76 +34,119 @@ class Batch:
     base_offsets: np.ndarray  # int64[n_shards], absolute offset of each row
     lengths: np.ndarray  # int64[n_shards], valid bytes per row
     step: int
-
-
-def _aligned_cuts(buf: np.ndarray, n_shards: int, chunk_bytes: int,
-                  max_token_bytes: int, at_eof: bool) -> list[int]:
-    """Cut points (ascending, one per shard) so every row ends just after a
-    separator, or at a force-split after ``max_token_bytes`` of unbroken
-    token bytes.  Only the file's true end may cut unaligned."""
-    is_sep = _SEP_LUT[buf]
-    cuts = []
-    prev = 0
-    n = buf.shape[0]
-    for _ in range(n_shards):
-        ideal = min(prev + chunk_bytes, n)
-        if ideal >= n and at_eof:
-            cuts.append(n)
-            prev = n
-            continue
-        lo = max(prev, ideal - max_token_bytes)
-        hits = np.flatnonzero(is_sep[lo:ideal])
-        cut = lo + int(hits[-1]) + 1 if hits.size else ideal
-        cuts.append(cut)
-        prev = cut
-    return cuts
+    file_index: int = 0  # corpus member the batch came from (never spans two)
 
 
 def iter_batches(path, n_shards: int, chunk_bytes: int,
-                 max_token_bytes: int = 4096,
-                 start_step: int = 0) -> Iterator[Batch]:
+                 max_token_bytes: int = 4096, start_offset: int = 0,
+                 start_step: int = 0,
+                 out: Optional[Callable[[], np.ndarray]] = None
+                 ) -> Iterator[Batch]:
     """Stream a file as boundary-aligned ``[n_shards, chunk_bytes]``
-    batches, numbering steps from ``start_step``."""
+    batches.
+
+    ``start_offset``/``start_step`` continue from a reported cursor
+    (checkpoint resume).  ``out()``, when given, returns the uint8 buffer
+    (``n_shards * chunk_bytes`` bytes, C-contiguous) each batch is filled
+    into."""
     total = os.path.getsize(path)
     mm = np.memmap(path, dtype=np.uint8, mode="r") if total else None
-    offset = 0
+    offset = start_offset
     step = start_step
     stride = n_shards * chunk_bytes
     while offset < total:
-        raw = np.asarray(mm[offset: min(offset + stride, total)])
-        cuts = _aligned_cuts(raw, n_shards, chunk_bytes, max_token_bytes,
-                             at_eof=offset + raw.shape[0] >= total)
-        data = np.zeros((n_shards, chunk_bytes), dtype=np.uint8)
+        raw = mm[offset: min(offset + stride, total)]
+        at_eof = offset + raw.shape[0] >= total
+        data = np.empty((n_shards, chunk_bytes), np.uint8) if out is None \
+            else out().reshape(n_shards, chunk_bytes)
         bases = np.empty((n_shards,), dtype=np.int64)
         lengths = np.empty((n_shards,), dtype=np.int64)
-        prev = 0
-        for i, cut in enumerate(cuts):
-            data[i, : cut - prev] = raw[prev:cut]
-            bases[i] = offset + prev
-            lengths[i] = cut - prev
-            prev = cut
+        consumed = native.fill_batch(raw, at_eof, n_shards, chunk_bytes,
+                                     max_token_bytes, data, bases, lengths)
+        if consumed <= 0:  # cannot happen: a first cut takes >= 1 byte
+            raise RuntimeError("ingest made no progress")
+        bases += offset
         yield Batch(data=data, base_offsets=bases, lengths=lengths, step=step)
-        offset += cuts[-1]
+        offset += consumed
         step += 1
 
 
 def iter_batches_multi(paths, n_shards: int, chunk_bytes: int,
-                       max_token_bytes: int = 4096) -> Iterator[Batch]:
-    """Stream several files as one corpus.  Offsets are virtual (positions
-    in the concatenation of the files); a file's end is a hard token
-    boundary; step numbering continues across files."""
+                       max_token_bytes: int = 4096, start_offset: int = 0,
+                       start_step: int = 0,
+                       out: Optional[Callable[[], np.ndarray]] = None
+                       ) -> Iterator[Batch]:
+    """Stream several files as one corpus.  Offsets (``start_offset``,
+    ``Batch.base_offsets``) are virtual: positions in the concatenation of
+    the files.  A file's end is a hard token boundary; step numbering
+    continues across files."""
     if isinstance(paths, (str, bytes, os.PathLike)):
         paths = [paths]
-    step = 0
+    step = start_step
     file_start = 0
-    for path in paths:
-        for b in iter_batches(path, n_shards, chunk_bytes,
-                              max_token_bytes=max_token_bytes,
-                              start_step=step):
-            yield dataclasses.replace(b, base_offsets=b.base_offsets
-                                      + file_start)
-            step = b.step + 1
-        file_start += os.path.getsize(path)
+    for fi, path in enumerate(paths):
+        size = os.path.getsize(path)
+        local_lo = max(0, start_offset - file_start)
+        if local_lo < size:
+            for b in iter_batches(path, n_shards, chunk_bytes,
+                                  max_token_bytes=max_token_bytes,
+                                  start_offset=local_lo, start_step=step,
+                                  out=out):
+                yield dataclasses.replace(
+                    b, base_offsets=b.base_offsets + file_start,
+                    file_index=fi)
+                step = b.step + 1
+        file_start += size
+
+
+def prefetch(batches: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
+    """Run an iterator in a daemon thread, up to ``depth`` items ahead.
+
+    The queue is bounded, so an abandoned consumer holds at most ``depth``
+    batches; a producer exception is re-raised at the consumer's next pull;
+    closing the generator (or an error in the consumer) stops the producer
+    at its next put."""
+    if depth < 1:
+        raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce() -> None:
+        try:
+            for b in batches:
+                if not put(b):
+                    return
+            put(end)
+        except BaseException as e:  # re-raised on the consumer side
+            put(_ProducerError(e))
+
+    t = threading.Thread(target=produce, daemon=True, name="ingest-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, _ProducerError):
+                raise item.error
+            yield item
+    finally:
+        stop.set()
+
+
+class _ProducerError:
+    def __init__(self, error: BaseException):
+        self.error = error
 
 
 def read_words_at(path, spans: list[tuple[int, int]]) -> list[bytes]:

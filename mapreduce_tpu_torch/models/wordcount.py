@@ -28,11 +28,13 @@ from __future__ import annotations
 
 import dataclasses
 from collections import Counter
+from typing import Any
 
 import numpy as np
 import torch
 
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
+from mapreduce_tpu_torch.obs.spans import span
 from mapreduce_tpu_torch.ops import rescue as rescue_ops
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
@@ -58,6 +60,9 @@ class WordCountResult:
     distinct: int  # exact unless keys spilled (then a KMV estimate)
     dropped_uniques: int  # upper bound on distinct words spilled or overlong
     dropped_count: int  # tokens of spilled/dropped words (exact)
+    # A streamed run's ``RunResult`` (metrics, bases, window statistics;
+    # ``runtime/executor.py:count_file``), None otherwise.  Not compared.
+    run: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def as_dict(self) -> dict[bytes, int]:
         return dict(zip(self.words, self.counts))
@@ -130,7 +135,9 @@ def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi):
     flags = [spill, overlong, stream.total]
     if cache is not None:
         flags += [cache.count.sum(), (cache.count > 0).sum()]
-    spill_h, over_h, tokens_h, *cached = torch.stack(flags).tolist()
+    flags = torch.stack(flags)
+    with span("host_read"):  # waits for the card (the streamed loop's too)
+        spill_h, over_h, tokens_h, *cached = flags.tolist()
     BRANCHES["chunks"] += 1
     if spill_h:
         # A combiner window overflowed its slots, so the thinned stream is
@@ -290,3 +297,8 @@ class WordCountJob:
 
     def finalize(self, state) -> table_ops.CountTable:
         return state
+
+    def identity(self) -> str:
+        """What the state's numbers mean, for the checkpoint fingerprint
+        (the JAX package's name for the same job)."""
+        return "wordcount"

@@ -1,17 +1,16 @@
 """The MapReduce engine on one device.
 
 Counterpart of :class:`mapreduce_tpu.parallel.mapreduce.Engine` for a single
-card: no mesh, no collectives, no ``step_many``.  A job supplies
-``init_state``, ``map_chunk(chunk, chunk_id)``, ``combine``, ``merge`` and
-``finalize``; the engine feeds it one chunk per step with ``chunk_id`` =
-the step index, the JAX package's numbering on one device.
+card: no mesh, no collectives.  A job supplies ``init_state``,
+``map_chunk(chunk, chunk_id)``, ``combine``, ``merge`` and ``finalize``; the
+engine feeds it one chunk per step with ``chunk_id`` = the step index, the
+JAX package's numbering on one device.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-import numpy as np
 import torch
 
 from mapreduce_tpu_torch.runtime.platform import resolve_device
@@ -29,6 +28,8 @@ class Engine:
         result = eng.finish(state)
     """
 
+    n_devices = 1
+
     def __init__(self, job, device=None):
         self.job = job
         self.device = resolve_device(device)
@@ -36,13 +37,16 @@ class Engine:
     def init_states(self) -> Any:
         return self.job.init_state()
 
-    def step(self, state: Any, chunk: np.ndarray, step_index: int) -> Any:
+    def step(self, state: Any, chunk, step_index: int) -> Any:
         """One map + combine step over ``chunk`` (uint8, ``[1, C]`` or
-        ``[C]``, host or device)."""
+        ``[C]``).  A host array is copied to the device; a tensor already
+        on the device is used as it is."""
         t = torch.as_tensor(chunk).reshape(-1)
         if t.dtype != torch.uint8:
             raise TypeError(f"chunks must be uint8, got {t.dtype}")
-        update = self.job.map_chunk(t.to(self.device), step_index)
+        if t.device != self.device:
+            t = t.to(self.device)
+        update = self.job.map_chunk(t, step_index)
         return self.job.combine(state, update)
 
     def finish(self, state: Any) -> Any:

@@ -1,0 +1,212 @@
+"""The port's checkpoints against the JAX package's, on the CPU.
+
+Both packages stream the same 2-file corpus with a snapshot every 2 steps
+(the JAX side on a one-device mesh, backend pallas, its Pallas kernel in
+interpret mode).  The snapshots after step 2 and step 4 must be equal leaf
+for leaf as uint32, with the same cursor, row bases, file index and
+``__meta``; a JAX snapshot resumes in the port, and a port snapshot in the
+JAX package, to the uninterrupted result.  The refusals (another chunk
+size, capacity or input; future and legacy formats) and the ``.prev``
+fallback after corruption are the port's alone.
+"""
+
+import dataclasses
+import json
+import logging
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from mapreduce_tpu.config import Config as JConfig
+from mapreduce_tpu.parallel.mesh import data_mesh
+from mapreduce_tpu.runtime import executor as jexecutor
+from mapreduce_tpu_torch import convert
+from mapreduce_tpu_torch.ops import table as table_ops
+from mapreduce_tpu_torch.runtime import checkpoint as ckpt
+from mapreduce_tpu_torch.runtime import executor
+from mapreduce_tpu_torch.runtime.logging import LOGGER_NAME
+
+CHUNK = 4096
+JCFG = JConfig(backend="pallas", map_impl="split", combiner="off",
+               pallas_max_token=8, chunk_bytes=CHUNK, table_capacity=4096,
+               rescue_overlong=4)
+CFG = convert.config_from_dict(dataclasses.asdict(JCFG))
+
+
+def _text(seed: int, n_words: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    vocab = [b"w%x" % i for i in range(250)] + [b"streamed_over"]
+    return b" ".join(vocab[int(i) % len(vocab)]
+                     for i in rng.zipf(1.3, n_words))
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Both packages over the same corpus with ``checkpoint_every=2``:
+    their results and the directory holding ``jax.npz`` and ``port.npz``
+    (the step-4 snapshots; ``.prev``: step 2)."""
+    d = tmp_path_factory.mktemp("ck")
+    paths = []
+    for i, n in enumerate((2200, 2000)):  # 2 + 3 chunks
+        p = d / f"part{i}.txt"
+        p.write_bytes(_text(20 + i, n))
+        paths.append(str(p))
+    want = jexecutor.count_file(paths, JCFG, mesh=data_mesh(1),
+                                checkpoint_path=str(d / "jax.npz"),
+                                checkpoint_every=2)
+    got = executor.count_file(paths, CFG, device="cpu",
+                              checkpoint_path=str(d / "port.npz"),
+                              checkpoint_every=2)
+    return {"dir": d, "paths": paths, "jax": want, "port": got}
+
+
+def _assert_results_equal(want, got):
+    for f in ("words", "counts", "total", "distinct", "dropped_uniques",
+              "dropped_count"):
+        assert getattr(want, f) == getattr(got, f), f
+
+
+def test_results_equal(run):
+    _assert_results_equal(run["jax"], run["port"])
+
+
+@pytest.mark.parametrize("suffix,step", [("", 4), (".prev", 2)])
+def test_snapshot_equals_jax_leaf_for_leaf(run, suffix, step):
+    want = np.load(run["dir"] / f"jax.npz{suffix}")
+    got = np.load(run["dir"] / f"port.npz{suffix}")
+    assert sorted(got.files) == sorted(want.files)
+    assert int(got["__step"]) == int(want["__step"]) == step
+    for k in want.files:
+        if k == "__meta":
+            assert json.loads(bytes(got[k])) == json.loads(bytes(want[k]))
+            continue
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    meta = json.loads(bytes(got["__meta"]))
+    assert (meta["backend"], meta["pallas_max_token"], meta["job"],
+            meta["n_devices"], meta["format"]) == ("pallas", 8, "wordcount",
+                                                   1, 2)
+    assert ckpt.verify(str(run["dir"] / f"port.npz{suffix}")) is True
+
+
+def _copy_snapshot(src, dst) -> str:
+    shutil.copy(src, dst)
+    shutil.copy(ckpt.integrity_path(str(src)), ckpt.integrity_path(str(dst)))
+    return str(dst)
+
+
+def test_jax_snapshot_resumes_in_the_port(run, tmp_path):
+    ck = _copy_snapshot(run["dir"] / "jax.npz.prev", tmp_path / "from_jax.npz")
+    got = executor.count_file(run["paths"], CFG, device="cpu",
+                              checkpoint_path=ck)
+    _assert_results_equal(run["jax"], got)
+    assert got.run.metrics.bytes_processed \
+        < sum(os.path.getsize(p) for p in run["paths"])
+
+
+def test_port_snapshot_resumes_in_jax(run, tmp_path):
+    ck = _copy_snapshot(run["dir"] / "port.npz.prev",
+                        tmp_path / "from_port.npz")
+    got = jexecutor.count_file(run["paths"], JCFG, mesh=data_mesh(1),
+                               checkpoint_path=ck)
+    _assert_results_equal(run["jax"], got)
+
+
+@pytest.mark.parametrize("change,key", [
+    ({"chunk_bytes": 2 * CHUNK}, "chunk_bytes"),
+    ({"table_capacity": 2048}, "leaf 0"),
+    ({"pallas_max_token": 9}, "pallas_max_token"),
+])
+def test_mismatched_run_is_refused(run, tmp_path, change, key):
+    ck = _copy_snapshot(run["dir"] / "port.npz", tmp_path / "ck.npz")
+    cfg = dataclasses.replace(CFG, **change)
+    with pytest.raises(ckpt.CheckpointMismatch, match=key):
+        executor.count_file(run["paths"], cfg, device="cpu",
+                            checkpoint_path=ck)
+
+
+def test_other_input_is_refused(run, tmp_path):
+    ck = _copy_snapshot(run["dir"] / "port.npz", tmp_path / "ck.npz")
+    with pytest.raises(ckpt.CheckpointMismatch, match="input_size"):
+        executor.count_file(run["paths"][:1], CFG, device="cpu",
+                            checkpoint_path=ck)
+    other = tmp_path / "other.txt"
+    data = bytearray(open(run["paths"][1], "rb").read())
+    data[:5] = b"zzzzz"  # same size, other head
+    other.write_bytes(bytes(data))
+    with pytest.raises(ckpt.CheckpointMismatch, match="input_hash"):
+        executor.count_file([run["paths"][0], str(other)], CFG, device="cpu",
+                            checkpoint_path=ck)
+
+
+def test_corrupt_snapshot_falls_back_to_prev(run, tmp_path):
+    ck = _copy_snapshot(run["dir"] / "port.npz", tmp_path / "ck.npz")
+    _copy_snapshot(run["dir"] / "port.npz.prev", ckpt.previous_path(ck))
+    with open(ck, "r+b") as f:
+        f.seek(200)
+        f.write(b"\xff" * 64)
+    assert ckpt.verify(ck) is False
+    with pytest.raises(ckpt.CheckpointCorrupt):
+        ckpt.load_verified(ck)
+    (_, step, *_), fallback = ckpt.load_resilient(ck)
+    assert step == 2 and fallback["loaded"] == ckpt.previous_path(ck)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    logger = logging.getLogger(LOGGER_NAME)
+    logger.addHandler(handler)
+    try:
+        got = executor.count_file(run["paths"], CFG, device="cpu",
+                                  checkpoint_path=ck)
+    finally:
+        logger.removeHandler(handler)
+    assert "corrupt checkpoint; resumed from previous good snapshot" \
+        in logged
+    _assert_results_equal(run["jax"], got)
+    # The previous snapshot is corrupt too: nothing to resume from.
+    with open(ckpt.previous_path(ck), "r+b") as f:
+        f.seek(200)
+        f.write(b"\xff" * 64)
+    with pytest.raises(ckpt.CheckpointCorrupt):
+        ckpt.load_resilient(ck)
+
+
+def test_exists_with_only_prev(run, tmp_path):
+    ck = str(tmp_path / "ck.npz")
+    assert not ckpt.exists(ck)
+    _copy_snapshot(run["dir"] / "port.npz.prev", ckpt.previous_path(ck))
+    assert ckpt.exists(ck)
+    (_, step, *_), fallback = ckpt.load_resilient(ck)
+    assert step == 2 and fallback is not None
+
+
+def test_future_and_legacy_formats_are_named(tmp_path):
+    future = str(tmp_path / "future.npz")
+    np.savez(future, __leaf_0=np.zeros(2, np.uint32), __step=np.int64(1),
+             __offset=np.int64(0), __bases=np.zeros((1, 1), np.int64),
+             __meta=np.frombuffer(json.dumps({"format": 3}).encode(),
+                                  np.uint8))
+    with pytest.raises(ckpt.CheckpointMismatch, match="newer version"):
+        ckpt.load(future)
+    legacy = str(tmp_path / "legacy.npz")
+    np.savez(legacy, key_hi=np.zeros(2, np.uint32), __step=np.int64(1),
+             __offset=np.int64(0), __bases=np.zeros((1, 1), np.int64))
+    with pytest.raises(ckpt.CheckpointMismatch, match="older version"):
+        ckpt.load(legacy)
+
+
+def test_table_leaves_round_trip():
+    gen = torch.Generator().manual_seed(5)
+    t = table_ops.empty(64, "cpu")
+    t = t._replace(**{f: torch.randint(0, 1 << 32, getattr(t, f).shape,
+                                       generator=gen)
+                      for f in t._fields})
+    leaves = convert.table_to_leaves(t)
+    assert [leaf.shape for leaf in leaves] == [(1, 64)] * 7 + [(1,)] * 4
+    assert all(leaf.dtype == np.uint32 for leaf in leaves)
+    back = convert.leaves_to_table(leaves, "cpu")
+    for f in t._fields:
+        assert torch.equal(getattr(back, f), getattr(t, f)), f

@@ -104,7 +104,7 @@ def test_in_process_flags_match_jax_cli(capsysbinary, tmp_path):
         os.chdir(old)
 
 
-@pytest.mark.parametrize("flag", [["--ngram", "2"], ["--stats"],
+@pytest.mark.parametrize("flag", [["--ngram", "2"], ["--grep", "x"],
                                   ["--backend", "xla"], ["--top"]])
 def test_other_jax_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:

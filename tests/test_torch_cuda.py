@@ -363,3 +363,103 @@ def test_new_paths_on_the_card(cuda_device, kw):
     got = wc.count_words(corpus, cfg)
     assert got.as_dict() == oracle.word_counts(corpus)
     assert list(got.words) == list(oracle.word_counts(corpus))
+
+
+def _stream_files(tmp_path, n_files: int = 3, n_bytes: int = 1 << 20):
+    paths, joined = [], []
+    for i in range(n_files):
+        data = _zipf_text(20 + i, n_bytes)
+        (tmp_path / f"part{i}.txt").write_bytes(data)
+        paths.append(str(tmp_path / f"part{i}.txt"))
+        joined.append(data)
+    return paths, b"\n".join(joined)
+
+
+@pytest.mark.cuda
+def test_stream_pipeline_many_small_groups(cuda_device, tmp_path):
+    """A fast reader and many small groups (16 KB chunks, window 4,
+    prefetch 16, a superstep of 3) against the serial control and the
+    oracle: a pinned buffer refilled before its copy read it would show
+    as a wrong count here."""
+    paths, joined = _stream_files(tmp_path)
+    fast = wc.Config(chunk_bytes=1 << 14, inflight_groups=4,
+                     prefetch_depth=16, superstep=3)
+    serial = wc.Config(chunk_bytes=1 << 14, inflight_groups=1,
+                       prefetch_depth=1)
+    got = executor.count_file(paths, fast)
+    want = executor.count_file(paths, serial)
+    assert got.as_dict() == want.as_dict() == oracle.word_counts(joined)
+    assert list(got.words) == list(want.words)
+    assert got.total == want.total
+    pipe = got.run.pipeline
+    assert pipe["depth_max"] == 4 and pipe["pinned_buffers"] <= 16 + 2
+    assert pipe["h2d_ms_per_chunk"] > 0
+
+
+@pytest.mark.cuda
+def test_h2d_copies_run_on_the_copy_stream(cuda_device, tmp_path,
+                                           monkeypatch):
+    """Every H2D chunk copy is issued on a stream other than the compute
+    stream, and the compute stream waits on each copy's event."""
+    paths, _ = _stream_files(tmp_path, n_files=1)
+    compute = torch.cuda.current_stream()
+    copies, recorded, waited = [], [], []
+    real_copy = torch.Tensor.copy_
+    real_record = torch.cuda.Event.record
+    real_wait = torch.cuda.Stream.wait_event
+
+    def copy_(self, src, non_blocking=False):
+        if self.is_cuda and not src.is_cuda:
+            copies.append((torch.cuda.current_stream(), non_blocking,
+                           src.is_pinned()))
+        return real_copy(self, src, non_blocking=non_blocking)
+
+    def record(self, stream=None):
+        recorded.append((self, stream or torch.cuda.current_stream()))
+        return real_record(self, stream)
+
+    def wait_event(self, event):
+        waited.append((self, event))
+        return real_wait(self, event)
+
+    monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+    monkeypatch.setattr(torch.cuda.Event, "record", record)
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", wait_event)
+    cfg = wc.Config(chunk_bytes=1 << 16)
+    got = executor.count_file(paths, cfg)
+    n_chunks = got.run.bases.shape[0]
+    assert len(copies) == n_chunks > 8
+    assert all(s != compute and nb and pinned for s, nb, pinned in copies)
+    on_copy = [ev for ev, s in recorded if s != compute]
+    assert len(on_copy) == 2 * n_chunks  # the timing start and the copy
+    assert len(waited) == n_chunks
+    assert all(s == compute for s, _ in waited)
+    assert all(any(ev is c for c in on_copy) for _, ev in waited)
+
+
+@pytest.mark.cuda
+def test_executor_adds_no_host_sync(cuda_device, tmp_path):
+    """Under the sync debug mode, no synchronising call comes from the
+    executor's own modules; the one read a chunk is ``_map_kernel``'s."""
+    import warnings
+
+    paths, _ = _stream_files(tmp_path, n_files=2)
+    cfg = wc.Config(chunk_bytes=1 << 16)
+    executor.count_file(paths, cfg)  # warm: build, allocate, pin
+    job = wc.WordCountJob(cfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rr = executor.run_job(job, paths, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [pathlib.Path(w.filename).resolve() for w in caught
+             if "synchroniz" in str(w.message)]
+    assert syncs, "the sync debug mode reported nothing"
+    pkg = REPO / "mapreduce_tpu_torch"
+    own = {pkg / f for f in ("runtime/executor.py", "data/reader.py",
+                                "parallel/mapreduce.py", "obs/spans.py",
+                                "native/__init__.py")}
+    assert not [p for p in syncs if p in own]
+    assert syncs.count(pkg / "models" / "wordcount.py") == rr.bases.shape[0]

@@ -270,7 +270,7 @@ def test_no_silent_cpu(monkeypatch):
         executor.count_file(str(REPO / "test.txt"))
 
 
-def test_package_imports_neither_jax_nor_the_jax_package():
+def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
     pkg = REPO / "mapreduce_tpu_torch"
     for src in pkg.rglob("*.py"):
         for node in ast.walk(ast.parse(src.read_text())):
@@ -291,9 +291,15 @@ def test_package_imports_neither_jax_nor_the_jax_package():
             "r = m.count_words(b'a b a', c, device='cpu'); "
             "assert r.as_dict() == {b'a': 2, b'b': 1}; "
             "import mapreduce_tpu_torch.ops.cuda.radix; "
+            "import mapreduce_tpu_torch.cli, mapreduce_tpu_torch.native; "
+            "from mapreduce_tpu_torch.runtime import checkpoint; "
+            "from mapreduce_tpu_torch.obs import spans; "
+            "r = m.count_file('test.txt', device='cpu', "
+            "checkpoint_path='%s', checkpoint_every=1); "
+            "assert r.total == 9 and checkpoint.exists('%s'); "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'mapreduce_tpu')]; "
-            "assert not bad, bad")
+            "assert not bad, bad") % ((tmp_path / "ck.npz",) * 2)
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
