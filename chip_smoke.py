@@ -60,17 +60,40 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               subprocess running ``run_job`` with a snapshot every 8 steps,
               killed with SIGKILL once its first snapshot and ``.sum``
               landed, then resumed here;
-7. times   -- each kernel's median time per 32 MB chunk beside its bound,
+7. faults  -- the failure policy, fault plans and preemption of
+              ``run_job`` at ``Config()`` defaults over the phase-4 file (5
+              chunks), each run against the oracle: one injected transient
+              fault at each seam the port crosses (``retry=2``; window 4 and
+              window 1; ``process-kill`` in a child that exits 113 and is
+              resumed), with the replay's milliseconds; a seeded random plan
+              and the faults it fired; a resource storm at ``dispatch``
+              that walks the degradation ladder from ``fused`` /
+              ``hot-cache`` / ``radix`` (window 1, so each rung runs a
+              step: the kernels each rung launched) and an exhausted ladder,
+              which must fail as ``resource``; a real late completion
+              (``torch.cuda._sleep`` queued after the first step's map,
+              window 1) past a ``token_timeout_s`` of 0.2 s, replayed; a real
+              CUDA out-of-memory in a child capped by
+              ``set_per_process_memory_fraction``, which must come out exact
+              or fail as ``resource`` and nothing else; SIGINT to a child
+              ``python -m mapreduce_tpu_torch --stream --checkpoint`` over
+              the 8-file corpus once its first snapshot landed (plain and
+              ``--top-k 5``), which must exit 75 and whose relaunch must
+              print what an uninterrupted run prints; and ``count_file`` over
+              the 8-file corpus at ``retry=0`` against ``retry=1`` (the cost
+              of the anchor and the held buffers), in turns 0, 1, 1, 0, three
+              turns;
+8. times   -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
               radix seam (CUDA events between launches); the chunk's
               end-to-end time by stage; the step time (map + merge) of
               every path's configuration on one chunk, with the rows each
               step's sort sees;
-8. profile -- where the device time of a default, a combiner and a
+9. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 6 each drive a main path: the launch counters are set to 0
+Phases 3 to 7 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -448,6 +471,352 @@ def stream_pipeline(drive, tmp: Path, path: Path, stream_data: bytes,
          equal_to_expected=True)
 
 
+# A streamed run killed at the process-kill seam: argv = repo root, corpus
+# file, checkpoint path, in-flight groups.
+KILL_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from mapreduce_tpu_torch import Config, count_file
+cfg = Config(inflight_groups=int(sys.argv[4]),
+             fault_plan="at=process-kill:2:transient")
+count_file(sys.argv[2], cfg, checkpoint_path=sys.argv[3], checkpoint_every=1)
+"""
+
+# A streamed run with the caching allocator capped to a sliver of the card:
+# argv = repo root, corpus file, memory fraction.  Prints one JSON line.
+OOM_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from chip_smoke import result_digest
+from mapreduce_tpu_torch import Config, count_file
+from mapreduce_tpu_torch.runtime import faults
+torch.cuda.set_per_process_memory_fraction(float(sys.argv[3]))
+cfg = Config(map_impl="fused", combiner="hot-cache", sort_impl="radix",
+             failure_policy={"transient_retries": 1, "resource_retries": 1,
+                             "backoff_base_s": 0.0})
+try:
+    r = count_file(sys.argv[2], cfg)
+    out = {"outcome": "done", "pipeline": r.run.pipeline,
+           "digest": result_digest(r.words, r.counts)}
+except Exception as e:
+    out = {"outcome": "failed", "fault_class": faults.classify(e),
+           "error": repr(e)[:400]}
+print(json.dumps(out), flush=True)
+"""
+
+
+def result_digest(words, counts) -> str:
+    """A result's words and counts, in order, as one SHA-256."""
+    import hashlib
+
+    text = "".join(f"{w!r}\t{c}\n" for w, c in zip(words, counts))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
+                 want_stream: dict) -> None:
+    """Phase 7: the failure policy, fault plans and preemption of the
+    streamed executor (see the module docstring)."""
+    import contextlib
+    import dataclasses
+    import io
+    import logging
+    import signal
+
+    import torch
+
+    from mapreduce_tpu_torch import Config, cli, count_file
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.ops.cuda import radix
+    from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+    from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
+    from mapreduce_tpu_torch.runtime import executor, faults
+    from mapreduce_tpu_torch.runtime.logging import LOGGER_NAME
+
+    chunks = -(-len(stream_data) // Config().chunk_bytes)
+    need = {"tokenize_compact": None}
+    # The plans the runs build, captured as they are resolved.
+    plans: list = []
+    real_resolve = faults.FaultPlan.resolve.__func__
+
+    def resolve(cls, spec):
+        plan = real_resolve(cls, spec)
+        if plan is not None:
+            plans.append(plan)
+        return plan
+
+    def fired():
+        return [(f["seam"], f["index"], f["fault_class"])
+                for f in plans[-1].fired] if plans else []
+
+    def fresh_ck(name: str) -> str:
+        ck = str(tmp / f"{name}.npz")
+        for p in (ck, ckpt_mod.integrity_path(ck), ckpt_mod.previous_path(ck),
+                  ckpt_mod.integrity_path(ckpt_mod.previous_path(ck))):
+            if os.path.exists(p):
+                os.unlink(p)
+        return ck
+
+    def ms(got, phase):
+        return round(got.run.metrics.phases.get(phase, 0.0) * 1e3, 3)
+
+    faults.FaultPlan.resolve = classmethod(resolve)
+    try:
+        # 1. one transient fault at each seam, window 4 and window 1
+        seams = {"reader-read": 1, "stage-acquire": 1, "h2d": 1,
+                 "dispatch": 1, "token-wait": 1, "checkpoint-save": 0,
+                 "collective-finish": 0}
+        for window in (4, 1):
+            for seam, index in seams.items():
+                cfg = Config(inflight_groups=window,
+                             fault_plan=f"at={seam}:{index}:transient")
+                kw = {"retry": 2}
+                if seam == "checkpoint-save":
+                    kw.update(checkpoint_path=fresh_ck("seam"),
+                              checkpoint_every=2)
+                name = f"faults_{seam}_w{window}"
+                got, seconds = drive(name, lambda: count_file(
+                    str(path), cfg, **kw), want_stream, need)
+                if fired() != [(seam, index, "transient")]:
+                    raise SystemExit(f"{name} fired {fired()}")
+                emit("faults", case="seam", seam=seam, window=window,
+                     fired=fired(), recoveries=got.run.pipeline.get(
+                         "recoveries", 0), replay_ms=ms(got, "replay"),
+                     seconds=round(seconds, 4), equal_to_oracle=True)
+            # process-kill: the child exits 113 between groups, after the
+            # snapshot of the group before; the resume here is exact.
+            ck = fresh_ck("kill")
+            child = subprocess.run(
+                [sys.executable, "-c", KILL_CHILD, str(ROOT), str(path), ck,
+                 str(window)], capture_output=True, text=True, timeout=600)
+            if child.returncode != 113:
+                raise SystemExit(f"the process-kill child exited "
+                                 f"{child.returncode}:\n{child.stderr[-3000:]}")
+            _, step, offset, _, _ = ckpt_mod.load(ck)
+            got, seconds = drive(f"faults_process-kill_w{window}_resumed",
+                                 lambda: count_file(str(path), Config(),
+                                                    checkpoint_path=ck),
+                                 want_stream,
+                                 {"tokenize_compact": chunks - step})
+            emit("faults", case="seam", seam="process-kill", window=window,
+                 child_exit=113, snapshot_step=step, snapshot_offset=offset,
+                 resumed_seconds=round(seconds, 4), equal_to_oracle=True)
+
+        # 2. a seeded random plan
+        spec = "seed=7,rate=0.2,classes=transient+resource,max=6"
+        got, seconds = drive("faults_random_plan", lambda: count_file(
+            str(path), Config(fault_plan=spec), retry=3,
+            checkpoint_path=fresh_ck("random"), checkpoint_every=2),
+            want_stream, need)
+        if not fired():
+            raise SystemExit("the random plan fired nothing")
+        emit("faults", case="random_plan", spec=spec, fired=fired(),
+             recoveries=got.run.pipeline.get("recoveries", 0),
+             degrade_steps=got.run.pipeline.get("degrade_steps", []),
+             replay_ms=ms(got, "replay"), seconds=round(seconds, 4),
+             equal_to_oracle=True)
+
+        # 3. the ladder: every second dispatch crossing of a pair fails, so
+        # each failed group's replay fails once more and steps down a rung;
+        # window 1, so the rung runs the group before the next pair.
+        storm = ",".join(f"at=dispatch:{i}:resource" for i in (1, 2, 4, 5,
+                                                                7, 8))
+        ladder_policy = {"transient_retries": 1, "resource_retries": 0,
+                         "backoff_base_s": 0.0}
+        rungs: list = []
+
+        class Rung(logging.Handler):
+            def emit(self, record):
+                if record.getMessage() == "degradation ladder step":
+                    rungs.append((record.fields["ladder_step"],
+                                  {**ktok.LAUNCHES, **radix.LAUNCHES}))
+
+        handler = Rung()
+        logging.getLogger(LOGGER_NAME).addHandler(handler)
+        try:
+            start = Config(inflight_groups=1, map_impl="fused",
+                           combiner="hot-cache", sort_impl="radix",
+                           fault_plan=storm, failure_policy=ladder_policy)
+            got, seconds = drive("faults_ladder", lambda: count_file(
+                str(path), start), want_stream,
+                {"tokenize_combiner": None, "tokenize_fused": None,
+                 "tokenize_compact": None, "radix_partition": None,
+                 "radix_sort": None})
+        finally:
+            logging.getLogger(LOGGER_NAME).removeHandler(handler)
+        steps = got.run.pipeline.get("degrade_steps")
+        if steps != ["combiner-off", "map-split", "sort-xla"] \
+                or [r[0] for r in rungs] != steps:
+            raise SystemExit(f"the ladder walked {steps}")
+        marks = [("start", {})] + rungs \
+            + [("end", {**ktok.LAUNCHES, **radix.LAUNCHES})]
+        per_rung = {}
+        for (name, before), (_, after) in zip(marks, marks[1:]):
+            per_rung[name] = {k: v - before.get(k, 0)
+                              for k, v in after.items() if v > before.get(k, 0)}
+        expect = {"start": ("tokenize_combiner", "radix_partition"),
+                  "combiner-off": ("tokenize_fused", "radix_partition"),
+                  "map-split": ("tokenize_compact", "radix_partition"),
+                  "sort-xla": ("tokenize_compact",)}
+        for rung, kernels in expect.items():
+            if not all(per_rung.get(rung, {}).get(k) for k in kernels):
+                raise SystemExit(f"ladder rung {rung} launched "
+                                 f"{per_rung.get(rung)}")
+        if per_rung["sort-xla"].get("radix_partition"):
+            raise SystemExit("the sort-xla rung launched the radix seam")
+        emit("faults", case="ladder", storm=storm, window=1,
+             degrade_steps=steps, launches_per_rung=per_rung, fired=fired(),
+             replay_ms=ms(got, "replay"), seconds=round(seconds, 4),
+             equal_to_oracle=True)
+        exhausted = Config(fault_plan="at=dispatch:1:resource,"
+                                      "at=dispatch:2:resource",
+                           failure_policy=ladder_policy)
+        try:
+            count_file(str(path), exhausted)
+        except faults.ResourceFault as e:
+            cls = faults.classify(e)
+        else:
+            raise SystemExit("the exhausted ladder did not fail")
+        if cls != "resource":
+            raise SystemExit(f"the exhausted ladder failed as {cls}")
+        emit("faults", case="ladder_exhausted", fault_class=cls,
+             fired=fired())
+
+        # 4. a real late completion: a sleep queued on the compute stream
+        # after the first step's map (window 1: the next group's host read
+        # would otherwise wait for it first).
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        torch.cuda._sleep(100_000_000)
+        end_ev.record()
+        end_ev.synchronize()
+        cycles = int(600 * 100_000_000 / start_ev.elapsed_time(end_ev))
+        late = Config(inflight_groups=1, failure_policy={
+            "transient_retries": 3, "token_timeout_s": 0.2,
+            "backoff_base_s": 0.0})
+
+        def late_run():
+            job = wc.WordCountJob(late)
+            real_map = job.map_chunk
+            slept = []
+
+            def slow_map(chunk, chunk_id):
+                out = real_map(chunk, chunk_id)
+                if not slept:
+                    torch.cuda._sleep(cycles)
+                    slept.append(chunk_id)
+                return out
+
+            job.map_chunk = slow_map
+            rr = executor.run_job(job, str(path), late)
+            res = executor.recover_from_file(rr.value, str(path), rr.bases)
+            return dataclasses.replace(res, run=rr)
+
+        got, seconds = drive("faults_late_wait", late_run, want_stream, need)
+        if not got.run.pipeline.get("recoveries"):
+            raise SystemExit("the late completion was not replayed")
+        emit("faults", case="late_wait", sleep_ms=600, token_timeout_s=0.2,
+             recoveries=got.run.pipeline["recoveries"],
+             replay_ms=ms(got, "replay"), seconds=round(seconds, 4),
+             equal_to_oracle=True)
+    finally:
+        faults.FaultPlan.resolve = classmethod(real_resolve)
+
+    # 5. a real CUDA out-of-memory: a child whose allocator may hold 256 MB
+    frac = (256 << 20) / torch.cuda.get_device_properties(0).total_memory
+    child = subprocess.run([sys.executable, "-c", OOM_CHILD, str(ROOT),
+                            str(path), repr(frac)], capture_output=True,
+                           text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"the out-of-memory child exited "
+                         f"{child.returncode}:\n{child.stderr[-3000:]}")
+    oom = json.loads(child.stdout.strip().splitlines()[-1])
+    classes = sorted({tok.split("=", 1)[1] for line in child.stderr.splitlines()
+                      for tok in line.split() if tok.startswith("fault_class=")})
+    want_digest = result_digest(list(want_stream), list(want_stream.values()))
+    if oom["outcome"] == "done":
+        if oom["digest"] != want_digest:
+            raise SystemExit("the out-of-memory run differs from the oracle")
+    elif oom["fault_class"] != "resource":
+        raise SystemExit(f"the out-of-memory run failed as {oom}")
+    if classes != ["resource"]:
+        raise SystemExit(f"the out-of-memory run saw classes {classes}")
+    emit("faults", case="out_of_memory", memory_fraction=frac,
+         cap_bytes=256 << 20, classes_seen=classes, **oom)
+
+    # 6. preemption: SIGINT to the CLI once its first snapshot landed
+    corpus8 = [str(path)] * 8
+    for extra in ([], ["--top-k", "5"]):
+        argv = [*corpus8, "--stream", "--no-echo", "--format", "json", *extra]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli.main(argv) != 0:
+                raise SystemExit("the uninterrupted CLI run failed")
+        want_out = buf.getvalue().encode()
+        ck = fresh_ck("preempt")
+        cmd = [sys.executable, "-m", "mapreduce_tpu_torch", *argv,
+               "--checkpoint", ck, "--checkpoint-every", "2"]
+        with open(tmp / "preempt.log", "wb") as err:
+            child = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=err)
+            try:
+                deadline = time.monotonic() + 600
+                while child.poll() is None and time.monotonic() < deadline:
+                    if os.path.exists(ckpt_mod.integrity_path(ck)):
+                        child.send_signal(signal.SIGINT)
+                        break
+                    time.sleep(0.002)
+                out, _ = child.communicate(timeout=600)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        log = (tmp / "preempt.log").read_text(errors="replace")
+        if child.returncode != 75 or out:
+            raise SystemExit(f"the interrupted CLI exited {child.returncode} "
+                             f"(stdout {len(out)} bytes):\n{log[-3000:]}")
+        _, step, offset, _, _ = ckpt_mod.load(ck)
+        relaunch = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                  timeout=600)
+        if relaunch.returncode != 0 or relaunch.stdout != want_out:
+            (tmp / "want.out").write_bytes(want_out)
+            (tmp / "got.out").write_bytes(relaunch.stdout)
+            raise SystemExit(f"the relaunched CLI exited "
+                             f"{relaunch.returncode}, stdout equal "
+                             f"{relaunch.stdout == want_out}:\n"
+                             + relaunch.stderr.decode(errors='replace')[-3000:])
+        emit("faults", case="preemption", top_k=extra[1] if extra else None,
+             signal="SIGINT", exit=75, snapshot_step=step,
+             snapshot_offset=offset,
+             preempted_line=[ln for ln in log.splitlines()
+                             if ln.startswith("preempted:")],
+             relaunch_stdout_bytes=len(relaunch.stdout),
+             relaunch_equal_to_uninterrupted=True)
+
+    # 7. the cost of replayability: retry=0 against retry=1, in turns
+    want8 = {w: 8 * c for w, c in want_stream.items()}
+    n_bytes = 8 * len(stream_data)
+    rates: dict = {0: [], 1: []}
+    for turn in range(3):
+        for retry in (0, 1, 1, 0):
+            got, seconds = drive(f"faults_retry{retry}", lambda: count_file(
+                corpus8, Config(), retry=retry), want8,
+                {"tokenize_compact": 8 * chunks})
+            rates[retry].append(n_bytes / seconds / 1e9)
+            emit("faults", case="retry_cost", retry=retry, turn=turn,
+                 gb_per_s=rates[retry][-1],
+                 run_job_gb_per_s=got.run.metrics.gb_per_s,
+                 pinned_buffers=got.run.pipeline["pinned_buffers"],
+                 full_retires=got.run.pipeline["full_retires"],
+                 seconds=round(seconds, 4))
+    emit("faults", case="retry_cost",
+         median_gb_per_s={r: statistics.median(v) for r, v in rates.items()},
+         retry1_over_retry0=statistics.median(rates[1])
+         / statistics.median(rates[0]))
+
+
 def main() -> int:
     import torch
 
@@ -665,7 +1034,7 @@ def main() -> int:
                 emit("kernel", probe=name, mode="radix_partition", impl=impl,
                      sort=what, rows=planes[0].shape[0], equal=True)
 
-    # 3 - 6. the main paths, with the launch counters read around each
+    # 3 - 7. the main paths, with the launch counters read around each
     by_path: dict[str, dict] = {}
     branches: dict[str, dict] = {}
 
@@ -758,9 +1127,11 @@ def main() -> int:
         # 6. the pipelined executor over ~1 GB
         stream_pipeline(drive, Path(tmp), path, stream_data, want_stream,
                         chunk32, dev)
+        # 7. its failure policy, fault plans and preemption
+        faults_phase(drive, Path(tmp), path, stream_data, want_stream)
         del stream_data, want_stream
 
-    # 7. times at the main path's shape: one 32 MB chunk
+    # 8. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -943,7 +1314,7 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
-    # 8. Where a step's device time goes, for the default, combiner and
+    # 9. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

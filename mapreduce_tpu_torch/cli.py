@@ -4,7 +4,8 @@ Counterpart of :mod:`mapreduce_tpu.cli` for word count.  Its stdout is
 byte-identical to the JAX CLI's for the flags it takes; every other flag
 of the JAX CLI is refused with a usage error.  The run goes to the card
 unless ``--platform cpu`` asks for the CPU.  Progress logs and ``--stats``
-go to stderr.
+go to stderr.  A preempted streamed run (SIGINT, or an injected
+preemption) drains, checkpoints and exits 75.
 """
 
 from __future__ import annotations
@@ -22,11 +23,9 @@ _CTRL_ESCAPES = str.maketrans({"\t": "\\t", "\n": "\\n", "\r": "\\r",
                                "\x0c": "\\x0c"})
 
 
-#: Flags of the JAX CLI's streamed executor whose planes (failure policy,
-#: fault plan, window-boundary merges, autotuner, ledger) are not ported.
-_A8B_FLAGS = {"--retry": {"type": int, "metavar": "N"},
-              "--fault-plan": {"metavar": "SPEC"},
-              "--merge-overlap": {"action": "store_const", "const": True},
+#: Flags of the JAX CLI's streamed executor whose planes (window-boundary
+#: merges, autotuner, ledger) are not ported.
+_A8B_FLAGS = {"--merge-overlap": {"action": "store_const", "const": True},
               "--autotune": {"action": "store_const", "const": True},
               "--ledger": {"metavar": "PATH"}}
 
@@ -72,6 +71,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "clamped to [2, 16] — co-tuned with the window)")
     p.add_argument("--stats", action="store_true",
                    help="print timing/throughput to stderr")
+    p.add_argument("--retry", type=int, default=0, metavar="N",
+                   help="with --stream: retry a failed step group N times, "
+                        "replaying the window from its known-good anchor, "
+                        "before surfacing the failure")
+    p.add_argument("--fault-plan", default=None, metavar="SPEC",
+                   help="with --stream: deterministic fault injection at "
+                        "the executor's named seams (runtime/faults.py "
+                        "grammar, e.g. 'seed=42,rate=0.02' or "
+                        "'at=dispatch:3:resource'); results stay identical "
+                        "to the fault-free run when the retry budget "
+                        "absorbs the faults")
     for flag, kw in _A8B_FLAGS.items():
         p.add_argument(flag, default=None,
                        help="not ported yet (ROADMAP.md item A8b)", **kw)
@@ -135,6 +145,14 @@ def main(argv: list[str] | None = None) -> int:
                          "(ROADMAP.md item A8b)")
     if args.checkpoint and not args.stream:
         parser.error("--checkpoint requires --stream")
+    if args.retry and not args.stream:
+        parser.error("--retry requires --stream (the non-stream path has no "
+                     "step dispatch to retry)")
+    if args.retry < 0:
+        parser.error(f"--retry must be >= 0, got {args.retry}")
+    if args.fault_plan is not None and not args.stream:
+        parser.error("--fault-plan requires --stream (the injection seams "
+                     "exist only on the streamed path)")
     paths = args.input
     try:
         chunks = []
@@ -157,7 +175,8 @@ def main(argv: list[str] | None = None) -> int:
                         combiner_slots=args.combiner_slots,
                         superstep=args.superstep,
                         inflight_groups=args.inflight,
-                        prefetch_depth=args.prefetch_depth)
+                        prefetch_depth=args.prefetch_depth,
+                        fault_plan=args.fault_plan)
     except ValueError as e:
         parser.error(str(e))
     try:
@@ -168,12 +187,21 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.perf_counter()
     if args.stream:
+        from mapreduce_tpu_torch.runtime import faults
         from mapreduce_tpu_torch.runtime.executor import count_file
 
-        result = count_file(
-            paths, config, device, top_k=args.top_k or None,
-            checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every if args.checkpoint else 0)
+        try:
+            result = count_file(
+                paths, config, device, top_k=args.top_k or None,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every if args.checkpoint
+                else 0, retry=args.retry)
+        except faults.Preempted as e:
+            # An orderly shutdown, not a crash: the stream drained and
+            # (with --checkpoint) saved its cursor.  Exit 75 (EX_TEMPFAIL):
+            # run the same command again to resume.
+            print(f"preempted: {e}", file=sys.stderr)
+            return 75
     else:
         from mapreduce_tpu_torch.models import wordcount
 

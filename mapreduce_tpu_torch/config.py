@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from mapreduce_tpu_torch.runtime import faults
+
 
 def _not_ported(what: str, item: str) -> ValueError:
     return ValueError(f"{what} is not ported to the PyTorch package yet "
@@ -61,6 +63,16 @@ class Config:
         dispatched but unretired (1: serial, the A/B control).
       prefetch_depth: batches the reader thread may run ahead (None:
         ``superstep * inflight_groups`` clamped to [2, 16]).
+      fault_plan: a fault-injection spec for the streamed executor
+        (:class:`...runtime.faults.FaultPlan` grammar, e.g.
+        ``'seed=42,rate=0.02'`` or ``'at=dispatch:3:resource'``), parsed
+        here so a bad spec fails at construction.  None: no injection.
+      failure_policy: the streamed executor's per-class retry budgets,
+        backoff, completion timeout and degradation ladder (None, a
+        :class:`...runtime.faults.FailurePolicy` or a dict of its fields,
+        stored as the frozen policy so the config stays hashable).  None:
+        the executor's ``retry`` count gives the transient and resource
+        budgets.
     """
 
     chunk_bytes: int = 1 << 25
@@ -83,6 +95,8 @@ class Config:
     superstep: int = 1
     inflight_groups: int = 4
     prefetch_depth: Optional[int] = None
+    fault_plan: Optional[str] = None
+    failure_policy: object = None
 
     def __post_init__(self) -> None:
         if self.chunk_bytes % 128 != 0:
@@ -156,6 +170,20 @@ class Config:
             raise ValueError(
                 f"pallas backend needs {self.pallas_min_chunk} <= "
                 f"chunk_bytes <= {1 << 26}, got {self.chunk_bytes}")
+        if self.fault_plan is not None:
+            if not isinstance(self.fault_plan, str):
+                raise ValueError(
+                    f"fault_plan must be a spec string (or None), got "
+                    f"{type(self.fault_plan).__name__}")
+            faults.FaultPlan.from_spec(self.fault_plan)
+        if isinstance(self.failure_policy, dict):
+            object.__setattr__(self, "failure_policy",
+                               faults.FailurePolicy(**self.failure_policy))
+        elif self.failure_policy is not None and not isinstance(
+                self.failure_policy, faults.FailurePolicy):
+            raise ValueError(
+                f"failure_policy must be None, a FailurePolicy or a dict of "
+                f"its fields, got {type(self.failure_policy).__name__}")
 
     @property
     def rescue_slots(self) -> int:

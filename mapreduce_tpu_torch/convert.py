@@ -78,10 +78,9 @@ def combiner_cache_from_numpy(fields: Mapping[str, Any],
         for f in CombinerCache._fields})
 
 
-#: JAX ``Config`` fields of the streamed executor's failure and tuning planes,
+#: JAX ``Config`` fields of the streamed executor's merge and tuning planes,
 #: not ported yet, at the values the port behaves as.
-_A8B_DEFAULTS = {"fault_plan": None, "failure_policy": None,
-                 "merge_overlap": False, "autotune": "off"}
+_A8B_DEFAULTS = {"merge_overlap": False, "autotune": "off"}
 
 
 def config_from_dict(d: Mapping[str, Any]) -> Config:
@@ -96,7 +95,8 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     its window heights, slot budgets and radix slab sizes are TPU layout
     knobs with no counterpart (the results do not depend on them).  A
     geometry preset name still raises.  The pipeline knobs (superstep,
-    in-flight groups, prefetch) carry across; a failure policy, fault plan,
+    in-flight groups, prefetch), the fault plan and the failure policy
+    (``asdict`` makes it a dict of its fields) carry across; a
     window-boundary merge or autotuner away from its default raises
     (ROADMAP A8b).
     """

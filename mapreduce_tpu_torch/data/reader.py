@@ -104,8 +104,10 @@ def prefetch(batches: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
 
     The queue is bounded, so an abandoned consumer holds at most ``depth``
     batches; a producer exception is re-raised at the consumer's next pull;
-    closing the generator (or an error in the consumer) stops the producer
-    at its next put."""
+    closing the generator (or an error in the consumer, a
+    ``KeyboardInterrupt`` in its wait included) stops the producer at its
+    next put and waits for it, so no fill is left running into a buffer
+    its owner may free."""
     if depth < 1:
         raise ValueError(f"prefetch depth must be >= 1, got {depth}")
     q: queue.Queue = queue.Queue(maxsize=depth)
@@ -142,6 +144,7 @@ def prefetch(batches: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
             yield item
     finally:
         stop.set()
+        t.join()
 
 
 class _ProducerError:

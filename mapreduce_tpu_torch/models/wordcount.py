@@ -26,9 +26,10 @@ the job's combine is the plain two-way merge.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections import Counter
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -302,3 +303,49 @@ class WordCountJob:
         """What the state's numbers mean, for the checkpoint fingerprint
         (the JAX package's name for the same job)."""
         return "wordcount"
+
+
+class TopKTable(NamedTuple):
+    """A top-k finalized table and the KMV scalars taken before the reorder
+    (``top_k`` reorders by count, which destroys the key-sorted KMV
+    property the distinct estimate reads)."""
+
+    table: table_ops.CountTable
+    kmv_n_valid: torch.Tensor  # occupancy before the reorder
+    kmv_kth_hi: torch.Tensor  # largest kept key, hi lane
+    kmv_kth_lo: torch.Tensor  # largest kept key, lo lane
+
+    def total_count(self) -> int:
+        return self.table.total_count()
+
+
+def topk_with_snapshot(tbl: table_ops.CountTable, k: int) -> TopKTable:
+    """Snapshot the KMV scalars, then apply the terminal top-k reorder."""
+    n_valid, kth_hi, kth_lo = table_ops.kmv_snapshot(tbl)
+    return TopKTable(table_ops.top_k(tbl, k), n_valid, kth_hi, kth_lo)
+
+
+class TopKWordCountJob(WordCountJob):
+    """WordCount whose finalize keeps only the k most frequent words, with
+    the KMV snapshot taken first (:class:`TopKTable`).  Its running state
+    is a plain job's, but its identity names k, so its snapshot resumes
+    only into a top-k run of the same k, and a plain one never into it."""
+
+    def __init__(self, k: int, config: Config = DEFAULT_CONFIG, device=None):
+        super().__init__(config, device)
+        self.k = k
+
+    def finalize(self, state) -> TopKTable:
+        return topk_with_snapshot(state, self.k)
+
+    def identity(self) -> str:
+        return f"wordcount-top{self.k}"
+
+
+def job_with_config(job: WordCountJob, config: Config) -> WordCountJob:
+    """A copy of ``job`` that runs ``config``: the degradation ladder's
+    rebind.  The ladder moves only which kernels run (combiner, map, sort),
+    never the state's shapes, so the copy carries the same state on."""
+    j = copy.copy(job)
+    j.config = config
+    return j

@@ -24,24 +24,56 @@ Counterpart of :mod:`mapreduce_tpu.runtime.executor` (``run_job`` and its
      checkpoint path resumes from it;
   6. the finished table's words are read back from the files (``recover``).
 
+Failures (:mod:`...runtime.faults`).  Every exception that crosses a named
+seam is classified (transient, resource, permanent, preemption), and the
+run's :class:`...runtime.faults.FailurePolicy` decides:
+
+- with a retry budget (``retry > 0``, or a policy with any budget), the
+  window fills, drains as one batch and *re-anchors*: the anchor is the
+  state after the drain, held by reference (``Engine.step`` never writes
+  into its input state), and the pinned buffers of every group since the
+  anchor stay out of the pool.  A failed group replays every group since
+  the anchor serially, re-staged from those buffers, the failed group
+  charged one attempt; a resource-classed exhaustion steps down the
+  degradation ladder (combiner off, then the split map, then the torch
+  sort) and replays again;
+- a permanent failure (a sticky CUDA error among them) fails at once;
+- preemption (``KeyboardInterrupt``, or an error that says so) drains the
+  window, saves a snapshot if a checkpoint path is set, and raises
+  :class:`...runtime.faults.Preempted` with the resume cursor;
+- a completion wait under ``token_timeout_s`` polls the token's event
+  against a deadline and raises ``TokenTimeout`` past it.  A kernel cannot
+  be cancelled on CUDA: a replay queues behind a hung kernel on the same
+  stream, so a kernel that never finishes ends the run with a
+  ``TokenTimeout`` once the budget is spent.
+
+A :class:`...runtime.faults.FaultPlan` (``Config.fault_plan``) injects
+faults at the seams ``reader-read``, ``stage-acquire``, ``h2d``,
+``dispatch``, ``token-wait``, ``checkpoint-save``, ``collective-finish`` and
+``process-kill``, crossed in the JAX loop's order, so one plan fires at
+the same crossings in both packages.
+
 What the window can hide is the reader, the H2D copy and host
 bookkeeping: the map reads ``(spill, overlong, tokens)`` to the host once
 per chunk (``models/wordcount.py:_map_kernel``, timed as ``host_read``
 inside ``dispatch``), so compute never runs more than one chunk ahead of
-the loop.  On the CPU (``device='cpu'``) the loop
-is the same, with no streams, events or pinned memory.
+the loop.  On the CPU (``device='cpu'``) the loop is the same, with no
+streams, events or pinned memory.
 
-Not ported yet (ROADMAP A8b): retries and the failure policy, fault plans,
-preemption, the telemetry ledger, data statistics, window-boundary merges,
-the autotuner and byte ranges.  A failing step is logged with its resume
-cursor and re-raised; checkpoint/resume is the recovery path.
+Not ported yet (ROADMAP A8b): the telemetry ledger (and its
+``ledger-append`` seam), data statistics, window-boundary merges, the
+autotuner and byte ranges.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import os
+import signal
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -50,14 +82,18 @@ import torch
 from mapreduce_tpu_torch import convert, native
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
 from mapreduce_tpu_torch.data import reader as reader_mod
-from mapreduce_tpu_torch.models.wordcount import (WordCountJob,
+from mapreduce_tpu_torch.models.wordcount import (TopKTable,
+                                                  TopKWordCountJob,
+                                                  WordCountJob,
                                                   WordCountResult,
                                                   _reported_distinct,
-                                                  apply_top_k)
+                                                  apply_top_k,
+                                                  job_with_config)
 from mapreduce_tpu_torch.obs.spans import span, timing_into
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.parallel.mapreduce import Engine
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
+from mapreduce_tpu_torch.runtime import faults as faults_mod
 from mapreduce_tpu_torch.runtime import metrics as metrics_mod
 from mapreduce_tpu_torch.runtime.logging import get_logger, log_event
 
@@ -65,6 +101,9 @@ from mapreduce_tpu_torch.runtime.logging import get_logger, log_event
 #: ``host_read`` is the map's one read of a chunk (inside ``dispatch``).
 _BLOCKED = ("read_wait", "host_read", "retire_wait", "h2d_tail",
             "compute_tail")
+
+#: Seconds between two polls of a completion token.
+_POLL_S = 5e-5
 
 
 @dataclasses.dataclass
@@ -92,24 +131,75 @@ def _overlap_fraction(timer) -> Optional[float]:
     return round(max(0.0, 1.0 - blocked / stream), 4)
 
 
+def _wait_token(stage, token, timeout_s: Optional[float] = None,
+                interrupted=None) -> None:
+    """Wait until ``stage.ready(token)``, polling with a short sleep;
+    ``interrupted()`` (raises ``KeyboardInterrupt`` once a SIGINT arrived)
+    runs at every poll, and past ``timeout_s`` (None: no bound) the wait
+    raises :class:`...runtime.faults.TokenTimeout`.  A failed kernel's
+    error surfaces from ``ready`` (``Event.query``)."""
+    if stage.ready(token):
+        return
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    while True:
+        time.sleep(_POLL_S)
+        if stage.ready(token):
+            return
+        if interrupted is not None:
+            interrupted()
+        if deadline is not None and time.monotonic() >= deadline:
+            raise faults_mod.TokenTimeout(
+                f"completion token not ready within {timeout_s}s (hung or "
+                "slow kernel)", seam="token-wait")
+
+
+@contextlib.contextmanager
+def _sigint_deferred():
+    """While the stream runs, a SIGINT is recorded instead of raised
+    wherever the interpreter happens to be: the loop raises it as a
+    ``KeyboardInterrupt`` at its safe points, where the committed state
+    and the cursor agree (a snapshot taken between a group's accounting
+    and its state would resume one group short).  Yields the record; a
+    SIGINT left in it when the stream ends is delivered again.  Only in
+    the main thread and over Python's default handler; elsewhere a SIGINT
+    stays an immediate ``KeyboardInterrupt``."""
+    pending: list = []
+    if threading.current_thread() is not threading.main_thread() \
+            or signal.getsignal(signal.SIGINT) \
+            is not signal.default_int_handler:
+        yield pending
+        return
+    signal.signal(signal.SIGINT, lambda signum, frame: pending.append(signum))
+    try:
+        yield pending
+    finally:
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+        if pending:
+            signal.raise_signal(signal.SIGINT)
+
+
 class _HostStage:
     """Staging of a CPU run: the reader's array is the chunk (no copy, no
-    events; work is done when the call returns)."""
+    events; work is done when the call returns, so every token is
+    ready)."""
 
     take = None
 
-    def stage(self, batch):
+    def stage(self, batch, hold: bool = False):
         return torch.from_numpy(batch.data).reshape(-1), None
+
+    def release(self, batch) -> None:
+        pass
 
     def wait_copies(self, events) -> None:
         pass
 
     def completion(self):
-        return None
+        return object()
 
     @staticmethod
-    def wait(event) -> None:
-        pass
+    def ready(token) -> bool:
+        return True
 
     def summary(self) -> dict:
         return {"pinned_buffers": 0, "h2d_ms_per_chunk": None}
@@ -123,12 +213,17 @@ class _PinnedStage:
     after the copy (:meth:`stage`).  The buffer returns to the pool with
     that event and is handed out again only once the event has completed,
     i.e. once the copy has read it; a buffer refilled earlier would corrupt
-    a chunk silently.  The device chunk is allocated on the copy stream
-    and marked as used by the compute stream (``record_stream``), so the
-    caching allocator does not reuse its memory while a kernel reads it.
+    a chunk silently.  A buffer staged with ``hold=True`` (a group a replay
+    may need to stage again) stays out of the pool until :meth:`release`
+    returns it with its last copy's event; ``held`` is how many the loop
+    may hold at once, on top of the reader's.  The device chunk is
+    allocated on the copy stream and marked as used by the compute stream
+    (``record_stream``), so the caching allocator does not reuse its memory
+    while a kernel reads it.
     """
 
-    def __init__(self, device: torch.device, nbytes: int, depth: int):
+    def __init__(self, device: torch.device, nbytes: int, depth: int,
+                 held: int = 0):
         self.nbytes = nbytes
         self.device = device
         self.compute = torch.cuda.current_stream(device)
@@ -136,9 +231,10 @@ class _PinnedStage:
         # Buffers held at once without a copy event: the prefetch queue's
         # `depth`, and the one the loop took but has not staged yet.  One
         # more is always back in the pool, or can be waited for.
-        self.cap = depth + 2
+        self.cap = depth + 2 + held
         self._lock = threading.Lock()
         self._returned: collections.deque = collections.deque()
+        self._held: dict[int, tuple] = {}  # address -> (buffer, last copy)
         self._pinned: dict[int, torch.Tensor] = {}  # address -> buffer
         self._copies: list = []  # (start, done) events of every copy
 
@@ -163,9 +259,9 @@ class _PinnedStage:
         ev.synchronize()
         return buf.numpy()
 
-    def stage(self, batch):
+    def stage(self, batch, hold: bool = False):
         """Copy a batch to the card on the copy stream: ``(device chunk,
-        copy event)``."""
+        copy event)``.  ``hold`` keeps the buffer out of the pool."""
         host = torch.from_numpy(batch.data).reshape(-1)
         start = torch.cuda.Event(enable_timing=True)
         done = torch.cuda.Event(enable_timing=True)
@@ -177,10 +273,18 @@ class _PinnedStage:
             done.record(self.copy_stream)
         chunk.record_stream(self.compute)
         self._copies.append((start, done))
+        addr = batch.data.ctypes.data
         with self._lock:
-            self._returned.append(
-                (self._pinned[batch.data.ctypes.data], done))
+            if hold:
+                self._held[addr] = (self._pinned[addr], done)
+            else:
+                self._returned.append((self._pinned[addr], done))
         return chunk, done
+
+    def release(self, batch) -> None:
+        """Return a held buffer to the pool with its last copy's event."""
+        with self._lock:
+            self._returned.append(self._held.pop(batch.data.ctypes.data))
 
     def wait_copies(self, events) -> None:
         """The compute stream waits for the group's copies."""
@@ -194,8 +298,8 @@ class _PinnedStage:
         return ev
 
     @staticmethod
-    def wait(event) -> None:
-        event.synchronize()
+    def ready(event) -> bool:
+        return event.query()
 
     def summary(self) -> dict:
         """Pinned buffers allocated and the H2D milliseconds of each copy
@@ -210,56 +314,166 @@ class _PinnedStage:
 class _Inflight:
     """One dispatched but unretired group: the window's unit."""
 
-    done: Any  # completion token (None on the CPU)
+    done: Any  # completion token
     copy_done: Any  # the event of the group's last H2D copy
     step_first: int
     cursor_before: int  # bytes_done before the group (the failure cursor)
 
 
+class _DegradeSignal(Exception):
+    """A resource-classed failure exhausted its budget inside a replay and
+    the ladder may still have a step: ``recover`` decides."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def _config_summary(config: Config) -> dict:
+    """The degradation ladder's view of a config.  The port runs no
+    geometry preset, so its geometry is always ``default`` and the
+    ladder's first step never applies."""
+    return {"geometry": "default", "combiner": config.combiner,
+            "map_impl": config.map_impl, "sort_impl": config.sort_impl}
+
+
+def _apply_degrade(config: Config, field: str, value: str) -> Config:
+    """One ladder step applied to the config; combiner-off also drops the
+    cache's sizing knob, which is valid only with the cache on."""
+    kw: dict = {field: value}
+    if field == "combiner":
+        kw["combiner_slots"] = None
+    return dataclasses.replace(config, **kw)
+
+
+def _collective_call(thunk, plan, policy, logger):
+    """The finish behind the ``collective-finish`` seam.  Injected faults
+    fire before the finish runs, so retrying them on their class budget is
+    safe; a real failure propagates."""
+    attempt = 0
+    while True:
+        try:
+            if plan is not None:
+                exc = plan.check("collective-finish")
+                if exc is not None:
+                    log_event(logger, "fault injected",
+                              seam="collective-finish", index=exc.index,
+                              fault_class=exc.fault_class)
+                    raise exc
+            return thunk()
+        except faults_mod.FaultError as fe:
+            if not fe.injected or fe.fault_class == "preemption" \
+                    or attempt >= policy.budget(fe.fault_class):
+                raise
+            attempt += 1
+            log_event(logger, "collective finish fault; retrying",
+                      attempt=attempt, fault_class=fe.fault_class)
+            s = policy.backoff_s(fe.fault_class, attempt,
+                                 seam="collective-finish")
+            if s > 0:
+                time.sleep(s)
+
+
 def _drive_stream(engine, config: Config, path, state, stage, *,
                   start_step: int, start_offset: int, bases_list: list,
                   checkpoint_path, checkpoint_every: int, fingerprint,
-                  resumed_file, logger, progress_every: int, timer):
-    """The streaming loop (the JAX ``_drive_stream`` without retries,
-    faults, ledger and merges).  Returns ``(state, bytes_done, pipe)``:
-    ``bytes_done`` is the absolute cursor (it starts at ``start_offset``)
-    and ``pipe`` the window statistics."""
+                  resumed_file, logger, progress_every: int, timer,
+                  plan, policy, retry: int, rebuild):
+    """The streaming loop, the JAX ``_drive_stream`` without the ledger,
+    data statistics and window-boundary merges.  Returns ``(state,
+    bytes_done, pipe)``: ``bytes_done`` is the absolute cursor (it starts
+    at ``start_offset``) and ``pipe`` the window statistics.
+
+    ``plan`` is the run's fault plan (or None), ``policy`` its failure
+    policy; ``retry`` > 0 arms the anchor and the window replay (see the
+    module docstring); ``rebuild(config)`` gives the engine of a degraded
+    config.  ``cur_config`` is the ladder's moving target: the loop's own
+    knobs (superstep, window, prefetch) stay the caller's."""
+    cur_config = config
     bytes_done = int(start_offset)
     step_index = start_step
     last_ckpt = start_step // checkpoint_every if checkpoint_every else 0
     window_cap = config.inflight_groups
     window: collections.deque = collections.deque()
+    # retry > 0: the state at the last re-anchor, and every (group,
+    # cursor before it) dispatched since, which a failure replays.
+    anchor = None
+    since_anchor: list = []
+    # The state that matches the cursor: set where a group is accounted,
+    # and what a preemption snapshots.  `sigint` holds a SIGINT that
+    # arrived; `interrupted` raises it, except while a replay or the
+    # preemption drain runs (their state is not the committed one).
+    live = state
+    sigint: list = []
+    quiet = False
     last_file_dispatched = resumed_file or 0
     pipe = {"inflight_groups": window_cap,
             "prefetch_depth": config.resolved_prefetch_depth,
             "dispatch_groups": 0, "depth_sum": 0, "depth_max": 0,
             "full_retires": 0, "boundary_drains": 0}
 
-    def fail(e: Exception, step: int, cursor: int):
-        """Surface a failed step with its resume cursor; checkpoint/resume
-        is the recovery path."""
+    def interrupted() -> None:
+        if sigint and not quiet:
+            sigint.clear()
+            raise KeyboardInterrupt
+
+    def cross(seam: str) -> None:
+        """One crossing of the fault plan's ``seam`` (callers check ``plan
+        is not None``): raise the fault it fires.  ``process-kill`` is the
+        machine going away: ``os._exit``, no cleanup."""
+        exc = plan.check(seam)
+        if exc is None:
+            return
+        log_event(logger, "fault injected", seam=seam, index=exc.index,
+                  fault_class=exc.fault_class, step=step_index)
+        if seam == "process-kill":
+            os._exit(113)
+        raise exc
+
+    def backoff(fault_class: str, attempt: int, seam: str) -> None:
+        s = policy.backoff_s(fault_class, attempt, seam=seam)
+        if s > 0:
+            time.sleep(s)
+
+    def observed(e: BaseException, seam: str, step: int) -> None:
+        """Log a real (not injected) fault with its class."""
+        if not (isinstance(e, faults_mod.FaultError) and e.injected):
+            log_event(logger, "fault", seam=getattr(e, "seam", None) or seam,
+                      fault_class=faults_mod.classify(e), step=step,
+                      error=repr(e))
+
+    def final_failure(e, step: int, cursor: int, fault_class: str):
+        """Out of retries (or none asked for): surface the failure with its
+        resume cursor; checkpoint/resume is the recovery path."""
         log_event(logger, "step failed", step=step, offset=cursor,
-                  error=repr(e), resume_hint=checkpoint_path
+                  error=repr(e), fault_class=fault_class,
+                  resume_hint=checkpoint_path
                   or "enable checkpointing to resume")
         raise e
 
-    def retire_oldest(phase: Optional[str] = "retire_wait") -> None:
-        """Wait for the oldest group's completion token; an error that
-        surfaces here belongs to that group."""
-        entry = window[0]
-        try:
-            if phase is None:
-                stage.wait(entry.done)
-            else:
-                with span(phase, timer):
-                    stage.wait(entry.done)
-        except Exception as e:
-            fail(e, entry.step_first, entry.cursor_before)
-        window.popleft()
+    def retry_record(step: int, attempt: int, e, fault_class: str,
+                     seam: Optional[str] = None) -> None:
+        log_event(logger, "step failed; retrying", step=step,
+                  attempt=attempt, fault_class=fault_class, error=repr(e),
+                  **({"seam": seam} if seam else {}))
 
-    def drain(phase: Optional[str] = "retire_wait") -> None:
-        while window:
-            retire_oldest(phase)
+    def dispatch(state, group, restage: bool = False):
+        """Stage (a replay stages the group's host buffers again) and
+        launch one group: ``(state, completion token, group)``."""
+        with span("stage", timer):
+            if plan is not None:
+                cross("stage-acquire")
+            if restage:
+                group = [(b, stage.stage(b, hold=True)) for b, _ in group]
+            if plan is not None:
+                cross("h2d")
+        with span("dispatch", timer):
+            if plan is not None:
+                cross("dispatch")
+            stage.wait_copies([ev for _, (_, ev) in group])
+            for b, (chunk, _) in group:
+                state = engine.step(state, chunk, b.step)
+            done = stage.completion()
+        return state, done, group
 
     def split_at_checkpoints(group):
         """Cut a group at checkpoint boundaries, so resume granularity is
@@ -276,6 +490,164 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             subs.append(cur)
         return subs
 
+    def serial_dispatch(state, group, attempts_used: int, cursor: int,
+                        charged_class: str):
+        """Dispatch one group and wait for it, retrying on the per-class
+        budgets (the replay's unit).  The input state is the replay's
+        known-good state: a step never writes into it.  ``attempts_used``
+        charges the attempt the group already spent in the window against
+        ``charged_class``; a resource-classed exhaustion raises
+        :class:`_DegradeSignal` when the ladder may step down."""
+        used = {c: 0 for c in faults_mod.FAULT_CLASSES}
+        used[charged_class] = attempts_used
+        total = attempts_used
+        while True:
+            try:
+                out, done, _ = dispatch(state, group, restage=True)
+                with span("retire_wait", timer):
+                    _wait_token(stage, done, policy.token_timeout_s)
+                return out
+            except Exception as e:
+                cls = faults_mod.classify(e)
+                if cls == "preemption":
+                    raise
+                observed(e, "dispatch", group[0][0].step)
+                if used[cls] >= policy.budget(cls):
+                    if cls == "resource" and policy.degrade:
+                        raise _DegradeSignal(e)
+                    final_failure(e, group[0][0].step, cursor, cls)
+                used[cls] += 1
+                total += 1
+                retry_record(group[0][0].step, total, e, cls)
+                backoff(cls, used[cls], "dispatch")
+
+    def reanchor(state) -> None:
+        """The state is known good: everything before it is safe, and the
+        held buffers of the groups since the last anchor go back to the
+        pool."""
+        nonlocal anchor
+        anchor = state
+        for group, _ in since_anchor:
+            for b, _ in group:
+                stage.release(b)
+        del since_anchor[:]
+
+    def recover(state, e, entry=None, sync_group=None):
+        """A group failed: at its completion token (``entry``, the oldest
+        in flight: tokens are waited in dispatch order) or in its dispatch
+        (``sync_group``, never enrolled).  The class decides: preemption
+        re-raises to the stream's drain-and-checkpoint handler, permanent
+        fails at once, transient and resource replay every group since the
+        anchor serially, and a resource exhaustion steps down the ladder
+        until it runs out."""
+        nonlocal engine, cur_config, live, quiet
+        cls = faults_mod.classify(e)
+        fail_step = (entry.step_first if entry is not None
+                     else sync_group[0][0].step)
+        observed(e, "token-wait" if entry is not None else "dispatch",
+                 fail_step)
+        if cls == "preemption":
+            raise e
+        cursor = entry.cursor_before if entry is not None else bytes_done
+        budget = policy.budget(cls)
+        can_ladder = cls == "resource" and policy.degrade
+        if retry <= 0 or (budget <= 0 and not can_ladder):
+            final_failure(e, fail_step, cursor, cls)
+        if sync_group is not None:
+            since_anchor.append((sync_group, cursor))
+        replay = list(since_anchor)
+        fail_idx = next(i for i, (g, _) in enumerate(replay)
+                        if g[0][0].step == fail_step)
+        # Quiesce the doomed window before the replay: the groups run on
+        # one compute stream, so the newest token covers them all.  A
+        # kernel cannot be cancelled: a hung one is bounded by the
+        # timeout, and its error, if any, is the replay's to meet.
+        if window:
+            try:
+                _wait_token(stage, window[-1].done, policy.token_timeout_s)
+            except Exception:
+                pass
+        window.clear()
+        # The failure charges one attempt against its class, unless the
+        # class has no budget at all (the first resource fault of a pure
+        # ladder policy goes straight to a degrade).
+        charged = 1 if budget > 0 else 0
+        if charged:
+            retry_record(fail_step, 1, e, cls)
+            backoff(cls, 1, "dispatch")
+        was_quiet, quiet = quiet, True
+        with span("replay", timer):
+            while True:  # the ladder loop: one pass when nothing degrades
+                try:
+                    state = anchor
+                    for i, (group, group_cursor) in enumerate(replay):
+                        state = serial_dispatch(
+                            state, group,
+                            charged if i == fail_idx else 0, group_cursor,
+                            cls)
+                    break
+                except _DegradeSignal as ds:
+                    nd = faults_mod.next_degrade(_config_summary(cur_config))
+                    if nd is None:
+                        final_failure(ds.error, fail_step, cursor,
+                                      "resource")
+                    step_name, field, degraded = nd
+                    was = _config_summary(cur_config)[field]
+                    cur_config = _apply_degrade(cur_config, field, degraded)
+                    pipe.setdefault("degrade_steps", []).append(step_name)
+                    log_event(logger, "degradation ladder step",
+                              ladder_step=step_name, field=field,
+                              **{"from": was, "to": degraded},
+                              error=repr(ds.error))
+                    engine = rebuild(cur_config)
+        pipe["recoveries"] = pipe.get("recoveries", 0) + 1
+        live = state
+        if sync_group is not None:
+            # It ran alone, serially: depth 1.
+            record_depth(1)
+            account([b for b, _ in sync_group])
+        reanchor(state)
+        quiet = was_quiet
+        return state
+
+    def token_wait(entry) -> None:
+        """The window's completion wait behind the ``token-wait`` seam,
+        bounded by the policy's ``token_timeout_s``."""
+        if plan is not None:
+            cross("token-wait")
+        _wait_token(stage, entry.done, policy.token_timeout_s, interrupted)
+
+    def retire_oldest(state, phase: Optional[str] = "retire_wait"):
+        """Wait for the oldest group's completion token; an error that
+        surfaces here belongs to that group."""
+        entry = window[0]
+        try:
+            if phase is None:
+                token_wait(entry)
+            else:
+                with span(phase, timer):
+                    token_wait(entry)
+        except Exception as e:
+            return recover(state, e, entry=entry)
+        window.popleft()
+        return state
+
+    def drain_window(state, phase: Optional[str] = "retire_wait",
+                     do_reanchor: bool = True):
+        """Retire every group in flight; with retry, re-anchor on the
+        drained state (skipped when nothing was dispatched since the
+        anchor)."""
+        while window:
+            state = retire_oldest(state, phase)
+        if retry > 0 and do_reanchor and since_anchor:
+            reanchor(state)
+        return state
+
+    def record_depth(depth: int) -> None:
+        pipe["dispatch_groups"] += 1
+        pipe["depth_sum"] += depth
+        pipe["depth_max"] = max(pipe["depth_max"], depth)
+
     def account(batches) -> None:
         nonlocal bytes_done, step_index, last_file_dispatched
         last_file_dispatched = batches[-1].file_index
@@ -286,43 +658,83 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         if progress_every and step_index % progress_every < len(batches):
             log_event(logger, "progress", step=step_index, bytes=bytes_done)
 
+    def enroll(out, done, group, cursor_before: int) -> None:
+        """Window bookkeeping for a dispatched group (outside the recover
+        routing: a failure here is host bookkeeping, not a device fault)."""
+        nonlocal live
+        live = out
+        window.append(_Inflight(done, group[-1][1][1], group[0][0].step,
+                                cursor_before))
+        if retry > 0:
+            since_anchor.append((group, cursor_before))
+        record_depth(len(window))
+        account([b for b, _ in group])
+
+    def save_snapshot(state) -> bool:
+        """The checkpoint write behind the ``checkpoint-save`` seam: a
+        failed save retries on its class budget (the write is atomic), and
+        an exhausted budget is absorbed: the run goes on without this
+        snapshot.  True when it landed."""
+        attempt = 0
+        while True:
+            try:
+                if plan is not None:
+                    cross("checkpoint-save")
+                ckpt_mod.save(checkpoint_path, convert.table_to_leaves(state),
+                              step_index, bytes_done, np.stack(bases_list),
+                              fingerprint=fingerprint,
+                              file_index=last_file_dispatched)
+                return True
+            except faults_mod.PreemptionFault:
+                raise
+            except Exception as ce:
+                ccls = faults_mod.classify(ce)
+                observed(ce, "checkpoint-save", step_index)
+                if attempt >= policy.budget(ccls):
+                    log_event(logger, "checkpoint save failed; continuing "
+                              "without this snapshot", error=repr(ce),
+                              fault_class=ccls)
+                    return False
+                attempt += 1
+                retry_record(step_index, attempt, ce, ccls,
+                             seam="checkpoint-save")
+                backoff(ccls, attempt, "checkpoint-save")
+
     def flush_one(state, group):
-        """Dispatch one group, keeping at most ``window_cap`` in flight."""
+        """Dispatch one group, keeping at most ``window_cap`` in flight.
+        With retry the window drains in full and re-anchors when it is
+        full; without, it slides (the oldest group retires)."""
         nonlocal last_ckpt
-        while len(window) >= window_cap:  # make room first
-            pipe["full_retires"] += 1
-            retire_oldest()
-        batches = [b for b, _ in group]
-        chunks = [c for _, (c, _) in group]
-        copies = [ev for _, (_, ev) in group]
+        if retry > 0:
+            if len(window) >= window_cap:
+                pipe["full_retires"] += len(window)
+                state = drain_window(state)
+            if anchor is None:
+                reanchor(state)
+        else:
+            while len(window) >= window_cap:
+                pipe["full_retires"] += 1
+                state = retire_oldest(state)
         cursor_before = bytes_done
         try:
-            with span("dispatch", timer):
-                stage.wait_copies(copies)
-                for b, chunk in zip(batches, chunks):
-                    state = engine.step(state, chunk, b.step)
-                done = stage.completion()
+            out, done, group = dispatch(state, group)
         except Exception as e:
-            fail(e, batches[0].step, cursor_before)
-        window.append(_Inflight(done, copies[-1], batches[0].step,
-                                cursor_before))
-        pipe["dispatch_groups"] += 1
-        pipe["depth_sum"] += len(window)
-        pipe["depth_max"] = max(pipe["depth_max"], len(window))
-        account(batches)
+            state = recover(state, e, sync_group=group)
+        else:
+            enroll(out, done, group, cursor_before)
+            state = out
+        if plan is not None:
+            cross("process-kill")  # between groups, where a reclaim lands
         if (checkpoint_every and checkpoint_path
                 and step_index // checkpoint_every > last_ckpt):
-            drain()
+            state = drain_window(state)
             pipe["boundary_drains"] += 1
             last_ckpt = step_index // checkpoint_every
             with span("checkpoint", timer):
-                bases = np.stack(bases_list)
-                ckpt_mod.save(checkpoint_path, convert.table_to_leaves(state),
-                              step_index, bytes_done, bases,
-                              fingerprint=fingerprint,
-                              file_index=last_file_dispatched)
-            log_event(logger, "checkpoint", step=step_index,
-                      path=checkpoint_path)
+                saved = save_snapshot(state)
+            if saved:
+                log_event(logger, "checkpoint", step=step_index,
+                          path=checkpoint_path)
         return state
 
     def flush(state, group):
@@ -330,45 +742,114 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             state = flush_one(state, sub)
         return state
 
+    def read_guarded():
+        """One read behind the ``reader-read`` seam.  The injected fault
+        fires before the read, so retrying it is safe; a real reader error
+        propagates (the prefetch iterator is dead after raising, and
+        reading it again would look like the stream's end)."""
+        attempt = 0
+        while True:
+            try:
+                cross("reader-read")
+                return next(it, None)
+            except faults_mod.FaultError as fe:
+                if not fe.injected or fe.fault_class == "preemption" \
+                        or attempt >= policy.budget(fe.fault_class):
+                    raise
+                attempt += 1
+                retry_record(step_index, attempt, fe, fe.fault_class,
+                             seam="reader-read")
+                backoff(fe.fault_class, attempt, "reader-read")
+
     last_file: Optional[int] = resumed_file
-    pending: list = []
     it = reader_mod.prefetch(
         reader_mod.iter_batches_multi(path, 1, config.chunk_bytes,
                                       start_offset=start_offset,
                                       start_step=start_step, out=stage.take),
         depth=config.resolved_prefetch_depth)
-    try:
+
+    def stream(state):
+        """Read, stage, group and dispatch to the stream's end, then drain.
+        A SIGINT is raised at the top of each read and in the waits."""
+        nonlocal last_file
+        pending: list = []
         while True:
+            interrupted()
             with span("read_wait", timer):
-                batch = next(it, None)
+                batch = next(it, None) if plan is None else read_guarded()
+            interrupted()
             if batch is None:
                 break
             with span("stage", timer):
-                staged = stage.stage(batch)
+                staged = stage.stage(batch, hold=retry > 0)
             if last_file is not None and batch.file_index != last_file:
                 # A file boundary is a group and window boundary.
                 if pending:
                     state = flush(state, pending)
                     pending = []
-                drain()
+                state = drain_window(state)
                 pipe["boundary_drains"] += 1
             last_file = batch.file_index
             pending.append((batch, staged))
             if len(pending) == config.superstep:
                 state = flush(state, pending)
                 pending = []
-        if pending:
-            state = flush(state, pending)
+        for item in pending:  # the remainder: a chunk at a time
+            state = flush(state, [item])
         # The stream's end: the last group's input still in transfer, then
         # the compute queued behind it.  Timed even when empty, so the
         # phase keys always exist.
         with span("h2d_tail", timer):
             if window:
-                stage.wait(window[-1].copy_done)
+                _wait_token(stage, window[-1].copy_done,
+                            interrupted=interrupted)
         with span("compute_tail", timer):
-            drain(phase=None)
-    finally:
-        it.close()
+            state = drain_window(state, phase=None, do_reanchor=False)
+        interrupted()
+        return state
+
+    with _sigint_deferred() as sigint:
+        try:
+            state = stream(state)
+        except BaseException as pe:
+            # Preemption, caught by class: an injected or real preemption
+            # fault re-raised by recover, or a KeyboardInterrupt (a SIGINT
+            # raised at a safe point, or one raised in the reader or a
+            # step).  The window's groups are healthy and accounted: drain
+            # them, snapshot the committed state, and exit with the resume
+            # cursor.  The plan is disarmed first, so no second injected
+            # fault interrupts the shutdown.
+            if faults_mod.classify(pe) != "preemption":
+                raise
+            # Mid-replay, the committed state is not the replayed one: exit
+            # without a snapshot, so the last one on disk stays consistent.
+            in_replay, quiet = quiet, True
+            plan = None
+            state = drain_window(live, do_reanchor=False)
+            checkpointed = False
+            if in_replay:
+                log_event(logger, "preempted during a replay; exiting "
+                          "without checkpoint", step=step_index)
+            elif checkpoint_path:
+                with span("checkpoint", timer):
+                    try:
+                        checkpointed = save_snapshot(state)
+                    except Exception as se:
+                        # The device may already be going away: an
+                        # unfetchable state is an uncheckpointed, still
+                        # orderly, exit.
+                        log_event(logger, "preemption snapshot failed; "
+                                  "exiting without checkpoint",
+                                  step=step_index, error=repr(se))
+            log_event(logger, "preempted; drained and exiting cleanly",
+                      step=step_index, cursor=bytes_done,
+                      checkpointed=checkpointed)
+            raise faults_mod.Preempted(
+                step=step_index, cursor_bytes=bytes_done,
+                checkpoint_path=checkpoint_path,
+                checkpointed=checkpointed) from pe
+        finally:
+            it.close()
     n = pipe["dispatch_groups"]
     pipe["depth_mean"] = round(pipe.pop("depth_sum") / n, 2) if n else 0.0
     pipe["window_filled"] = pipe["depth_max"] >= window_cap
@@ -379,20 +860,30 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
 
 def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
-            logger=None, progress_every: int = 50) -> RunResult:
+            logger=None, progress_every: int = 50,
+            retry: int = 0) -> RunResult:
     """Stream ``path`` (a file or a list of files, one corpus) through
     ``job`` on one device; see the module docstring.
 
-    ``device`` defaults to the job's.  ``config`` sets the chunking and the
+    ``device`` defaults to the job's.  ``config`` sets the chunking, the
     pipeline (``chunk_bytes``, ``superstep``, ``inflight_groups``,
-    ``prefetch_depth``).  With ``checkpoint_path``, a snapshot there is
-    resumed (the previous good one if it is corrupt; a different job,
-    capacity, chunk size or input raises ``CheckpointMismatch``), and
-    with ``checkpoint_every`` > 0 one is saved every that many steps.
+    ``prefetch_depth``), the fault plan and the failure policy.  With
+    ``checkpoint_path``, a snapshot there is resumed (the previous good one
+    if it is corrupt; a different job, capacity, chunk size or input raises
+    ``CheckpointMismatch``), and with ``checkpoint_every`` > 0 one is saved
+    every that many steps.  ``retry``: the transient and resource budgets
+    when ``config.failure_policy`` is None.  A preempted run raises
+    :class:`...runtime.faults.Preempted`.
     """
+    if retry < 0:
+        raise ValueError(f"retry must be >= 0, got {retry}")
     dev = job.device if device is None else torch.device(device)
     if dev != job.device:
         raise ValueError(f"run_job on {dev} got a job on {job.device}")
+    plan = faults_mod.FaultPlan.resolve(config.fault_plan)
+    policy = faults_mod.FailurePolicy.resolve(config.failure_policy,
+                                              retry=retry)
+    retry = policy.dispatch_budget
     engine = Engine(job, dev)
     logger = logger or get_logger()
     native.load()  # a failed chunker build fails here, not in the reader
@@ -417,9 +908,21 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
         if fallback is not None:
             log_event(logger, "corrupt checkpoint; resumed from previous "
                       "good snapshot", **fallback)
+    # With retry, the buffers of every group since the anchor are held
+    # (at most a full window, plus the group being filled).
+    held = (config.inflight_groups + 1) * config.superstep - 1 \
+        if retry > 0 else 0
     stage = _PinnedStage(dev, config.chunk_bytes,
-                         config.resolved_prefetch_depth) \
+                         config.resolved_prefetch_depth, held) \
         if dev.type == "cuda" else _HostStage()
+
+    def rebuild(new_config: Config) -> Engine:
+        """The ladder's engine: the job rebound to the degraded config."""
+        nonlocal job, engine
+        job = job_with_config(job, new_config)
+        engine = Engine(job, dev)
+        return engine
+
     timer.start("stream")
     with timing_into(timer):
         state, bytes_done, pipe = _drive_stream(
@@ -428,10 +931,12 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             checkpoint_path=checkpoint_path,
             checkpoint_every=checkpoint_every, fingerprint=fingerprint,
             resumed_file=resumed_file, logger=logger,
-            progress_every=progress_every, timer=timer)
+            progress_every=progress_every, timer=timer, plan=plan,
+            policy=policy, retry=retry, rebuild=rebuild)
     timer.stop("stream")
     with span("reduce", timer):
-        value = engine.finish(state)
+        value = _collective_call(lambda: engine.finish(state), plan, policy,
+                                 logger)
     total_s = timer.stop("total")
     pipe["overlap_fraction"] = _overlap_fraction(timer)
     # The bytes this run streamed (a resumed run starts at its cursor).
@@ -483,26 +988,27 @@ def recover_from_file(tbl: table_ops.CountTable, path, bases: np.ndarray,
 def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
                top_k: Optional[int] = None, **kw) -> WordCountResult:
     """WordCount over one file or a list of files (one corpus) through
-    :func:`run_job`; ``kw`` goes to it (checkpoints, logger, progress).
-    ``device`` defaults to the card.
+    :func:`run_job`; ``kw`` goes to it (checkpoints, logger, progress,
+    retry).  ``device`` defaults to the card.
 
-    ``top_k`` keeps the k most frequent words, as the JAX package's top-k
-    job does: the table's KMV distinct estimate is taken before the
-    terminal top-k reorder, and evicted entries fold into ``dropped_*``.
-    The result's ``run`` is the run's :class:`RunResult` (its value
-    dropped), with the host string recovery as the ``recover`` phase.
+    ``top_k`` runs :class:`...models.wordcount.TopKWordCountJob`, as the
+    JAX package does: its finalize takes the table's KMV distinct estimate
+    before the terminal top-k reorder, and evicted entries fold into
+    ``dropped_*``.  The result's ``run`` is the run's :class:`RunResult`
+    (its value dropped), with the host string recovery as the ``recover``
+    phase.
     """
-    rr = run_job(WordCountJob(config, device), path, config, **kw)
+    job = TopKWordCountJob(top_k, config, device) if top_k \
+        else WordCountJob(config, device)
+    rr = run_job(job, path, config, **kw)
     timer = metrics_mod.PhaseTimer(phases=rr.metrics.phases)
     with span("recover", timer):
-        tbl = rr.value
-        kmv_est = None
-        if top_k:
-            n_valid, kth_hi, kth_lo = (int(x) for x in
-                                       table_ops.kmv_snapshot(tbl))
-            kmv_est = table_ops.kmv_from_snapshot(n_valid, kth_hi, kth_lo,
-                                                  config.table_capacity)
-            tbl = table_ops.top_k(tbl, top_k)
+        tbl, kmv_est = rr.value, None
+        if isinstance(tbl, TopKTable):
+            kmv_est = table_ops.kmv_from_snapshot(
+                int(tbl.kmv_n_valid), int(tbl.kmv_kth_hi),
+                int(tbl.kmv_kth_lo), config.table_capacity)
+            tbl = tbl.table
         result = recover_from_file(tbl, path, rr.bases, 1,
                                    estimate_distinct=not top_k)
         if kmv_est is not None:

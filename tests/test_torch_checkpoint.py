@@ -5,9 +5,11 @@ Both packages stream the same 2-file corpus with a snapshot every 2 steps
 interpret mode).  The snapshots after step 2 and step 4 must be equal leaf
 for leaf as uint32, with the same cursor, row bases, file index and
 ``__meta``; a JAX snapshot resumes in the port, and a port snapshot in the
-JAX package, to the uninterrupted result.  The refusals (another chunk
-size, capacity or input; future and legacy formats) and the ``.prev``
-fallback after corruption are the port's alone.
+JAX package, to the uninterrupted result.  The same holds for a streamed
+top-k run (its job is ``wordcount-top{k}`` in both packages), and both
+refuse a plain run's snapshot for a top-k run.  The refusals (another
+chunk size, capacity or input; future and legacy formats) and the
+``.prev`` fallback after corruption are the port's alone.
 """
 
 import dataclasses
@@ -34,6 +36,26 @@ JCFG = JConfig(backend="pallas", map_impl="split", combiner="off",
                pallas_max_token=8, chunk_bytes=CHUNK, table_capacity=4096,
                rescue_overlong=4)
 CFG = convert.config_from_dict(dataclasses.asdict(JCFG))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_jax_engines():
+    """One JAX ``Engine`` per job kind and configuration: the JAX executor
+    builds one per run, and each compiles its programs anew (~12 s
+    interpreted), though runs of one job and config run the same ones."""
+    memo = {}
+    real = jexecutor.Engine
+
+    def engine(job, mesh, **kw):
+        key = (type(job), getattr(job, "k", None), job.config,
+               tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = real(job, mesh, **kw)
+        return memo[key]
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jexecutor, "Engine", engine)
+        yield
 
 
 def _text(seed: int, n_words: int) -> bytes:
@@ -210,3 +232,67 @@ def test_table_leaves_round_trip():
     back = convert.leaves_to_table(leaves, "cpu")
     for f in t._fields:
         assert torch.equal(getattr(back, f), getattr(t, f)), f
+
+
+@pytest.fixture(scope="module")
+def topk_run(run):
+    """Both packages' streamed top-3 runs over ``run``'s corpus, a snapshot
+    every 2 steps (``jax_top3.npz``, ``port_top3.npz``)."""
+    d = run["dir"]
+    want = jexecutor.count_file(run["paths"], JCFG, mesh=data_mesh(1),
+                                top_k=3, checkpoint_path=str(d / "jax_top3.npz"),
+                                checkpoint_every=2)
+    got = executor.count_file(run["paths"], CFG, device="cpu", top_k=3,
+                              checkpoint_path=str(d / "port_top3.npz"),
+                              checkpoint_every=2)
+    return {"jax": want, "port": got}
+
+
+@pytest.mark.parametrize("suffix,step", [("", 4), (".prev", 2)])
+def test_topk_snapshot_equals_jax(run, topk_run, suffix, step):
+    _assert_results_equal(topk_run["jax"], topk_run["port"])
+    assert len(topk_run["port"].words) == 3
+    want = np.load(run["dir"] / f"jax_top3.npz{suffix}")
+    got = np.load(run["dir"] / f"port_top3.npz{suffix}")
+    assert sorted(got.files) == sorted(want.files)
+    assert int(got["__step"]) == int(want["__step"]) == step
+    for k in want.files:
+        if k == "__meta":
+            assert json.loads(bytes(got[k])) == json.loads(bytes(want[k]))
+            continue
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert json.loads(bytes(got["__meta"]))["job"] == "wordcount-top3"
+
+
+def test_topk_snapshots_resume_across_packages(run, topk_run, tmp_path):
+    ck = _copy_snapshot(run["dir"] / "jax_top3.npz.prev",
+                        tmp_path / "from_jax.npz")
+    got = executor.count_file(run["paths"], CFG, device="cpu", top_k=3,
+                              checkpoint_path=ck)
+    _assert_results_equal(topk_run["jax"], got)
+    assert got.run.metrics.bytes_processed \
+        < sum(os.path.getsize(p) for p in run["paths"])
+    ck = _copy_snapshot(run["dir"] / "port_top3.npz.prev",
+                        tmp_path / "from_port.npz")
+    got = jexecutor.count_file(run["paths"], JCFG, mesh=data_mesh(1),
+                               top_k=3, checkpoint_path=ck)
+    _assert_results_equal(topk_run["jax"], got)
+
+
+def test_plain_snapshot_is_refused_for_a_topk_run(run, topk_run, tmp_path):
+    ck = _copy_snapshot(run["dir"] / "port.npz", tmp_path / "port.npz")
+    with pytest.raises(ckpt.CheckpointMismatch, match="job"):
+        executor.count_file(run["paths"], CFG, device="cpu", top_k=3,
+                            checkpoint_path=ck)
+    from mapreduce_tpu.runtime import checkpoint as jckpt
+
+    ck = _copy_snapshot(run["dir"] / "jax.npz", tmp_path / "jax.npz")
+    with pytest.raises(jckpt.CheckpointMismatch, match="job"):
+        jexecutor.count_file(run["paths"], JCFG, mesh=data_mesh(1), top_k=3,
+                             checkpoint_path=ck)
+    # And the other way: a top-k snapshot is not a plain run's.
+    ck = _copy_snapshot(run["dir"] / "port_top3.npz",
+                        tmp_path / "port_top3.npz")
+    with pytest.raises(ckpt.CheckpointMismatch, match="job"):
+        executor.count_file(run["paths"], CFG, device="cpu",
+                            checkpoint_path=ck)

@@ -13,6 +13,7 @@ exact, tolerance zero: the kernel hashes and counts integers.
 
 import functools
 import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -463,3 +464,96 @@ def test_executor_adds_no_host_sync(cuda_device, tmp_path):
                                 "native/__init__.py")}
     assert not [p for p in syncs if p in own]
     assert syncs.count(pkg / "models" / "wordcount.py") == rr.bases.shape[0]
+
+
+def _sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles a millisecond on this card, measured."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(50_000_000)
+    end.record()
+    end.synchronize()
+    return 50_000_000 / start.elapsed_time(end)
+
+
+@pytest.mark.cuda
+def test_event_wait_times_out_then_completes(cuda_device):
+    """A completion wait on a kernel still running raises TokenTimeout at
+    its deadline (polling the event, not blocking on it); the same event
+    is then waited for to its end."""
+    from mapreduce_tpu_torch.runtime import faults
+
+    stage = executor._PinnedStage(cuda_device, 1 << 10, 2)
+    torch.cuda._sleep(int(300 * _sleep_cycles_per_ms()))  # ~0.3 s
+    done = stage.completion()
+    t0 = time.monotonic()
+    with pytest.raises(faults.TokenTimeout):
+        executor._wait_token(stage, done, 0.05)
+    assert 0.05 <= time.monotonic() - t0 < 0.2
+    assert not done.query()
+    executor._wait_token(stage, done, 5.0)
+    assert done.query()
+
+
+@pytest.mark.cuda
+def test_retry_pool_never_hands_out_a_held_buffer(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """Under replays (a seeded plan at the completion waits and the
+    dispatch, window 4, superstep 3, prefetch 16, 16 KB chunks), the pool
+    never hands the reader a buffer a replayable group still holds, never
+    runs dry, and the result is exact."""
+    paths, joined = _stream_files(tmp_path)
+    handed = []
+    real_take = executor._PinnedStage.take
+
+    def take(self):
+        buf = real_take(self)
+        with self._lock:
+            assert buf.ctypes.data not in self._held
+        handed.append(buf.ctypes.data)
+        return buf
+
+    monkeypatch.setattr(executor._PinnedStage, "take", take)
+    cfg = wc.Config(chunk_bytes=1 << 14, inflight_groups=4,
+                    prefetch_depth=16, superstep=3,
+                    fault_plan="seed=5,rate=0.1,seams=token-wait+dispatch+"
+                               "h2d,classes=transient,max=6")
+    got = executor.count_file(paths, cfg, retry=3)
+    assert got.as_dict() == oracle.word_counts(joined)
+    pipe = got.run.pipeline
+    assert pipe["recoveries"] >= 3
+    assert len(handed) == got.run.bases.shape[0]
+    # The reader's 16 and 2, and the held window: 4 groups of 3 and the
+    # group being filled.
+    assert pipe["pinned_buffers"] <= 16 + 2 + 5 * 3 - 1
+
+
+@pytest.mark.cuda
+def test_slow_kernel_replays_exactly(cuda_device, tmp_path):
+    """A kernel that runs past ``token_timeout_s`` (a sleep queued after
+    the first step's map) times its completion wait out; the replay queues
+    behind it and the result is exact."""
+    paths, joined = _stream_files(tmp_path, n_files=1)
+    cfg = wc.Config(chunk_bytes=1 << 16, inflight_groups=1,
+                    failure_policy={"transient_retries": 3,
+                                    "token_timeout_s": 0.1,
+                                    "backoff_base_s": 0.0})
+    job = wc.WordCountJob(cfg)
+    cycles = int(400 * _sleep_cycles_per_ms())  # ~0.4 s
+    real_map = job.map_chunk
+    calls = []
+
+    def slow_map(chunk, chunk_id):
+        out = real_map(chunk, chunk_id)
+        if not calls:
+            torch.cuda._sleep(cycles)
+        calls.append(chunk_id)
+        return out
+
+    job.map_chunk = slow_map
+    rr = executor.run_job(job, paths, cfg)
+    got = executor.recover_from_file(rr.value, paths, rr.bases)
+    assert got.as_dict() == oracle.word_counts(joined)
+    assert rr.pipeline["recoveries"] >= 1
+    assert calls.count(0) == 2  # step 0 ran, then its replay

@@ -4,10 +4,12 @@
 ``run_job`` on a one-device mesh, backend pallas, the Pallas kernel in
 interpret mode) on one file and on a 3-file corpus: words, counts, order,
 total, distinct and ``dropped_*``, exactly.  The window and the superstep
-change no result; a failing step is logged with its resume cursor and
-re-raised, and a run killed after a checkpoint resumes to the
-uninterrupted result.  The CLI's streamed checkpointed run prints what
-``./main`` prints with the same flags.
+change no result; without a retry budget a failing step is logged with
+its resume cursor and re-raised, and a run killed after a checkpoint
+resumes to the uninterrupted result.  The CLI's streamed checkpointed run
+prints what ``./main`` prints with the same flags; ``--retry`` and
+``--fault-plan`` run, and a preempted run exits 75 and resumes as the JAX
+CLI does (the failure policy itself: ``tests/test_torch_faults.py``).
 """
 
 import contextlib
@@ -237,21 +239,70 @@ def test_cli_stream_checkpoint_matches_jax_cli(tmp_path, capsysbinary):
     assert ckpt.exists(ck)
 
 
+def _port_stdout(capsysbinary, *args: str, rc: int = 0) -> bytes:
+    old = os.getcwd()
+    os.chdir(REPO)
+    try:
+        assert cli.main([*args, "--platform", "cpu"]) == rc
+    finally:
+        os.chdir(old)
+    return capsysbinary.readouterr().out
+
+
 @pytest.mark.parametrize("argv", [
     ["--checkpoint", "ck.npz"],
     ["--stream", "--retry", "1"],
-    ["--stream", "--fault-plan", "seed=1"],
+    ["--stream", "--fault-plan", "at=dispatch:0:transient", "--retry", "1"],
     ["--stream", "--merge-overlap"],
     ["--stream", "--autotune"],
     ["--stream", "--ledger", "run.jsonl"],
 ])
-def test_cli_refusals(argv, capsys):
+def test_cli_refusals(argv, capsysbinary):
+    """Flags of planes not ported are refused with a usage error naming
+    A8b; ``--retry`` and ``--fault-plan`` run, and a fault the budget
+    absorbs leaves the output exact."""
+    if "--retry" in argv:
+        want = _port_stdout(capsysbinary, "test.txt")
+        assert _port_stdout(capsysbinary, "test.txt", *argv) == want
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["test.txt", "--platform", "cpu", *argv])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert ("--checkpoint requires --stream" in err) \
-        if argv[0] == "--checkpoint" else ("ROADMAP.md item A8b" in err)
+    err = capsysbinary.readouterr().err
+    assert (b"--checkpoint requires --stream" in err) \
+        if argv[0] == "--checkpoint" else (b"ROADMAP.md item A8b" in err)
+
+
+def test_cli_preempted_run_exits_75_and_resumes_like_jax(tmp_path,
+                                                         capsysbinary):
+    """An injected preemption at the first completion wait exits 75 with
+    the window drained into a snapshot; the relaunch resumes and prints
+    what the JAX CLI prints for the same two commands."""
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(_text(3, 4000))  # 5 chunks: the window of 4 fills
+    flags = ["--stream", "--chunk-bytes", "4096", "--checkpoint-every", "50"]
+    plan = ["--fault-plan", "at=token-wait:0:preemption"]
+    outs = {}
+    for name, main in (("jax", jcli.main), ("port", cli.main)):
+        ck = str(tmp_path / f"{name}.npz")
+        argv = [str(corpus), "--checkpoint", ck, *flags]
+        extra = ["--platform", "cpu"] if name == "port" else []
+        old = os.getcwd()
+        os.chdir(REPO)
+        try:
+            assert main([*argv, *plan, *extra]) == 75
+            first = capsysbinary.readouterr()
+            assert b"\npreempted: preempted at step " in b"\n" + first.err
+            assert ckpt.exists(ck)
+            assert main([*argv, *extra]) == 0
+            outs[name] = (first.out, capsysbinary.readouterr().out)
+        finally:
+            os.chdir(old)
+    assert outs["port"] == outs["jax"]
+    assert outs["port"][0] == b"" and b"Total Count:4000" in outs["port"][1]
+    # The port's one device drained four groups of one chunk each (the JAX
+    # CLI's mesh of 8 CPU devices takes the corpus in one step).
+    assert ckpt.load(str(tmp_path / "port.npz"))[1] == 4
 
 
 def test_config_pipeline_knobs_map_from_jax():
@@ -263,6 +314,15 @@ def test_config_pipeline_knobs_map_from_jax():
         .resolved_prefetch_depth == JConfig().resolved_prefetch_depth == 4
     for kw in ({"merge_overlap": True}, {"autotune": "hint"},
                {"fault_plan": "seed=1"}):
+        if "fault_plan" in kw:
+            # The fault plan (and the failure policy) map across.
+            jc = JConfig(fault_plan="seed=1,rate=0.1",
+                         failure_policy={"transient_retries": 2})
+            cfg = convert.config_from_dict(dataclasses.asdict(jc))
+            assert cfg.fault_plan == jc.fault_plan
+            assert cfg.failure_policy.as_dict() \
+                == jc.failure_policy.as_dict()
+            continue
         with pytest.raises(ValueError, match="A8b"):
             convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
     for kw in ({"superstep": 0}, {"inflight_groups": 0},

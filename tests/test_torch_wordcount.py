@@ -292,11 +292,15 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "assert r.as_dict() == {b'a': 2, b'b': 1}; "
             "import mapreduce_tpu_torch.ops.cuda.radix; "
             "import mapreduce_tpu_torch.cli, mapreduce_tpu_torch.native; "
-            "from mapreduce_tpu_torch.runtime import checkpoint; "
+            "from mapreduce_tpu_torch.runtime import checkpoint, faults; "
             "from mapreduce_tpu_torch.obs import spans; "
             "r = m.count_file('test.txt', device='cpu', "
             "checkpoint_path='%s', checkpoint_every=1); "
             "assert r.total == 9 and checkpoint.exists('%s'); "
+            "c = m.Config(fault_plan='at=dispatch:0:transient'); "
+            "r = m.count_file('test.txt', c, device='cpu', retry=1); "
+            "assert r.total == 9 and faults.classify(KeyboardInterrupt()) "
+            "== 'preemption'; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'mapreduce_tpu')]; "
             "assert not bad, bad") % ((tmp_path / "ck.npz",) * 2)
