@@ -71,18 +71,22 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               ``hot-cache`` / ``radix`` (window 1, so each rung runs a
               step: the kernels each rung launched) and an exhausted ladder,
               which must fail as ``resource``; a real late completion
-              (``torch.cuda._sleep`` queued after the first step's map,
-              window 1) past a ``token_timeout_s`` of 0.2 s, replayed; a real
-              CUDA out-of-memory in a child capped by
+              (``torch.cuda._sleep`` of 0.6 s queued before the first
+              step's map, window 4) past a ``token_timeout_s`` of 0.2 s,
+              replayed, and a hung one (6 s, before the third step's map),
+              which must end the run with a ``TokenTimeout`` in under 3 s; a
+              real CUDA out-of-memory in a child capped by
               ``set_per_process_memory_fraction``, which must come out exact
               or fail as ``resource`` and nothing else; SIGINT to a child
               ``python -m mapreduce_tpu_torch --stream --checkpoint`` over
               the 8-file corpus once its first snapshot landed (plain and
               ``--top-k 5``), which must exit 75 and whose relaunch must
-              print what an uninterrupted run prints; and ``count_file`` over
-              the 8-file corpus at ``retry=0`` against ``retry=1`` (the cost
-              of the anchor and the held buffers), in turns 0, 1, 1, 0, three
-              turns;
+              print what an uninterrupted run prints.  First of all, in a
+              fresh process: ``count_file`` over the 8-file corpus at
+              ``retry=0`` against ``retry=1`` (the cost of the anchor and the
+              held buffers), in turns 0, 1, 1, 0, three turns; beside it,
+              three ``retry=0`` runs in this process right after phase 6
+              and three after every other case;
 8. times   -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
@@ -505,6 +509,36 @@ except Exception as e:
 print(json.dumps(out), flush=True)
 """
 
+# The cost of replayability in a fresh process: argv = repo root, corpus
+# file (passed 8 times), corpus bytes, the oracle's digest and total.
+# One JSON line a run, after a warm-up run.
+RETRY_COST_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from chip_smoke import result_digest
+from mapreduce_tpu_torch import Config, count_file
+from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+corpus, n_bytes = [sys.argv[2]] * 8, int(sys.argv[3])
+count_file(corpus, Config())
+for turn in range(3):
+    for retry in (0, 1, 1, 0):
+        torch.cuda.synchronize()
+        ktok.LAUNCHES.clear()
+        t = time.perf_counter()
+        got = count_file(corpus, Config(), retry=retry)
+        seconds = time.perf_counter() - t
+        print(json.dumps({
+            "retry": retry, "turn": turn, "seconds": round(seconds, 4),
+            "gb_per_s": n_bytes / seconds / 1e9,
+            "run_job_gb_per_s": got.run.metrics.gb_per_s,
+            "pinned_buffers": got.run.pipeline["pinned_buffers"],
+            "full_retires": got.run.pipeline["full_retires"],
+            "launches": dict(ktok.LAUNCHES),
+            "equal_to_oracle": result_digest(got.words, got.counts)
+            == sys.argv[4] and got.total == int(sys.argv[5])}), flush=True)
+"""
+
 
 def result_digest(words, counts) -> str:
     """A result's words and counts, in order, as one SHA-256."""
@@ -560,6 +594,52 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
 
     def ms(got, phase):
         return round(got.run.metrics.phases.get(phase, 0.0) * 1e3, 3)
+
+    corpus8 = [str(path)] * 8
+    want8 = {w: 8 * c for w, c in want_stream.items()}
+    n_bytes = 8 * len(stream_data)
+
+    def retry0_rate(name: str) -> float:
+        """The median GB/s of three retry=0 runs in this process."""
+        rates = []
+        for turn in range(3):
+            got, seconds = drive(name, lambda: count_file(corpus8, Config()),
+                                 want8, {"tokenize_compact": 8 * chunks})
+            rates.append(n_bytes / seconds / 1e9)
+            emit("faults", case="retry_cost", run=name, retry=0, turn=turn,
+                 gb_per_s=rates[-1],
+                 run_job_gb_per_s=got.run.metrics.gb_per_s,
+                 seconds=round(seconds, 4))
+        return statistics.median(rates)
+
+    # 7. the cost of replayability: retry=0 against retry=1, in turns 0, 1,
+    # 1, 0, in a fresh process, so that nothing an earlier phase left in
+    # this one weighs on it; beside it, three retry=0 runs here now and
+    # three after every other case (what those phases leave behind).
+    here_before = retry0_rate("faults_retry0_after_phase6")
+    child = subprocess.run(
+        [sys.executable, "-c", RETRY_COST_CHILD, str(ROOT), str(path),
+         str(n_bytes), result_digest(list(want8), list(want8.values())),
+         str(sum(want8.values()))],
+        capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"the retry-cost child exited {child.returncode}:\n"
+                         f"{child.stderr[-3000:]}")
+    rates: dict = {0: [], 1: []}
+    for line in child.stdout.strip().splitlines():
+        run = json.loads(line)
+        if not run["equal_to_oracle"] or run["launches"].get(
+                "tokenize_compact") != 8 * chunks:
+            raise SystemExit(f"the retry-cost child's run {run}")
+        rates[run["retry"]].append(run["gb_per_s"])
+        emit("faults", case="retry_cost", run="fresh_process", **run)
+    if [len(v) for v in rates.values()] != [6, 6]:
+        raise SystemExit(f"the retry-cost child ran {rates}")
+    emit("faults", case="retry_cost",
+         median_gb_per_s={r: statistics.median(v) for r, v in rates.items()},
+         retry1_over_retry0=statistics.median(rates[1])
+         / statistics.median(rates[0]),
+         here_retry0_median_gb_per_s=here_before)
 
     faults.FaultPlan.resolve = classmethod(resolve)
     try:
@@ -683,44 +763,66 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
         emit("faults", case="ladder_exhausted", fault_class=cls,
              fired=fired())
 
-        # 4. a real late completion: a sleep queued on the compute stream
-        # after the first step's map (window 1: the next group's host read
-        # would otherwise wait for it first).
+        # 4. a real late completion at window 4: a sleep queued on the
+        # compute stream before a step's map, so that the map's host read
+        # (and, behind it, every wait of the window) passes a
+        # token_timeout_s of 0.2 s.  A late kernel (0.6 s, first step)
+        # must replay exactly; a hung one (6 s, third step, longer than
+        # every wait of the budget together) must end the run with a
+        # TokenTimeout while it still runs.
         start_ev = torch.cuda.Event(enable_timing=True)
         end_ev = torch.cuda.Event(enable_timing=True)
         start_ev.record()
         torch.cuda._sleep(100_000_000)
         end_ev.record()
         end_ev.synchronize()
-        cycles = int(600 * 100_000_000 / start_ev.elapsed_time(end_ev))
-        late = Config(inflight_groups=1, failure_policy={
+        cycles_per_ms = 100_000_000 / start_ev.elapsed_time(end_ev)
+        late = Config(failure_policy={
             "transient_retries": 3, "token_timeout_s": 0.2,
             "backoff_base_s": 0.0})
 
-        def late_run():
+        def late_run(sleep_ms: int, at_step: int):
             job = wc.WordCountJob(late)
             real_map = job.map_chunk
             slept = []
 
             def slow_map(chunk, chunk_id):
-                out = real_map(chunk, chunk_id)
-                if not slept:
-                    torch.cuda._sleep(cycles)
+                if chunk_id == at_step and not slept:
+                    torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
                     slept.append(chunk_id)
-                return out
+                return real_map(chunk, chunk_id)
 
             job.map_chunk = slow_map
             rr = executor.run_job(job, str(path), late)
             res = executor.recover_from_file(rr.value, str(path), rr.bases)
             return dataclasses.replace(res, run=rr)
 
-        got, seconds = drive("faults_late_wait", late_run, want_stream, need)
+        got, seconds = drive("faults_late_wait", lambda: late_run(600, 0),
+                             want_stream, need)
         if not got.run.pipeline.get("recoveries"):
             raise SystemExit("the late completion was not replayed")
-        emit("faults", case="late_wait", sleep_ms=600, token_timeout_s=0.2,
+        emit("faults", case="late_wait", window=late.inflight_groups,
+             sleep_ms=600, at_step=0, token_timeout_s=0.2,
              recoveries=got.run.pipeline["recoveries"],
              replay_ms=ms(got, "replay"), seconds=round(seconds, 4),
              equal_to_oracle=True)
+        hang_ms = 6000
+        t_a = time.perf_counter()
+        try:
+            late_run(hang_ms, 2)
+        except faults.TokenTimeout as e:
+            cls = faults.classify(e)
+        else:
+            raise SystemExit("the hung kernel's run did not time out")
+        seconds = time.perf_counter() - t_a
+        torch.cuda.synchronize()  # the hung kernel ends here
+        if seconds >= hang_ms / 2e3 or cls != "transient":
+            raise SystemExit(f"the hung kernel's run ended after {seconds} s "
+                             f"as {cls}")
+        emit("faults", case="hung_kernel", window=late.inflight_groups,
+             sleep_ms=hang_ms, at_step=2, token_timeout_s=0.2,
+             error="TokenTimeout", fault_class=cls,
+             seconds_to_fail=round(seconds, 4))
     finally:
         faults.FaultPlan.resolve = classmethod(real_resolve)
 
@@ -747,7 +849,6 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
          cap_bytes=256 << 20, classes_seen=classes, **oom)
 
     # 6. preemption: SIGINT to the CLI once its first snapshot landed
-    corpus8 = [str(path)] * 8
     for extra in ([], ["--top-k", "5"]):
         argv = [*corpus8, "--stream", "--no-echo", "--format", "json", *extra]
         buf = io.StringIO()
@@ -795,26 +896,11 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
              relaunch_stdout_bytes=len(relaunch.stdout),
              relaunch_equal_to_uninterrupted=True)
 
-    # 7. the cost of replayability: retry=0 against retry=1, in turns
-    want8 = {w: 8 * c for w, c in want_stream.items()}
-    n_bytes = 8 * len(stream_data)
-    rates: dict = {0: [], 1: []}
-    for turn in range(3):
-        for retry in (0, 1, 1, 0):
-            got, seconds = drive(f"faults_retry{retry}", lambda: count_file(
-                corpus8, Config(), retry=retry), want8,
-                {"tokenize_compact": 8 * chunks})
-            rates[retry].append(n_bytes / seconds / 1e9)
-            emit("faults", case="retry_cost", retry=retry, turn=turn,
-                 gb_per_s=rates[retry][-1],
-                 run_job_gb_per_s=got.run.metrics.gb_per_s,
-                 pinned_buffers=got.run.pipeline["pinned_buffers"],
-                 full_retires=got.run.pipeline["full_retires"],
-                 seconds=round(seconds, 4))
-    emit("faults", case="retry_cost",
-         median_gb_per_s={r: statistics.median(v) for r, v in rates.items()},
-         retry1_over_retry0=statistics.median(rates[1])
-         / statistics.median(rates[0]))
+    here_after = retry0_rate("faults_retry0_after_cases")
+    emit("faults", case="retry_cost_here",
+         after_phase6_median_gb_per_s=here_before,
+         after_cases_median_gb_per_s=here_after,
+         after_over_before=here_after / here_before)
 
 
 def main() -> int:

@@ -26,6 +26,8 @@ the job's combine is the plain two-way merge.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 import dataclasses
 from collections import Counter
@@ -48,6 +50,24 @@ from mapreduce_tpu_torch.runtime.platform import resolve_device
 #: the combiner "combiner_hits" (occurrences the cache absorbed) and
 #: "combiner_flushes" (cache rows folded back), read in the chunk's one sync.
 BRANCHES: Counter = Counter()
+
+#: How the map reads its flags to the host (see :func:`host_read_by`);
+#: None is a blocking ``tolist``.
+_HOST_READ: contextvars.ContextVar = contextvars.ContextVar("host_read",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def host_read_by(read):
+    """Within, the map's one host read of a chunk is ``read(flags)`` (a
+    list) instead of a blocking ``flags.tolist()``.  On the card that read
+    waits for every kernel queued before it, a hung one included: the
+    streamed driver puts it under its completion deadline this way."""
+    token = _HOST_READ.set(read)
+    try:
+        yield
+    finally:
+        _HOST_READ.reset(token)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,8 +157,10 @@ def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi):
     if cache is not None:
         flags += [cache.count.sum(), (cache.count > 0).sum()]
     flags = torch.stack(flags)
+    read = _HOST_READ.get()
     with span("host_read"):  # waits for the card (the streamed loop's too)
-        spill_h, over_h, tokens_h, *cached = flags.tolist()
+        spill_h, over_h, tokens_h, *cached = \
+            flags.tolist() if read is None else read(flags)
     BRANCHES["chunks"] += 1
     if spill_h:
         # A combiner window overflowed its slots, so the thinned stream is

@@ -41,11 +41,15 @@ run's :class:`...runtime.faults.FailurePolicy` decides:
 - preemption (``KeyboardInterrupt``, or an error that says so) drains the
   window, saves a snapshot if a checkpoint path is set, and raises
   :class:`...runtime.faults.Preempted` with the resume cursor;
-- a completion wait under ``token_timeout_s`` polls the token's event
-  against a deadline and raises ``TokenTimeout`` past it.  A kernel cannot
-  be cancelled on CUDA: a replay queues behind a hung kernel on the same
+- under ``token_timeout_s``, every wait of the loop on the compute stream
+  polls an event against a deadline and raises ``TokenTimeout`` past it:
+  a group's completion token, and the map's one host read of a chunk,
+  which would otherwise block behind every kernel queued before it (it
+  copies to pinned memory behind an event instead).  A kernel cannot be
+  cancelled on CUDA: a replay queues behind a hung kernel on the same
   stream, so a kernel that never finishes ends the run with a
-  ``TokenTimeout`` once the budget is spent.
+  ``TokenTimeout`` once the budget is spent, and keeps the card busy
+  until it ends.
 
 A :class:`...runtime.faults.FaultPlan` (``Config.fault_plan``) injects
 faults at the seams ``reader-read``, ``stage-acquire``, ``h2d``,
@@ -82,6 +86,7 @@ import torch
 from mapreduce_tpu_torch import convert, native
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
 from mapreduce_tpu_torch.data import reader as reader_mod
+from mapreduce_tpu_torch.models import wordcount as wc
 from mapreduce_tpu_torch.models.wordcount import (TopKTable,
                                                   TopKWordCountJob,
                                                   WordCountJob,
@@ -132,12 +137,12 @@ def _overlap_fraction(timer) -> Optional[float]:
 
 
 def _wait_token(stage, token, timeout_s: Optional[float] = None,
-                interrupted=None) -> None:
+                interrupted=None, seam: str = "token-wait") -> None:
     """Wait until ``stage.ready(token)``, polling with a short sleep;
     ``interrupted()`` (raises ``KeyboardInterrupt`` once a SIGINT arrived)
     runs at every poll, and past ``timeout_s`` (None: no bound) the wait
-    raises :class:`...runtime.faults.TokenTimeout`.  A failed kernel's
-    error surfaces from ``ready`` (``Event.query``)."""
+    raises :class:`...runtime.faults.TokenTimeout` at ``seam``.  A failed
+    kernel's error surfaces from ``ready`` (``Event.query``)."""
     if stage.ready(token):
         return
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
@@ -150,7 +155,7 @@ def _wait_token(stage, token, timeout_s: Optional[float] = None,
         if deadline is not None and time.monotonic() >= deadline:
             raise faults_mod.TokenTimeout(
                 f"completion token not ready within {timeout_s}s (hung or "
-                "slow kernel)", seam="token-wait")
+                "slow kernel)", seam=seam)
 
 
 @contextlib.contextmanager
@@ -172,6 +177,11 @@ def _sigint_deferred():
     signal.signal(signal.SIGINT, lambda signum, frame: pending.append(signum))
     try:
         yield pending
+    except faults_mod.Preempted:
+        # The run is already leaving in order: a second SIGINT during its
+        # drain or snapshot must not turn that exit into an interrupt.
+        pending.clear()
+        raise
     finally:
         signal.signal(signal.SIGINT, signal.default_int_handler)
         if pending:
@@ -187,6 +197,10 @@ class _HostStage:
 
     def stage(self, batch, hold: bool = False):
         return torch.from_numpy(batch.data).reshape(-1), None
+
+    @staticmethod
+    def read(flags, timeout_s: Optional[float]) -> list:
+        return flags.tolist()
 
     def release(self, batch) -> None:
         pass
@@ -286,6 +300,16 @@ class _PinnedStage:
         with self._lock:
             self._returned.append(self._held.pop(batch.data.ctypes.data))
 
+    def read(self, flags: torch.Tensor, timeout_s: Optional[float]) -> list:
+        """The map's host read of ``flags`` under a deadline: a copy to
+        pinned memory on the compute stream, and a polled wait on an event
+        after it, so a late or hung kernel queued before it raises
+        ``TokenTimeout`` instead of blocking the loop."""
+        host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+        host.copy_(flags, non_blocking=True)
+        _wait_token(self, self.completion(), timeout_s, seam="dispatch")
+        return host.tolist()
+
     def wait_copies(self, events) -> None:
         """The compute stream waits for the group's copies."""
         for ev in events:
@@ -345,30 +369,27 @@ def _apply_degrade(config: Config, field: str, value: str) -> Config:
     return dataclasses.replace(config, **kw)
 
 
-def _collective_call(thunk, plan, policy, logger):
-    """The finish behind the ``collective-finish`` seam.  Injected faults
-    fire before the finish runs, so retrying them on their class budget is
-    safe; a real failure propagates."""
+def _with_budget(thunk, seam: str, policy, logger, *, injected_only: bool,
+                 message: str = "step failed; retrying", **fields):
+    """``thunk()``, retried on the failure's class budget with the policy's
+    backoff, each retry logged as ``message``.  Preemption, an exhausted
+    budget and, with ``injected_only``, a real failure re-raise.  (A
+    replayed group retries in ``serial_dispatch``, which charges the
+    attempt it spent in the window.)"""
     attempt = 0
     while True:
         try:
-            if plan is not None:
-                exc = plan.check("collective-finish")
-                if exc is not None:
-                    log_event(logger, "fault injected",
-                              seam="collective-finish", index=exc.index,
-                              fault_class=exc.fault_class)
-                    raise exc
             return thunk()
-        except faults_mod.FaultError as fe:
-            if not fe.injected or fe.fault_class == "preemption" \
-                    or attempt >= policy.budget(fe.fault_class):
+        except Exception as e:
+            cls = faults_mod.classify(e)
+            injected = isinstance(e, faults_mod.FaultError) and e.injected
+            if cls == "preemption" or (injected_only and not injected) \
+                    or attempt >= policy.budget(cls):
                 raise
             attempt += 1
-            log_event(logger, "collective finish fault; retrying",
-                      attempt=attempt, fault_class=fe.fault_class)
-            s = policy.backoff_s(fe.fault_class, attempt,
-                                 seam="collective-finish")
+            log_event(logger, message, **fields, attempt=attempt,
+                      fault_class=cls, error=repr(e), seam=seam)
+            s = policy.backoff_s(cls, attempt, seam=seam)
             if s > 0:
                 time.sleep(s)
 
@@ -377,24 +398,26 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                   start_step: int, start_offset: int, bases_list: list,
                   checkpoint_path, checkpoint_every: int, fingerprint,
                   resumed_file, logger, progress_every: int, timer,
-                  plan, policy, retry: int, rebuild):
+                  plan, policy, rebuild):
     """The streaming loop, the JAX ``_drive_stream`` without the ledger,
     data statistics and window-boundary merges.  Returns ``(state,
     bytes_done, pipe)``: ``bytes_done`` is the absolute cursor (it starts
     at ``start_offset``) and ``pipe`` the window statistics.
 
     ``plan`` is the run's fault plan (or None), ``policy`` its failure
-    policy; ``retry`` > 0 arms the anchor and the window replay (see the
-    module docstring); ``rebuild(config)`` gives the engine of a degraded
-    config.  ``cur_config`` is the ladder's moving target: the loop's own
-    knobs (superstep, window, prefetch) stay the caller's."""
+    policy; a budget for any class (``replayable``) arms the anchor and
+    the window replay (see the module docstring); ``rebuild(config)``
+    gives the engine of a degraded config.  ``cur_config`` is the ladder's
+    moving target: the loop's own knobs (superstep, window, prefetch) stay
+    the caller's."""
     cur_config = config
+    replayable = policy.dispatch_budget > 0
     bytes_done = int(start_offset)
     step_index = start_step
     last_ckpt = start_step // checkpoint_every if checkpoint_every else 0
     window_cap = config.inflight_groups
     window: collections.deque = collections.deque()
-    # retry > 0: the state at the last re-anchor, and every (group,
+    # Replayable: the state at the last re-anchor, and every (group,
     # cursor before it) dispatched since, which a failure replays.
     anchor = None
     since_anchor: list = []
@@ -450,11 +473,9 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                   or "enable checkpointing to resume")
         raise e
 
-    def retry_record(step: int, attempt: int, e, fault_class: str,
-                     seam: Optional[str] = None) -> None:
+    def retry_record(step: int, attempt: int, e, fault_class: str) -> None:
         log_event(logger, "step failed; retrying", step=step,
-                  attempt=attempt, fault_class=fault_class, error=repr(e),
-                  **({"seam": seam} if seam else {}))
+                  attempt=attempt, fault_class=fault_class, error=repr(e))
 
     def dispatch(state, group, restage: bool = False):
         """Stage (a replay stages the group's host buffers again) and
@@ -551,7 +572,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         cursor = entry.cursor_before if entry is not None else bytes_done
         budget = policy.budget(cls)
         can_ladder = cls == "resource" and policy.degrade
-        if retry <= 0 or (budget <= 0 and not can_ladder):
+        if not replayable or (budget <= 0 and not can_ladder):
             final_failure(e, fail_step, cursor, cls)
         if sync_group is not None:
             since_anchor.append((sync_group, cursor))
@@ -639,7 +660,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         anchor)."""
         while window:
             state = retire_oldest(state, phase)
-        if retry > 0 and do_reanchor and since_anchor:
+        if replayable and do_reanchor and since_anchor:
             reanchor(state)
         return state
 
@@ -665,7 +686,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         live = out
         window.append(_Inflight(done, group[-1][1][1], group[0][0].step,
                                 cursor_before))
-        if retry > 0:
+        if replayable:
             since_anchor.append((group, cursor_before))
         record_depth(len(window))
         account([b for b, _ in group])
@@ -675,8 +696,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         failed save retries on its class budget (the write is atomic), and
         an exhausted budget is absorbed: the run goes on without this
         snapshot.  True when it landed."""
-        attempt = 0
-        while True:
+        def save() -> None:
             try:
                 if plan is not None:
                     cross("checkpoint-save")
@@ -684,28 +704,28 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                               step_index, bytes_done, np.stack(bases_list),
                               fingerprint=fingerprint,
                               file_index=last_file_dispatched)
-                return True
-            except faults_mod.PreemptionFault:
-                raise
             except Exception as ce:
-                ccls = faults_mod.classify(ce)
                 observed(ce, "checkpoint-save", step_index)
-                if attempt >= policy.budget(ccls):
-                    log_event(logger, "checkpoint save failed; continuing "
-                              "without this snapshot", error=repr(ce),
-                              fault_class=ccls)
-                    return False
-                attempt += 1
-                retry_record(step_index, attempt, ce, ccls,
-                             seam="checkpoint-save")
-                backoff(ccls, attempt, "checkpoint-save")
+                raise
+
+        try:
+            _with_budget(save, "checkpoint-save", policy, logger,
+                         injected_only=False, step=step_index)
+            return True
+        except faults_mod.PreemptionFault:
+            raise
+        except Exception as ce:
+            log_event(logger, "checkpoint save failed; continuing without "
+                      "this snapshot", error=repr(ce),
+                      fault_class=faults_mod.classify(ce))
+            return False
 
     def flush_one(state, group):
         """Dispatch one group, keeping at most ``window_cap`` in flight.
         With retry the window drains in full and re-anchors when it is
         full; without, it slides (the oldest group retires)."""
         nonlocal last_ckpt
-        if retry > 0:
+        if replayable:
             if len(window) >= window_cap:
                 pipe["full_retires"] += len(window)
                 state = drain_window(state)
@@ -747,19 +767,12 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         fires before the read, so retrying it is safe; a real reader error
         propagates (the prefetch iterator is dead after raising, and
         reading it again would look like the stream's end)."""
-        attempt = 0
-        while True:
-            try:
-                cross("reader-read")
-                return next(it, None)
-            except faults_mod.FaultError as fe:
-                if not fe.injected or fe.fault_class == "preemption" \
-                        or attempt >= policy.budget(fe.fault_class):
-                    raise
-                attempt += 1
-                retry_record(step_index, attempt, fe, fe.fault_class,
-                             seam="reader-read")
-                backoff(fe.fault_class, attempt, "reader-read")
+        def read():
+            cross("reader-read")
+            return next(it, None)
+
+        return _with_budget(read, "reader-read", policy, logger,
+                            injected_only=True, step=step_index)
 
     last_file: Optional[int] = resumed_file
     it = reader_mod.prefetch(
@@ -781,7 +794,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             if batch is None:
                 break
             with span("stage", timer):
-                staged = stage.stage(batch, hold=retry > 0)
+                staged = stage.stage(batch, hold=replayable)
             if last_file is not None and batch.file_index != last_file:
                 # A file boundary is a group and window boundary.
                 if pending:
@@ -808,7 +821,10 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         interrupted()
         return state
 
-    with _sigint_deferred() as sigint:
+    bounded = contextlib.nullcontext() if policy.token_timeout_s is None \
+        else wc.host_read_by(
+            lambda flags: stage.read(flags, policy.token_timeout_s))
+    with _sigint_deferred() as sigint, bounded:
         try:
             state = stream(state)
         except BaseException as pe:
@@ -883,7 +899,6 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     plan = faults_mod.FaultPlan.resolve(config.fault_plan)
     policy = faults_mod.FailurePolicy.resolve(config.failure_policy,
                                               retry=retry)
-    retry = policy.dispatch_budget
     engine = Engine(job, dev)
     logger = logger or get_logger()
     native.load()  # a failed chunker build fails here, not in the reader
@@ -911,7 +926,7 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     # With retry, the buffers of every group since the anchor are held
     # (at most a full window, plus the group being filled).
     held = (config.inflight_groups + 1) * config.superstep - 1 \
-        if retry > 0 else 0
+        if policy.dispatch_budget > 0 else 0
     stage = _PinnedStage(dev, config.chunk_bytes,
                          config.resolved_prefetch_depth, held) \
         if dev.type == "cuda" else _HostStage()
@@ -932,11 +947,24 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             checkpoint_every=checkpoint_every, fingerprint=fingerprint,
             resumed_file=resumed_file, logger=logger,
             progress_every=progress_every, timer=timer, plan=plan,
-            policy=policy, retry=retry, rebuild=rebuild)
+            policy=policy, rebuild=rebuild)
     timer.stop("stream")
+
+    def finish():
+        if plan is not None:
+            exc = plan.check("collective-finish")
+            if exc is not None:
+                log_event(logger, "fault injected", seam="collective-finish",
+                          index=exc.index, fault_class=exc.fault_class)
+                raise exc
+        return engine.finish(state)
+
+    # Injected faults fire before the finish runs, so retrying them is
+    # safe; a real failure propagates.
     with span("reduce", timer):
-        value = _collective_call(lambda: engine.finish(state), plan, policy,
-                                 logger)
+        value = _with_budget(finish, "collective-finish", policy, logger,
+                             injected_only=True,
+                             message="collective finish fault; retrying")
     total_s = timer.stop("total")
     pipe["overlap_fraction"] = _overlap_fraction(timer)
     # The bytes this run streamed (a resumed run starts at its cursor).

@@ -557,3 +557,98 @@ def test_slow_kernel_replays_exactly(cuda_device, tmp_path):
     assert got.as_dict() == oracle.word_counts(joined)
     assert rr.pipeline["recoveries"] >= 1
     assert calls.count(0) == 2  # step 0 ran, then its replay
+
+
+@pytest.mark.cuda
+def test_pinned_read_times_out_then_reads(cuda_device):
+    """The map's bounded host read: flags computed behind a kernel still
+    running raise TokenTimeout at the deadline (the read polls an event
+    after a copy to pinned memory, it does not block); read again, they
+    come back once the kernel is done."""
+    from mapreduce_tpu_torch.runtime import faults
+
+    stage = executor._PinnedStage(cuda_device, 1 << 10, 2)
+    torch.cuda._sleep(int(300 * _sleep_cycles_per_ms()))  # ~0.3 s
+    flags = torch.arange(1, 5, device=cuda_device)
+    t0 = time.monotonic()
+    with pytest.raises(faults.TokenTimeout):
+        stage.read(flags, 0.05)
+    assert time.monotonic() - t0 < 0.2
+    assert stage.read(flags, 5.0) == [1, 2, 3, 4]
+
+
+def _late_before_the_map(job, cycles: int, at_step: int) -> list:
+    """Queue a ``cycles`` sleep on the compute stream before the first map
+    of ``at_step``: its host read, and every later one, waits behind it.
+    Returns the chunk ids the map saw."""
+    real_map = job.map_chunk
+    calls = []
+
+    def slow_map(chunk, chunk_id):
+        if chunk_id == at_step and at_step not in calls:
+            torch.cuda._sleep(cycles)
+        calls.append(chunk_id)
+        return real_map(chunk, chunk_id)
+
+    job.map_chunk = slow_map
+    return calls
+
+
+@pytest.fixture(scope="module")
+def six_chunk_corpus(tmp_path_factory):
+    """Six 32 MB chunks at ``Config()``: one text repeated (it ends with a
+    separator, so the counts of the copies add)."""
+    base = _zipf_text(31, 4 << 20) + b" "
+    copies = -(-6 * wc.Config().chunk_bytes // len(base))
+    path = tmp_path_factory.mktemp("late") / "corpus.txt"
+    path.write_bytes(base * copies)
+    return str(path), {w: copies * c
+                       for w, c in oracle.word_counts(base).items()}
+
+
+@pytest.mark.cuda
+def test_a_hung_kernel_before_the_map_ends_in_token_timeout(
+        cuda_device, six_chunk_corpus):
+    """At ``Config()`` defaults (window 4), a kernel that outlasts the
+    whole budget, queued before step 2's map: that map's host read times
+    out, and so does each replay's, behind it; the run ends with a
+    TokenTimeout while the kernel still runs, instead of stalling."""
+    from mapreduce_tpu_torch.runtime import faults
+
+    path, _ = six_chunk_corpus
+    cfg = wc.Config(failure_policy={"transient_retries": 2,
+                                    "token_timeout_s": 0.2,
+                                    "backoff_base_s": 0.0})
+    assert cfg.inflight_groups == 4
+    job = wc.WordCountJob(cfg)
+    hang_s = 6.0
+    calls = _late_before_the_map(job, int(hang_s * 1e3
+                                          * _sleep_cycles_per_ms()), 2)
+    t0 = time.monotonic()
+    with pytest.raises(faults.TokenTimeout):
+        executor.run_job(job, path, cfg)
+    elapsed = time.monotonic() - t0
+    torch.cuda.synchronize()
+    assert elapsed < hang_s / 2, elapsed
+    # Step 0 ran, then its replay's three attempts (budget 2) timed out.
+    assert calls.count(2) == 1 and calls.count(0) == 4
+
+
+@pytest.mark.cuda
+def test_a_late_kernel_before_the_map_replays_exactly(cuda_device,
+                                                      six_chunk_corpus):
+    """At ``Config()`` defaults (window 4), a kernel of ~0.6 s queued
+    before step 2's map, past a ``token_timeout_s`` of 0.2 s: the host read
+    times out, the replay waits it out on its budget, and the result is
+    exact."""
+    path, want = six_chunk_corpus
+    cfg = wc.Config(failure_policy={"transient_retries": 3,
+                                    "token_timeout_s": 0.2,
+                                    "backoff_base_s": 0.0})
+    job = wc.WordCountJob(cfg)
+    calls = _late_before_the_map(job, int(600 * _sleep_cycles_per_ms()), 2)
+    rr = executor.run_job(job, path, cfg)
+    got = executor.recover_from_file(rr.value, path, rr.bases)
+    assert got.as_dict() == want
+    assert rr.pipeline["recoveries"] == 1
+    assert calls.count(2) == 2  # step 2 ran, then its replay

@@ -796,3 +796,71 @@ def test_a_kernel_that_never_finishes_ends_the_run(monkeypatch, corpus):
             if m == "step failed; retrying"] == [(1, 1), (0, 1), (0, 2)]
     assert [f["fault_class"] for m, f in records if m == "step failed"] \
         == ["transient"]
+
+
+@pytest.mark.parametrize("timeout", [None, 0.5])
+def test_the_maps_host_read_goes_through_the_stage_under_a_timeout(
+        monkeypatch, corpus, timeout):
+    """Under ``token_timeout_s`` the map's one host read of each chunk is
+    the stage's bounded read (on the card a copy behind an event, polled
+    against the deadline); without one it is the blocking read of PR 5.
+    The read is the driver's only while the stream runs."""
+    path, want = corpus
+    reads = []
+    real = executor._HostStage.read
+
+    def read(flags, timeout_s):
+        reads.append(timeout_s)
+        return real(flags, timeout_s)
+
+    monkeypatch.setattr(executor._HostStage, "read", staticmethod(read))
+    _, cfg = _configs(4, 1, failure_policy={"transient_retries": 1,
+                                            "token_timeout_s": timeout})
+    got = executor.count_file(path, cfg, device="cpu")
+    assert got.as_dict() == want
+    assert reads == ([] if timeout is None else [timeout] * 5)
+    assert wc._HOST_READ.get() is None
+
+
+def test_a_second_sigint_during_the_preemption_drain_keeps_preempted(
+        monkeypatch, tmp_path, corpus):
+    """A SIGINT that arrives while a preempted run drains and saves its
+    snapshot is absorbed: the run still leaves with ``Preempted`` (the
+    CLI's exit 75), not with a ``KeyboardInterrupt``."""
+    import signal
+
+    path, want = corpus
+    # The deferral itself: a SIGINT recorded while Preempted propagates is
+    # not delivered again.
+    with pytest.raises(faults.Preempted):
+        with executor._sigint_deferred() as pending:
+            pending.append(signal.SIGINT)
+            raise faults.Preempted(step=1, cursor_bytes=2,
+                                   checkpoint_path=None, checkpointed=False)
+    # Through the driver: the snapshot save of the preemption is
+    # interrupted by a real SIGINT (where the driver defers them: the main
+    # thread, over Python's default handler).
+    real_save = ckpt.save
+    outside = signal.getsignal(signal.SIGINT)
+    sent = []
+
+    def save(*args, **kw):
+        if signal.getsignal(signal.SIGINT) is not outside:  # deferred
+            sent.append(True)
+            signal.raise_signal(signal.SIGINT)
+        return real_save(*args, **kw)
+
+    monkeypatch.setattr(ckpt, "save", save)
+    _, cfg = _configs(4, 1, fault_plan="at=token-wait:2:preemption")
+    ck = str(tmp_path / "port.npz")
+    with pytest.raises(faults.Preempted) as ei:
+        executor.count_file(path, cfg, device="cpu", retry=1,
+                            checkpoint_path=ck, checkpoint_every=50)
+    assert ei.value.checkpointed
+    assert sent == ([True] if threading.current_thread()
+                    is threading.main_thread()
+                    and outside is signal.default_int_handler else [])
+    monkeypatch.undo()
+    got = executor.count_file(path, _configs(4, 1)[1], device="cpu",
+                              checkpoint_path=ck)
+    assert got.as_dict() == want and list(got.words) == list(want)
