@@ -87,17 +87,47 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               held buffers), in turns 0, 1, 1, 0, three turns; beside it,
               three ``retry=0`` runs in this process right after phase 6
               and three after every other case;
-8. times   -- each kernel's median time per 32 MB chunk beside its bound,
+8. telemetry -- the run ledger, metrics registry, flight recorder,
+              data-plane statistics and profiler of ``run_job`` at
+              ``Config()``, each run against the oracle, the ledgers read
+              with the port's own ``obs.ledger`` and ``obs.timeline``: a
+              ledger'd run over the 8-file corpus (record kinds in order,
+              one ``group`` record per retired group with ordered stamps,
+              the card's memory in every ``step`` record, the timeline's
+              lanes, idle blame and bottleneck printed beside the run's
+              phase split); a ledger'd ``map_impl='fused'``,
+              ``combiner='hot-cache'``, ``sort_impl='radix'`` run over the
+              phase-4 file with a pairs region (one chunk takes the
+              combiner-free rerun), whose ``data`` record's combiner
+              counters must equal the run's branch counts; a chaotic run
+              (``seed=7,rate=0.2,classes=transient+resource,max=6``,
+              ``retry=2``) whose ledger, replayed as a plan, fires the same
+              crossings, and an absorbed ``ledger-append`` fault; a
+              permanent fault through the CLI, which must leave a
+              ``failure`` record and a flight dump naming its step; the CLI
+              in a child with ``--ledger``, ``--metrics-out`` and
+              ``--profile`` (stdout equal to the plain run's, the
+              registry's retired groups equal to the ledger's ``group``
+              records, the trace holding the spans and the
+              ``tokenize_stream`` kernel); the host's synchronising runtime
+              calls of a profiled 2-file run with and without telemetry
+              (no more with); and streamed GB/s with and without telemetry
+              over the 8-file corpus in a fresh process, in turns off,
+              registry only, ledger, ledger, registry only, off, five
+              turns, and the host microseconds of each part of a group's
+              telemetry (the memory read, the two records' writes, the
+              gauges and their copy);
+9. times   -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
               radix seam (CUDA events between launches); the chunk's
               end-to-end time by stage; the step time (map + merge) of
               every path's configuration on one chunk, with the rows each
               step's sort sees;
-9. profile -- where the device time of a default, a combiner and a
+10. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 7 each drive a main path: the launch counters are set to 0
+Phases 3 to 8 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -903,6 +933,346 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
          after_over_before=here_after / here_before)
 
 
+# The cost of telemetry in a fresh process: argv = repo root, corpus file
+# (passed 8 times), corpus bytes, the oracle's digest and total, a scratch
+# directory for the ledgers.  After a warm-up run, one JSON line a run, in
+# turns off, registry (a handle without a ledger: data statistics and
+# instruments), ledger (the full planes), ledger, registry, off, five
+# turns, with each run's phases; then one line of the host microseconds of
+# each part of a group's telemetry.
+TELEMETRY_COST_CHILD = """
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from chip_smoke import result_digest
+from mapreduce_tpu_torch import Config, count_file
+from mapreduce_tpu_torch.obs import ledger, telemetry
+from mapreduce_tpu_torch.ops import datastats
+from mapreduce_tpu_torch.ops import table as table_ops
+from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+corpus, n_bytes = [sys.argv[2]] * 8, int(sys.argv[3])
+count_file(corpus, Config())
+for turn in range(5):
+    for i, arm in enumerate(("off", "registry", "ledger", "ledger",
+                             "registry", "off")):
+        led = os.path.join(sys.argv[6], f"cost-{turn}-{i}.jsonl")
+        tel = None if arm == "off" else telemetry.Telemetry.create(
+            ledger_path=led if arm == "ledger" else None)
+        torch.cuda.synchronize()
+        ktok.LAUNCHES.clear()
+        t = time.perf_counter()
+        got = count_file(corpus, Config(), telemetry=tel)
+        seconds = time.perf_counter() - t
+        if tel is not None:
+            tel.close()
+        print(json.dumps({
+            "arm": arm, "turn": turn, "seconds": round(seconds, 4),
+            "gb_per_s": n_bytes / seconds / 1e9,
+            "run_job_gb_per_s": got.run.metrics.gb_per_s,
+            "phases": got.run.metrics.as_dict()["phases"],
+            "ledger_bytes": os.path.getsize(led) if arm == "ledger" else 0,
+            "launches": dict(ktok.LAUNCHES),
+            "equal_to_oracle": result_digest(got.words, got.counts)
+            == sys.argv[4] and got.total == int(sys.argv[5])}), flush=True)
+
+
+def us(fn, n=2000):
+    fn()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+dev = torch.device("cuda")
+rec = [{k: v for k, v in r.items() if k not in ("ts", "run_id")}
+       for r in ledger.read_ledger(os.path.join(sys.argv[6],
+                                                "cost-0-2.jsonl"))
+       if r["kind"] in ("step", "group")][:2]
+bench = ledger.RunLedger(os.path.join(sys.argv[6], "bench.jsonl"), "bench")
+tbl = table_ops.empty(Config().table_capacity, dev)
+out = {
+    "memory_allocated_and_max_us": us(lambda: (
+        torch.cuda.memory_allocated(dev),
+        torch.cuda.max_memory_allocated(dev))),
+    "device_memory_stats_us": us(lambda: telemetry.device_memory_stats(dev)),
+    "step_and_group_write_us": us(lambda: [bench.write(**r) for r in rec]),
+    "gauges_and_fetch_us": us(lambda: datastats.StatsFetch(
+        datastats.with_table_gauges(datastats.map_stats(), tbl)), 500),
+}
+torch.cuda.synchronize()
+bench.close()
+print(json.dumps({"attribution_us_per_group": out}), flush=True)
+"""
+
+
+def sync_calls(prof) -> dict:
+    """The host's synchronising CUDA runtime calls in a profile."""
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize")
+    return {e.key: e.count for e in prof.key_averages() if e.key in names}
+
+
+def telemetry_phase(drive, by_path: dict, branches: dict, tmp: Path,
+                    path: Path, stream_data: bytes, want_stream: dict) -> None:
+    """Phase 8: the run ledger, metrics registry, flight recorder,
+    data-plane statistics and profiler of the streamed executor (see the
+    module docstring)."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mapreduce_tpu_torch import Config, cli, count_file
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.obs import ledger, registry, telemetry, timeline
+    from mapreduce_tpu_torch.runtime import faults
+    from mapreduce_tpu_torch.utils import oracle
+
+    chunks = -(-len(stream_data) // Config().chunk_bytes)
+    corpus8 = [str(path)] * 8
+    want8 = {w: 8 * c for w, c in want_stream.items()}
+    n_bytes = 8 * len(stream_data)
+
+    def ledgered(name, fn, want, need, led):
+        """``fn(tel)`` through ``drive`` with a fresh ledger at ``led``:
+        ``(result, seconds, records)``."""
+        if os.path.exists(led):
+            os.unlink(led)
+        tel = telemetry.Telemetry.create(ledger_path=led,
+                                         registry=registry.MetricsRegistry())
+        try:
+            got, seconds = drive(name, lambda: fn(tel), want, need)
+        finally:
+            tel.close()
+        return got, seconds, list(ledger.read_ledger(led))
+
+    def check_groups(recs, n_steps):
+        groups = [r for r in recs if r["kind"] == "group"]
+        steps = sorted(s for g in groups
+                       for s in range(g["step_first"], g["step_last"] + 1))
+        if steps != list(range(n_steps)):
+            raise SystemExit(f"group records cover steps {steps}")
+        for g in groups:
+            stamps = [g[k] for k in ("read_at", "staged_at", "dispatched_at",
+                                     "token_ready_at", "retired_at")]
+            if stamps != sorted(stamps):
+                raise SystemExit(f"group stamps out of order: {g}")
+        return groups
+
+    # 1. a ledger'd Config() run over the 8-file corpus, and the timeline
+    # of its own records beside its phase split
+    led1 = str(tmp / "tel_run.jsonl")
+    got, seconds, recs = ledgered(
+        "telemetry_run_job", lambda tel: count_file(corpus8, Config(),
+                                                    telemetry=tel),
+        want8, {"tokenize_compact": 8 * chunks}, led1)
+    kinds = [r["kind"] for r in recs]
+    if kinds[0] != "run_start" or kinds[-3:] != ["collective", "data",
+                                                 "run_end"] \
+            or set(kinds[1:-3]) != {"step", "group", "progress"}:
+        raise SystemExit(f"ledger kinds out of order: {kinds}")
+    groups = check_groups(recs, 8 * chunks)
+    if len(groups) != got.run.pipeline["dispatch_groups"]:
+        raise SystemExit("not one group record per retired group")
+    steps = [r for r in recs if r["kind"] == "step"]
+    if not all(r["mem"].get("bytes_in_use", 0) > 0 for r in steps):
+        raise SystemExit("a step record lacks the card's memory")
+    depth = max(r["inflight_depth"] for r in steps)
+    tl = timeline.reconstruct(recs)
+    data = recs[-2]
+    if data["tokens"] != sum(want8.values()) or data["chunks"] != 8 * chunks:
+        raise SystemExit(f"the data record counts {data}")
+    emit("telemetry", case="ledger_run", bytes=n_bytes,
+         seconds=round(seconds, 4), gb_per_s=n_bytes / seconds / 1e9,
+         records=len(recs), kinds={k: kinds.count(k) for k in set(kinds)},
+         depth_max=depth, pipeline=got.run.pipeline,
+         phases=got.run.metrics.phases,
+         mem_bytes_in_use_max=max(r["mem"]["bytes_in_use"] for r in steps),
+         compile_events=[r["compile_events"] for r in steps
+                         if "compile_events" in r],
+         timeline={"span_s": tl["span_s"], "lane_busy_s": tl["lane_busy_s"],
+                   "exclusive_s": tl["exclusive_s"],
+                   "device_idle_s": tl["device_idle"]["total_s"],
+                   "device_idle_blocked_on": tl["device_idle"]["blocked_on"],
+                   "bottleneck": tl["bottleneck"]},
+         data={k: data[k] for k in ("tokens", "table_valid",
+                                    "table_occupancy", "top_mass", "overlong",
+                                    "rescued", "dropped_tokens")},
+         equal_to_oracle=True)
+
+    # 2. fused + hot-cache + radix over the 130 MB file with a pairs region
+    # (its chunk takes the combiner-free rerun): the data record's combiner
+    # counters are the run's branch counts
+    comb = Config(map_impl="fused", combiner="hot-cache", sort_impl="radix")
+    pairs_data = with_pairs(stream_data, 100 * MB)
+    pairs_path = tmp / "tel_pairs.txt"
+    pairs_path.write_bytes(pairs_data)
+    want_pairs = oracle.word_counts(pairs_data)
+    pairs_chunks = -(-len(pairs_data) // comb.chunk_bytes)
+    got, seconds, recs = ledgered(
+        "telemetry_combiner", lambda tel: count_file(str(pairs_path), comb,
+                                                     telemetry=tel),
+        want_pairs, {"tokenize_combiner": pairs_chunks, "tokenize_pair": 1,
+                     "radix_partition": None, "radix_sort": None},
+        str(tmp / "tel_combiner.jsonl"))
+    data = [r for r in recs if r["kind"] == "data"][0]
+    br = branches["telemetry_combiner"]
+    counted = {"combiner_hits": br.get("combiner_hits", 0),
+               "combiner_flushes": br.get("combiner_flushes", 0),
+               "fallback_chunks": br.get("spill_fallbacks", 0)}
+    if {k: data[k] for k in counted} != counted \
+            or not data["combiner_hits"] or data["fallback_chunks"] != 1:
+        raise SystemExit(f"data record {data} against branches {br}")
+    emit("telemetry", case="combiner", bytes=len(pairs_data),
+         seconds=round(seconds, 4), launches=by_path["telemetry_combiner"],
+         branches=br, data={k: data[k] for k in (
+             "combiner_hits", "combiner_flushes", "combiner_evicted",
+             "combiner_hit_rate", "fallback_chunks", "spill_rows", "tokens")},
+         equal_to_oracle=True)
+    del pairs_data
+
+    # 3. a chaotic ledger'd run, its ledger replayed as a plan, and an
+    # absorbed ledger-append fault
+    spec = "seed=7,rate=0.2,classes=transient+resource,max=6"
+    need = {"tokenize_compact": None}
+    got, seconds, chaos = ledgered(
+        "telemetry_chaos", lambda tel: count_file(
+            str(path), Config(fault_plan=spec), retry=2, telemetry=tel),
+        want_stream, need, str(tmp / "tel_chaos.jsonl"))
+    fired = faults.fired_sequence(chaos)
+    replay = faults.FaultPlan.from_ledger(chaos)
+    _, _, again = ledgered(
+        "telemetry_chaos_replayed", lambda tel: count_file(
+            str(path), Config(fault_plan=replay.spec), retry=2,
+            telemetry=tel),
+        want_stream, need, str(tmp / "tel_replay.jsonl"))
+    if not fired or faults.fired_sequence(again) != fired:
+        raise SystemExit(f"the replayed plan fired "
+                         f"{faults.fired_sequence(again)}, not {fired}")
+    _, _, absorbed = ledgered(
+        "telemetry_ledger_append", lambda tel: count_file(
+            str(path), Config(fault_plan="at=ledger-append:1:transient"),
+            telemetry=tel),
+        want_stream, need, str(tmp / "tel_append.jsonl"))
+    n_steps = [r["kind"] for r in absorbed].count("step")
+    if faults.fired_sequence(absorbed) != [("ledger-append", 1,
+                                            "transient")] \
+            or n_steps != chunks - 1:
+        raise SystemExit(f"the ledger-append fault was not absorbed: "
+                         f"{faults.fired_sequence(absorbed)}, {n_steps} steps")
+    emit("telemetry", case="chaos", spec=spec, fired=fired,
+         replayed_spec=replay.spec, replay_fired_equal=True,
+         recoveries=got.run.pipeline.get("recoveries", 0),
+         ledger_append_absorbed=True, step_records=n_steps,
+         equal_to_oracle=True)
+
+    # 4. a failed run through the CLI: a failure record and a flight dump
+    # whose context names the step
+    led4 = str(tmp / "tel_failed.jsonl")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([str(path), "--stream", "--no-echo", "--ledger", led4,
+                      "--fault-plan", "at=dispatch:2:permanent"])
+    except faults.PermanentFault:
+        pass
+    else:
+        raise SystemExit("the permanent fault did not fail the run")
+    last = list(ledger.read_ledger(led4))[-1]
+    with open(led4 + ".flight.json") as f:
+        dump = json.load(f)
+    if last["kind"] != "failure" or dump["context"]["step"] != last["step"] \
+            or last["flight_dump"] != led4 + ".flight.json":
+        raise SystemExit(f"failure record {last}, dump {dump['context']}")
+    emit("telemetry", case="failed_run", failure=last,
+         flight_context=dump["context"], flight_events=dump["events_kept"])
+
+    # 5. the CLI on the card with --ledger, --metrics-out and --profile
+    led5, met5, prof5 = (str(tmp / n) for n in ("cli.jsonl", "cli.json",
+                                                 "cli_profile"))
+    base = [sys.executable, "-m", "mapreduce_tpu_torch", str(path),
+            "--stream", "--no-echo", "--format", "json"]
+    plain = subprocess.run(base, cwd=ROOT, capture_output=True, timeout=600)
+    told = subprocess.run(base + ["--ledger", led5, "--metrics-out", met5,
+                                  "--profile", prof5], cwd=ROOT,
+                          capture_output=True, timeout=600)
+    if plain.returncode or told.returncode or plain.stdout != told.stdout:
+        raise SystemExit(f"the telemetered CLI exited {told.returncode} "
+                         f"(plain {plain.returncode}), stdout equal "
+                         f"{plain.stdout == told.stdout}:\n"
+                         + told.stderr.decode(errors="replace")[-3000:])
+    n_groups = [r["kind"] for r in ledger.read_ledger(led5)].count("group")
+    with open(met5) as f:
+        metrics = json.load(f)
+    if metrics["counters"]["executor.groups_retired"] != n_groups:
+        raise SystemExit(f"metrics {metrics['counters']} against {n_groups} "
+                         "group records")
+    traces = list(Path(prof5).glob("*.json"))
+    names = {e.get("name", "") for t in traces
+             for e in json.loads(t.read_text())["traceEvents"]}
+    spans = {"read_wait", "stage", "dispatch", "host_read", "retire_wait"}
+    kernel = sorted(n for n in names if "tokenize_stream" in n)
+    if len(traces) != 1 or not spans <= names or not kernel:
+        raise SystemExit(f"the profile {traces} lacks spans "
+                         f"{spans - names} or the kernel ({kernel})")
+    emit("telemetry", case="cli", exit=0, stdout_equal=True,
+         group_records=n_groups,
+         groups_retired=metrics["counters"]["executor.groups_retired"],
+         trace_events=len(names), kernel_events=kernel[:3],
+         profile_bytes=traces[0].stat().st_size)
+
+    # The syncs of a telemetered run: a profile of two files with and
+    # without telemetry counts the host's synchronising runtime calls.
+    syncs = {}
+    for on in (False, True):
+        tel = telemetry.Telemetry.create(
+            ledger_path=str(tmp / "tel_sync.jsonl")) if on else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = count_file(corpus8[:2], Config(), telemetry=tel)
+            torch.cuda.synchronize()
+        if tel is not None:
+            tel.close()
+        if got.as_dict() != {w: 2 * c for w, c in want_stream.items()}:
+            raise SystemExit("a profiled run differs from the oracle")
+        syncs["on" if on else "off"] = sync_calls(prof)
+    if any(n > syncs["off"].get(k, 0) for k, n in syncs["on"].items()):
+        raise SystemExit(f"telemetry adds syncs: {syncs}")
+    emit("telemetry", case="syncs", files=2, sync_calls=syncs)
+
+    # 6. the cost of telemetry (ledger + registry), in turns off, on, on,
+    # off, three turns, in a fresh process
+    child = subprocess.run(
+        [sys.executable, "-c", TELEMETRY_COST_CHILD, str(ROOT), str(path),
+         str(n_bytes), result_digest(list(want8), list(want8.values())),
+         str(sum(want8.values())), str(tmp)],
+        capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"the telemetry-cost child exited "
+                         f"{child.returncode}:\n{child.stderr[-3000:]}")
+    rates: dict = {"off": [], "registry": [], "ledger": []}
+    ledger_bytes = []
+    *runs, attribution = child.stdout.strip().splitlines()
+    for line in runs:
+        run = json.loads(line)
+        if not run["equal_to_oracle"] or run["launches"].get(
+                "tokenize_compact") != 8 * chunks:
+            raise SystemExit(f"the telemetry-cost child's run {run}")
+        rates[run["arm"]].append(run["gb_per_s"])
+        if run["arm"] == "ledger":
+            ledger_bytes.append(run["ledger_bytes"])
+        emit("telemetry", case="cost", run="fresh_process", **run)
+    if [len(v) for v in rates.values()] != [10, 10, 10]:
+        raise SystemExit(f"the telemetry-cost child ran {rates}")
+    med = {arm: statistics.median(v) for arm, v in rates.items()}
+    emit("telemetry", case="cost", median_gb_per_s=med,
+         on_over_off=med["ledger"] / med["off"],
+         registry_over_off=med["registry"] / med["off"],
+         ledger_bytes=statistics.median(ledger_bytes),
+         **json.loads(attribution))
+
+
 def main() -> int:
     import torch
 
@@ -1120,7 +1490,7 @@ def main() -> int:
                 emit("kernel", probe=name, mode="radix_partition", impl=impl,
                      sort=what, rows=planes[0].shape[0], equal=True)
 
-    # 3 - 7. the main paths, with the launch counters read around each
+    # 3 - 8. the main paths, with the launch counters read around each
     by_path: dict[str, dict] = {}
     branches: dict[str, dict] = {}
 
@@ -1215,9 +1585,12 @@ def main() -> int:
                         chunk32, dev)
         # 7. its failure policy, fault plans and preemption
         faults_phase(drive, Path(tmp), path, stream_data, want_stream)
+        # 8. its run ledger, registry, flight recorder and profiler
+        telemetry_phase(drive, by_path, branches, Path(tmp), path,
+                        stream_data, want_stream)
         del stream_data, want_stream
 
-    # 8. times at the main path's shape: one 32 MB chunk
+    # 9. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -1400,7 +1773,7 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
-    # 9. Where a step's device time goes, for the default, combiner and
+    # 10. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

@@ -6,6 +6,10 @@ of the JAX CLI is refused with a usage error.  The run goes to the card
 unless ``--platform cpu`` asks for the CPU.  Progress logs and ``--stats``
 go to stderr.  A preempted streamed run (SIGINT, or an injected
 preemption) drains, checkpoints and exits 75.
+
+``--ledger PATH`` appends the run ledger (and, on a failure, dumps
+``PATH.flight.json``), ``--metrics-out PATH`` writes the metrics registry
+and ``--profile DIR`` a Chrome trace; none of them changes stdout.
 """
 
 from __future__ import annotations
@@ -23,18 +27,21 @@ _CTRL_ESCAPES = str.maketrans({"\t": "\\t", "\n": "\\n", "\r": "\\r",
                                "\x0c": "\\x0c"})
 
 
-#: Flags of the JAX CLI's streamed executor whose planes (window-boundary
-#: merges, autotuner, ledger) are not ported.
-_A8B_FLAGS = {"--merge-overlap": {"action": "store_const", "const": True},
-              "--autotune": {"action": "store_const", "const": True},
-              "--ledger": {"metavar": "PATH"}}
+#: Flags of the JAX CLI's streamed executor whose planes are not ported,
+#: and the ROADMAP.md item that ports each.
+_UNPORTED_FLAGS = {"--merge-overlap": "A8b (iii)",
+                   "--autotune": "A8b (ii), the autotuner"}
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from mapreduce_tpu_torch.version import __version__
+
     p = argparse.ArgumentParser(
         prog="mapreduce-tpu-torch", allow_abbrev=False,
         description="MapReduce word count on an NVIDIA GPU "
                     "(reference-parity CLI).")
+    p.add_argument("--version", action="version",
+                   version=f"%(prog)s {__version__}")
     p.add_argument("input", nargs="*", default=["test.txt"],
                    help="input text file(s) (default: test.txt; several "
                         "files count as one corpus)")
@@ -82,9 +89,61 @@ def build_parser() -> argparse.ArgumentParser:
                         "'at=dispatch:3:resource'); results stay identical "
                         "to the fault-free run when the retry budget "
                         "absorbs the faults")
-    for flag, kw in _A8B_FLAGS.items():
-        p.add_argument(flag, default=None,
-                       help="not ported yet (ROADMAP.md item A8b)", **kw)
+    for flag, item in _UNPORTED_FLAGS.items():
+        p.add_argument(flag, action="store_true",
+                       help=f"not ported yet (ROADMAP.md item {item})")
+    p.add_argument("--backend", choices=("auto", "xla", "pallas"),
+                   default="auto",
+                   help="map-phase implementation (identical results): "
+                        "'pallas' = the hand-written CUDA kernels, 'xla' = "
+                        "the plain PyTorch tokenizer, 'auto' = the kernels "
+                        "whenever the chunk fits their envelope")
+    p.add_argument("--sort-mode", choices=("sort3", "stable2", "segmin"),
+                   default="stable2",
+                   help="aggregation sort strategy on the kernel path "
+                        "(identical results): 'stable2' = a stable 2-key "
+                        "sort over the kernel's byte-ordered stream, "
+                        "'sort3' = a 3-key sort; 'segmin' is not ported "
+                        "yet (ROADMAP.md item A14)")
+    p.add_argument("--compact-slots", type=int, default=None, metavar="S",
+                   help="the JAX kernel's slot compaction per window "
+                        "(multiple of 8 in [8, 128]; 0 = pair mode; "
+                        "stable2 takes only the default or 128).  The "
+                        "port's kernel emits one dense stream either way; "
+                        "identical results")
+    p.add_argument("--max-token-bytes", type=int, default=32, metavar="W",
+                   help="kernel path: tokens longer than W bytes go "
+                        "through the overlong rescue or into dropped_* "
+                        "accounting (xla counts any length)")
+    p.add_argument("--rescue-overlong", type=int, default=None, metavar="R",
+                   help="kernel path: re-hash up to R >W-byte tokens per "
+                        "chunk exactly (default 1024; 0 disables)")
+    p.add_argument("--rescue-overlong-max", type=int, default=None,
+                   metavar="R2",
+                   help="second-tier rescue budget: chunks whose overlong "
+                        "count exceeds --rescue-overlong escalate to R2 "
+                        "slots (default chunk_bytes/1024 clamped to "
+                        "[R, 65536])")
+    p.add_argument("--rescue-window", type=int, default=192, metavar="B",
+                   help="rescue lookback bound: tokens up to B-1 bytes are "
+                        "recovered exactly; longer ones stay accounted")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace (Chrome trace "
+                        "JSON, readable in Perfetto) of the run to DIR")
+    p.add_argument("--ledger", default=None, metavar="PATH",
+                   help="append a JSONL run ledger to PATH. Streamed runs "
+                        "record one step + one group record per dispatch "
+                        "group (phase timings, bytes, device memory, "
+                        "kernel builds, lifecycle stamps, data-plane "
+                        "counters) plus a per-run data summary; a failed "
+                        "run also dumps flight-recorder forensics to "
+                        "PATH.flight.json. Batch (non---stream) runs emit "
+                        "run_start / data / run_end. Summarize with "
+                        "tools/obs_report.py")
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="write the end-of-run metrics-registry snapshot "
+                        "(executor/reader/checkpoint/data counters, "
+                        "gauges, histograms) as JSON to PATH")
     p.add_argument("--sort-impl", choices=("xla", "radix", "radix_partition"),
                    default="xla",
                    help="aggregation sort (identical results): 'xla' = the "
@@ -134,82 +193,25 @@ def _echo_file(paths: list[str]) -> None:
     sys.stdout.buffer.flush()
 
 
-def main(argv: list[str] | None = None) -> int:
-    from mapreduce_tpu_torch.runtime.platform import resolve_device
+def _compact_slots(parser, args):
+    """The JAX CLI's ``--compact-slots`` rules, then the port's value: the
+    port's kernel has no slots, so any budget is compact mode (None) and
+    0 is pair mode."""
+    cs = args.compact_slots
+    if cs is None:
+        return None
+    if args.sort_mode == "stable2" and cs != 128:
+        parser.error("sort_mode='stable2' requires compact_slots=128 (the "
+                     "lane-major kernel layout puts slots in the "
+                     "128-divisible block dimension); leave compact_slots "
+                     "unset")
+    if cs and (cs % 8 or not 8 <= cs <= 128):
+        parser.error(f"compact_slots must be a multiple of 8 in [8, 128], "
+                     f"got {cs}")
+    return None if cs else 0
 
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for flag in _A8B_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            parser.error(f"{flag} is not ported to the PyTorch package yet "
-                         "(ROADMAP.md item A8b)")
-    if args.checkpoint and not args.stream:
-        parser.error("--checkpoint requires --stream")
-    if args.retry and not args.stream:
-        parser.error("--retry requires --stream (the non-stream path has no "
-                     "step dispatch to retry)")
-    if args.retry < 0:
-        parser.error(f"--retry must be >= 0, got {args.retry}")
-    if args.fault_plan is not None and not args.stream:
-        parser.error("--fault-plan requires --stream (the injection seams "
-                     "exist only on the streamed path)")
-    paths = args.input
-    try:
-        chunks = []
-        for path in paths:  # one pass, so a failure blames the right file
-            os.path.getsize(path)
-            with open(path, "rb") as f:
-                if not args.stream:
-                    chunks.append(f.read())
-        # Files are independent token streams: a separator joins them.
-        data = None if args.stream else b"\n".join(chunks)
-        del chunks
-    except OSError as e:
-        print(f"error: cannot read {path}: {e}", file=sys.stderr)
-        return 2
-    try:
-        config = Config(chunk_bytes=args.chunk_bytes,
-                        table_capacity=args.table_capacity,
-                        sort_impl=args.sort_impl, map_impl=args.map_impl,
-                        combiner=args.combiner,
-                        combiner_slots=args.combiner_slots,
-                        superstep=args.superstep,
-                        inflight_groups=args.inflight,
-                        prefetch_depth=args.prefetch_depth,
-                        fault_plan=args.fault_plan)
-    except ValueError as e:
-        parser.error(str(e))
-    try:
-        device = resolve_device(args.platform.replace("gpu", "cuda"))
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 3
 
-    t0 = time.perf_counter()
-    if args.stream:
-        from mapreduce_tpu_torch.runtime import faults
-        from mapreduce_tpu_torch.runtime.executor import count_file
-
-        try:
-            result = count_file(
-                paths, config, device, top_k=args.top_k or None,
-                checkpoint_path=args.checkpoint,
-                checkpoint_every=args.checkpoint_every if args.checkpoint
-                else 0, retry=args.retry)
-        except faults.Preempted as e:
-            # An orderly shutdown, not a crash: the stream drained and
-            # (with --checkpoint) saved its cursor.  Exit 75 (EX_TEMPFAIL):
-            # run the same command again to resume.
-            print(f"preempted: {e}", file=sys.stderr)
-            return 75
-    else:
-        from mapreduce_tpu_torch.models import wordcount
-
-        result = wordcount.count_words(data, config, device)
-        if args.top_k:
-            result = wordcount.apply_top_k(result, args.top_k)
-    elapsed = time.perf_counter() - t0
-
+def _print_result(args, paths, result) -> None:
     out = sys.stdout
     display = _decode(result.words)
     if args.format == "reference":
@@ -231,16 +233,170 @@ def main(argv: list[str] | None = None) -> int:
             "dropped_uniques": result.dropped_uniques,
             "dropped_count": result.dropped_count,
         }) + "\n")
+
+
+def _batch_run_start(tel, paths, config: Config, input_bytes: int) -> None:
+    """A telemetered batch (non---stream) run's ``run_start``, as the JAX
+    CLI writes it: the single buffer has no steps, so its ledger holds
+    ``run_start``, a result-derived ``data`` record and ``run_end``."""
+    tel.ledger_write("run_start", driver="single_buffer", job="wordcount",
+                     devices=1, chunk_bytes=input_bytes, superstep=1,
+                     backend=config.resolved_backend(),
+                     map_impl=config.map_impl, combiner=config.combiner,
+                     geometry="default", merge_strategy="none",
+                     input=list(paths), resume_step=0, resume_offset=0,
+                     retry=0)
+
+
+def _wordcount(args, paths, data, config: Config, device, input_bytes: int,
+               tel) -> int:
+    """Count, print and report one run (the JAX ``_wordcount_main``)."""
+    from mapreduce_tpu_torch.runtime import profiling
+
+    batch_tel = tel if not args.stream else None
+    if batch_tel is not None:
+        _batch_run_start(batch_tel, paths, config, input_bytes)
+    t0 = time.perf_counter()
+    with profiling.trace(args.profile):
+        if args.stream:
+            from mapreduce_tpu_torch.runtime.executor import count_file
+
+            result = count_file(
+                paths, config, device, top_k=args.top_k or None,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every if args.checkpoint
+                else 0, retry=args.retry, telemetry=tel)
+        else:
+            from mapreduce_tpu_torch.models import wordcount
+
+            result = wordcount.count_words(data, config, device)
+    elapsed = time.perf_counter() - t0
+    if batch_tel is not None:
+        batch_tel.ledger_write(
+            "data", groups=1, chunks=1, backend=config.resolved_backend(),
+            map_impl=config.map_impl, combiner=config.combiner,
+            capacity=config.table_capacity, tokens=result.total,
+            dropped_tokens=result.dropped_count,
+            dropped_uniques=result.dropped_uniques,
+            table_valid=len(result.words),
+            top_count=max(result.counts, default=0),
+            table_occupancy=round(
+                len(result.words) / max(config.table_capacity, 1), 4))
+        batch_tel.ledger_write("run_end", bytes=input_bytes,
+                               words=result.total,
+                               elapsed_s=round(elapsed, 6))
+    if args.top_k and not args.stream:  # the stream applied top-k already
+        from mapreduce_tpu_torch.models import wordcount
+
+        result = wordcount.apply_top_k(result, args.top_k)
+    _print_result(args, paths, result)
     if args.stats:
-        n_bytes = sum(os.path.getsize(p) for p in paths)
-        print(f"[stats] {n_bytes} bytes, {result.total} words, "
-              f"{elapsed:.3f}s, {n_bytes / 1e9 / elapsed:.3f} GB/s",
+        print(f"[stats] {input_bytes} bytes, {result.total} words, "
+              f"{elapsed:.3f}s, {input_bytes / 1e9 / elapsed:.3f} GB/s",
               file=sys.stderr)
         if result.run is not None:
             print("[stats] " + json.dumps({
                 "phases": result.run.metrics.as_dict()["phases"],
                 "pipeline": result.run.pipeline}), file=sys.stderr)
     return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    from mapreduce_tpu_torch.runtime.platform import resolve_device
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for flag, item in _UNPORTED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")):
+            parser.error(f"{flag} is not ported to the PyTorch package yet "
+                         f"(ROADMAP.md item {item})")
+    if args.checkpoint and not args.stream:
+        parser.error("--checkpoint requires --stream")
+    if args.retry and not args.stream:
+        parser.error("--retry requires --stream (the non-stream path has no "
+                     "step dispatch to retry)")
+    if args.retry < 0:
+        parser.error(f"--retry must be >= 0, got {args.retry}")
+    if args.fault_plan is not None and not args.stream:
+        parser.error("--fault-plan requires --stream (the injection seams "
+                     "exist only on the streamed path)")
+    paths = args.input
+    try:
+        chunks = []
+        input_bytes = 0
+        for path in paths:  # one pass, so a failure blames the right file
+            input_bytes += os.path.getsize(path)
+            with open(path, "rb") as f:
+                if not args.stream:
+                    chunks.append(f.read())
+        # Files are independent token streams: a separator joins them.
+        data = None if args.stream else b"\n".join(chunks)
+        del chunks
+    except OSError as e:
+        print(f"error: cannot read {path}: {e}", file=sys.stderr)
+        return 2
+    try:
+        config = Config(chunk_bytes=args.chunk_bytes,
+                        table_capacity=args.table_capacity,
+                        backend=args.backend,
+                        pallas_max_token=args.max_token_bytes,
+                        sort_mode=args.sort_mode,
+                        compact_slots=_compact_slots(parser, args),
+                        rescue_overlong=args.rescue_overlong,
+                        rescue_overlong_max=args.rescue_overlong_max,
+                        rescue_window=args.rescue_window,
+                        sort_impl=args.sort_impl, map_impl=args.map_impl,
+                        combiner=args.combiner,
+                        combiner_slots=args.combiner_slots,
+                        superstep=args.superstep,
+                        inflight_groups=args.inflight,
+                        prefetch_depth=args.prefetch_depth,
+                        fault_plan=args.fault_plan)
+    except ValueError as e:
+        parser.error(str(e))
+    try:
+        device = resolve_device(args.platform.replace("gpu", "cuda"))
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 3
+
+    # One telemetry handle for the run: the ledger and flight recorder
+    # (--ledger) and the registry snapshot (--metrics-out), written in the
+    # finally, so a run that failed leaves them too.
+    tel = None
+    if args.ledger or args.metrics_out:
+        from mapreduce_tpu_torch.obs.telemetry import Telemetry
+
+        try:
+            tel = Telemetry.create(ledger_path=args.ledger)
+        except OSError as e:
+            print(f"error: cannot open ledger {args.ledger}: {e}",
+                  file=sys.stderr)
+            return 2
+    try:
+        return _wordcount(args, paths, data, config, device, input_bytes,
+                          tel)
+    except Exception as e:
+        from mapreduce_tpu_torch.runtime import faults
+
+        if not isinstance(e, faults.Preempted):
+            raise
+        # An orderly shutdown, not a crash: the stream drained and (with
+        # --checkpoint) saved its cursor.  Exit 75 (EX_TEMPFAIL): run the
+        # same command again to resume.
+        print(f"preempted: {e}", file=sys.stderr)
+        return 75
+    finally:
+        if tel is not None:
+            if args.metrics_out:
+                try:
+                    with open(args.metrics_out, "w") as f:
+                        json.dump(tel.registry.snapshot(), f, indent=1)
+                        f.write("\n")
+                except OSError as e:
+                    print(f"error: cannot write {args.metrics_out}: {e}",
+                          file=sys.stderr)
+            tel.close()
 
 
 if __name__ == "__main__":

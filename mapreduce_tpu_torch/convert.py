@@ -79,8 +79,10 @@ def combiner_cache_from_numpy(fields: Mapping[str, Any],
 
 
 #: JAX ``Config`` fields of the streamed executor's merge and tuning planes,
-#: not ported yet, at the values the port behaves as.
-_A8B_DEFAULTS = {"merge_overlap": False, "autotune": "off"}
+#: not ported yet: the value the port behaves as, and the ROADMAP.md item
+#: that ports each.
+_UNPORTED_DEFAULTS = {"merge_overlap": (False, "A8b (iii)"),
+                      "autotune": ("off", "A8b (ii), the autotuner")}
 
 
 def config_from_dict(d: Mapping[str, Any]) -> Config:
@@ -97,12 +99,12 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     geometry preset name still raises.  The pipeline knobs (superstep,
     in-flight groups, prefetch), the fault plan and the failure policy
     (``asdict`` makes it a dict of its fields) carry across; a
-    window-boundary merge or autotuner away from its default raises
-    (ROADMAP A8b).
+    window-boundary merge or autotuner away from its default raises,
+    naming its ROADMAP item.
     """
-    for name, default in _A8B_DEFAULTS.items():
+    for name, (default, item) in _UNPORTED_DEFAULTS.items():
         if d.get(name, default) != default:
-            raise _not_ported(f"{name}={d[name]!r}", "A8b")
+            raise _not_ported(f"{name}={d[name]!r}", item)
     names = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in d.items() if k in names}
     if kw.get("compact_slots"):

@@ -19,11 +19,13 @@ import dataclasses
 import os
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
 
 from mapreduce_tpu_torch import native
+from mapreduce_tpu_torch.obs import registry as obs_registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,9 +109,17 @@ def prefetch(batches: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
     closing the generator (or an error in the consumer, a
     ``KeyboardInterrupt`` in its wait included) stops the producer at its
     next put and waits for it, so no fill is left running into a buffer
-    its owner may free."""
+    its owner may free.
+
+    The metrics registry gets the JAX reader's instruments: the depth
+    (``reader.prefetch_depth``), each batch's production time
+    (``reader.produce_seconds``, ``reader.batches_prefetched``) and the
+    producer's time blocked on a full queue
+    (``reader.stall_full_queue_seconds``)."""
     if depth < 1:
         raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+    reg = obs_registry.get_registry()
+    reg.gauge("reader.prefetch_depth").set(depth)
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
@@ -125,9 +135,16 @@ def prefetch(batches: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
 
     def produce() -> None:
         try:
+            t_prev = time.perf_counter()
             for b in batches:
+                t_ready = time.perf_counter()
+                reg.observe("reader.produce_seconds", t_ready - t_prev)
+                reg.counter("reader.batches_prefetched").inc()
                 if not put(b):
                     return
+                t_prev = time.perf_counter()
+                reg.counter("reader.stall_full_queue_seconds").inc(
+                    t_prev - t_ready)
             put(end)
         except BaseException as e:  # re-raised on the consumer side
             put(_ProducerError(e))

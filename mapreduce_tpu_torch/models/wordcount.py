@@ -38,6 +38,7 @@ import torch
 
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
 from mapreduce_tpu_torch.obs.spans import span
+from mapreduce_tpu_torch.ops import datastats
 from mapreduce_tpu_torch.ops import rescue as rescue_ops
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
@@ -143,25 +144,31 @@ def _tokenize(chunk: torch.Tensor, config: Config):
     return stream, overlong, torch.zeros_like(overlong), None
 
 
-def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi):
+def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi,
+                with_stats: bool = False):
     """The kernel branch of the JAX ``_map_stream``: compact (or fused, or
     combiner) tokenize, the exact combiner-free rerun when a combiner
     window spilled, the packed aggregation sort, the tiered overlong rescue
-    and, under the combiner, the fold of the flushed cache."""
+    and, under the combiner, the fold of the flushed cache.  With
+    ``with_stats``, ``(table, DataStats)`` (see :func:`_map_stream`)."""
     w = config.pallas_max_token
     stream, overlong, spill, cache = _tokenize(chunk, config)
     # The one host sync of the chunk: both branch predicates, the token
     # count (a dense stream's live rows are its tokens and its overlong
-    # runs) and the combiner's hit and flush counts, in one copy.
+    # runs) and the combiner's hit and flush counts (and, for the data
+    # statistics, its cold entries), in one copy.
     flags = [spill, overlong, stream.total]
     if cache is not None:
         flags += [cache.count.sum(), (cache.count > 0).sum()]
+        if with_stats:
+            flags.append((cache.count == 1).sum())
     flags = torch.stack(flags)
     read = _HOST_READ.get()
     with span("host_read"):  # waits for the card (the streamed loop's too)
         spill_h, over_h, tokens_h, *cached = \
             flags.tolist() if read is None else read(flags)
     BRANCHES["chunks"] += 1
+    used = cache is not None and not spill_h
     if spill_h:
         # A combiner window overflowed its slots, so the thinned stream is
         # incomplete: rerun as the dense stream, which cannot spill.  The
@@ -177,16 +184,31 @@ def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi):
         BRANCHES["combiner_hits"] += cached[0]
         BRANCHES["combiner_flushes"] += cached[1]
     stream = stream.cut(tokens_h + over_h)
-    t = _aggregate(chunk, stream, overlong, over_h, config, capacity, pos_hi)
-    if cache is None:
+    t, rescued = _aggregate(chunk, stream, overlong, over_h, config,
+                            capacity, pos_hi)
+    if cache is not None:
+        t = table_ops.merge(t, _combiner_table(cache, pos_hi),
+                            capacity=capacity)
+    if not with_stats:
         return t
-    return table_ops.merge(t, _combiner_table(cache, pos_hi),
-                           capacity=capacity)
+    r1 = config.rescue_slots
+    return t, datastats.map_stats(
+        overlong=over_h, rescued=rescued, spill_rows=spill_h,
+        fallback_chunks=int(bool(spill_h)),
+        rescue_invocations=int(bool(r1) and over_h > 0),
+        rescue_escalations=int(config.rescue_slots_max > r1 > 0
+                               and over_h > r1),
+        dropped_tokens=t.dropped_count, dropped_uniques=t.dropped_uniques,
+        combiner_hits=cached[0] if used else 0,
+        combiner_flushes=cached[1] if used else 0,
+        combiner_evicted=cached[2] if used else 0)
 
 
 def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
-               capacity: int, pos_hi) -> table_ops.CountTable:
-    """One packed build of a complete stream and the tiered rescue."""
+               capacity: int, pos_hi):
+    """One packed build of a complete stream and the tiered rescue:
+    ``(table, rescued)``, ``rescued`` the overlong occurrences the rescue
+    recovered (0 when it did not run)."""
     w = config.pallas_max_token
     # The poison rows sort just before the dense stream's one dead row and
     # its end, so the rescue slice takes at most over_h + 1 rows: a longer
@@ -201,10 +223,10 @@ def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
         rescue_slots=rescue_slots, sort_impl=config.sort_impl,
         radix_bits=config.radix_bits)
     if not config.rescue_slots:
-        return _accounted(built, overlong)
+        return _accounted(built, overlong), 0
     t, rescue_packed = built
     if not over_h:
-        return t
+        return t, 0
     BRANCHES["rescue_passes"] += 1
     r1 = config.rescue_slots
     if rescue_packed.shape[0] > r1:
@@ -217,17 +239,28 @@ def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
     # rescued <= overlong by construction (one poison per overlong run).
     ok = torch.minimum(rescued, overlong)
     return _accounted(table_ops.merge(t, rt, capacity=capacity),
-                      overlong - ok)
+                      overlong - ok), ok
 
 
 def _map_stream(chunk: torch.Tensor, config: Config, capacity: int,
-                pos_hi=0) -> table_ops.CountTable:
+                pos_hi=0, with_stats: bool = False):
     """Tokenize one buffer with the configured backend and build its table
-    (``pos_hi`` is the chunk id, so first occurrence is global)."""
+    (``pos_hi`` is the chunk id, so first occurrence is global).
+
+    With ``with_stats`` (a telemetered streamed run) the result is
+    ``(table, ops.datastats.DataStats)``: the chunk's data-plane counters,
+    from the chunk's one host read and the table's own ``dropped_*``.
+    The table is the same; without it nothing extra runs."""
     if config.resolved_backend() == "pallas":
-        return _map_kernel(chunk, config, capacity, pos_hi)
-    return table_ops.from_stream(tok_ops.tokenize(chunk), capacity,
-                                 pos_hi=pos_hi)
+        return _map_kernel(chunk, config, capacity, pos_hi, with_stats)
+    built = table_ops.from_stream(tok_ops.tokenize(chunk), capacity,
+                                  pos_hi=pos_hi)
+    if not with_stats:
+        return built
+    # The plain tokenizer has no window and no rescue: only the table's
+    # own accounting of keys past its capacity.
+    return built, datastats.map_stats(dropped_tokens=built.dropped_count,
+                                      dropped_uniques=built.dropped_uniques)
 
 
 def _pad_for_backend(data, config: Config) -> np.ndarray:
@@ -311,6 +344,17 @@ class WordCountJob:
     def map_chunk(self, chunk: torch.Tensor, chunk_id) -> table_ops.CountTable:
         return _map_stream(chunk, self.config, self.batch_capacity,
                            pos_hi=chunk_id)
+
+    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id):
+        """The stats-mode map: the same table and the chunk's
+        :class:`...ops.datastats.DataStats` (the engine calls this in
+        place of :meth:`map_chunk` only for a telemetered run)."""
+        return _map_stream(chunk, self.config, self.batch_capacity,
+                           pos_hi=chunk_id, with_stats=True)
+
+    def state_stats(self, state, stats):
+        """Fill the running table's gauges after a group's last combine."""
+        return datastats.with_table_gauges(stats, state)
 
     def combine(self, state, update) -> table_ops.CountTable:
         return table_ops.merge(state, update, capacity=self.capacity)

@@ -5,7 +5,8 @@ The library compiles at first use into the git-ignored
 flags, so an edited source rebuilds.  ctypes releases the GIL for the
 length of each call, so the reader's prefetch thread fills batches while
 the main thread launches kernels.  There is no fallback: a failed build or
-load raises.
+load raises.  A build reports its seconds to the telemetry plane
+(``gxx_chunker``, :func:`...obs.telemetry.record_build`).
 """
 
 from __future__ import annotations
@@ -16,11 +17,13 @@ import os
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 
 from mapreduce_tpu_torch import constants
+from mapreduce_tpu_torch.obs import telemetry
 
 SOURCE = Path(__file__).resolve().parent / "chunker.cpp"
 BUILD_DIR = SOURCE.parents[1] / "_build"
@@ -64,7 +67,10 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not path.exists():
+                t0 = time.perf_counter()
                 _build(path)
+                telemetry.record_build("gxx_chunker",
+                                       time.perf_counter() - t0)
             lib = ctypes.CDLL(str(path))
             u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
             i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")

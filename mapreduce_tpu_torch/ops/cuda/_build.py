@@ -5,6 +5,9 @@ plain C interface, loaded with :mod:`ctypes`.  The build runs at first use
 into ``mapreduce_tpu_torch/_build/`` (git-ignored), named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing here runs at import: the CPU tests import every module.
+Each build reports its seconds to the telemetry plane
+(:func:`...obs.telemetry.record_build`, as ``nvcc_<name>``), so a run
+that pays a build shows it as a compile event.
 """
 
 from __future__ import annotations
@@ -15,7 +18,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
+
+from mapreduce_tpu_torch.obs import telemetry
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -70,15 +76,16 @@ def build_all(names=None) -> dict[str, tuple[Path, str]]:
         proc = subprocess.Popen(
             [compiler, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, done[name][0])
+        running[name] = (proc, tmp, done[name][0], time.perf_counter())
     failed = []
-    for name, (proc, tmp, out) in running.items():
+    for name, (proc, tmp, out, t0) in running.items():
         report = proc.communicate()[0]
         if proc.returncode:
             failed.append(f"nvcc failed on {name}.cu:\n{report}")
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
             done[name] = (out, report)
+            telemetry.record_build(f"nvcc_{name}", time.perf_counter() - t0)
         if os.path.exists(tmp):
             os.unlink(tmp)
     if failed:

@@ -4,7 +4,9 @@ Counterpart of :class:`mapreduce_tpu.parallel.mapreduce.Engine` for a single
 card: no mesh, no collectives.  A job supplies ``init_state``,
 ``map_chunk(chunk, chunk_id)``, ``combine``, ``merge`` and ``finalize``; the
 engine feeds it one chunk per step with ``chunk_id`` = the step index, the
-JAX package's numbering on one device.
+JAX package's numbering on one device.  With ``data_stats`` (a telemetered
+streamed run) a step also gives the chunk's data-plane statistics, as the
+JAX stats-mode engine does.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ class Engine:
 
     n_devices = 1
 
-    def __init__(self, job, device=None):
+    def __init__(self, job, device=None, data_stats: bool = False):
         self.job = job
         self.device = resolve_device(device)
+        self.data_stats = data_stats
 
     def init_states(self) -> Any:
         return self.job.init_state()
@@ -40,12 +43,16 @@ class Engine:
     def step(self, state: Any, chunk, step_index: int) -> Any:
         """One map + combine step over ``chunk`` (uint8, ``[1, C]`` or
         ``[C]``).  A host array is copied to the device; a tensor already
-        on the device is used as it is."""
+        on the device is used as it is.  With ``data_stats``,
+        ``(state, the chunk's ops.datastats.DataStats)``."""
         t = torch.as_tensor(chunk).reshape(-1)
         if t.dtype != torch.uint8:
             raise TypeError(f"chunks must be uint8, got {t.dtype}")
         if t.device != self.device:
             t = t.to(self.device)
+        if self.data_stats:
+            update, stats = self.job.map_chunk_stats(t, step_index)
+            return self.job.combine(state, update), stats
         update = self.job.map_chunk(t, step_index)
         return self.job.combine(state, update)
 

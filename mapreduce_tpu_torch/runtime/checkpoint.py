@@ -23,9 +23,12 @@ import hashlib
 import json
 import os
 import tempfile
+import time
 from typing import Optional, Sequence
 
 import numpy as np
+
+from mapreduce_tpu_torch.obs import registry as obs_registry
 
 
 class CheckpointMismatch(RuntimeError):
@@ -97,7 +100,11 @@ def save(path: str, leaves: Sequence[np.ndarray], step: int, offset: int,
       bases: int64[steps_done, D] absolute row base offsets so far.
       fingerprint: run identity from :func:`run_fingerprint`.
       file_index: corpus member of the last batch folded into the state.
+
+    Each save lands in the metrics registry (``checkpoint.saves``,
+    ``checkpoint.save_seconds``, ``checkpoint.bytes_written``).
     """
+    t0 = time.perf_counter()
     payload = {f"__leaf_{i}": np.asarray(leaf) for i, leaf in enumerate(leaves)}
     payload["__step"] = np.int64(step)
     payload["__offset"] = np.int64(offset)
@@ -123,6 +130,10 @@ def save(path: str, leaves: Sequence[np.ndarray], step: int, offset: int,
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+    reg = obs_registry.get_registry()
+    reg.counter("checkpoint.saves").inc()
+    reg.observe("checkpoint.save_seconds", time.perf_counter() - t0)
+    reg.counter("checkpoint.bytes_written").inc(nbytes)
 
 
 def load(path: str, template: Optional[Sequence] = None,
@@ -298,4 +309,6 @@ def load_resilient(path: str, template=None, expect_fingerprint=None):
             raise
         result = load_verified(prev, template=template,
                                expect_fingerprint=expect_fingerprint)
+        obs_registry.get_registry().counter(
+            "checkpoint.corrupt_fallbacks").inc()
         return (result, {"corrupt": path, "loaded": prev, "error": str(e)})

@@ -64,9 +64,19 @@ inside ``dispatch``), so compute never runs more than one chunk ahead of
 the loop.  On the CPU (``device='cpu'``) the loop is the same, with no
 streams, events or pinned memory.
 
-Not ported yet (ROADMAP A8b): the telemetry ledger (and its
-``ledger-append`` seam), data statistics, window-boundary merges, the
-autotuner and byte ranges.
+Telemetry (``telemetry=``, :mod:`...obs.telemetry`): the run ledger's
+records at the JAX package's points (``run_start``; a ``step`` record per
+dispatched group and a ``group`` record per retired one; ``progress``;
+``fault``, ``retry``, ``degrade``, ``checkpoint`` and ``failure``; the
+``collective`` finish; the run's ``data`` record; ``run_end``), the
+metrics registry's instruments under the JAX names, a flight dump on a
+failure, and the data-plane statistics of a word count (read at each
+group's retirement, from pinned memory behind its completion event: no new
+sync).  The ``ledger-append`` seam is crossed when a ledger is attached.
+Without a handle the loop runs as it did without telemetry.
+
+Not ported yet (ROADMAP A8b): window-boundary merges, the autotuner and
+byte ranges.
 """
 
 from __future__ import annotations
@@ -94,7 +104,9 @@ from mapreduce_tpu_torch.models.wordcount import (TopKTable,
                                                   _reported_distinct,
                                                   apply_top_k,
                                                   job_with_config)
+from mapreduce_tpu_torch.obs import telemetry as obs_telemetry
 from mapreduce_tpu_torch.obs.spans import span, timing_into
+from mapreduce_tpu_torch.ops import datastats
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.parallel.mapreduce import Engine
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
@@ -342,6 +354,10 @@ class _Inflight:
     copy_done: Any  # the event of the group's last H2D copy
     step_first: int
     cursor_before: int  # bytes_done before the group (the failure cursor)
+    life: dict  # lifecycle stamps and sizes (the `group` ledger record)
+    # The group's data statistics on their way to the host (a telemetered
+    # run's StatsFetch), read at retirement; None otherwise.
+    stats: Any = None
 
 
 class _DegradeSignal(Exception):
@@ -369,13 +385,37 @@ def _apply_degrade(config: Config, field: str, value: str) -> Config:
     return dataclasses.replace(config, **kw)
 
 
-def _with_budget(thunk, seam: str, policy, logger, *, injected_only: bool,
-                 message: str = "step failed; retrying", **fields):
+def _record_fault(tel, exc: BaseException, *, seam: str, injected: bool,
+                  index: Optional[int] = None,
+                  step: Optional[int] = None) -> str:
+    """One typed-fault observation: the ``executor.faults`` counter, the
+    flight ring and a ``fault`` ledger record (best-effort: the ledger may
+    be what is failing, and a record must never mask the fault).  Returns
+    the class."""
+    cls = faults_mod.classify(exc)
+    tel.registry.counter("executor.faults", seam=seam, fault_class=cls).inc()
+    tel.event("fault", seam=seam, fault_class=cls, injected=injected,
+              error=repr(exc))
+    try:
+        rec: dict = {"seam": seam, "fault_class": cls, "injected": injected,
+                     "error": repr(exc)}
+        if index is not None:
+            rec["index"] = int(index)
+        if step is not None:
+            rec["step"] = int(step)
+        tel.ledger_write("fault", **rec)
+    except Exception:
+        pass
+    return cls
+
+
+def _with_budget(thunk, seam: str, policy, *, injected_only: bool,
+                 on_retry):
     """``thunk()``, retried on the failure's class budget with the policy's
-    backoff, each retry logged as ``message``.  Preemption, an exhausted
-    budget and, with ``injected_only``, a real failure re-raise.  (A
-    replayed group retries in ``serial_dispatch``, which charges the
-    attempt it spent in the window.)"""
+    backoff; ``on_retry(attempt, error, fault_class)`` records each retry.
+    Preemption, an exhausted budget and, with ``injected_only``, a real
+    failure re-raise.  (A replayed group retries in ``serial_dispatch``,
+    which charges the attempt it spent in the window.)"""
     attempt = 0
     while True:
         try:
@@ -387,29 +427,108 @@ def _with_budget(thunk, seam: str, policy, logger, *, injected_only: bool,
                     or attempt >= policy.budget(cls):
                 raise
             attempt += 1
-            log_event(logger, message, **fields, attempt=attempt,
-                      fault_class=cls, error=repr(e), seam=seam)
+            on_retry(attempt, e, cls)
             s = policy.backoff_s(cls, attempt, seam=seam)
             if s > 0:
                 time.sleep(s)
+
+
+def _group_life(batches, read_at: Optional[float], group_bytes: int) -> dict:
+    """Start a group's lifecycle record: identity, size and the stamps so
+    far; ``staged_at`` is now (the caller is about to stage)."""
+    return {"step_first": batches[0].step, "step_last": batches[-1].step,
+            "steps": batches[-1].step - batches[0].step + 1,
+            "group_bytes": group_bytes,
+            "read_at": round(read_at, 6) if read_at is not None else None,
+            "staged_at": round(time.perf_counter(), 6)}
+
+
+#: ``data`` counters of a group record mirrored into registry counters at
+#: retirement (per-group deltas), as the JAX package names them.
+_DATA_COUNTER_METRICS = (
+    ("overlong", "data.overlong_tokens"),
+    ("rescued", "data.rescued_tokens"),
+    ("dropped_tokens", "data.dropped_tokens"),
+    ("fallback_chunks", "data.spill_fallback_chunks"),
+    ("rescue_escalations", "data.rescue_escalations"),
+    ("spill_rows", "data.spill_rows"),
+)
+
+
+def _group_record(tel, life: dict, token_ready_at: float, retired_at: float,
+                  wait_s: float, retries: int = 0,
+                  data: Optional[dict] = None) -> None:
+    """One ``group`` ledger record for a retired group, and its registry
+    instruments.  Host bookkeeping only: a few stamps and one JSONL
+    append."""
+    tel.registry.counter("executor.groups_retired").inc()
+    d = life.get("dispatched_at")
+    if d is not None:
+        tel.registry.observe("executor.group_device_seconds",
+                             max(0.0, token_ready_at - d))
+    tel.registry.observe("executor.retire_wait_seconds", max(0.0, wait_s))
+    if not tel.enabled:
+        return
+    rec = {k: v for k, v in life.items() if v is not None}
+    rec["token_ready_at"] = round(token_ready_at, 6)
+    rec["retired_at"] = round(retired_at, 6)
+    rec["retire_wait_s"] = round(max(0.0, wait_s), 6)
+    if retries:
+        rec["retries"] = retries
+    if data is not None:
+        rec["data"] = data
+        for field, metric in _DATA_COUNTER_METRICS:
+            v = data.get(field)
+            if v:
+                tel.registry.counter(metric).inc(v)
+        if data.get("occupancy") is not None:
+            tel.registry.gauge("data.table_occupancy").set(data["occupancy"])
+        if data.get("top_mass") is not None:
+            tel.registry.gauge("data.top_mass").set(data["top_mass"])
+    tel.ledger_write("group", **rec)
+
+
+def _stream_total_bytes(path, start_offset: int) -> Optional[int]:
+    """The bytes this stream will read, the heartbeat's denominator (None
+    when the input cannot be sized)."""
+    try:
+        paths = path if isinstance(path, (list, tuple)) else [path]
+        return max(0, sum(os.path.getsize(p) for p in paths)
+                   - int(start_offset))
+    except (OSError, TypeError, ValueError):
+        return None
 
 
 def _drive_stream(engine, config: Config, path, state, stage, *,
                   start_step: int, start_offset: int, bases_list: list,
                   checkpoint_path, checkpoint_every: int, fingerprint,
                   resumed_file, logger, progress_every: int, timer,
-                  plan, policy, rebuild):
-    """The streaming loop, the JAX ``_drive_stream`` without the ledger,
-    data statistics and window-boundary merges.  Returns ``(state,
-    bytes_done, pipe)``: ``bytes_done`` is the absolute cursor (it starts
-    at ``start_offset``) and ``pipe`` the window statistics.
+                  plan, policy, rebuild, sigint: list, tel, data_agg,
+                  device):
+    """The streaming loop, the JAX ``_drive_stream`` without window-boundary
+    merges.  Returns ``(state, bytes_done, pipe)``: ``bytes_done`` is the
+    absolute cursor (it starts at ``start_offset``) and ``pipe`` the window
+    statistics.
 
     ``plan`` is the run's fault plan (or None), ``policy`` its failure
     policy; a budget for any class (``replayable``) arms the anchor and
     the window replay (see the module docstring); ``rebuild(config)``
     gives the engine of a degraded config.  ``cur_config`` is the ladder's
     moving target: the loop's own knobs (superstep, window, prefetch) stay
-    the caller's."""
+    the caller's.  ``sigint`` is the record of :func:`_sigint_deferred`.
+
+    ``tel`` (a :class:`...obs.telemetry.Telemetry`, the disabled one when
+    the run has none) gets the JAX package's records at its points: a
+    ``step`` record per dispatched group (at dispatch, with ``device``'s
+    memory), a ``group`` record per retired group (its lifecycle stamps on
+    ``time.perf_counter`` and, with ``data_agg``, its data statistics,
+    read from pinned memory once its completion event is seen), the
+    ``progress`` heartbeat, and the ``fault``, ``retry``, ``degrade``,
+    ``checkpoint`` and ``failure`` records, with a flight dump on a
+    failure.  Every record is written between the loop's safe points,
+    where a SIGINT cannot land (it is deferred), so no line is torn.
+    The ``ledger-append`` seam is crossed only when a ledger is attached.
+    """
     cur_config = config
     replayable = policy.dispatch_budget > 0
     bytes_done = int(start_offset)
@@ -422,32 +541,50 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     anchor = None
     since_anchor: list = []
     # The state that matches the cursor: set where a group is accounted,
-    # and what a preemption snapshots.  `sigint` holds a SIGINT that
-    # arrived; `interrupted` raises it, except while a replay or the
-    # preemption drain runs (their state is not the committed one).
+    # and what a preemption snapshots.  `interrupted` raises a recorded
+    # SIGINT, except while a replay or the preemption drain runs (their
+    # state is not the committed one).
     live = state
-    sigint: list = []
     quiet = False
     last_file_dispatched = resumed_file or 0
+    # step -> when its batch left the reader: a group's `read_at` is its
+    # first batch's.
+    read_t: dict = {}
     pipe = {"inflight_groups": window_cap,
             "prefetch_depth": config.resolved_prefetch_depth,
             "dispatch_groups": 0, "depth_sum": 0, "depth_max": 0,
             "full_retires": 0, "boundary_drains": 0}
+    stream_total = _stream_total_bytes(path, start_offset) \
+        if tel.enabled else None
+    retired_groups = 0
 
     def interrupted() -> None:
         if sigint and not quiet:
             sigint.clear()
             raise KeyboardInterrupt
 
+    def heartbeat() -> None:
+        """The ``progress`` record, on its wall-clock cadence (the not-due
+        path is one clock read)."""
+        tel.progress(step=step_index, cursor_bytes=bytes_done,
+                     streamed_bytes=bytes_done - int(start_offset),
+                     total_bytes=stream_total,
+                     groups_dispatched=pipe["dispatch_groups"],
+                     groups_retired=retired_groups,
+                     inflight_depth=len(window))
+
     def cross(seam: str) -> None:
         """One crossing of the fault plan's ``seam`` (callers check ``plan
-        is not None``): raise the fault it fires.  ``process-kill`` is the
-        machine going away: ``os._exit``, no cleanup."""
+        is not None``): record and raise the fault it fires.
+        ``process-kill`` is the machine going away: ``os._exit``, no
+        cleanup (the ledger is flushed per record)."""
         exc = plan.check(seam)
         if exc is None:
             return
         log_event(logger, "fault injected", seam=seam, index=exc.index,
                   fault_class=exc.fault_class, step=step_index)
+        _record_fault(tel, exc, seam=seam, injected=True, index=exc.index,
+                      step=step_index)
         if seam == "process-kill":
             os._exit(113)
         raise exc
@@ -458,28 +595,56 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             time.sleep(s)
 
     def observed(e: BaseException, seam: str, step: int) -> None:
-        """Log a real (not injected) fault with its class."""
+        """Log and record a real (not injected) fault with its class."""
         if not (isinstance(e, faults_mod.FaultError) and e.injected):
-            log_event(logger, "fault", seam=getattr(e, "seam", None) or seam,
+            seam = getattr(e, "seam", None) or seam
+            log_event(logger, "fault", seam=seam,
                       fault_class=faults_mod.classify(e), step=step,
                       error=repr(e))
+            _record_fault(tel, e, seam=seam, injected=False, step=step)
 
-    def final_failure(e, step: int, cursor: int, fault_class: str):
-        """Out of retries (or none asked for): surface the failure with its
+    def final_failure(e, step: int, cursor: int, fault_class: str,
+                      attempts: int = 1, snapshot=None):
+        """Out of retries (or none asked for): dump the flight recorder,
+        write the ``failure`` record and surface the failure with its
         resume cursor; checkpoint/resume is the recovery path."""
+        tel.event("step_failed", step=step, attempt=attempts - 1,
+                  error=repr(e))
+        dump = tel.flight_dump(
+            context={"step": step, "offset": cursor, "attempts": attempts,
+                     "error": repr(e), "fault_class": fault_class,
+                     "checkpoint_path": checkpoint_path},
+            state=snapshot)
+        tel.ledger_write("failure", step=step, cursor_bytes=cursor,
+                         error=repr(e), fault_class=fault_class,
+                         flight_dump=dump)
         log_event(logger, "step failed", step=step, offset=cursor,
                   error=repr(e), fault_class=fault_class,
                   resume_hint=checkpoint_path
                   or "enable checkpointing to resume")
         raise e
 
-    def retry_record(step: int, attempt: int, e, fault_class: str) -> None:
+    def retry_record(step: int, attempt: int, e, fault_class: str,
+                     seam: Optional[str] = None) -> None:
+        tel.registry.counter("executor.retry_attempts").inc()
+        tel.registry.counter("executor.retries_by_class",
+                             fault_class=fault_class).inc()
+        tel.event("retry", step=step, attempt=attempt, error=repr(e))
+        rec = {"step": step, "attempt": attempt, "error": repr(e),
+               "fault_class": fault_class}
+        if seam:
+            rec["seam"] = seam
+        tel.ledger_write("retry", **rec)
         log_event(logger, "step failed; retrying", step=step,
-                  attempt=attempt, fault_class=fault_class, error=repr(e))
+                  attempt=attempt, fault_class=fault_class, error=repr(e),
+                  **({"seam": seam} if seam else {}))
 
     def dispatch(state, group, restage: bool = False):
         """Stage (a replay stages the group's host buffers again) and
-        launch one group: ``(state, completion token, group)``."""
+        launch one group: ``(state, completion token, group, stats)``.  A
+        telemetered run folds the chunks' data statistics and the table's
+        gauges after the group's last combine and starts their copy to the
+        host before the completion token, which then covers it."""
         with span("stage", timer):
             if plan is not None:
                 cross("stage-acquire")
@@ -491,10 +656,29 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             if plan is not None:
                 cross("dispatch")
             stage.wait_copies([ev for _, (_, ev) in group])
+            stats = None
             for b, (chunk, _) in group:
-                state = engine.step(state, chunk, b.step)
+                out = engine.step(state, chunk, b.step)
+                if engine.data_stats:
+                    state, chunk_stats = out
+                    stats = chunk_stats if stats is None \
+                        else datastats.add(stats, chunk_stats)
+                else:
+                    state = out
+            if stats is not None:
+                stats = datastats.StatsFetch(
+                    engine.job.state_stats(state, stats))
             done = stage.completion()
-        return state, done, group
+        return state, done, group, stats
+
+    def group_data(stats) -> Optional[dict]:
+        """A retired group's data dict, folded into the run's totals;
+        ``stats`` is ready: its completion event has completed."""
+        if stats is None or data_agg is None:
+            return None
+        data = data_agg.group_data(stats.result())
+        tel.note_data(data_agg.snapshot())
+        return data
 
     def split_at_checkpoints(group):
         """Cut a group at checkpoint boundaries, so resume granularity is
@@ -514,20 +698,21 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     def serial_dispatch(state, group, attempts_used: int, cursor: int,
                         charged_class: str):
         """Dispatch one group and wait for it, retrying on the per-class
-        budgets (the replay's unit).  The input state is the replay's
-        known-good state: a step never writes into it.  ``attempts_used``
-        charges the attempt the group already spent in the window against
-        ``charged_class``; a resource-classed exhaustion raises
-        :class:`_DegradeSignal` when the ladder may step down."""
+        budgets (the replay's unit): ``(state, stats, attempts)``.  The
+        input state is the replay's known-good state: a step never writes
+        into it.  ``attempts_used`` charges the attempt the group already
+        spent in the window against ``charged_class``; a resource-classed
+        exhaustion raises :class:`_DegradeSignal` when the ladder may step
+        down."""
         used = {c: 0 for c in faults_mod.FAULT_CLASSES}
         used[charged_class] = attempts_used
         total = attempts_used
         while True:
             try:
-                out, done, _ = dispatch(state, group, restage=True)
+                out, done, _, stats = dispatch(state, group, restage=True)
                 with span("retire_wait", timer):
                     _wait_token(stage, done, policy.token_timeout_s)
-                return out
+                return out, stats, total
             except Exception as e:
                 cls = faults_mod.classify(e)
                 if cls == "preemption":
@@ -536,7 +721,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 if used[cls] >= policy.budget(cls):
                     if cls == "resource" and policy.degrade:
                         raise _DegradeSignal(e)
-                    final_failure(e, group[0][0].step, cursor, cls)
+                    final_failure(e, group[0][0].step, cursor, cls,
+                                  attempts=total + 1, snapshot=state)
                 used[cls] += 1
                 total += 1
                 retry_record(group[0][0].step, total, e, cls)
@@ -553,15 +739,18 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 stage.release(b)
         del since_anchor[:]
 
-    def recover(state, e, entry=None, sync_group=None):
+    def recover(state, e, entry=None, sync_group=None, sync_life=None):
         """A group failed: at its completion token (``entry``, the oldest
         in flight: tokens are waited in dispatch order) or in its dispatch
         (``sync_group``, never enrolled).  The class decides: preemption
         re-raises to the stream's drain-and-checkpoint handler, permanent
         fails at once, transient and resource replay every group since the
         anchor serially, and a resource exhaustion steps down the ladder
-        until it runs out."""
-        nonlocal engine, cur_config, live, quiet
+        until it runs out.  The groups of the doomed window get their
+        ``group`` records after the replay, with its serial stamps, and
+        their data statistics from it: a group that retired before the
+        failure is replayed but keeps its one record."""
+        nonlocal engine, cur_config, live, quiet, retired_groups
         cls = faults_mod.classify(e)
         fail_step = (entry.step_first if entry is not None
                      else sync_group[0][0].step)
@@ -579,6 +768,9 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         replay = list(since_anchor)
         fail_idx = next(i for i, (g, _) in enumerate(replay)
                         if g[0][0].step == fail_step)
+        lost = {en.step_first: en.life for en in window}
+        if sync_group is not None and sync_life is not None:
+            lost[fail_step] = sync_life
         # Quiesce the doomed window before the replay: the groups run on
         # one compute stream, so the newest token covers them all.  A
         # kernel cannot be cancelled: a hung one is bounded by the
@@ -600,12 +792,15 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         with span("replay", timer):
             while True:  # the ladder loop: one pass when nothing degrades
                 try:
-                    state = anchor
+                    state, done = anchor, []
                     for i, (group, group_cursor) in enumerate(replay):
-                        state = serial_dispatch(
+                        t0 = time.perf_counter()
+                        state, stats, attempts = serial_dispatch(
                             state, group,
                             charged if i == fail_idx else 0, group_cursor,
                             cls)
+                        done.append((i, group, t0, time.perf_counter(),
+                                     stats, attempts))
                     break
                 except _DegradeSignal as ds:
                     nd = faults_mod.next_degrade(_config_summary(cur_config))
@@ -616,17 +811,39 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                     was = _config_summary(cur_config)[field]
                     cur_config = _apply_degrade(cur_config, field, degraded)
                     pipe.setdefault("degrade_steps", []).append(step_name)
+                    tel.registry.counter("executor.degrade_steps",
+                                         ladder_step=step_name).inc()
+                    tel.event("degrade", ladder_step=step_name, field=field)
+                    tel.ledger_write(
+                        "degrade", step=fail_step, ladder_step=step_name,
+                        field=field, **{"from": was, "to": degraded},
+                        fault_class="resource", error=repr(ds.error))
                     log_event(logger, "degradation ladder step",
                               ladder_step=step_name, field=field,
                               **{"from": was, "to": degraded},
                               error=repr(ds.error))
                     engine = rebuild(cur_config)
+        # The owed group records, of the final round only: coarse serial
+        # stamps (the replay is when these groups really ran).
+        for i, group, t0, t1, stats, attempts in done:
+            life = lost.pop(group[0][0].step, None)
+            if life is not None:
+                life = dict(life, staged_at=round(t0, 6),
+                            dispatched_at=round(t0, 6))
+                _group_record(tel, life, token_ready_at=t1, retired_at=t1,
+                              wait_s=t1 - t0,
+                              retries=attempts if i == fail_idx else 0,
+                              data=group_data(stats))
+                retired_groups += 1
+                heartbeat()
+        tel.registry.counter("executor.retry_recoveries").inc()
         pipe["recoveries"] = pipe.get("recoveries", 0) + 1
         live = state
         if sync_group is not None:
             # It ran alone, serially: depth 1.
             record_depth(1)
-            account([b for b, _ in sync_group])
+            account([b for b, _ in sync_group], 1,
+                    sync_life["group_bytes"])
         reanchor(state)
         quiet = was_quiet
         return state
@@ -640,8 +857,11 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
 
     def retire_oldest(state, phase: Optional[str] = "retire_wait"):
         """Wait for the oldest group's completion token; an error that
-        surfaces here belongs to that group."""
+        surfaces here belongs to that group.  A retired group gets its
+        ``group`` record."""
+        nonlocal retired_groups
         entry = window[0]
+        wait_t0 = time.perf_counter()
         try:
             if phase is None:
                 token_wait(entry)
@@ -650,7 +870,14 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                     token_wait(entry)
         except Exception as e:
             return recover(state, e, entry=entry)
+        token_ready_at = time.perf_counter()
         window.popleft()
+        _group_record(tel, entry.life, token_ready_at=token_ready_at,
+                      retired_at=time.perf_counter(),
+                      wait_s=token_ready_at - wait_t0,
+                      data=group_data(entry.stats))
+        retired_groups += 1
+        heartbeat()
         return state
 
     def drain_window(state, phase: Optional[str] = "retire_wait",
@@ -668,28 +895,52 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         pipe["dispatch_groups"] += 1
         pipe["depth_sum"] += depth
         pipe["depth_max"] = max(pipe["depth_max"], depth)
+        tel.registry.observe("executor.inflight_depth", depth)
 
-    def account(batches) -> None:
+    def account(batches, depth: int, group_bytes: int) -> None:
+        """Advance the cursor and the bases for a dispatched group and
+        write its ``step`` record.  The ``ledger-append`` seam is crossed
+        here when a ledger is attached: an injected append fault is
+        recorded and absorbed (observing must never take the run down),
+        and only that record is lost."""
         nonlocal bytes_done, step_index, last_file_dispatched
         last_file_dispatched = batches[-1].file_index
         for b in batches:
             bases_list.append(b.base_offsets)
-            bytes_done += int(b.lengths.sum())
+        bytes_done += group_bytes
         step_index = batches[-1].step + 1
+        skip_record = False
+        if plan is not None and tel.ledger is not None:
+            try:
+                cross("ledger-append")
+            except faults_mod.FaultError as fe:
+                if fe.fault_class == "preemption":
+                    raise
+                skip_record = True
+                log_event(logger, "ledger append fault absorbed",
+                          error=repr(fe))
+        if not skip_record:
+            tel.step_record(step_first=batches[0].step,
+                            step_last=batches[-1].step,
+                            group_bytes=group_bytes, cursor_bytes=bytes_done,
+                            timer=timer, inflight_depth=depth,
+                            device=device)
+        heartbeat()
         if progress_every and step_index % progress_every < len(batches):
             log_event(logger, "progress", step=step_index, bytes=bytes_done)
 
-    def enroll(out, done, group, cursor_before: int) -> None:
+    def enroll(out, done, group, cursor_before: int, life: dict,
+               stats) -> None:
         """Window bookkeeping for a dispatched group (outside the recover
         routing: a failure here is host bookkeeping, not a device fault)."""
         nonlocal live
         live = out
         window.append(_Inflight(done, group[-1][1][1], group[0][0].step,
-                                cursor_before))
+                                cursor_before, life, stats))
         if replayable:
             since_anchor.append((group, cursor_before))
         record_depth(len(window))
-        account([b for b, _ in group])
+        account([b for b, _ in group], len(window), life["group_bytes"])
 
     def save_snapshot(state) -> bool:
         """The checkpoint write behind the ``checkpoint-save`` seam: a
@@ -709,8 +960,11 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 raise
 
         try:
-            _with_budget(save, "checkpoint-save", policy, logger,
-                         injected_only=False, step=step_index)
+            _with_budget(save, "checkpoint-save", policy,
+                         injected_only=False,
+                         on_retry=lambda attempt, ce, cls: retry_record(
+                             step_index, attempt, ce, cls,
+                             seam="checkpoint-save"))
             return True
         except faults_mod.PreemptionFault:
             raise
@@ -719,6 +973,21 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                       "this snapshot", error=repr(ce),
                       fault_class=faults_mod.classify(ce))
             return False
+
+    def checkpoint(state, preempt: bool = False) -> bool:
+        """Save a snapshot under the ``checkpoint`` phase and write its
+        ledger record when it landed."""
+        ck_before = timer["checkpoint"]
+        with span("checkpoint", timer):
+            saved = save_snapshot(state)
+        tel.event("checkpoint", step=step_index, cursor_bytes=bytes_done)
+        if saved:
+            tel.ledger_write(
+                "checkpoint", step=step_index, cursor_bytes=bytes_done,
+                save_s=round(timer["checkpoint"] - ck_before, 6),
+                path=checkpoint_path, **({"preempt": True} if preempt
+                                         else {}))
+        return saved
 
     def flush_one(state, group):
         """Dispatch one group, keeping at most ``window_cap`` in flight.
@@ -736,12 +1005,19 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 pipe["full_retires"] += 1
                 state = retire_oldest(state)
         cursor_before = bytes_done
+        batches = [b for b, _ in group]
+        read_at = read_t.pop(batches[0].step, None)
+        for b in batches[1:]:
+            read_t.pop(b.step, None)
+        life = _group_life(batches, read_at,
+                           int(sum(int(b.lengths.sum()) for b in batches)))
         try:
-            out, done, group = dispatch(state, group)
+            out, done, group, stats = dispatch(state, group)
         except Exception as e:
-            state = recover(state, e, sync_group=group)
+            state = recover(state, e, sync_group=group, sync_life=life)
         else:
-            enroll(out, done, group, cursor_before)
+            life["dispatched_at"] = round(time.perf_counter(), 6)
+            enroll(out, done, group, cursor_before, life, stats)
             state = out
         if plan is not None:
             cross("process-kill")  # between groups, where a reclaim lands
@@ -750,9 +1026,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             state = drain_window(state)
             pipe["boundary_drains"] += 1
             last_ckpt = step_index // checkpoint_every
-            with span("checkpoint", timer):
-                saved = save_snapshot(state)
-            if saved:
+            if checkpoint(state):
                 log_event(logger, "checkpoint", step=step_index,
                           path=checkpoint_path)
         return state
@@ -765,14 +1039,22 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     def read_guarded():
         """One read behind the ``reader-read`` seam.  The injected fault
         fires before the read, so retrying it is safe; a real reader error
-        propagates (the prefetch iterator is dead after raising, and
-        reading it again would look like the stream's end)."""
+        is recorded and propagates (the prefetch iterator is dead after
+        raising, and reading it again would look like the stream's
+        end)."""
         def read():
             cross("reader-read")
-            return next(it, None)
+            try:
+                return next(it, None)
+            except Exception as re_:
+                _record_fault(tel, re_, seam="reader-read", injected=False,
+                              step=step_index)
+                raise
 
-        return _with_budget(read, "reader-read", policy, logger,
-                            injected_only=True, step=step_index)
+        return _with_budget(read, "reader-read", policy, injected_only=True,
+                            on_retry=lambda attempt, fe, cls: retry_record(
+                                step_index, attempt, fe, cls,
+                                seam="reader-read"))
 
     last_file: Optional[int] = resumed_file
     it = reader_mod.prefetch(
@@ -793,6 +1075,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             interrupted()
             if batch is None:
                 break
+            read_t[batch.step] = time.perf_counter()
             with span("stage", timer):
                 staged = stage.stage(batch, hold=replayable)
             if last_file is not None and batch.file_index != last_file:
@@ -811,11 +1094,13 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             state = flush(state, [item])
         # The stream's end: the last group's input still in transfer, then
         # the compute queued behind it.  Timed even when empty, so the
-        # phase keys always exist.
+        # phase keys always exist.  The last group's record carries when
+        # its copy was seen done: the one H2D completion the loop observes.
         with span("h2d_tail", timer):
             if window:
                 _wait_token(stage, window[-1].copy_done,
                             interrupted=interrupted)
+                window[-1].life["h2d_done_at"] = round(time.perf_counter(), 6)
         with span("compute_tail", timer):
             state = drain_window(state, phase=None, do_reanchor=False)
         interrupted()
@@ -824,7 +1109,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     bounded = contextlib.nullcontext() if policy.token_timeout_s is None \
         else wc.host_read_by(
             lambda flags: stage.read(flags, policy.token_timeout_s))
-    with _sigint_deferred() as sigint, bounded:
+    with bounded:
         try:
             state = stream(state)
         except BaseException as pe:
@@ -834,7 +1119,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             # step).  The window's groups are healthy and accounted: drain
             # them, snapshot the committed state, and exit with the resume
             # cursor.  The plan is disarmed first, so no second injected
-            # fault interrupts the shutdown.
+            # fault interrupts the shutdown.  A preempted run writes no
+            # flight dump.
             if faults_mod.classify(pe) != "preemption":
                 raise
             # Mid-replay, the committed state is not the replayed one: exit
@@ -847,16 +1133,17 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 log_event(logger, "preempted during a replay; exiting "
                           "without checkpoint", step=step_index)
             elif checkpoint_path:
-                with span("checkpoint", timer):
-                    try:
-                        checkpointed = save_snapshot(state)
-                    except Exception as se:
-                        # The device may already be going away: an
-                        # unfetchable state is an uncheckpointed, still
-                        # orderly, exit.
-                        log_event(logger, "preemption snapshot failed; "
-                                  "exiting without checkpoint",
-                                  step=step_index, error=repr(se))
+                try:
+                    checkpointed = checkpoint(state, preempt=True)
+                except Exception as se:
+                    # The device may already be going away: an
+                    # unfetchable state is an uncheckpointed, still
+                    # orderly, exit.
+                    _record_fault(tel, se, seam="checkpoint-save",
+                                  injected=False, step=step_index)
+                    log_event(logger, "preemption snapshot failed; "
+                              "exiting without checkpoint",
+                              step=step_index, error=repr(se))
             log_event(logger, "preempted; drained and exiting cleanly",
                       step=step_index, cursor=bytes_done,
                       checkpointed=checkpointed)
@@ -874,10 +1161,22 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     return state, bytes_done, pipe
 
 
+def _path_names(path) -> list[str]:
+    """The input path(s) as strings, for ``run_start``."""
+    if isinstance(path, (str, bytes, os.PathLike)):
+        return [os.fsdecode(path)]
+    return [os.fsdecode(p) for p in path]
+
+
+#: The ``merge_strategy`` a ``run_start`` names: one card merges nothing,
+#: and the JAX package's default is what its one-device run names.
+_MERGE_STRATEGY = "tree"
+
+
 def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
             logger=None, progress_every: int = 50,
-            retry: int = 0) -> RunResult:
+            retry: int = 0, telemetry=None) -> RunResult:
     """Stream ``path`` (a file or a list of files, one corpus) through
     ``job`` on one device; see the module docstring.
 
@@ -890,16 +1189,27 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     every that many steps.  ``retry``: the transient and resource budgets
     when ``config.failure_policy`` is None.  A preempted run raises
     :class:`...runtime.faults.Preempted`.
+
+    ``telemetry`` (:class:`...obs.telemetry.Telemetry`, optional): the run
+    ledger's records, the flight recorder's dump on a failure and the
+    metrics registry's instruments, as the JAX package writes them; a
+    job with data-statistics hooks also runs its map in stats mode (the
+    same results).  None runs exactly the untelemetered loop.  The caller
+    owns the handle (``close`` it).
     """
     if retry < 0:
         raise ValueError(f"retry must be >= 0, got {retry}")
     dev = job.device if device is None else torch.device(device)
     if dev != job.device:
         raise ValueError(f"run_job on {dev} got a job on {job.device}")
+    tel = obs_telemetry.maybe(telemetry)
     plan = faults_mod.FaultPlan.resolve(config.fault_plan)
     policy = faults_mod.FailurePolicy.resolve(config.failure_policy,
                                               retry=retry)
-    engine = Engine(job, dev)
+    data_stats = tel.enabled and datastats.supports(job)
+    engine = Engine(job, dev, data_stats=data_stats)
+    data_agg = datastats.DataAggregator.for_run(config) if data_stats \
+        else None
     logger = logger or get_logger()
     native.load()  # a failed chunker build fails here, not in the reader
     timer = metrics_mod.PhaseTimer()
@@ -911,6 +1221,7 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
         path, 1, config.chunk_bytes, backend=config.resolved_backend(),
         pallas_max_token=config.pallas_max_token,
         job_identity=job.identity()) if checkpoint_path else None
+    fallback = None
     if checkpoint_path and ckpt_mod.exists(checkpoint_path):
         (leaves, start_step, start_offset, bases, resumed_file), fallback = \
             ckpt_mod.load_resilient(
@@ -935,42 +1246,103 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
         """The ladder's engine: the job rebound to the degraded config."""
         nonlocal job, engine
         job = job_with_config(job, new_config)
-        engine = Engine(job, dev)
+        engine = Engine(job, dev, data_stats=data_stats)
         return engine
 
-    timer.start("stream")
-    with timing_into(timer):
-        state, bytes_done, pipe = _drive_stream(
-            engine, config, path, state, stage, start_step=start_step,
-            start_offset=start_offset, bases_list=bases_list,
-            checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, fingerprint=fingerprint,
-            resumed_file=resumed_file, logger=logger,
-            progress_every=progress_every, timer=timer, plan=plan,
-            policy=policy, rebuild=rebuild)
-    timer.stop("stream")
+    # A SIGINT from here to run_end is deferred to the stream's safe
+    # points (and, after the stream, to the end of the run), so no ledger
+    # line is torn.
+    with _sigint_deferred() as sigint:
+        tel.registry.counter("executor.runs", driver="run_job").inc()
+        tel.ledger_write(
+            "run_start", driver="run_job", job=job.identity(), devices=1,
+            chunk_bytes=config.chunk_bytes, superstep=config.superstep,
+            backend=config.resolved_backend(), map_impl=config.map_impl,
+            combiner=config.combiner, geometry="default",
+            **({"fault_plan": plan.spec} if plan is not None else {}),
+            merge_strategy=_MERGE_STRATEGY, input=_path_names(path),
+            resume_step=start_step, resume_offset=start_offset,
+            retry=policy.dispatch_budget)
+        if fallback is not None:
+            tel.ledger_write("fault", seam="checkpoint-load",
+                             fault_class="transient", injected=False,
+                             error=fallback["error"],
+                             fallback=fallback["loaded"],
+                             corrupt=fallback["corrupt"])
 
-    def finish():
-        if plan is not None:
-            exc = plan.check("collective-finish")
-            if exc is not None:
-                log_event(logger, "fault injected", seam="collective-finish",
-                          index=exc.index, fault_class=exc.fault_class)
-                raise exc
-        return engine.finish(state)
+        def finish():
+            if plan is not None:
+                exc = plan.check("collective-finish")
+                if exc is not None:
+                    log_event(logger, "fault injected",
+                              seam="collective-finish", index=exc.index,
+                              fault_class=exc.fault_class)
+                    _record_fault(tel, exc, seam="collective-finish",
+                                  injected=True, index=exc.index)
+                    raise exc
+            try:
+                return engine.finish(state)
+            except Exception as fe:
+                _record_fault(tel, fe, seam="collective-finish",
+                              injected=False)
+                raise
 
-    # Injected faults fire before the finish runs, so retrying them is
-    # safe; a real failure propagates.
-    with span("reduce", timer):
-        value = _with_budget(finish, "collective-finish", policy, logger,
-                             injected_only=True,
-                             message="collective finish fault; retrying")
-    total_s = timer.stop("total")
-    pipe["overlap_fraction"] = _overlap_fraction(timer)
-    # The bytes this run streamed (a resumed run starts at its cursor).
-    m = metrics_mod.RunMetrics(bytes_processed=bytes_done - start_offset,
-                               words_counted=value.total_count(),
-                               elapsed_s=total_s, phases=dict(timer.phases))
+        def finish_retried(attempt: int, fe, cls: str) -> None:
+            tel.registry.counter("executor.retry_attempts").inc()
+            tel.registry.counter("executor.retries_by_class",
+                                 fault_class=cls).inc()
+            tel.ledger_write("retry", attempt=attempt, error=repr(fe),
+                             fault_class=cls, seam="collective-finish")
+            log_event(logger, "collective finish fault; retrying",
+                      attempt=attempt, fault_class=cls, error=repr(fe),
+                      seam="collective-finish")
+
+        timer.start("stream")
+        try:
+            with timing_into(timer):
+                state, bytes_done, pipe = _drive_stream(
+                    engine, config, path, state, stage,
+                    start_step=start_step, start_offset=start_offset,
+                    bases_list=bases_list, checkpoint_path=checkpoint_path,
+                    checkpoint_every=checkpoint_every,
+                    fingerprint=fingerprint, resumed_file=resumed_file,
+                    logger=logger, progress_every=progress_every,
+                    timer=timer, plan=plan, policy=policy, rebuild=rebuild,
+                    sigint=sigint, tel=tel, data_agg=data_agg, device=dev)
+            timer.stop("stream")
+            # Injected faults fire before the finish runs, so retrying
+            # them is safe; a real failure propagates.
+            with span("reduce", timer):
+                fin_t0 = time.perf_counter()
+                value = _with_budget(finish, "collective-finish", policy,
+                                     injected_only=True,
+                                     on_retry=finish_retried)
+                tel.ledger_write("collective", op="finish",
+                                 strategy=_MERGE_STRATEGY,
+                                 started_at=round(fin_t0, 6),
+                                 ended_at=round(time.perf_counter(), 6))
+        except faults_mod.Preempted:
+            raise  # an orderly exit with its cursor, not a failure
+        except Exception as e:
+            # A failure the loop did not dump already (the reader, the
+            # finish) leaves forensics too; the first dump wins.
+            tel.flight_dump(context={"where": "run_job", "error": repr(e)})
+            raise
+        total_s = timer.stop("total")
+        pipe["overlap_fraction"] = _overlap_fraction(timer)
+        if pipe["overlap_fraction"] is not None:
+            tel.registry.gauge("executor.overlap_fraction").set(
+                pipe["overlap_fraction"])
+        if data_agg is not None and data_agg.groups:
+            data_rec = data_agg.run_record()
+            tel.ledger_write("data", **data_rec)
+            tel.note_data(data_rec)
+        # The bytes this run streamed (a resumed run starts at its cursor).
+        m = metrics_mod.RunMetrics(bytes_processed=bytes_done - start_offset,
+                                   words_counted=value.total_count(),
+                                   elapsed_s=total_s,
+                                   phases=dict(timer.phases))
+        tel.ledger_write("run_end", **m.as_dict(), pipeline=pipe)
     log_event(logger, "run complete", **m.as_dict())
     bases = np.stack(bases_list) if bases_list \
         else np.zeros((0, 1), np.int64)

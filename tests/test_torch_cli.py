@@ -104,8 +104,63 @@ def test_in_process_flags_match_jax_cli(capsysbinary, tmp_path):
         os.chdir(old)
 
 
+@pytest.mark.parametrize("flags", [
+    ("--backend", "xla", "--format", "json"),
+    ("--backend", "pallas", "--sort-mode", "sort3"),
+    ("--backend", "pallas", "--sort-mode", "sort3", "--compact-slots", "0"),
+    ("--backend", "pallas", "--compact-slots", "128", "--max-token-bytes",
+     "3", "--rescue-overlong", "1", "--rescue-overlong-max", "2",
+     "--rescue-window", "100", "--format", "json"),
+    ("--backend", "pallas", "--max-token-bytes", "4", "--rescue-overlong",
+     "0", "--format", "json"),
+])
+def test_kernel_knob_flags_stdout_identical_to_jax_cli(flags, capsysbinary):
+    """The JAX CLI's backend, sort-mode, slot and overlong-rescue flags:
+    the same bytes as the JAX CLI with the same flags (in-process)."""
+    want = _jax_stdout("test.txt", *flags)
+    old = os.getcwd()
+    os.chdir(REPO)
+    try:
+        assert cli.main(["test.txt", *flags, "--platform", "cpu"]) == 0
+    finally:
+        os.chdir(old)
+    assert capsysbinary.readouterr().out == want
+
+
+def test_version_flag_matches_jax_cli(capsysbinary):
+    for main in (jcli.main, cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["--version"])
+        assert e.value.code == 0
+    jax_out, port_out = capsysbinary.readouterr().out.splitlines()
+    assert port_out == jax_out.replace(b"mapreduce-tpu", b"mapreduce-tpu-torch")
+    assert port_out.startswith(b"mapreduce-tpu-torch ")
+
+
+@pytest.mark.parametrize("flags,item", [
+    (("--sort-mode", "segmin"), "A14"),
+    (("--merge-overlap",), "A8b (iii)"),
+    (("--autotune",), "A8b (ii), the autotuner"),
+])
+def test_flags_the_port_refuses_name_their_item(flags, item, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["test.txt", "--platform", "cpu", *flags])
+    assert e.value.code == 2
+    assert f"(ROADMAP.md item {item})" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [("--compact-slots", "64"),
+                                   ("--compact-slots", "12", "--sort-mode",
+                                    "sort3")])
+def test_bad_compact_slots_are_refused_as_by_jax(flags, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["test.txt", "--platform", "cpu", *flags])
+    assert e.value.code == 2
+    assert "compact_slots" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("flag", [["--ngram", "2"], ["--grep", "x"],
-                                  ["--backend", "xla"], ["--top"]])
+                                  ["--sample", "3"], ["--top"]])
 def test_other_jax_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["test.txt", "--platform", "cpu", *flag])

@@ -652,3 +652,94 @@ def test_a_late_kernel_before_the_map_replays_exactly(cuda_device,
     assert got.as_dict() == want
     assert rr.pipeline["recoveries"] == 1
     assert calls.count(2) == 2  # step 2 ran, then its replay
+
+
+def _telemetered(job, path, cfg, led, **kw):
+    from mapreduce_tpu_torch.obs import ledger, registry, telemetry
+
+    with telemetry.Telemetry.create(ledger_path=led,
+                                    registry=registry.MetricsRegistry()) \
+            as tel:
+        rr = executor.run_job(job, path, cfg, telemetry=tel, **kw)
+    return rr, list(ledger.read_ledger(led))
+
+
+@pytest.mark.cuda
+def test_telemetry_keeps_the_window_full_and_reads_memory(
+        cuda_device, six_chunk_corpus, tmp_path):
+    """At ``Config()`` (window 4), a ledger'd run's step records reach a
+    depth of 4 and its window statistics are the untelemetered run's: the
+    gauges and the memory reads add no wait.  Each step record carries
+    the card's allocator counters; the data record counts every token."""
+    path, want = six_chunk_corpus
+    cfg = wc.Config()
+    plain = executor.run_job(wc.WordCountJob(cfg), path, cfg)
+    rr, recs = _telemetered(wc.WordCountJob(cfg), path, cfg,
+                            str(tmp_path / "l.jsonl"))
+    steps = [r for r in recs if r["kind"] == "step"]
+    assert max(r["inflight_depth"] for r in steps) == 4
+    for key in ("depth_max", "window_filled", "dispatch_groups"):
+        assert rr.pipeline[key] == plain.pipeline[key], key
+    assert all(r["mem"]["bytes_in_use"] > 0
+               and r["mem"]["devices_reporting"] == 1 for r in steps)
+    (data,) = [r for r in recs if r["kind"] == "data"]
+    assert data["tokens"] == sum(want.values())
+    assert data["chunks"] == rr.bases.shape[0] == 7
+    got = executor.recover_from_file(rr.value, path, rr.bases)
+    assert got.as_dict() == want
+
+
+@pytest.mark.cuda
+def test_group_gauges_are_read_after_the_event(cuda_device, tmp_path):
+    """Window 4, superstep 3, small chunks: at every group the record's
+    occupancy is the recount of the table of its steps, and its tokens the
+    oracle's, so no gauge was read before the group's kernels ended."""
+    paths, joined = _stream_files(tmp_path, n_files=1, n_bytes=1 << 20)
+    cfg = wc.Config(chunk_bytes=1 << 16, table_capacity=1 << 14,
+                    superstep=3)
+    rr, recs = _telemetered(wc.WordCountJob(cfg), paths, cfg,
+                            str(tmp_path / "l.jsonl"))
+    from mapreduce_tpu_torch.data import reader as reader_mod
+    from mapreduce_tpu_torch.parallel.mapreduce import Engine
+
+    eng = Engine(wc.WordCountJob(cfg))
+    state, valid = eng.init_states(), []
+    for b in reader_mod.iter_batches_multi(paths, 1, cfg.chunk_bytes):
+        state = eng.step(state, b.data, b.step)
+        valid.append(int(state.n_valid()))
+    groups = [r for r in recs if r["kind"] == "group"]
+    assert len(groups) == rr.pipeline["dispatch_groups"] > 4
+    assert [g["data"]["occupancy"] for g in groups] \
+        == [round(valid[g["step_last"]] / cfg.table_capacity, 4)
+            for g in groups]
+    (data,) = [r for r in recs if r["kind"] == "data"]
+    assert data["tokens"] == sum(oracle.word_counts(joined).values())
+
+
+@pytest.mark.cuda
+def test_telemetry_adds_no_host_sync(cuda_device, tmp_path):
+    """Under the sync debug mode, a telemetered run's telemetry modules
+    synchronise nothing; the map's one read a chunk stays the only one."""
+    import warnings
+
+    pkg = REPO / "mapreduce_tpu_torch"
+    paths, _ = _stream_files(tmp_path, n_files=2)
+    cfg = wc.Config(chunk_bytes=1 << 16)
+    _telemetered(wc.WordCountJob(cfg), paths, cfg, str(tmp_path / "w.jsonl"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rr, _ = _telemetered(wc.WordCountJob(cfg), paths, cfg,
+                                 str(tmp_path / "l.jsonl"))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [pathlib.Path(w.filename).resolve() for w in caught
+             if "synchroniz" in str(w.message)]
+    own = {pkg / f for f in ("runtime/executor.py", "data/reader.py",
+                                "parallel/mapreduce.py", "obs/spans.py",
+                                "obs/telemetry.py", "obs/ledger.py",
+                                "obs/flight.py", "ops/datastats.py",
+                                "native/__init__.py")}
+    assert not [p for p in syncs if p in own]
+    assert syncs.count(pkg / "models" / "wordcount.py") == rr.bases.shape[0]

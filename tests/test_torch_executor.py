@@ -28,6 +28,7 @@ from mapreduce_tpu.parallel.mesh import data_mesh
 from mapreduce_tpu.runtime import executor as jexecutor
 from mapreduce_tpu_torch import cli, convert
 from mapreduce_tpu_torch.models import wordcount as wc
+from mapreduce_tpu_torch.obs.ledger import read_ledger
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt
 from mapreduce_tpu_torch.runtime import executor
 from mapreduce_tpu_torch.runtime.logging import LOGGER_NAME
@@ -255,22 +256,32 @@ def _port_stdout(capsysbinary, *args: str, rc: int = 0) -> bytes:
     ["--stream", "--fault-plan", "at=dispatch:0:transient", "--retry", "1"],
     ["--stream", "--merge-overlap"],
     ["--stream", "--autotune"],
-    ["--stream", "--ledger", "run.jsonl"],
+    ["--stream", "--ledger", "LEDGER"],
 ])
-def test_cli_refusals(argv, capsysbinary):
+def test_cli_refusals(argv, capsysbinary, tmp_path):
     """Flags of planes not ported are refused with a usage error naming
-    A8b; ``--retry`` and ``--fault-plan`` run, and a fault the budget
-    absorbs leaves the output exact."""
-    if "--retry" in argv:
+    their ROADMAP item; ``--retry`` and ``--fault-plan`` run, and a fault
+    the budget absorbs leaves the output exact; ``--ledger`` runs, prints
+    what the plain run prints and leaves a ledger that parses."""
+    if "--retry" in argv or "--ledger" in argv:
+        ledger = tmp_path / "run.jsonl"
+        argv = [str(ledger) if a == "LEDGER" else a for a in argv]
         want = _port_stdout(capsysbinary, "test.txt")
         assert _port_stdout(capsysbinary, "test.txt", *argv) == want
+        if "--ledger" in argv:
+            kinds = [r["kind"] for r in read_ledger(str(ledger))]
+            assert kinds[0] == "run_start" and kinds[-1] == "run_end"
+            assert len(ledger.read_text().splitlines()) == len(kinds)
         return
     with pytest.raises(SystemExit) as e:
         cli.main(["test.txt", "--platform", "cpu", *argv])
     assert e.value.code == 2
     err = capsysbinary.readouterr().err
     assert (b"--checkpoint requires --stream" in err) \
-        if argv[0] == "--checkpoint" else (b"ROADMAP.md item A8b" in err)
+        if argv[0] == "--checkpoint" else (
+            b"ROADMAP.md item A8b (iii)" in err
+            if argv[1] == "--merge-overlap" else
+            b"ROADMAP.md item A8b (ii), the autotuner" in err)
 
 
 def test_cli_preempted_run_exits_75_and_resumes_like_jax(tmp_path,
@@ -323,7 +334,9 @@ def test_config_pipeline_knobs_map_from_jax():
             assert cfg.failure_policy.as_dict() \
                 == jc.failure_policy.as_dict()
             continue
-        with pytest.raises(ValueError, match="A8b"):
+        item = r"A8b \(iii\)" if "merge_overlap" in kw \
+            else r"A8b \(ii\), the autotuner"
+        with pytest.raises(ValueError, match=item):
             convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
     for kw in ({"superstep": 0}, {"inflight_groups": 0},
                {"prefetch_depth": 0}):

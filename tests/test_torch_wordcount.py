@@ -294,8 +294,16 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "import mapreduce_tpu_torch.cli, mapreduce_tpu_torch.native; "
             "from mapreduce_tpu_torch.runtime import checkpoint, faults; "
             "from mapreduce_tpu_torch.obs import spans; "
+            "from mapreduce_tpu_torch.obs import (flight, ledger, registry, "
+            "telemetry, timeline); "
+            "from mapreduce_tpu_torch.ops import datastats; "
+            "from mapreduce_tpu_torch.runtime import profiling; "
+            "tel = telemetry.Telemetry.create(ledger_path='%s.jsonl'); "
             "r = m.count_file('test.txt', device='cpu', "
-            "checkpoint_path='%s', checkpoint_every=1); "
+            "checkpoint_path='%s', checkpoint_every=1, telemetry=tel); "
+            "tel.close(); "
+            "assert timeline.reconstruct(ledger.read_ledger("
+            "'%s.jsonl'))['groups'] == 1; "
             "assert r.total == 9 and checkpoint.exists('%s'); "
             "c = m.Config(fault_plan='at=dispatch:0:transient'); "
             "r = m.count_file('test.txt', c, device='cpu', retry=1); "
@@ -303,7 +311,7 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "== 'preemption'; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'mapreduce_tpu')]; "
-            "assert not bad, bad") % ((tmp_path / "ck.npz",) * 2)
+            "assert not bad, bad") % ((tmp_path / "ck.npz",) * 4)
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
