@@ -117,17 +117,43 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               turns, and the host microseconds of each part of a group's
               telemetry (the memory read, the two records' writes, the
               gauges and their copy);
-9. times   -- each kernel's median time per 32 MB chunk beside its bound,
+9. families -- the n-gram and sketched word-count families at
+              ``Config()``, each run against a host oracle (token spans in
+              numpy, token keys by the port's host mirror ``hash_word``,
+              gram keys folded in numpy; past the 2**18 table the oracle
+              keeps the 2**18 smallest keys, each with its exact count):
+              ``count_ngrams`` n = 2 and 3 on phase 3's corpus and on a
+              copy with 40 overlong URLs in 1,000 tokens (their grams
+              dropped and accounted), n = 2 under ``sort_impl='radix'``
+              and ``map_impl='fused'``; ``count_file`` with n = 2 and 3
+              over the phase-4 file and n = 2 over the 8-file corpus, with
+              the seam entries formed at the chunk joins (> 0; n-1
+              windows a join inside a file, counted or poisoned, none
+              across files) and those the host recovers; SIGINT to a
+              ``--stream --ngram 2 --checkpoint`` CLI child, which must
+              exit 75 and whose relaunch must print what an uninterrupted
+              run prints; distinct- and count-sketched ``count_file`` over
+              four 32 MB regions of 120,000 words each (~480,000 distinct,
+              past the table), whose registers and Count-Min cells must
+              equal the host's, whose estimate must lie within 3 % with
+              ``dropped_uniques > 0``, whose estimate of sampled spilled
+              words must not fall below their counts, at
+              ``sketch_flush_every`` 1 and 4; then streamed GB/s of n = 2
+              against the word count (8 files, in turns), the n-gram step
+              of one 32 MB chunk beside the word count's with the rows
+              each sort sees, one HLL and one CMS update's ms, and the
+              phase's wall time;
+10. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
               radix seam (CUDA events between launches); the chunk's
               end-to-end time by stage; the step time (map + merge) of
               every path's configuration on one chunk, with the rows each
               step's sort sees;
-10. profile -- where the device time of a default, a combiner and a
+11. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 8 each drive a main path: the launch counters are set to 0
+Phases 3 to 9 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -1273,6 +1299,503 @@ def telemetry_phase(drive, by_path: dict, branches: dict, tmp: Path,
          **json.loads(attribution))
 
 
+# The gram and sketch oracles of phase 9: token spans by numpy, token keys
+# by the port's host mirror ``ops/sketch.py:hash_word`` (pure Python, not
+# the device code), gram keys folded here in numpy with the composition
+# the port documents (``ops/tokenize.py:mix_gram``).
+SEPARATORS = (0x00, 0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20)
+HASH_BASE_1, HASH_BASE_2 = 16777619, 2654435761
+FMIX_C1, FMIX_C2, SENT = 0x85EBCA6B, 0xC2B2AE35, 0xFFFFFFFF
+HLL_P, CMS_DEPTH, CMS_WIDTH = 14, 4, 1 << 16
+CMS_SALTS = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
+
+
+def card_name() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, to
+    print beside a time."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def host_tokens(data: bytes):
+    """``(starts, ends, ids, vocab)``: every token's span, its id in order
+    of first appearance, and the distinct tokens in that order."""
+    import numpy as np
+
+    arr = np.frombuffer(data, np.uint8)
+    lut = np.zeros(256, bool)
+    lut[list(SEPARATORS)] = True
+    sep = lut[arr]
+    starts = np.flatnonzero(~sep & np.concatenate([[True], sep[:-1]]))
+    ends = np.flatnonzero(~sep & np.concatenate([sep[1:], [True]])) + 1
+    index: dict = {}
+    ids = np.fromiter((index.setdefault(data[a:b], len(index)) for a, b in
+                       zip(starts.tolist(), ends.tolist())), np.int64,
+                      count=len(starts))
+    return starts, ends, ids, list(index)
+
+
+def _fmix32(x):
+    import numpy as np
+
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(FMIX_C1)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(FMIX_C2)
+    return x ^ (x >> np.uint32(16))
+
+
+def _mix(p_hi, p_lo, k_hi, k_lo):
+    """One gram extension: ``fmix32(prev * B ^ key)`` a lane, clamped off
+    the two reserved keys."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        g_hi = _fmix32((p_hi * np.uint32(HASH_BASE_1)) ^ k_hi)
+        g_lo = _fmix32((p_lo * np.uint32(HASH_BASE_2)) ^ k_lo)
+    return g_hi, np.where((g_hi == SENT) & (g_lo >= SENT - 1),
+                          np.uint32(SENT - 2), g_lo).astype(np.uint32)
+
+
+def token_keys(vocab) -> tuple:
+    """uint32 ``(key_hi, key_lo)`` of each token, by ``hash_word``."""
+    import numpy as np
+
+    from mapreduce_tpu_torch.ops.sketch import hash_word
+
+    keys = np.array([hash_word(t) for t in vocab], dtype=np.uint64)
+    return keys[:, 0].astype(np.uint32), keys[:, 1].astype(np.uint32)
+
+
+def gram_oracle(data: bytes, tokens, n: int, w: int | None, capacity: int):
+    """What a run over ``data`` must report with a table of ``capacity``:
+    the n-token windows (n = 1: the words), minus those holding a token
+    longer than ``w`` (the kernel path drops them; None: none), grouped by
+    token sequence; past capacity the table keeps the ``capacity`` smallest
+    64-bit keys, each with its exact count (a key among the smallest
+    overall is among the smallest of every chunk).  Returns ``(want,
+    total, dropped_count, distinct, keys)``: ``want`` the kept ``{first
+    span: count}`` in first-occurrence order; ``keys`` the uint32 keys and
+    counts of every distinct window, for the sketches."""
+    import numpy as np
+
+    starts, ends, ids, vocab = tokens
+    m = len(ids) - n + 1
+    if m <= 0:
+        return {}, 0, 0, 0, None
+    t_hi, t_lo = token_keys(vocab)
+    bad = np.zeros(m, bool)
+    if w is not None:
+        long = (ends - starts) > w
+        for j in range(n):
+            bad |= long[j:j + m]
+    code = np.zeros(m, np.int64)
+    for j in range(n):
+        code = code * len(vocab) + ids[j:j + m]
+    good = np.flatnonzero(~bad)
+    _, first, counts = np.unique(code[good], return_index=True,
+                                 return_counts=True)
+    g0 = good[first]  # each distinct window's first occurrence
+    g_hi, g_lo = t_hi[ids[g0]], t_lo[ids[g0]]
+    for j in range(1, n):
+        g_hi, g_lo = _mix(g_hi, g_lo, t_hi[ids[g0 + j]], t_lo[ids[g0 + j]])
+    kept = np.arange(len(g0))
+    if len(g0) > capacity:
+        key64 = (g_hi.astype(np.uint64) << np.uint64(32)) | g_lo
+        kept = np.argsort(key64, kind="stable")[:capacity]
+    kept = kept[np.argsort(g0[kept])]
+    want = {data[a:b]: int(c) for a, b, c in zip(
+        starts[g0[kept]].tolist(), ends[g0[kept] + n - 1].tolist(),
+        counts[kept].tolist())}
+    return (want, m, m - int(counts[kept].sum()), len(g0),
+            (g_hi, g_lo, counts))
+
+
+def host_registers(key_hi, key_lo):
+    """The HyperLogLog registers of these keys (p = 14)."""
+    import numpy as np
+
+    x = key_lo.astype(np.int64)
+    bits = np.zeros_like(x)
+    for shift in (16, 8, 4, 2, 1):
+        big = x >= (1 << shift)
+        bits = np.where(big, bits + shift, bits)
+        x = np.where(big, x >> shift, x)
+    rho = 33 - (bits + (x > 0))
+    regs = np.zeros(1 << HLL_P, np.int64)
+    np.maximum.at(regs, key_hi.astype(np.int64) & ((1 << HLL_P) - 1), rho)
+    return regs
+
+
+def host_cms(key_hi, key_lo, counts):
+    """The Count-Min sketch of these keys and counts (4 x 2**16, wrapping
+    at 2**32)."""
+    import numpy as np
+
+    cms = np.zeros((CMS_DEPTH, CMS_WIDTH), np.int64)
+    with np.errstate(over="ignore"):
+        for r in range(CMS_DEPTH):
+            h = _fmix32((key_hi ^ np.uint32(CMS_SALTS[r])) * np.uint32(FMIX_C1)
+                        + key_lo * np.uint32(FMIX_C2) + np.uint32(r))
+            np.add.at(cms[r], (h & np.uint32(CMS_WIDTH - 1)).astype(np.int64),
+                      counts.astype(np.int64))
+    return cms & 0xFFFFFFFF
+
+
+def sketch_corpus(n_regions: int, region_bytes: int, vocab_n: int,
+                  seed: int):
+    """``(data, tokens)``: ``n_regions`` regions, each of ``region_bytes``
+    of 5-byte words drawn uniformly from its own vocabulary of ``vocab_n``
+    (region letter + 4 letters), a space after each, and the draws as
+    :func:`host_tokens` gives them (so the counts are the generator's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(LETTERS, np.uint8)
+    idx = np.arange(n_regions * vocab_n)
+    words = np.empty((len(idx), 5), np.uint8)
+    words[:, 0] = letters[idx // vocab_n]
+    rest = idx % vocab_n
+    for k in range(4, 0, -1):
+        words[:, k] = letters[rest % 26]
+        rest //= 26
+    per = region_bytes // 6
+    ids = np.concatenate([rng.integers(0, vocab_n, per) + r * vocab_n
+                          for r in range(n_regions)])
+    rows = np.full((len(ids), 6), 0x20, np.uint8)
+    rows[:, :5] = words[ids]
+    data = rows.tobytes()
+    starts = np.arange(len(ids), dtype=np.int64) * 6
+    # ids renumbered in order of first appearance, as host_tokens numbers
+    seen, first = np.unique(ids, return_index=True)
+    order = seen[np.argsort(first)]
+    renum = np.empty(len(idx), np.int64)
+    renum[order] = np.arange(len(order))
+    vocab = [words[i].tobytes() for i in order.tolist()]
+    return data, (starts, starts + 5, renum[ids], vocab)
+
+
+def families_phase(drive, by_path: dict, tmp: Path, path: Path,
+                   stream_data: bytes, words_data: bytes, dev) -> None:
+    """Phase 9: the n-gram and sketched word-count families (see the
+    module docstring)."""
+    import contextlib
+    import io
+    import signal
+
+    import numpy as np
+    import torch
+
+    from mapreduce_tpu_torch import Config, cli, count_file
+    from mapreduce_tpu_torch.data import reader as reader_mod
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.ops import ngram as ngram_ops
+    from mapreduce_tpu_torch.ops import sketch
+    from mapreduce_tpu_torch.ops import table as table_ops
+    from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    cap, w = cfg.table_capacity, cfg.pallas_max_token
+    chunks = -(-len(stream_data) // cfg.chunk_bytes)
+
+    def check(name, got, total, dropped, distinct):
+        """The accounting beside drive's words, counts and total: dropped
+        tokens exact; ``distinct`` the table's KMV estimate within four of
+        its standard errors (``1 / sqrt(capacity)``, 0.2 % at 2**18) once
+        it spilled, else exact, or an upper bound when grams were
+        dropped."""
+        if got.dropped_count != dropped:
+            raise SystemExit(f"{name}: dropped_count {got.dropped_count}, "
+                             f"expected {dropped}")
+        if distinct > cap:
+            ok = got.dropped_uniques > 0 \
+                and abs(got.distinct - distinct) <= 4 * distinct / cap**0.5
+        elif dropped:
+            ok = got.dropped_uniques > 0 and got.distinct >= distinct
+        else:
+            ok = got.dropped_uniques == 0 and got.distinct == distinct
+        if not ok:
+            raise SystemExit(f"{name}: distinct {got.distinct} "
+                             f"dropped_uniques {got.dropped_uniques}, "
+                             f"expected {distinct} distinct")
+
+    # 9a. single buffers: count_ngrams at Config() on phase 3's corpus and
+    # on a copy with forty overlong URLs in 1,000 tokens, whose grams are
+    # dropped and accounted; n = 2 under the radix sort and the fused map.
+    over_data = make_corpus(32 * MB, SEED + 11, urls_per_mille=40)
+    host = {"words": host_tokens(words_data), "over": host_tokens(over_data)}
+    oracles = {(k, n): gram_oracle(d, host[k], n, w, cap)
+               for k, d in (("words", words_data), ("over", over_data))
+               for n in (2, 3)}
+    pair = {"tokenize_pair": 1}
+    runs = [("count_ngrams_2", "words", words_data, 2, cfg, pair),
+            ("count_ngrams_3", "words", words_data, 3, cfg, pair),
+            ("count_ngrams_2_overlong", "over", over_data, 2, cfg, pair),
+            ("count_ngrams_3_overlong", "over", over_data, 3, cfg, pair),
+            ("count_ngrams_2_radix", "words", words_data, 2,
+             Config(sort_impl="radix"),
+             {**pair, "radix_partition": 2, "radix_sort": 1}),
+            ("count_ngrams_2_fused", "words", words_data, 2,
+             Config(map_impl="fused"), {"tokenize_fused": 1})]
+    for name, key, data, n, c, need in runs:
+        want, total, dropped, distinct, _ = oracles[(key, n)]
+        got, seconds = drive(name, lambda: wc.count_ngrams(data, n, c), want,
+                             need, total=total)
+        check(name, got, total, dropped, distinct)
+        emit("families", path=name, n=n, bytes=len(data), grams=got.total,
+             reported=len(got.words), distinct=distinct,
+             dropped_count=got.dropped_count, seconds=round(seconds, 4),
+             launches=by_path[name], equal_to_oracle=True)
+    del over_data, host
+
+    # 9b. streams: count_file over the phase-4 file (n = 2 and 3) and the
+    # 8-file corpus (n = 2: each file ends on a token boundary, so the
+    # expected result is the file's with every count x 8).  The seam
+    # entries are the SEAM_GRAM_LENGTH windows the combines formed at the
+    # chunk joins, counted and poisoned: n-1 at each join inside a file,
+    # none across a file boundary (the carry resets there).  Past the
+    # table's capacity few of them survive the merges; the host recovers
+    # those.
+    seam_tables: list = []
+    seam_offsets: list = []
+    real_seam = ngram_ops.seam_gram_table
+    real_scan = reader_mod.scan_gram_lengths
+
+    def kept_seam(prefix, first, n):
+        seam_tables.append(real_seam(prefix, first, n))
+        return seam_tables[-1]
+
+    def counted_scan(paths, offsets, n, cut_offsets=None):
+        seam_offsets.append(len(offsets))
+        return real_scan(paths, offsets, n, cut_offsets)
+
+    ngram_ops.seam_gram_table = kept_seam
+    reader_mod.scan_gram_lengths = counted_scan
+    corpus8 = [str(path)] * 8
+    stream_host = host_tokens(stream_data)
+    stream_oracle = {n: gram_oracle(stream_data, stream_host, n, w, cap)
+                     for n in (2, 3)}
+    del stream_host
+    try:
+        for n, files in ((2, 1), (3, 1), (2, 8)):
+            want, total, dropped, distinct, _ = stream_oracle[n]
+            name = f"count_file_ngram{n}" + ("_8files" if files > 1 else "")
+            seam_tables.clear()
+            seam_offsets.clear()
+            got, seconds = drive(
+                name, lambda: count_file(corpus8[:files], cfg, ngram=n),
+                {k: v * files for k, v in want.items()}, {
+                    "tokenize_pair": chunks * files}, total=total * files)
+            check(name, got, total * files, dropped * files, distinct)
+            formed = sum(int(t.count.sum()) for t in seam_tables)
+            poisoned = sum(int(t.dropped_count) for t in seam_tables)
+            joins = (chunks - 1) * files
+            if formed + poisoned != joins * (n - 1) or not formed:
+                raise SystemExit(f"{name}: {formed} seam entries and "
+                                 f"{poisoned} poisoned windows at {joins} "
+                                 f"joins")
+            emit("families", path=name, n=n, files=files,
+                 bytes=files * len(stream_data), chunks=chunks * files,
+                 grams=got.total, reported=len(got.words),
+                 seam_entries=formed, seam_windows_poisoned=poisoned,
+                 seam_entries_recovered=sum(seam_offsets),
+                 seconds=round(seconds, 4),
+                 gb_per_s=files * len(stream_data) / seconds / 1e9,
+                 recover_s=got.run.metrics.phases.get("recover"),
+                 launches=by_path[name], equal_to_oracle=True)
+    finally:
+        ngram_ops.seam_gram_table = real_seam
+        reader_mod.scan_gram_lengths = real_scan
+    del stream_oracle
+
+    # 9c. preemption: SIGINT to a streamed n-gram CLI child once its first
+    # snapshot landed; it must exit 75 and its relaunch print what an
+    # uninterrupted run prints.
+    argv = [*corpus8, "--stream", "--no-echo", "--format", "json",
+            "--ngram", "2"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(argv) != 0:
+            raise SystemExit("the uninterrupted n-gram CLI run failed")
+    want_out = buf.getvalue().encode()
+    ck = str(tmp / "families_preempt.npz")
+    cmd = [sys.executable, "-m", "mapreduce_tpu_torch", *argv,
+           "--checkpoint", ck, "--checkpoint-every", "2"]
+    with open(tmp / "families_preempt.log", "wb") as err:
+        child = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=err)
+        try:
+            deadline = time.monotonic() + 600
+            while child.poll() is None and time.monotonic() < deadline:
+                if os.path.exists(ckpt_mod.integrity_path(ck)):
+                    child.send_signal(signal.SIGINT)
+                    break
+                time.sleep(0.002)
+            out, _ = child.communicate(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    log = (tmp / "families_preempt.log").read_text(errors="replace")
+    if child.returncode != 75 or out:
+        raise SystemExit(f"the interrupted n-gram CLI exited "
+                         f"{child.returncode} (stdout {len(out)} bytes):\n"
+                         f"{log[-3000:]}")
+    _, step, offset, _, _ = ckpt_mod.load(ck)
+    relaunch = subprocess.run(cmd, cwd=ROOT, capture_output=True, timeout=600)
+    if relaunch.returncode != 0 or relaunch.stdout != want_out:
+        raise SystemExit(f"the relaunched n-gram CLI exited "
+                         f"{relaunch.returncode}, stdout equal "
+                         f"{relaunch.stdout == want_out}:\n"
+                         + relaunch.stderr.decode(errors="replace")[-3000:])
+    emit("families", case="preemption", ngram=2, signal="SIGINT", exit=75,
+         snapshot_step=step, snapshot_offset=offset,
+         relaunch_stdout_bytes=len(relaunch.stdout),
+         relaunch_equal_to_uninterrupted=True)
+
+    # 9d. the sketches over four 32 MB regions, each of its own 120,000
+    # words: ~480,000 distinct, past the 2**18 table, while every chunk's
+    # batch table (2**18) holds each of its keys.
+    sk_data, sk_tokens = sketch_corpus(4, 32 * MB, 120_000, SEED + 12)
+    sk_path = tmp / "sketch.txt"
+    sk_path.write_bytes(sk_data)
+    sk_bytes = len(sk_data)
+    want, total, dropped, distinct, (k_hi, k_lo, k_cnt) = gram_oracle(
+        sk_data, sk_tokens, 1, None, cap)
+    del sk_data
+    regs_want = host_registers(k_hi, k_lo)
+    cms_want = host_cms(k_hi, k_lo, k_cnt)
+    sk_chunks = -(-sk_bytes // cfg.chunk_bytes)
+    registers: list = []
+    real_est = sketch.estimate
+
+    def captured(regs):
+        registers.append(regs.cpu().numpy())
+        return real_est(regs)
+
+    sketch.estimate = captured
+    rates: dict = {1: [], 4: []}
+    try:
+        for kind, flush in (("distinct", 1), ("count", 1), ("count", 4),
+                            ("count", 4), ("count", 1), ("distinct", 4)):
+            c = Config(sketch_flush_every=flush)
+            name = f"count_file_{kind}_sketch_f{flush}"
+            registers.clear()
+            got, seconds = drive(
+                name, lambda: count_file(str(sk_path), c, **{
+                    f"{kind}_sketch": True}), want,
+                {"tokenize_compact": sk_chunks}, total=total)
+            check(name, got, total, dropped, distinct)
+            extra: dict = {}
+            if kind == "distinct":
+                if not np.array_equal(registers[-1], regs_want):
+                    raise SystemExit(f"{name}: registers differ from the "
+                                     f"host's")
+                err = abs(got.distinct_estimate - distinct) / distinct
+                if err > 0.03 or got.dropped_uniques <= 0:
+                    raise SystemExit(f"{name}: estimate "
+                                     f"{got.distinct_estimate} of {distinct}")
+                extra = {"distinct_estimate": got.distinct_estimate,
+                         "relative_error": err}
+            else:
+                if not np.array_equal(got.cms.astype(np.int64), cms_want):
+                    raise SystemExit(f"{name}: the Count-Min sketch differs "
+                                     f"from the host's")
+                kept = set(got.words)
+                vocab = sk_tokens[3]
+                spilled = [i for i in range(0, len(vocab), 97)
+                           if vocab[i] not in kept][:2000]
+                low = [vocab[i] for i in spilled
+                       if got.estimate_count(vocab[i]) < int(k_cnt[i])]
+                if not spilled or low:
+                    raise SystemExit(f"{name}: {len(low)} of {len(spilled)} "
+                                     f"spilled words under-estimated")
+                rates[flush].append(sk_bytes / seconds / 1e9)
+                extra = {"spilled_words_checked": len(spilled)}
+            emit("families", path=name, sketch=kind, flush_every=flush,
+                 bytes=sk_bytes, distinct=distinct,
+                 dropped_uniques=got.dropped_uniques,
+                 seconds=round(seconds, 4),
+                 gb_per_s=sk_bytes / seconds / 1e9, launches=by_path[name],
+                 equal_to_host_sketch=True, **extra)
+    finally:
+        sketch.estimate = real_est
+    card = card_name()
+    emit("families", case="sketch_gb_per_s", card=card, bytes=sk_bytes,
+         turns="count sketch f1, f4, f4, f1",
+         flush_1=statistics.median(rates[1]),
+         flush_4=statistics.median(rates[4]),
+         flush_4_over_1=statistics.median(rates[4])
+         / statistics.median(rates[1]))
+
+    # 9e. times: streamed GB/s of n = 2 against the word count over the
+    # 8-file corpus in turns; the n-gram step of one device-resident 32 MB
+    # chunk beside the word count's, with the rows each sort sees; one HLL
+    # and one CMS update of a batch table.
+    n8 = 8 * len(stream_data)
+    gbs: dict = {"wordcount": [], "ngram2": []}
+    for name in ("wordcount", "ngram2", "ngram2", "wordcount"):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        count_file(corpus8, cfg, ngram=2 if name == "ngram2" else 1)
+        gbs[name].append(n8 / (time.perf_counter() - t_a) / 1e9)
+    emit("families", case="stream_gb_per_s", card=card, bytes=n8,
+         turns="wc, ng, ng, wc",
+         wordcount=statistics.median(gbs["wordcount"]),
+         ngram2=statistics.median(gbs["ngram2"]),
+         ngram2_over_wordcount=statistics.median(gbs["ngram2"])
+         / statistics.median(gbs["wordcount"]))
+    chunk = torch.frombuffer(bytearray(words_data), dtype=torch.uint8).to(dev)
+    jobs = {"wordcount": wc.WordCountJob(cfg),
+            "ngram2": wc.NGramCountJob(2, cfg),
+            "ngram3": wc.NGramCountJob(3, cfg)}
+    states = {k: j.init_state() for k, j in jobs.items()}
+    sort_rows: dict = {}
+    build = table_ops.from_packed_rows
+
+    def step(name):
+        j = jobs[name]
+        fn = getattr(j, "map_chunk_sharded", j.map_chunk)
+        return j.combine(states[name], fn(chunk, 0))
+
+    for name in jobs:
+        def record(key_hi, *args, _name=name, **kw):
+            sort_rows.setdefault(_name, []).append(key_hi.shape[0])
+            return build(key_hi, *args, **kw)
+        table_ops.from_packed_rows = record
+        try:
+            step(name)
+        finally:
+            table_ops.from_packed_rows = build
+    step_ms: dict = {k: [] for k in jobs}
+    for rep in range(11):
+        for name in jobs:
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            step(name)
+            torch.cuda.synchronize()
+            if rep:
+                step_ms[name].append((time.perf_counter() - t_a) * 1e3)
+    batch = jobs["wordcount"].map_chunk(chunk, 0)
+    valid = batch.count > 0
+    regs = sketch.empty(device=dev)
+    cms = sketch.cms_empty(device=dev)
+    emit("families", case="times", card=card, chunk_bytes=chunk.shape[0],
+         step_ms={k: statistics.median(v) for k, v in step_ms.items()},
+         sort_rows=sort_rows, batch_rows=batch.key_hi.shape[0],
+         batch_live_rows=int(valid.sum()),
+         hll_update_ms=cuda_ms(lambda: sketch.update_from_keys(
+             regs, batch.key_hi, batch.key_lo, valid)),
+         cms_update_ms=cuda_ms(lambda: sketch.cms_update(
+             cms, batch.key_hi, batch.key_lo, batch.count)),
+         cms_update_rows=4 * batch.key_hi.shape[0])
+    emit("families", case="wall", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -1494,10 +2017,13 @@ def main() -> int:
     by_path: dict[str, dict] = {}
     branches: dict[str, dict] = {}
 
-    def drive(path: str, fn, want_words: dict, need: dict):
+    def drive(path: str, fn, want_words: dict, need: dict, total=None):
         """Run one main path between cleared counters; check it against the
-        oracle and against the kernels it must have launched.  Only the
-        combiner paths may take the spill fallback (pair mode)."""
+        oracle (``total``: the expected total when it is not the words'
+        sum, as for grams some of which were dropped) and against the
+        kernels it must have launched.  Only the combiner paths may take
+        the spill fallback, and only they and the n-gram paths (whose map
+        is pair mode) may launch pair mode."""
         torch.cuda.synchronize()
         ktok.LAUNCHES.clear()
         radix.LAUNCHES.clear()
@@ -1508,14 +2034,16 @@ def main() -> int:
         by_path[path] = {**ktok.LAUNCHES, **radix.LAUNCHES}
         branches[path] = dict(wc.BRANCHES)
         if got.as_dict() != want_words or list(got.words) != list(want_words) \
-                or got.total != sum(want_words.values()):
+                or got.total != (sum(want_words.values()) if total is None
+                                 else total):
             raise SystemExit(f"{path} differs from the oracle")
         for kernel, count in need.items():
             n = by_path[path].get(kernel, 0)
             if not n or (count is not None and n != count):
                 raise SystemExit(f"{path} launched {kernel} {n} times")
         if "tokenize_combiner" not in need and (
-                by_path[path].get("tokenize_pair")
+                (by_path[path].get("tokenize_pair")
+                 and "tokenize_pair" not in need)
                 or branches[path].get("spill_fallbacks")):
             raise SystemExit(f"{path} took a spill fallback")
         return got, seconds
@@ -1588,9 +2116,13 @@ def main() -> int:
         # 8. its run ledger, registry, flight recorder and profiler
         telemetry_phase(drive, by_path, branches, Path(tmp), path,
                         stream_data, want_stream)
-        del stream_data, want_stream
+        del want_stream
+        # 9. the n-gram and sketched word-count families
+        families_phase(drive, by_path, Path(tmp), path, stream_data,
+                       words_data, dev)
+        del stream_data
 
-    # 9. times at the main path's shape: one 32 MB chunk
+    # 10. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -1773,7 +2305,7 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
-    # 10. Where a step's device time goes, for the default, combiner and
+    # 11. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.
@@ -1810,11 +2342,7 @@ def main() -> int:
     del run
 
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

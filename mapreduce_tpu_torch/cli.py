@@ -1,6 +1,8 @@
 """Command line of the port: ``python -m mapreduce_tpu_torch file [file...]``.
 
-Counterpart of :mod:`mapreduce_tpu.cli` for word count.  Its stdout is
+Counterpart of :mod:`mapreduce_tpu.cli` for word count, n-grams
+(``--ngram``) and the sketched runs (``--distinct-sketch``,
+``--count-sketch``, ``--estimate``).  Its stdout is
 byte-identical to the JAX CLI's for the flags it takes; every other flag
 of the JAX CLI is refused with a usage error.  The run goes to the card
 unless ``--platform cpu`` asks for the CPU.  Progress logs and ``--stats``
@@ -47,6 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "files count as one corpus)")
     p.add_argument("--top-k", type=int, default=0,
                    help="report only the k most frequent words (0 = all)")
+    p.add_argument("--ngram", type=int, default=1, metavar="N",
+                   help="count n-token grams instead of single words "
+                        "(reported entries are the exact source spans, e.g. "
+                        "'Hello World'; --stream counts grams exactly, "
+                        "including ones spanning chunk seams)")
     p.add_argument("--chunk-bytes", type=int, default=1 << 25,
                    help="bytes per streaming step (default 32 MB)")
     p.add_argument("--table-capacity", type=int, default=1 << 18)
@@ -89,6 +96,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "'at=dispatch:3:resource'); results stay identical "
                         "to the fault-free run when the retry budget "
                         "absorbs the faults")
+    p.add_argument("--distinct-sketch", action="store_true",
+                   help="with --stream: carry a HyperLogLog so the distinct "
+                        "count stays accurate past table capacity "
+                        "(distinct_estimate in json output)")
+    p.add_argument("--count-sketch", action="store_true",
+                   help="with --stream: carry a Count-Min sketch so any "
+                        "word's frequency stays queryable past table "
+                        "capacity (see --estimate)")
+    p.add_argument("--estimate", action="append", default=[], metavar="WORD",
+                   help="report the sketch-estimated count of WORD "
+                        "(repeatable; implies --count-sketch)")
+    p.add_argument("--sketch-flush-every", type=int, default=1, metavar="K",
+                   help="sketched runs: stage per-chunk sketch updates and "
+                        "apply them once every K steps (results are "
+                        "identical)")
     for flag, item in _UNPORTED_FLAGS.items():
         p.add_argument(flag, action="store_true",
                        help=f"not ported yet (ROADMAP.md item {item})")
@@ -214,6 +236,8 @@ def _compact_slots(parser, args):
 def _print_result(args, paths, result) -> None:
     out = sys.stdout
     display = _decode(result.words)
+    estimates = {w: result.estimate_count(w.encode()) for w in args.estimate} \
+        if result.cms is not None else {}
     if args.format == "reference":
         if not args.no_echo:
             _echo_file(paths)
@@ -222,24 +246,34 @@ def _print_result(args, paths, result) -> None:
             out.write(f"{w}\t{c}\n")
         out.write("--------------------------\n")
         out.write(f"Total Count:{result.total}\n")
+        for w, e in estimates.items():
+            out.write(f"estimate:{w}\t{e}\n")
     elif args.format == "tsv":
         for w, c in zip(display, result.counts):
             out.write(f"{w}\t{c}\n")
+        for w, e in estimates.items():
+            out.write(f"estimate:{w}\t{e}\n")
     else:
-        out.write(json.dumps({
+        payload = {
             "counts": [[w, c] for w, c in zip(display, result.counts)],
             "total": result.total,
             "distinct": result.distinct,
             "dropped_uniques": result.dropped_uniques,
             "dropped_count": result.dropped_count,
-        }) + "\n")
+        }
+        if result.distinct_estimate is not None:
+            payload["distinct_estimate"] = round(result.distinct_estimate, 1)
+        if estimates:
+            payload["estimates"] = estimates
+        out.write(json.dumps(payload) + "\n")
 
 
-def _batch_run_start(tel, paths, config: Config, input_bytes: int) -> None:
+def _batch_run_start(tel, job: str, paths, config: Config,
+                     input_bytes: int) -> None:
     """A telemetered batch (non---stream) run's ``run_start``, as the JAX
     CLI writes it: the single buffer has no steps, so its ledger holds
     ``run_start``, a result-derived ``data`` record and ``run_end``."""
-    tel.ledger_write("run_start", driver="single_buffer", job="wordcount",
+    tel.ledger_write("run_start", driver="single_buffer", job=job,
                      devices=1, chunk_bytes=input_bytes, superstep=1,
                      backend=config.resolved_backend(),
                      map_impl=config.map_impl, combiner=config.combiner,
@@ -255,7 +289,8 @@ def _wordcount(args, paths, data, config: Config, device, input_bytes: int,
 
     batch_tel = tel if not args.stream else None
     if batch_tel is not None:
-        _batch_run_start(batch_tel, paths, config, input_bytes)
+        job = f"ngram{args.ngram}" if args.ngram > 1 else "wordcount"
+        _batch_run_start(batch_tel, job, paths, config, input_bytes)
     t0 = time.perf_counter()
     with profiling.trace(args.profile):
         if args.stream:
@@ -263,13 +298,17 @@ def _wordcount(args, paths, data, config: Config, device, input_bytes: int,
 
             result = count_file(
                 paths, config, device, top_k=args.top_k or None,
-                checkpoint_path=args.checkpoint,
+                distinct_sketch=args.distinct_sketch,
+                count_sketch=args.count_sketch or bool(args.estimate),
+                ngram=args.ngram, checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every if args.checkpoint
                 else 0, retry=args.retry, telemetry=tel)
         else:
             from mapreduce_tpu_torch.models import wordcount
 
-            result = wordcount.count_words(data, config, device)
+            result = wordcount.count_ngrams(data, args.ngram, config, device) \
+                if args.ngram > 1 \
+                else wordcount.count_words(data, config, device)
     elapsed = time.perf_counter() - t0
     if batch_tel is not None:
         batch_tel.ledger_write(
@@ -310,6 +349,17 @@ def main(argv: list[str] | None = None) -> int:
         if getattr(args, flag[2:].replace("-", "_")):
             parser.error(f"{flag} is not ported to the PyTorch package yet "
                          f"(ROADMAP.md item {item})")
+    if args.ngram < 1:
+        parser.error(f"--ngram must be >= 1, got {args.ngram}")
+    if (args.count_sketch or args.estimate) and not args.stream:
+        parser.error("--count-sketch/--estimate require --stream")
+    if args.distinct_sketch and not args.stream:
+        parser.error("--distinct-sketch requires --stream")
+    if args.sketch_flush_every != 1 and not (args.distinct_sketch
+                                             or args.count_sketch
+                                             or args.estimate):
+        parser.error("--sketch-flush-every requires a sketch flag "
+                     "(--distinct-sketch / --count-sketch / --estimate)")
     if args.checkpoint and not args.stream:
         parser.error("--checkpoint requires --stream")
     if args.retry and not args.stream:
@@ -320,6 +370,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.fault_plan is not None and not args.stream:
         parser.error("--fault-plan requires --stream (the injection seams "
                      "exist only on the streamed path)")
+    if (args.count_sketch or args.estimate) and args.distinct_sketch:
+        parser.error("--count-sketch/--estimate and --distinct-sketch are "
+                     "mutually exclusive per run")
     paths = args.input
     try:
         chunks = []
@@ -351,6 +404,7 @@ def main(argv: list[str] | None = None) -> int:
                         superstep=args.superstep,
                         inflight_groups=args.inflight,
                         prefetch_depth=args.prefetch_depth,
+                        sketch_flush_every=args.sketch_flush_every,
                         fault_plan=args.fault_plan)
     except ValueError as e:
         parser.error(str(e))

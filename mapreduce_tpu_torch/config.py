@@ -59,6 +59,9 @@ class Config:
       superstep: chunks per group of the streamed executor, the unit its
         window holds and retires (one ``Engine.step`` each; identical
         results).
+      sketch_flush_every: sketched runs (HLL/CMS) stage each chunk's keys
+        and update the sketch once every K combines (identical results;
+        K * batch_uniques rows of extra state).  1: update every combine.
       inflight_groups: superstep groups the streamed executor keeps
         dispatched but unretired (1: serial, the A/B control).
       prefetch_depth: batches the reader thread may run ahead (None:
@@ -93,6 +96,7 @@ class Config:
     combiner_slots: Optional[int] = None
     geometry: object = None
     superstep: int = 1
+    sketch_flush_every: int = 1
     inflight_groups: int = 4
     prefetch_depth: Optional[int] = None
     fault_plan: Optional[str] = None
@@ -104,6 +108,9 @@ class Config:
                              f"{self.chunk_bytes}")
         if self.table_capacity < 2:
             raise ValueError("table_capacity must be >= 2")
+        if self.sketch_flush_every < 1:
+            raise ValueError(f"sketch_flush_every must be >= 1, got "
+                             f"{self.sketch_flush_every}")
         if self.backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.sort_mode == "segmin":

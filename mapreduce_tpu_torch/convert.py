@@ -1,14 +1,16 @@
-"""Carry state across from the JAX package: count tables, combiner caches
-and configs.
+"""Carry state across from the JAX package: count tables, job states,
+combiner caches and configs.
 
 A JAX ``CountTable`` is a NamedTuple of uint32 arrays; the port holds the
 same fields as int64 tensors with values in ``[0, 2**32)``.  These helpers
 move one across as numpy arrays, so both packages can start from one state
-and their results compare field by field.  :func:`table_to_leaves` gives a
-table the layout of a one-device JAX engine state (the checkpoint's
-leaves), so a snapshot from either package resumes in the other.
+and their results compare field by field; :func:`state_from_numpy` and
+:func:`state_to_numpy` do the same for the composite states of the n-gram
+and sketch jobs (``NGramState``, ``GramCarry``, registers, Count-Min
+sketches, ``BatchedSketchState``).  :func:`state_to_leaves` gives a state
+the layout of a one-device JAX engine state (the checkpoint's leaves), so
+a snapshot from either package resumes in the other.
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -45,10 +47,8 @@ def table_to_numpy(table: CountTable) -> dict[str, np.ndarray]:
 def table_to_leaves(table: CountTable) -> list[np.ndarray]:
     """The table as a one-device JAX engine state's leaves: one uint32
     array per field, in ``CountTable`` field order, each with a leading
-    device axis of 1.  The cast runs on the device, before the copy."""
-    return [getattr(table, f).to(torch.int32).cpu().numpy()
-            .view(np.uint32).reshape(1, *getattr(table, f).shape)
-            for f in CountTable._fields]
+    device axis of 1 (:func:`state_to_leaves` of a table)."""
+    return state_to_leaves(table)
 
 
 def leaves_to_table(leaves, device=None) -> CountTable:
@@ -59,6 +59,82 @@ def leaves_to_table(leaves, device=None) -> CountTable:
                          f"leaves, got {len(leaves)}")
     return table_from_numpy({f: np.asarray(leaf)[0] for f, leaf
                              in zip(CountTable._fields, leaves)}, device)
+
+
+def _state_classes() -> dict:
+    """The port's state NamedTuples by name, the JAX package's names."""
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.ops import ngram
+
+    return {cls.__name__: cls for cls in (
+        CountTable, ngram.GramCarry, ngram.ChunkSummary, wc.NGramState,
+        wc.TopKTable, wc.SketchedState, wc.FreqSketchedState,
+        wc.BatchedSketchState)}
+
+
+def state_from_numpy(state, device=None):
+    """A port state from a JAX one of the same structure: a ``CountTable``,
+    ``GramCarry``, ``NGramState``, ``SketchedState``, ``FreqSketchedState``
+    or ``BatchedSketchState`` (matched by class name, nested as in the JAX
+    pytree), or a bare array (registers, a Count-Min sketch).  Every array
+    becomes an int64 tensor holding its uint32 values; a
+    ``BatchedSketchState``'s cursor becomes the host int the port keeps."""
+    dev = resolve_device(device)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        cls = _state_classes()[type(state).__name__]
+        out = {f: state_from_numpy(getattr(state, f), dev)
+               for f in state._fields}
+        if cls.__name__ == "BatchedSketchState":
+            out["cursor"] = int(np.asarray(state.cursor))
+        return cls(**out)
+    return torch.as_tensor(np.asarray(state, dtype=np.uint32)
+                           .astype(np.int64), device=dev)
+
+
+def state_to_numpy(state):
+    """A port state with every tensor as a uint32 numpy array (and a host
+    int as a uint32 scalar), in the same NamedTuple structure: the JAX
+    package's layout, field for field."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(state_to_numpy(x) for x in state))
+    if isinstance(state, torch.Tensor):
+        return state.cpu().numpy().astype(np.uint32)
+    return np.uint32(state)
+
+
+def state_to_leaves(state) -> list[np.ndarray]:
+    """A state as a one-device JAX engine state's leaves, in the JAX
+    pytree's flatten order (NamedTuple fields in order, depth first): one
+    uint32 array per leaf with a leading device axis of 1.  Casts run on
+    the device, before the copy."""
+    if isinstance(state, tuple):
+        return [leaf for x in state for leaf in state_to_leaves(x)]
+    if isinstance(state, torch.Tensor):
+        return [state.to(torch.int32).cpu().numpy().view(np.uint32)
+                .reshape(1, *state.shape)]
+    return [np.asarray([state], dtype=np.uint32)]
+
+
+def leaves_to_state(leaves, template, device=None):
+    """The state a :func:`state_to_leaves` list holds, in the structure
+    of ``template`` (the running job's initial state): tensors on
+    ``device``, host ints (a batched sketch's cursor) as ints."""
+    dev = resolve_device(device)
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, tuple):
+            return type(t)(*(build(x) for x in t))
+        leaf = np.asarray(next(it))[0]
+        if isinstance(t, torch.Tensor):
+            return torch.as_tensor(leaf.astype(np.uint32).astype(np.int64),
+                                   device=dev)
+        return int(leaf)
+
+    state = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the state's template holds")
+    return state
 
 
 def combiner_cache_to_numpy(cache: CombinerCache) -> dict[str, np.ndarray]:

@@ -24,7 +24,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
-from mapreduce_tpu_torch import native
+from mapreduce_tpu_torch import constants, native
 from mapreduce_tpu_torch.obs import registry as obs_registry
 
 
@@ -192,4 +192,86 @@ def read_words_at_multi(paths, spans: list[tuple[int, int]]) -> list[bytes]:
         local = [(int(offs[g] - starts[k]), spans[g][1]) for g in group]
         for g, word in zip(group, read_words_at(paths[k], local)):
             out[g] = word
+    return out
+
+
+_SEP_LUT = np.zeros(256, dtype=bool)
+_SEP_LUT[list(constants.SEPARATOR_BYTES)] = True
+
+
+def scan_gram_lengths_bytes(source, offsets, n: int) -> list[int]:
+    """:func:`scan_gram_lengths` over one in-memory buffer (no chunk cuts:
+    a single-buffer run never force-splits): the spans of the n-entry
+    grams starting at ``offsets``, in one vectorised pass however many
+    offsets.  A gram whose n-th entry end lies past the buffer spans to
+    its end."""
+    arr = np.frombuffer(source, dtype=np.uint8) \
+        if isinstance(source, (bytes, bytearray)) \
+        else np.asarray(source, dtype=np.uint8)
+    offs = np.asarray(list(offsets), dtype=np.int64)
+    if arr.shape[0] == 0:
+        return [0 for _ in offs]
+    sep = _SEP_LUT[arr]
+    nxt = np.concatenate([sep[1:], np.array([True])])
+    epos = np.flatnonzero(~sep & nxt)  # entry ends (inclusive)
+    if len(epos) == 0:
+        return [int(arr.shape[0] - o) for o in offs]
+    j = np.searchsorted(epos, offs) + n - 1
+    ends = np.where(j < len(epos), epos[np.minimum(j, len(epos) - 1)] + 1,
+                    arr.shape[0])
+    return [int(e - o) for e, o in zip(ends, offs)]
+
+
+def scan_gram_lengths(paths, offsets, n: int, cut_offsets=None) -> list[int]:
+    """Byte spans of the n-entry grams starting at virtual corpus
+    ``offsets``: the host's recovery of cross-chunk gram entries (length
+    ``SEAM_GRAM_LENGTH``), whose end lies in a later chunk.  Each scan
+    reads forward from its start (an entry start) to the end of the n-th
+    stream entry, doubling its window as separator runs are unbounded; a
+    file that ends first gives the rest of the file.  Grams never cross
+    files (the executor resets the seam carry there).
+
+    ``cut_offsets``: the run's row base offsets.  The chunker force-splits
+    a separator-free run longer than a row at a row cut, and both halves
+    are stream entries, so a cut inside a run ends an entry too (the
+    native chunker cuts where the JAX reader does).  Batch API: one
+    memmap per touched file, however many offsets.
+    """
+    plist = [paths] if isinstance(paths, (str, bytes, os.PathLike)) \
+        else list(paths)
+    starts = np.cumsum([0] + [os.path.getsize(p) for p in plist])
+    cuts = np.sort(np.asarray(cut_offsets, dtype=np.int64)) \
+        if cut_offsets is not None else np.empty(0, np.int64)
+    offs = np.asarray(list(offsets), dtype=np.int64)
+    file_idx = np.searchsorted(starts, offs, side="right") - 1
+    mms: dict = {}
+    out: list[int] = []
+    for j, off in enumerate(offs):
+        k = int(file_idx[j])
+        if k not in mms:
+            mms[k] = np.memmap(plist[k], dtype=np.uint8, mode="r")
+        mm = mms[k]
+        base, local, size = int(starts[k]), int(off - starts[k]), mm.shape[0]
+        win = 4096
+        while True:
+            end = min(local + win, size)
+            sep = _SEP_LUT[np.asarray(mm[local:end])]
+            at_eof = end >= size
+            nxt = np.concatenate([sep[1:], np.array([True])]) if at_eof \
+                else sep[1:]
+            ends = ~sep[: len(nxt)] & nxt
+            # A row cut at absolute c ends the entry at byte c-1 when that
+            # byte is a token byte.
+            lo_v = base + local
+            ci = cuts[(cuts > lo_v) & (cuts <= lo_v + len(nxt))] - lo_v - 1
+            if len(ci):
+                ends[ci[~sep[ci]]] = True
+            epos = np.flatnonzero(ends)
+            if len(epos) >= n:
+                out.append(int(epos[n - 1]) + 1)
+                break
+            if at_eof:
+                out.append(int(len(sep)))
+                break
+            win *= 2
     return out

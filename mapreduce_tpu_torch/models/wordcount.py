@@ -1,12 +1,16 @@
-"""WordCount: the flagship model, on the card.
+"""WordCount: the flagship model, on the card, and its family.
 
-Counterpart of :mod:`mapreduce_tpu.models.wordcount` for the word-count main
-path: tokenize + hash (the hand-written CUDA kernels, or the plain tokenizer
-on the ``xla`` backend; under ``combiner='hot-cache'`` the kernel's flushed
-hot-key cache folds back in as one small table merge), a sort (torch's, or
-the CUDA radix partition under ``sort_impl``) + segment reduce into a
-fixed-capacity :class:`...ops.table.CountTable`, the overlong rescue, and
-host-side string recovery from first-occurrence positions.
+Counterpart of :mod:`mapreduce_tpu.models.wordcount`: the word-count main
+path, the n-gram job (:class:`NGramCountJob`, :func:`count_ngrams`) and
+the sketch wrappers (:class:`SketchedWordCountJob`,
+:class:`FreqSketchedWordCountJob`).  The word count: tokenize + hash (the
+hand-written CUDA kernels, or the plain tokenizer on the ``xla`` backend;
+under ``combiner='hot-cache'`` the kernel's flushed hot-key cache folds
+back in as one small table merge), a sort (torch's, or the CUDA radix
+partition under ``sort_impl``) + segment reduce into a fixed-capacity
+:class:`...ops.table.CountTable`, the overlong rescue, and host-side
+string recovery from first-occurrence positions.  The n-gram map reads
+the host once a chunk too (the token and overlong counts, for the cut).
 
 Control flow.  The JAX package wraps the spill fallback and the overlong
 rescue in ``lax.cond``.  Eager PyTorch has no device-side cond, so each
@@ -37,12 +41,16 @@ import numpy as np
 import torch
 
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
+from mapreduce_tpu_torch.data import reader as reader_mod
 from mapreduce_tpu_torch.obs.spans import span
 from mapreduce_tpu_torch.ops import datastats
+from mapreduce_tpu_torch.ops import ngram as ngram_ops
 from mapreduce_tpu_torch.ops import rescue as rescue_ops
+from mapreduce_tpu_torch.ops import sketch as sketch_ops
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
 from mapreduce_tpu_torch.ops.cuda import tokenize as kernel_tok
+from mapreduce_tpu_torch.ops.ngram import ChunkSummary
 from mapreduce_tpu_torch.runtime.platform import resolve_device
 
 #: Host-side branch counts of the kernel path: "chunks", "spill_fallbacks"
@@ -82,12 +90,26 @@ class WordCountResult:
     distinct: int  # exact unless keys spilled (then a KMV estimate)
     dropped_uniques: int  # upper bound on distinct words spilled or overlong
     dropped_count: int  # tokens of spilled/dropped words (exact)
+    # A distinct-sketched run's HLL estimate (~0.8% error at p=14): unlike
+    # ``distinct`` it stays accurate past table capacity.
+    distinct_estimate: float | None = None
+    # A count-sketched run's Count-Min sketch (host numpy): estimate_count()
+    # answers for ANY word, spilled ones included.  Not compared.
+    cms: np.ndarray | None = dataclasses.field(default=None, compare=False)
     # A streamed run's ``RunResult`` (metrics, bases, window statistics;
     # ``runtime/executor.py:count_file``), None otherwise.  Not compared.
     run: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def as_dict(self) -> dict[bytes, int]:
         return dict(zip(self.words, self.counts))
+
+    def estimate_count(self, word: bytes) -> int | None:
+        """The Count-Min estimate of ``word``'s count (None without a
+        sketch): never below the count of a word the run saw (within the
+        batch tables' envelope), above it by ~total/width per row w.h.p."""
+        if self.cms is None:
+            return None
+        return sketch_ops.cms_query(self.cms, word)
 
 
 def apply_top_k(result: WordCountResult, k: int) -> WordCountResult:
@@ -144,6 +166,15 @@ def _tokenize(chunk: torch.Tensor, config: Config):
     return stream, overlong, torch.zeros_like(overlong), None
 
 
+def _read_flags(flags: torch.Tensor) -> list:
+    """The map's one host read of a chunk: ``flags`` as a list, under the
+    ``host_read`` span, through :func:`host_read_by`'s reader when one is
+    set.  It waits for the card (the streamed loop's too)."""
+    read = _HOST_READ.get()
+    with span("host_read"):
+        return flags.tolist() if read is None else read(flags)
+
+
 def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi,
                 with_stats: bool = False):
     """The kernel branch of the JAX ``_map_stream``: compact (or fused, or
@@ -162,11 +193,7 @@ def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi,
         flags += [cache.count.sum(), (cache.count > 0).sum()]
         if with_stats:
             flags.append((cache.count == 1).sum())
-    flags = torch.stack(flags)
-    read = _HOST_READ.get()
-    with span("host_read"):  # waits for the card (the streamed loop's too)
-        spill_h, over_h, tokens_h, *cached = \
-            flags.tolist() if read is None else read(flags)
+    spill_h, over_h, tokens_h, *cached = _read_flags(torch.stack(flags))
     BRANCHES["chunks"] += 1
     used = cache is not None and not spill_h
     if spill_h:
@@ -298,14 +325,24 @@ def _reported_distinct(tbl: table_ops.CountTable, n_words: int,
 
 
 def recover_result(tbl: table_ops.CountTable, source: bytes,
-                   estimate_distinct: bool = True) -> WordCountResult:
-    """Host-side string recovery from a single-buffer table (pos_hi 0)."""
+                   estimate_distinct: bool = True,
+                   ngram: int = 1) -> WordCountResult:
+    """Host-side string recovery from a single-buffer table (pos_hi 0).
+
+    ``ngram`` is the table's gram order: an entry of length
+    ``SEAM_GRAM_LENGTH`` is a span of 127 bytes or more (the packed gram
+    build stores 7 bits), recovered by scanning ``ngram`` entries forward
+    from its start, in one batch call."""
     count = _host(tbl.count)
     count_hi = _host(tbl.count_hi)
     valid = (count > 0) | (count_hi > 0)
     pos = _host(tbl.pos_lo)[valid]
     length = _host(tbl.length)[valid]
     cnt = (count + (count_hi << 32))[valid]
+    seam = np.flatnonzero(length == ngram_ops.SEAM_GRAM_LENGTH)
+    if len(seam):
+        length[seam] = reader_mod.scan_gram_lengths_bytes(source, pos[seam],
+                                                          ngram)
     order = np.argsort(pos, kind="stable")
     words = [bytes(source[int(p): int(p) + int(n)])
              for p, n in zip(pos[order], length[order])]
@@ -325,6 +362,46 @@ def count_words(data: bytes, config: Config = DEFAULT_CONFIG,
                 device=None) -> WordCountResult:
     """The one-call API: exact word counts for an in-memory buffer."""
     return recover_result(count_table(data, config, device), data)
+
+
+def _ngram_map(chunk: torch.Tensor, n: int, capacity: int, pos_hi,
+               config: Config, summary: bool):
+    """One chunk's in-chunk gram table and, with ``summary``, its seam
+    :class:`...ops.ngram.ChunkSummary` (else None).  On the kernel path:
+    one ``tokenize_stream`` launch and the chunk's one host read
+    (:func:`...ops.ngram.ngram_map_with_summary`); on the plain path the
+    per-byte stream's scan pairing."""
+    if config.resolved_backend() == "pallas":
+        out = ngram_ops.ngram_map_with_summary(
+            chunk, n, capacity, pos_hi, config, read=_read_flags) if summary \
+            else (ngram_ops.ngram_table(chunk, n, capacity, pos_hi, config,
+                                        read=_read_flags), None)
+        BRANCHES["chunks"] += 1
+        return out
+    stream = tok_ops.tokenize(chunk)
+    gs = ngram_ops.mark_long_spans(tok_ops.ngrams(stream, n))
+    t = ngram_ops.gram_table(gs, capacity, pos_hi,
+                             max_pos=int(chunk.shape[0]),
+                             sort_mode=config.sort_mode,
+                             sort_impl=config.sort_impl,
+                             radix_bits=config.radix_bits)
+    return t, (ngram_ops.summary_from_stream(stream, pos_hi, n) if summary
+               else None)
+
+
+def count_ngrams(data: bytes, n: int, config: Config = DEFAULT_CONFIG,
+                 device=None) -> WordCountResult:
+    """Exact n-gram counts for an in-memory buffer (see
+    :class:`NGramCountJob`).  The reported "words" are the grams' source
+    spans (separators between tokens included); ``total`` is the number of
+    grams, ``max(tokens - n + 1, 0)``."""
+    if n < 1:
+        raise ValueError(f"ngram order must be >= 1, got {n}")
+    dev = resolve_device(device)
+    chunk = torch.from_numpy(_pad_for_backend(data, config)).to(dev)
+    tbl, _ = _ngram_map(chunk, n, config.table_capacity, 0, config,
+                        summary=False)
+    return recover_result(tbl, data, ngram=n)
 
 
 class WordCountJob:
@@ -352,9 +429,13 @@ class WordCountJob:
         return _map_stream(chunk, self.config, self.batch_capacity,
                            pos_hi=chunk_id, with_stats=True)
 
+    def _stats_table(self, state) -> table_ops.CountTable:
+        """The running table the data statistics' gauges read."""
+        return state
+
     def state_stats(self, state, stats):
         """Fill the running table's gauges after a group's last combine."""
-        return datastats.with_table_gauges(stats, state)
+        return datastats.with_table_gauges(stats, self._stats_table(state))
 
     def combine(self, state, update) -> table_ops.CountTable:
         return table_ops.merge(state, update, capacity=self.capacity)
@@ -408,10 +489,368 @@ class TopKWordCountJob(WordCountJob):
         return f"wordcount-top{self.k}"
 
 
-def job_with_config(job: WordCountJob, config: Config) -> WordCountJob:
+class NGramState(NamedTuple):
+    """Streamed n-gram state: the running table and the seam carry (the
+    last n-1 stream entries seen, an :class:`...ops.ngram.GramCarry`)."""
+
+    table: table_ops.CountTable
+    carry: Any
+
+
+class NGramUpdate(NamedTuple):
+    """One streamed step's update: the chunk's in-chunk gram table, the
+    step's chunk summaries gathered with a leading device axis (of 1 on
+    one card, so the combine is the JAX package's) and this device's
+    index in it."""
+
+    batch: table_ops.CountTable
+    summaries: Any
+    device_index: int
+
+
+class NGramCountJob(WordCountJob):
+    """Count n-token grams (bigrams, trigrams, ...) instead of words.
+
+    The grams ride the word count's table, merge and string recovery; each
+    reported "word" is the gram's exact source span, separators between
+    its tokens included.  Streamed runs are exact across chunk seams: each
+    chunk's map also emits its first and last n-1 stream entries
+    (:class:`...ops.ngram.ChunkSummary`), and :meth:`combine` composes the
+    carry in chunk order and forms every window crossing a join once.
+    Cross-chunk entries carry ``SEAM_GRAM_LENGTH``; the host scans their
+    spans forward from the start.
+
+    Backends: the plain path pairs tokens over the per-byte stream and
+    counts any token length; the kernel path pairs the kernel's dense
+    stream row by row (:mod:`...ops.ngram`), where a gram holding a token
+    longer than W invalidates itself at a poison row and lands in
+    ``dropped_*``.  On overlong-free data the two give identical tables.
+    ``combiner='hot-cache'`` is a no-op for grams (no cache can leave
+    tokens out of a stream that grams are paired from).
+    """
+
+    def __init__(self, n: int, config: Config = DEFAULT_CONFIG,
+                 device=None, top_k: int | None = None):
+        if n < 1:
+            raise ValueError(f"ngram order must be >= 1, got {n}")
+        if n > 1 and config.merge_every > 1:
+            raise ValueError("merge_every > 1 applies to the wordcount "
+                             "family only (n-gram combine is pairwise)")
+        super().__init__(config, device)
+        self.n = n
+        self.k = top_k
+
+    def map_chunk(self, chunk: torch.Tensor, chunk_id) -> table_ops.CountTable:
+        """The chunk's in-chunk gram table (the streamed seam machinery is
+        :meth:`map_chunk_sharded` and :meth:`combine`)."""
+        return _ngram_map(chunk, self.n, self.batch_capacity, chunk_id,
+                          self.config, summary=False)[0]
+
+    def init_state(self):
+        if self.n == 1:
+            return super().init_state()
+        return NGramState(table=table_ops.empty(self.capacity, self.device),
+                          carry=ngram_ops.empty_carry(self.n, self.device))
+
+    def map_chunk_sharded(self, chunk: torch.Tensor, chunk_id,
+                          device_index: int = 0):
+        """The streamed map: the chunk's table and its seam summary, the
+        summaries "gathered" over the one card (a leading axis of 1)."""
+        if self.n == 1:
+            return self.map_chunk(chunk, chunk_id)
+        t, summ = _ngram_map(chunk, self.n, self.batch_capacity, chunk_id,
+                             self.config, summary=True)
+        gathered = ChunkSummary(*(type(c)(*(x[None] for x in c))
+                                  for c in summ))
+        return NGramUpdate(batch=t, summaries=gathered,
+                           device_index=device_index)
+
+    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id):
+        """The stats-mode map of the gram family: the gram build takes no
+        spill or rescue branch, so the chunk's counters carry only the
+        batch table's dropped accounting (poisoned grams); the gauges come
+        off the running table as for the word count."""
+        upd = self.map_chunk_sharded(chunk, chunk_id)
+        tbl = upd.batch if isinstance(upd, NGramUpdate) else upd
+        return upd, datastats.map_stats(dropped_tokens=tbl.dropped_count,
+                                        dropped_uniques=tbl.dropped_uniques)
+
+    def _stats_table(self, state) -> table_ops.CountTable:
+        return state.table if isinstance(state, NGramState) else state
+
+    def combine(self, state, update):
+        if self.n == 1:
+            return super().combine(state, update)
+        # Prefix carries in chunk order: prefix[i] is everything before the
+        # step's chunk i; the last is the next step's carry.
+        prefix = state.carry
+        prefixes = [prefix]
+        for i in range(update.summaries.first.kind.shape[0]):
+            prefix = ngram_ops.compose_carry(
+                prefix, ngram_ops.GramCarry(*(x[i] for x in
+                                              update.summaries.last)))
+            prefixes.append(prefix)
+        d = update.device_index
+        first = ngram_ops.GramCarry(*(x[d] for x in update.summaries.first))
+        seam = ngram_ops.seam_gram_table(prefixes[d], first, self.n)
+        batch = table_ops.merge(update.batch, seam,
+                                capacity=update.batch.capacity)
+        return NGramState(table=table_ops.merge(state.table, batch,
+                                                capacity=self.capacity),
+                          carry=prefixes[-1])
+
+    def merge(self, a, b):
+        if self.n == 1:
+            return super().merge(a, b)
+        # The carries agree after a combine; either operand's will do.
+        return NGramState(table=table_ops.merge(a.table, b.table,
+                                                capacity=self.capacity),
+                          carry=a.carry)
+
+    def partial_reset(self, local):
+        """An empty table that keeps the seam carry: the carry is the
+        cross-step context the next combine still needs."""
+        init = self.init_state()
+        if self.n == 1 or not isinstance(local, NGramState):
+            return init
+        return NGramState(table=init.table, carry=local.carry)
+
+    def on_input_boundary(self, state):
+        """Files are independent corpora: grams never span a file seam, so
+        the carry resets at each new corpus member."""
+        if self.n == 1:
+            return state
+        return NGramState(table=state.table,
+                          carry=ngram_ops.GramCarry(*(torch.zeros_like(x)
+                                                      for x in state.carry)))
+
+    def finalize(self, state):
+        tbl = state.table if isinstance(state, NGramState) else state
+        return topk_with_snapshot(tbl, self.k) if self.k else tbl
+
+    def identity(self) -> str:
+        # A bigram snapshot has a trigram run's shapes: n is part of it.
+        return f"ngram{self.n}" + (f"-top{self.k}" if self.k else "")
+
+
+class SketchedState(NamedTuple):
+    """The base job's state and HyperLogLog registers."""
+
+    table: Any
+    registers: torch.Tensor  # 2**p cells
+
+
+class FreqSketchedState(NamedTuple):
+    """The base job's state and a Count-Min sketch."""
+
+    table: Any
+    cms: torch.Tensor  # [depth, width]
+
+
+class BatchedSketchState(NamedTuple):
+    """A sketch state with staged updates (``sketch_flush_every`` K > 1).
+
+    Each combine stages its batch table's keys into ``pend_*`` at slot
+    ``cursor``; the K-th updates the sketch from all K and zeroes
+    ``pend_cnt``, which doubles as the mask, so a flush of flushed slots
+    changes nothing.  ``cursor`` counts the combines since the last flush.
+    The JAX package keeps it on the device and flushes under a
+    ``lax.cond``; it is a deterministic count, so the port keeps it on the
+    host (an int), and the flush is a host ``if`` with no read of the
+    card.  A checkpoint writes it as the JAX state's uint32 leaf."""
+
+    table: Any
+    sketch: torch.Tensor
+    pend_hi: torch.Tensor  # [K * batch_capacity]
+    pend_lo: torch.Tensor
+    pend_cnt: torch.Tensor
+    cursor: int
+
+
+class _SketchComposedJob:
+    """Compose a word-count-family job with a mergeable sketch.
+
+    The sketch updates from the deduplicated per-chunk batch table, never
+    from the token stream, and merges with its own monoid.  Envelope:
+    tokens spilled past a chunk's batch table miss the sketch too
+    (accounted in ``dropped_count``), as do an n-gram run's cross-chunk
+    seam grams (fewer than n a join).  The JAX wrapper folds a deferred
+    seam table into the batch first (``_folded``); the port's map emits
+    one stream and no seam table, so there is nothing to fold.
+
+    With ``config.sketch_flush_every`` K > 1 the updates stage through
+    :class:`BatchedSketchState` (flushed at merges and in finalize, so the
+    results equal K = 1's); ``finalize`` returns the plain ``state_cls``.
+    The base job's streamed map, file-boundary hook, data statistics and
+    ``state_stats`` are forwarded.  Subclasses set ``state_cls`` and the
+    three sketch ops.
+    """
+
+    state_cls: type
+
+    def __init__(self, base: WordCountJob):
+        self.base = base
+        self.config = base.config
+        self.device = base.device
+        self.flush_every = base.config.sketch_flush_every
+
+    def _empty(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _update_arrays(self, sk, key_hi, key_lo, counts) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _merge(self, a, b) -> torch.Tensor:
+        raise NotImplementedError
+
+    def init_state(self):
+        if self.flush_every == 1:
+            return self.state_cls(self.base.init_state(), self._empty())
+        z = torch.zeros((self.flush_every * self.base.batch_capacity,),
+                        dtype=torch.int64, device=self.device)
+        return BatchedSketchState(self.base.init_state(), self._empty(), z,
+                                  z.clone(), z.clone(), 0)
+
+    def map_chunk(self, chunk, chunk_id):
+        return self.base.map_chunk(chunk, chunk_id)
+
+    def map_chunk_sharded(self, chunk, chunk_id, device_index: int = 0):
+        """The base job's streamed map (the n-gram seam machinery)."""
+        fn = getattr(self.base, "map_chunk_sharded", None)
+        if fn is not None:
+            return fn(chunk, chunk_id, device_index)
+        return self.base.map_chunk(chunk, chunk_id)
+
+    def map_chunk_stats(self, chunk, chunk_id):
+        return self.base.map_chunk_stats(chunk, chunk_id)
+
+    def state_stats(self, state, stats):
+        base_state = state.table if isinstance(state, BatchedSketchState) \
+            else state[0]
+        return self.base.state_stats(base_state, stats)
+
+    def on_input_boundary(self, state):
+        """The base job's file-boundary hook (the n-gram carry reset)."""
+        hook = getattr(self.base, "on_input_boundary", None)
+        if hook is None:
+            return state
+        return state._replace(table=hook(state.table))
+
+    @staticmethod
+    def _batch_of(update) -> table_ops.CountTable:
+        """The batch table inside an update (an n-gram update bundles it
+        with the seam summaries)."""
+        return update if isinstance(update, table_ops.CountTable) \
+            else update.batch
+
+    def combine(self, state, update):
+        batch = self._batch_of(update)
+        if self.flush_every == 1:
+            return self.state_cls(
+                self.base.combine(state[0], update),
+                self._update_arrays(state[1], batch.key_hi, batch.key_lo,
+                                    batch.count))
+        table = self.base.combine(state.table, update)
+        b = batch.key_hi.shape[0]
+        off = (state.cursor % self.flush_every) * b
+        # Out of place: the input state may be a replay's anchor.
+        pend = [torch.slice_scatter(p, x, 0, off, off + b) for p, x in
+                ((state.pend_hi, batch.key_hi), (state.pend_lo, batch.key_lo),
+                 (state.pend_cnt, batch.count))]
+        cursor = state.cursor + 1
+        sk = state.sketch
+        if cursor >= self.flush_every:
+            sk = self._update_arrays(sk, *pend)
+            pend[2] = torch.zeros_like(pend[2])
+            cursor = 0
+        return BatchedSketchState(table, sk, *pend, cursor)
+
+    def _flushed(self, st: BatchedSketchState) -> BatchedSketchState:
+        """Fold the staged rows into the sketch (a masked no-op when none
+        are staged)."""
+        sk = self._update_arrays(st.sketch, st.pend_hi, st.pend_lo,
+                                 st.pend_cnt)
+        return BatchedSketchState(st.table, sk, st.pend_hi, st.pend_lo,
+                                  torch.zeros_like(st.pend_cnt), 0)
+
+    def merge(self, a, b):
+        if self.flush_every == 1:
+            return self.state_cls(self.base.merge(a[0], b[0]),
+                                  self._merge(a[1], b[1]))
+        fa, fb = self._flushed(a), self._flushed(b)
+        return BatchedSketchState(self.base.merge(fa.table, fb.table),
+                                  self._merge(fa.sketch, fb.sketch),
+                                  fa.pend_hi, fa.pend_lo, fa.pend_cnt,
+                                  fa.cursor)
+
+    def finalize(self, state):
+        if isinstance(state, BatchedSketchState):
+            state = self._flushed(state)
+            return self.state_cls(self.base.finalize(state.table),
+                                  state.sketch)
+        return self.state_cls(self.base.finalize(state[0]), state[1])
+
+    def identity(self) -> str:
+        # K changes the state's shapes, not its results; the shapes are
+        # checked against a snapshot's leaves.
+        return f"{type(self).__name__.lower()}({self.base.identity()})"
+
+
+class FreqSketchedWordCountJob(_SketchComposedJob):
+    """A word-count-family job with a Count-Min frequency sketch: any
+    word's (or n-gram span's) count stays queryable past the table's
+    capacity (:func:`...ops.sketch.cms_query`), as an upper bound."""
+
+    state_cls = FreqSketchedState
+
+    def __init__(self, base: WordCountJob, depth: int = sketch_ops.CMS_DEPTH,
+                 width_log2: int = sketch_ops.CMS_WIDTH_LOG2):
+        super().__init__(base)
+        self.depth = depth
+        self.width_log2 = width_log2
+
+    def _empty(self):
+        return sketch_ops.cms_empty(self.depth, self.width_log2, self.device)
+
+    def _update_arrays(self, sk, key_hi, key_lo, counts):
+        return sketch_ops.cms_update(sk, key_hi, key_lo, counts)
+
+    def _merge(self, a, b):
+        return sketch_ops.cms_merge(a, b)
+
+
+class SketchedWordCountJob(_SketchComposedJob):
+    """A word-count-family job with a HyperLogLog: the distinct count
+    stays accurate at any scale, where the table's turns into an estimate
+    once keys spill.  Register updates are idempotent, so keys seen in
+    several chunks are harmless."""
+
+    state_cls = SketchedState
+
+    def __init__(self, base: WordCountJob,
+                 precision: int = sketch_ops.DEFAULT_PRECISION):
+        super().__init__(base)
+        self.precision = precision
+
+    def _empty(self):
+        return sketch_ops.empty(self.precision, self.device)
+
+    def _update_arrays(self, sk, key_hi, key_lo, counts):
+        return sketch_ops.update_from_keys(sk, key_hi, key_lo, counts > 0)
+
+    def _merge(self, a, b):
+        return sketch_ops.merge(a, b)
+
+
+def job_with_config(job, config: Config):
     """A copy of ``job`` that runs ``config``: the degradation ladder's
     rebind.  The ladder moves only which kernels run (combiner, map, sort),
-    never the state's shapes, so the copy carries the same state on."""
+    never the state's shapes, so the copy carries the same state on.  A
+    sketch wrapper's base job is rebound too, or it would go on running
+    the old rung's kernels."""
     j = copy.copy(job)
+    base = getattr(j, "base", None)
+    if base is not None:
+        j.base = job_with_config(base, config)
     j.config = config
     return j

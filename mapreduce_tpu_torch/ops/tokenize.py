@@ -151,6 +151,64 @@ def tokenize(data: torch.Tensor, base_offset: int = 0) -> TokenStream:
     )
 
 
+def mix_gram(prev_hi, prev_lo, key_hi, key_lo):
+    """One order-sensitive gram extension: ``fmix32(prev * B ^ key)`` per
+    lane, then the sentinel clamp.  The composition every n-gram path of
+    both packages shares (the XLA scan, the position-sorted pairing, the
+    seam windows), so their tables merge interchangeably."""
+    g_hi = _fmix32(mul32(prev_hi, int(constants.HASH_BASE_1)) ^ key_hi)
+    g_lo = _fmix32(mul32(prev_lo, int(constants.HASH_BASE_2)) ^ key_lo)
+    at_sent = (g_hi == SENT) & (g_lo >= SENT - 1)
+    return g_hi, torch.where(at_sent, SENT - 2, g_lo)
+
+
+def _extend_grams(gram: TokenStream, tokens: TokenStream) -> TokenStream:
+    """One pairing step: the (k)-gram stream from the (k-1)-gram stream and
+    the token stream.  At every token end, the (k-1)-gram ending at the
+    previous token is the last gram end strictly before this position (the
+    current token's bytes hold no gram end): a running maximum of the
+    valid indices, shifted by one, takes the JAX package's carry-forward
+    scan's place.  The span runs from the gram's first byte to the
+    token's last, separators included."""
+    n = gram.count.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=gram.count.device)
+    last = torch.cummax(torch.where(gram.count > 0, idx, -1), dim=0).values
+    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
+    c_valid = prev >= 0
+    at = prev.clamp(min=0)
+    c_hi = torch.where(c_valid, gram.key_hi[at], 0)
+    c_lo = torch.where(c_valid, gram.key_lo[at], 0)
+    c_pos = torch.where(c_valid, gram.pos[at], POS_INF)
+    is_end = (tokens.count > 0) & c_valid
+    key_hi, key_lo = mix_gram(c_hi, c_lo, tokens.key_hi, tokens.key_lo)
+    length = (tokens.pos + tokens.length - c_pos) & MASK32
+    return TokenStream(
+        key_hi=torch.where(is_end, key_hi, SENT),
+        key_lo=torch.where(is_end, key_lo, SENT),
+        count=is_end.to(torch.int64),
+        pos=torch.where(is_end, c_pos, POS_INF),
+        length=torch.where(is_end, length, 0))
+
+
+def ngrams(stream: TokenStream, n: int) -> TokenStream:
+    """The n-token-gram stream of a per-byte token stream (n >= 1).
+
+    Each emission is keyed by an order-sensitive 64-bit hash of its n
+    consecutive tokens and carries the byte span from the first token's
+    first byte to the last token's last byte, so the host recovers the
+    gram's source text as it recovers a word.  Only in-buffer grams form
+    here (the first n-1 tokens start none); a streamed run forms the
+    cross-chunk ones from its seam carry
+    (:class:`...models.wordcount.NGramCountJob`).
+    """
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    gram = stream
+    for _ in range(n - 1):
+        gram = _extend_grams(gram, stream)
+    return gram
+
+
 def token_count(data: torch.Tensor) -> torch.Tensor:
     """Total number of tokens in a flat uint8 buffer (int64 scalar)."""
     sep = separator_mask(data)

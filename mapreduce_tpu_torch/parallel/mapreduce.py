@@ -2,7 +2,8 @@
 
 Counterpart of :class:`mapreduce_tpu.parallel.mapreduce.Engine` for a single
 card: no mesh, no collectives.  A job supplies ``init_state``,
-``map_chunk(chunk, chunk_id)``, ``combine``, ``merge`` and ``finalize``; the
+``map_chunk(chunk, chunk_id)`` (or the streamed ``map_chunk_sharded``),
+``combine``, ``merge`` and ``finalize``; the
 engine feeds it one chunk per step with ``chunk_id`` = the step index, the
 JAX package's numbering on one device.  With ``data_stats`` (a telemetered
 streamed run) a step also gives the chunk's data-plane statistics, as the
@@ -53,7 +54,12 @@ class Engine:
         if self.data_stats:
             update, stats = self.job.map_chunk_stats(t, step_index)
             return self.job.combine(state, update), stats
-        update = self.job.map_chunk(t, step_index)
+        # A job whose update needs the step's other chunks (the n-gram
+        # seam summaries) has the JAX package's axis-aware hook; on one
+        # card its gather is a leading axis of 1.
+        fn = getattr(self.job, "map_chunk_sharded", None)
+        update = fn(t, step_index) if fn is not None \
+            else self.job.map_chunk(t, step_index)
         return self.job.combine(state, update)
 
     def finish(self, state: Any) -> Any:

@@ -4,7 +4,8 @@ Counterpart of :mod:`mapreduce_tpu.runtime.checkpoint`, with the same file
 layout (format 2), so a snapshot from either package resumes in the other:
 one ``.npz`` (atomic rename on write) holding the job state as positional
 leaves ``__leaf_i`` (a one-device engine state: each leaf has a leading
-device axis of 1, see :func:`...convert.table_to_leaves`), the ingest cursor
+device axis of 1, in the JAX pytree's order, see
+:func:`...convert.state_to_leaves`), the ingest cursor
 (``__step``, ``__offset``), the row base offsets of every step so far
 (``__bases``), the corpus member of the last folded batch
 (``__file_index``) and the run's fingerprint as JSON (``__meta``).  A

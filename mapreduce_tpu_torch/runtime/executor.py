@@ -1,5 +1,9 @@
 """Streamed word count over files, on one device: the pipelined executor.
 
+It runs any job of the word-count family: the word count, its top-k, the
+n-gram job and the sketch wrappers (``count_file(ngram=,
+distinct_sketch=, count_sketch=)``).
+
 Counterpart of :mod:`mapreduce_tpu.runtime.executor` (``run_job`` and its
 ``_drive_stream`` loop, ``count_file``, ``recover_from_file``,
 ``absolute_offsets``) for one card.  Per run:
@@ -18,7 +22,8 @@ Counterpart of :mod:`mapreduce_tpu.runtime.executor` (``run_job`` and its
      oldest retires by waiting on its token (``retire_wait``) when the
      window is full, and the window drains at checkpoint boundaries, at
      file boundaries and at the stream's end (``h2d_tail``,
-     ``compute_tail``);
+     ``compute_tail``); at a file boundary a job with cross-chunk state
+     (the n-gram seam carry) resets it through ``on_input_boundary``;
   5. every ``checkpoint_every`` steps the state and the ingest cursor are
      saved (:mod:`...runtime.checkpoint`), and a run with a snapshot at its
      checkpoint path resumes from it;
@@ -97,16 +102,16 @@ from mapreduce_tpu_torch import convert, native
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
 from mapreduce_tpu_torch.data import reader as reader_mod
 from mapreduce_tpu_torch.models import wordcount as wc
-from mapreduce_tpu_torch.models.wordcount import (TopKTable,
-                                                  TopKWordCountJob,
-                                                  WordCountJob,
-                                                  WordCountResult,
-                                                  _reported_distinct,
-                                                  apply_top_k,
-                                                  job_with_config)
+from mapreduce_tpu_torch.models.wordcount import (
+    FreqSketchedState, FreqSketchedWordCountJob, NGramCountJob,
+    SketchedState, SketchedWordCountJob, TopKTable, TopKWordCountJob,
+    WordCountJob, WordCountResult, _reported_distinct, apply_top_k,
+    job_with_config)
 from mapreduce_tpu_torch.obs import telemetry as obs_telemetry
 from mapreduce_tpu_torch.obs.spans import span, timing_into
 from mapreduce_tpu_torch.ops import datastats
+from mapreduce_tpu_torch.ops import ngram as ngram_ops
+from mapreduce_tpu_torch.ops import sketch as sketch_ops
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.parallel.mapreduce import Engine
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
@@ -951,7 +956,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             try:
                 if plan is not None:
                     cross("checkpoint-save")
-                ckpt_mod.save(checkpoint_path, convert.table_to_leaves(state),
+                ckpt_mod.save(checkpoint_path, convert.state_to_leaves(state),
                               step_index, bytes_done, np.stack(bases_list),
                               fingerprint=fingerprint,
                               file_index=last_file_dispatched)
@@ -1056,6 +1061,11 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                                 step_index, attempt, fe, cls,
                                 seam="reader-read"))
 
+    # A job with cross-chunk state (the n-gram seam carry) resets it at a
+    # file boundary: files are independent corpora.  After a resume,
+    # ``last_file`` is the member of the snapshot's last batch, so a
+    # snapshot taken at a file seam still resets on the next file.
+    boundary_hook = getattr(engine.job, "on_input_boundary", None)
     last_file: Optional[int] = resumed_file
     it = reader_mod.prefetch(
         reader_mod.iter_batches_multi(path, 1, config.chunk_bytes,
@@ -1085,6 +1095,12 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                     pending = []
                 state = drain_window(state)
                 pipe["boundary_drains"] += 1
+                if boundary_hook is not None:
+                    # The drained state is the anchor; the hook's edit
+                    # makes a new one (nothing is in flight).
+                    state = boundary_hook(state)
+                    if replayable:
+                        reanchor(state)
             last_file = batch.file_index
             pending.append((batch, staged))
             if len(pending) == config.superstep:
@@ -1173,6 +1189,15 @@ def _path_names(path) -> list[str]:
 _MERGE_STRATEGY = "tree"
 
 
+def _metrics_word_count(value) -> int:
+    """The total words inside any finalized state, for ``RunMetrics``:
+    sketch states hold a ``table`` that may itself be a :class:`TopKTable`,
+    unwrapped down to the count table."""
+    while isinstance(value, (SketchedState, FreqSketchedState, TopKTable)):
+        value = value.table
+    return value.total_count()
+
+
 def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
             logger=None, progress_every: int = 50,
@@ -1225,9 +1250,9 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     if checkpoint_path and ckpt_mod.exists(checkpoint_path):
         (leaves, start_step, start_offset, bases, resumed_file), fallback = \
             ckpt_mod.load_resilient(
-                checkpoint_path, template=convert.table_to_leaves(state),
+                checkpoint_path, template=convert.state_to_leaves(state),
                 expect_fingerprint=fingerprint)
-        state = convert.leaves_to_table(leaves, dev)
+        state = convert.leaves_to_state(leaves, state, dev)
         bases_list = list(bases)
         log_event(logger, "resumed from checkpoint", step=start_step,
                   offset=start_offset)
@@ -1339,7 +1364,7 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             tel.note_data(data_rec)
         # The bytes this run streamed (a resumed run starts at its cursor).
         m = metrics_mod.RunMetrics(bytes_processed=bytes_done - start_offset,
-                                   words_counted=value.total_count(),
+                                   words_counted=_metrics_word_count(value),
                                    elapsed_s=total_s,
                                    phases=dict(timer.phases))
         tel.ledger_write("run_end", **m.as_dict(), pipeline=pipe)
@@ -1358,10 +1383,16 @@ def absolute_offsets(chunk_id: np.ndarray, pos: np.ndarray,
 
 
 def recover_from_file(tbl: table_ops.CountTable, path, bases: np.ndarray,
-                      n_devices: int = 1,
+                      n_devices: int = 1, ngram: int = 1,
                       estimate_distinct: bool = True) -> WordCountResult:
     """Host-side string recovery for a streamed run, words in file order of
-    first occurrence."""
+    first occurrence.
+
+    An entry of length ``SEAM_GRAM_LENGTH`` is a cross-chunk gram (or a
+    span of 127 bytes or more): the device knew its start, not its end,
+    so its span is scanned ``ngram`` entries forward from the start, in
+    one batch call, with the row bases as the chunker's force-split
+    entry ends."""
     count = tbl.count.cpu().numpy()
     count_hi = tbl.count_hi.cpu().numpy()
     valid = (count > 0) | (count_hi > 0)
@@ -1370,6 +1401,10 @@ def recover_from_file(tbl: table_ops.CountTable, path, bases: np.ndarray,
     length = tbl.length.cpu().numpy()[valid]
     cnt = (count + (count_hi << 32))[valid]
     absolute = absolute_offsets(chunk_id, pos, bases, n_devices)
+    seam = np.flatnonzero(length == ngram_ops.SEAM_GRAM_LENGTH)
+    if len(seam):
+        length[seam] = reader_mod.scan_gram_lengths(
+            path, absolute[seam], ngram, cut_offsets=bases.ravel())
     order = np.argsort(absolute, kind="stable")
     spans = [(int(absolute[i]), int(length[i])) for i in order]
     words = reader_mod.read_words_at_multi(path, spans)
@@ -1386,34 +1421,59 @@ def recover_from_file(tbl: table_ops.CountTable, path, bases: np.ndarray,
 
 
 def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
-               top_k: Optional[int] = None, **kw) -> WordCountResult:
+               top_k: Optional[int] = None, distinct_sketch: bool = False,
+               count_sketch: bool = False, ngram: int = 1,
+               **kw) -> WordCountResult:
     """WordCount over one file or a list of files (one corpus) through
     :func:`run_job`; ``kw`` goes to it (checkpoints, logger, progress,
-    retry).  ``device`` defaults to the card.
+    retry, telemetry).  ``device`` defaults to the card.
 
     ``top_k`` runs :class:`...models.wordcount.TopKWordCountJob`, as the
     JAX package does: its finalize takes the table's KMV distinct estimate
     before the terminal top-k reorder, and evicted entries fold into
-    ``dropped_*``.  The result's ``run`` is the run's :class:`RunResult`
-    (its value dropped), with the host string recovery as the ``recover``
-    phase.
+    ``dropped_*``.  ``ngram > 1`` counts n-token grams
+    (:class:`...models.wordcount.NGramCountJob`), exactly across chunk
+    seams.  ``distinct_sketch`` carries a HyperLogLog and fills
+    ``distinct_estimate``; ``count_sketch`` carries a Count-Min sketch and
+    fills ``cms`` (``result.estimate_count(word)``); one or the other per
+    run.  The result's ``run`` is the run's :class:`RunResult` (its value
+    dropped), with the host string recovery as the ``recover`` phase.
     """
-    job = TopKWordCountJob(top_k, config, device) if top_k \
-        else WordCountJob(config, device)
+    if distinct_sketch and count_sketch:
+        raise ValueError("distinct_sketch and count_sketch are mutually "
+                         "exclusive per run; run twice to get both")
+    if ngram > 1:
+        job = NGramCountJob(ngram, config, device, top_k=top_k or None)
+    else:
+        job = TopKWordCountJob(top_k, config, device) if top_k \
+            else WordCountJob(config, device)
+    if distinct_sketch:
+        job = SketchedWordCountJob(job)
+    elif count_sketch:
+        job = FreqSketchedWordCountJob(job)
     rr = run_job(job, path, config, **kw)
     timer = metrics_mod.PhaseTimer(phases=rr.metrics.phases)
     with span("recover", timer):
-        tbl, kmv_est = rr.value, None
+        tbl, kmv_est, registers, cms = rr.value, None, None, None
+        if isinstance(tbl, SketchedState):
+            tbl, registers = tbl.table, tbl.registers
+        elif isinstance(tbl, FreqSketchedState):
+            tbl, cms = tbl.table, tbl.cms.cpu().numpy().astype(np.uint32)
         if isinstance(tbl, TopKTable):
             kmv_est = table_ops.kmv_from_snapshot(
                 int(tbl.kmv_n_valid), int(tbl.kmv_kth_hi),
                 int(tbl.kmv_kth_lo), config.table_capacity)
             tbl = tbl.table
-        result = recover_from_file(tbl, path, rr.bases, 1,
+        result = recover_from_file(tbl, path, rr.bases, 1, ngram=ngram,
                                    estimate_distinct=not top_k)
         if kmv_est is not None:
             result = dataclasses.replace(
                 result, distinct=max(len(result.words), int(round(kmv_est))))
+        if registers is not None:
+            result = dataclasses.replace(
+                result, distinct_estimate=sketch_ops.estimate(registers))
+        if cms is not None:
+            result = dataclasses.replace(result, cms=cms)
         if top_k:
             result = apply_top_k(result, top_k)
     return dataclasses.replace(result,

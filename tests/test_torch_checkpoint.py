@@ -7,7 +7,11 @@ for leaf as uint32, with the same cursor, row bases, file index and
 ``__meta``; a JAX snapshot resumes in the port, and a port snapshot in the
 JAX package, to the uninterrupted result.  The same holds for a streamed
 top-k run (its job is ``wordcount-top{k}`` in both packages), and both
-refuse a plain run's snapshot for a top-k run.  The refusals (another
+refuse a plain run's snapshot for a top-k run.  So it does for the n-gram
+and sketch families (``ngram2``, ``ngram2-top5``, and distinct- and
+count-sketched runs at ``sketch_flush_every`` 1 and 4, whose composite
+states are written in the JAX pytree's leaf order), and a snapshot of
+another job identity is refused.  The refusals (another
 chunk size, capacity or input; future and legacy formats) and the
 ``.prev`` fallback after corruption are the port's alone.
 """
@@ -47,8 +51,7 @@ def _shared_jax_engines():
     real = jexecutor.Engine
 
     def engine(job, mesh, **kw):
-        key = (type(job), getattr(job, "k", None), job.config,
-               tuple(sorted(kw.items())))
+        key = (job.identity(), job.config, tuple(sorted(kw.items())))
         if key not in memo:
             memo[key] = real(job, mesh, **kw)
         return memo[key]
@@ -296,3 +299,126 @@ def test_plain_snapshot_is_refused_for_a_topk_run(run, topk_run, tmp_path):
     with pytest.raises(ckpt.CheckpointMismatch, match="job"):
         executor.count_file(run["paths"], CFG, device="cpu",
                             checkpoint_path=ck)
+
+
+#: The n-gram and sketch families: ``count_file`` arguments and the
+#: ``sketch_flush_every`` of each.
+FAMILIES = {
+    "ngram2": ({"ngram": 2}, 1),
+    "ngram2-top5": ({"ngram": 2, "top_k": 5}, 1),
+    "distinct-f1": ({"distinct_sketch": True}, 1),
+    "distinct-f4": ({"distinct_sketch": True}, 4),
+    "count-f1": ({"count_sketch": True}, 1),
+    "count-f4": ({"count_sketch": True}, 4),
+}
+
+
+@pytest.fixture(scope="module")
+def families(run):
+    """Both packages' runs of a family over ``run``'s corpus, a snapshot
+    every 2 steps (``jax_<kind>.npz``, ``port_<kind>.npz``), made on first
+    use."""
+    done = {}
+
+    def get(kind):
+        if kind not in done:
+            kw, flush = FAMILIES[kind]
+            d = run["dir"]
+            jcfg = dataclasses.replace(JCFG, sketch_flush_every=flush)
+            cfg = dataclasses.replace(CFG, sketch_flush_every=flush)
+            want = jexecutor.count_file(
+                run["paths"], jcfg, mesh=data_mesh(1),
+                checkpoint_path=str(d / f"jax_{kind}.npz"),
+                checkpoint_every=2, **kw)
+            got = executor.count_file(
+                run["paths"], cfg, device="cpu",
+                checkpoint_path=str(d / f"port_{kind}.npz"),
+                checkpoint_every=2, **kw)
+            done[kind] = {"jax": want, "port": got, "cfg": cfg,
+                          "jcfg": jcfg, "kw": kw}
+        return done[kind]
+
+    return get
+
+
+def _assert_family_results_equal(want, got):
+    _assert_results_equal(want, got)
+    assert want.distinct_estimate == got.distinct_estimate
+    assert (want.cms is None) == (got.cms is None)
+    if got.cms is not None:
+        np.testing.assert_array_equal(got.cms, np.asarray(want.cms))
+
+
+@pytest.mark.parametrize("kind", list(FAMILIES))
+def test_family_snapshot_equals_jax(run, families, kind):
+    f = families(kind)
+    _assert_family_results_equal(f["jax"], f["port"])
+    for suffix, step in (("", 4), (".prev", 2)):
+        want = np.load(run["dir"] / f"jax_{kind}.npz{suffix}")
+        got = np.load(run["dir"] / f"port_{kind}.npz{suffix}")
+        assert sorted(got.files) == sorted(want.files)
+        assert int(got["__step"]) == int(want["__step"]) == step
+        for k in want.files:
+            if k == "__meta":
+                assert json.loads(bytes(got[k])) \
+                    == json.loads(bytes(want[k]))
+                continue
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("kind", list(FAMILIES))
+def test_family_snapshots_resume_across_packages(run, families, kind,
+                                                 tmp_path):
+    f = families(kind)
+    ck = _copy_snapshot(run["dir"] / f"jax_{kind}.npz.prev",
+                        tmp_path / "from_jax.npz")
+    got = executor.count_file(run["paths"], f["cfg"], device="cpu",
+                              checkpoint_path=ck, **f["kw"])
+    _assert_family_results_equal(f["jax"], got)
+    assert got.run.metrics.bytes_processed \
+        < sum(os.path.getsize(p) for p in run["paths"])
+    ck = _copy_snapshot(run["dir"] / f"port_{kind}.npz.prev",
+                        tmp_path / "from_port.npz")
+    got = jexecutor.count_file(run["paths"], f["jcfg"], mesh=data_mesh(1),
+                               checkpoint_path=ck, **f["kw"])
+    _assert_family_results_equal(f["jax"], got)
+
+
+@pytest.mark.parametrize("kind,other,match", [
+    ("ngram2", {"ngram": 3}, "job"),
+    ("ngram2", {}, "job"),
+    ("ngram2-top5", {"ngram": 2}, "job"),
+    ("distinct-f1", {"count_sketch": True}, "job"),
+    ("distinct-f1", {}, "job"),
+    ("count-f4", {"count_sketch": True}, "state structure"),
+])
+def test_family_snapshot_of_another_job_is_refused(run, families, kind,
+                                                   other, match, tmp_path):
+    """Another identity is refused by the fingerprint; the same identity
+    at another flush cadence by the leaves' layout."""
+    families(kind)
+    ck = _copy_snapshot(run["dir"] / f"port_{kind}.npz",
+                        tmp_path / "ck.npz")
+    with pytest.raises(ckpt.CheckpointMismatch, match=match):
+        executor.count_file(run["paths"], CFG, device="cpu",
+                            checkpoint_path=ck, **other)
+
+
+def test_state_leaves_round_trip_in_jax_order():
+    """A batched sketch over an n-gram state flattens as the JAX pytree
+    does: the table's 11 leaves, the carry's 5, the sketch, the pending
+    planes and the cursor (a host int, written as a uint32 leaf)."""
+    from mapreduce_tpu_torch.models import wordcount as wc
+
+    cfg = dataclasses.replace(CFG, sketch_flush_every=2)
+    job = wc.SketchedWordCountJob(wc.NGramCountJob(3, cfg, "cpu"))
+    state = job.init_state()
+    state = state._replace(cursor=1, pend_cnt=state.pend_cnt + 7)
+    leaves = convert.state_to_leaves(state)
+    assert len(leaves) == 11 + 5 + 1 + 3 + 1
+    assert leaves[-1].shape == (1,) and int(leaves[-1][0]) == 1
+    back = convert.leaves_to_state(leaves, job.init_state(), "cpu")
+    assert back.cursor == 1 and isinstance(back.cursor, int)
+    assert torch.equal(back.pend_cnt, state.pend_cnt)
+    assert torch.equal(back.table.carry.kind, state.table.carry.kind)

@@ -159,7 +159,7 @@ def test_bad_compact_slots_are_refused_as_by_jax(flags, capsys):
     assert "compact_slots" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--ngram", "2"], ["--grep", "x"],
+@pytest.mark.parametrize("flag", [["--verify-sample", "3"], ["--grep", "x"],
                                   ["--sample", "3"], ["--top"]])
 def test_other_jax_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -182,3 +182,108 @@ def test_gpu_is_the_default_and_is_not_faked(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main([str(REPO / "test.txt")]) == 3
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def seams_file(tmp_path_factory):
+    """~20 KB of words: several 4 KB chunks, so grams cross seams."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    words = [b"the", b"cat", b"sat", b"on", b"mat", b"and", b"dog"]
+    p = tmp_path_factory.mktemp("cli") / "seams.txt"
+    p.write_bytes(b" ".join(words[int(i)] for i in rng.integers(0, 7, 5000)))
+    return str(p)
+
+
+#: The n-gram and sketch command lines, each on test.txt as it is and on a
+#: multi-chunk file with 4 KB chunks.
+FAMILY_CASES = {
+    "ngram": ("--ngram", "2"),
+    "stream-ngram": ("--stream", "--ngram", "3", "--chunk-bytes", "4096"),
+    "distinct-json": ("--stream", "--distinct-sketch", "--format", "json"),
+    "estimate": ("--stream", "--estimate", "the", "--estimate", "zzz"),
+    "ngram-count-topk": ("--stream", "--ngram", "2", "--count-sketch",
+                         "--top-k", "5"),
+}
+
+
+def _on_seams(flags) -> tuple:
+    if "--stream" not in flags or "--chunk-bytes" in flags:
+        return flags
+    return (*flags, "--chunk-bytes", "4096", "--sketch-flush-every", "4")
+
+
+def _jax_cli(argv: list[str]) -> subprocess.CompletedProcess:
+    """``./main`` on one CPU device: the conftest's 8-device ``XLA_FLAGS``
+    would give a streamed run an 8-device mesh of 32 MB chunks."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    return subprocess.run(["./main", *argv], cwd=REPO, env=env,
+                          capture_output=True, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def jax_family_stdout(seams_file):
+    """The JAX CLI's (``./main``, one CPU device) stdout for every family
+    case, the processes run two at a time: a streamed JAX run at the
+    default 32 MB chunk interprets its kernel over the whole chunk, ~45 s
+    on one core."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = {(case, path): (path, *(flags if path == "test.txt"
+                                   else _on_seams(flags)))
+            for case, flags in FAMILY_CASES.items()
+            for path in ("test.txt", seams_file)}
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        procs = {k: pool.submit(_jax_cli, list(argv))
+                 for k, argv in jobs.items()}
+        out = {}
+        for k, fut in procs.items():
+            proc = fut.result()
+            assert proc.returncode == 0, proc.stderr.decode()
+            out[k] = (jobs[k], proc.stdout)
+    return out
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_flags_stdout_identical_to_jax_cli(case, seams_file,
+                                                  jax_family_stdout,
+                                                  capsysbinary):
+    """The n-gram and sketch flags: the port in-process against the JAX
+    CLI on test.txt and on a multi-chunk file (streamed there at 4 KB
+    chunks, sketches flushed every 4 steps)."""
+    for path in ("test.txt", seams_file):
+        argv, want = jax_family_stdout[(case, path)]
+        old = os.getcwd()
+        os.chdir(REPO)
+        try:
+            assert cli.main([*argv, "--platform", "cpu"]) == 0
+        finally:
+            os.chdir(old)
+        assert capsysbinary.readouterr().out == want, argv
+    if case == "estimate":
+        assert b"estimate:the\t" in want and b"estimate:zzz\t0" in want
+
+
+@pytest.mark.parametrize("flags", [
+    ("--ngram", "0"),
+    ("--count-sketch",),
+    ("--estimate", "x"),
+    ("--distinct-sketch",),
+    ("--stream", "--distinct-sketch", "--count-sketch"),
+    ("--stream", "--distinct-sketch", "--estimate", "x"),
+    ("--stream", "--sketch-flush-every", "4"),
+], ids=["ngram0", "count-no-stream", "estimate-no-stream",
+        "distinct-no-stream", "both", "both-estimate", "flush-no-sketch"])
+def test_family_usage_errors_match_jax_cli(flags, capsys):
+    """Each n-gram or sketch usage error exits 2 with the JAX message."""
+    errs = []
+    for main in (jcli.main, cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["test.txt", *flags] + (["--platform", "cpu"]
+                                         if main is cli.main else []))
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    want, got = errs
+    assert got.split("error: ", 1)[1] == want.split("error: ", 1)[1]

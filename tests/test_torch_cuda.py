@@ -743,3 +743,75 @@ def test_telemetry_adds_no_host_sync(cuda_device, tmp_path):
                                 "native/__init__.py")}
     assert not [p for p in syncs if p in own]
     assert syncs.count(pkg / "models" / "wordcount.py") == rr.bases.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"sort_impl": "radix"},
+                                {"map_impl": "fused"}])
+def test_ngrams_on_the_card_equal_the_cpu(cuda_device, kw):
+    """``count_ngrams`` on the card (one ``tokenize_stream`` launch, K2
+    under the radix sort) equals the plain versions on the CPU, the
+    overlong tokens' grams dropped alike."""
+    corpus = _zipf_text(5, 1 << 20)
+    cfg = wc.Config(**kw)
+    for n in (2, 3):
+        ktok.LAUNCHES.clear()
+        radix.LAUNCHES.clear()
+        got = wc.count_ngrams(corpus, n, cfg)
+        want = wc.count_ngrams(corpus, n, cfg, device="cpu")
+        for f in ("words", "counts", "total", "distinct", "dropped_uniques",
+                  "dropped_count"):
+            assert getattr(got, f) == getattr(want, f), (n, f)
+        assert got.dropped_count > 0  # the 40- and 70-byte words
+        mode = "tokenize_fused" if kw.get("map_impl") else "tokenize_pair"
+        assert ktok.LAUNCHES[mode] == 1
+        assert radix.LAUNCHES["radix_partition"] \
+            == (2 if kw.get("sort_impl") else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"ngram": 2}, {"ngram": 3},
+                                {"distinct_sketch": True},
+                                {"ngram": 2, "count_sketch": True}])
+def test_streamed_families_on_the_card_equal_the_cpu(cuda_device, tmp_path,
+                                                     kw):
+    paths, _ = _stream_files(tmp_path)
+    cfg = wc.Config(chunk_bytes=1 << 16, sketch_flush_every=3)
+    got = executor.count_file(paths, cfg, **kw)
+    want = executor.count_file(paths, cfg, device="cpu", **kw)
+    for f in ("words", "counts", "total", "distinct", "dropped_uniques",
+              "dropped_count", "distinct_estimate"):
+        assert getattr(got, f) == getattr(want, f), f
+    if "count_sketch" in kw:
+        assert np.array_equal(got.cms, want.cms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", ["ngram", "batched_sketch"])
+def test_families_read_the_host_once_a_chunk(cuda_device, tmp_path, make):
+    """Under the sync debug mode a streamed n-gram run and a batched
+    sketch run synchronise in the map's one read a chunk
+    (``models/wordcount.py``), and never in the executor, the seam carry
+    or the sketches."""
+    import warnings
+
+    paths, _ = _stream_files(tmp_path, n_files=2)
+    cfg = wc.Config(chunk_bytes=1 << 16, sketch_flush_every=4)
+    job = wc.NGramCountJob(2, cfg) if make == "ngram" \
+        else wc.FreqSketchedWordCountJob(wc.WordCountJob(cfg))
+    executor.run_job(job, paths, cfg)  # warm: build, allocate, pin
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rr = executor.run_job(job, paths, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [pathlib.Path(w.filename).resolve() for w in caught
+             if "synchroniz" in str(w.message)]
+    pkg = REPO / "mapreduce_tpu_torch"
+    own = {pkg / f for f in ("runtime/executor.py", "data/reader.py",
+                             "parallel/mapreduce.py", "ops/ngram.py",
+                             "ops/sketch.py")}
+    assert not [p for p in syncs if p in own]
+    assert syncs.count(pkg / "models" / "wordcount.py") == rr.bases.shape[0]

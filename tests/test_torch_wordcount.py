@@ -291,6 +291,14 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "r = m.count_words(b'a b a', c, device='cpu'); "
             "assert r.as_dict() == {b'a': 2, b'b': 1}; "
             "import mapreduce_tpu_torch.ops.cuda.radix; "
+            "from mapreduce_tpu_torch.ops import ngram, sketch; "
+            "from mapreduce_tpu_torch.models import wordcount as wc; "
+            "r = wc.count_ngrams(b'a b a b', 2, device='cpu'); "
+            "assert r.as_dict() == {b'a b': 2, b'b a': 1}; "
+            "r = m.count_file('test.txt', device='cpu', ngram=2, "
+            "distinct_sketch=True); "
+            "assert r.total == 8 and r.distinct_estimate is not None; "
+            "assert sketch.hash_word(b'a') == sketch.hash_word(b'a'); "
             "import mapreduce_tpu_torch.cli, mapreduce_tpu_torch.native; "
             "from mapreduce_tpu_torch.runtime import checkpoint, faults; "
             "from mapreduce_tpu_torch.obs import spans; "
