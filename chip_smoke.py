@@ -143,17 +143,35 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               of one 32 MB chunk beside the word count's with the rows
               each sort sees, one HLL and one CMS update's ms, and the
               phase's wall time;
-10. times  -- each kernel's median time per 32 MB chunk beside its bound,
+10. grep_sample -- grep and the reservoir sample at ``Config()``, each
+              run against a numpy oracle: ``grep_bytes`` on phase 3's 32 MB
+              corpus and ``grep_file`` over the phase-4 file and the 8-file
+              corpus, for ``the``, a 32-byte literal, a class pattern with a
+              space (``[a-z]e [t-z]``) and four patterns in one pass, one of
+              them ``\\nt`` (overlapping matches, and lines under the JAX
+              segment convention, with no match across a chunk join: the
+              oracle drops those at the run's own row bases); then
+              ``sample_bytes`` and ``sample_file`` with k = 16 and 4,096 on
+              the same inputs (token spans, the priorities of (chunk id,
+              offset), the bottom-k by lexsort, the population without the
+              tokens longer than W), each sample path launching pair mode
+              once a chunk and taking no fallback, and no path reading the
+              host in a step; streamed GB/s of grep (one and four
+              patterns) and the sample against the word count over the
+              8-file corpus, in turns; one 32 MB chunk's step ms, device ms,
+              kernel launches, peak memory and host syncs of each job; and
+              the phase's wall time;
+11. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
               radix seam (CUDA events between launches); the chunk's
               end-to-end time by stage; the step time (map + merge) of
               every path's configuration on one chunk, with the rows each
               step's sort sees;
-11. profile -- where the device time of a default, a combiner and a
+12. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 9 each drive a main path: the launch counters are set to 0
+Phases 3 to 10 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -1320,9 +1338,8 @@ def card_name() -> str:
         else f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
-def host_tokens(data: bytes):
-    """``(starts, ends, ids, vocab)``: every token's span, its id in order
-    of first appearance, and the distinct tokens in that order."""
+def token_spans(data: bytes):
+    """``(starts, ends)``: every token's span, by numpy."""
     import numpy as np
 
     arr = np.frombuffer(data, np.uint8)
@@ -1331,6 +1348,15 @@ def host_tokens(data: bytes):
     sep = lut[arr]
     starts = np.flatnonzero(~sep & np.concatenate([[True], sep[:-1]]))
     ends = np.flatnonzero(~sep & np.concatenate([sep[1:], [True]])) + 1
+    return starts, ends
+
+
+def host_tokens(data: bytes):
+    """``(starts, ends, ids, vocab)``: every token's span, its id in order
+    of first appearance, and the distinct tokens in that order."""
+    import numpy as np
+
+    starts, ends = token_spans(data)
     index: dict = {}
     ids = np.fromiter((index.setdefault(data[a:b], len(index)) for a, b in
                        zip(starts.tolist(), ends.tolist())), np.int64,
@@ -1796,6 +1822,392 @@ def families_phase(drive, by_path: dict, tmp: Path, path: Path,
     emit("families", case="wall", seconds=time.perf_counter() - t_phase)
 
 
+# The grep and sample oracles of phase 10, in numpy and independent of the
+# port's code: a pattern is a list of allowed-byte tables, one a position
+# (written out by hand for the class pattern), and the priorities are the
+# JAX package's hash of (chunk id, in-chunk offset).
+def byte_set(*ranges) -> "np.ndarray":
+    import numpy as np
+
+    lut = np.zeros(256, bool)
+    for lo, hi in ranges:
+        lut[lo:hi + 1] = True
+    return lut
+
+
+def literal_luts(pattern: bytes) -> list:
+    return [byte_set((b, b)) for b in pattern]
+
+
+def pattern_hits(arr, luts, cuts) -> "np.ndarray":
+    """Start offsets of every overlapping occurrence in ``arr`` (one file)
+    that lies inside one row: a match over a row start in ``cuts`` is the
+    chunk-join envelope (no pattern matches across a join)."""
+    import numpy as np
+
+    m, n = len(luts), arr.shape[0]
+    if m > n:
+        return np.zeros(0, np.int64)
+    order = sorted(range(m), key=lambda i: int(luts[i].sum()))
+    first = order[0]
+    cand = np.flatnonzero(luts[first][arr[first:n - m + 1 + first]])
+    for i in order[1:]:
+        cand = cand[luts[i][arr[cand + i]]]
+    if len(cuts):
+        nxt = np.searchsorted(cuts, cand, side="right")
+        crossing = (nxt < len(cuts)) & (
+            cuts[np.minimum(nxt, len(cuts) - 1)] < cand + m)
+        cand = cand[~crossing]
+    return cand
+
+
+def matching_lines(hits, nlpos) -> int:
+    """Lines with a match under the JAX package's segment convention: a
+    match counts unless the match before it lies in the scan segment of
+    the byte before it (a newline opens its own segment)."""
+    import numpy as np
+
+    if not len(hits):
+        return 0
+    before = np.searchsorted(nlpos, hits, side="left")
+    upto = np.searchsorted(nlpos, hits, side="right")
+    return 1 + int(np.count_nonzero(upto[:-1] != before[1:]))
+
+
+def host_priorities(pos, cid):
+    """uint32 ``(prio_hi, prio_lo)`` of token occurrences."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        s1 = (pos * np.uint32(HASH_BASE_1)) \
+            ^ _fmix32(cid + np.uint32(0x9E3779B9))
+        s2 = (pos * np.uint32(HASH_BASE_2)) \
+            ^ _fmix32(cid ^ np.uint32(0x85EBCA6B))
+        hi = _fmix32(s1)
+        lo = _fmix32(s2)
+    return np.where(hi == SENT, np.uint32(SENT - 1), hi), lo
+
+
+def sample_candidates(spans, row_starts, row0: int, k: int, w: int):
+    """One file's at most ``k`` smallest occurrences (ties at the k-th
+    priority all kept) as ``(prio_hi, prio_lo, cid, pos, start, end)`` and
+    its population (tokens of at most ``w`` bytes); ``row_starts`` are
+    the file's row offsets, the first 0, and its rows have chunk ids
+    ``row0, row0 + 1, ...``."""
+    import numpy as np
+
+    starts, ends = spans
+    keep = (ends - starts) <= w
+    s, e = starts[keep], ends[keep]
+    r = np.searchsorted(row_starts, s, side="right") - 1
+    cid = (row0 + r).astype(np.uint32)
+    pos = (s - row_starts[r]).astype(np.uint32)
+    hi, lo = host_priorities(pos, cid)
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    kk = min(k, len(key))
+    kth = np.partition(key, kk - 1)[kk - 1]
+    sel = np.flatnonzero(key <= kth)
+    return (hi[sel], lo[sel], cid[sel], pos[sel], s[sel], e[sel]), len(s)
+
+
+def bottom_k(cands: list, k: int):
+    """The k smallest of the files' candidates by (priority, chunk id,
+    offset): the JAX bottom-k order."""
+    import numpy as np
+
+    hi, lo, cid, pos, s, e = (np.concatenate(x) for x in zip(*cands))
+    order = np.lexsort((pos, cid, lo, hi))[:k]
+    return s[order], e[order]
+
+
+
+def grep_sample_phase(by_path: dict, tmp: Path, path: Path,
+                      stream_data: bytes, words_data: bytes, dev) -> None:
+    """Phase 10: grep and the reservoir sample (see the module
+    docstring)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mapreduce_tpu_torch import Config, count_file
+    from mapreduce_tpu_torch.models import grep, sample
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.ops.cuda import radix
+    from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+    from mapreduce_tpu_torch.runtime import executor
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    w = cfg.pallas_max_token
+    card = card_name()
+    corpus8 = [str(path)] * 8
+    file_bytes = len(stream_data)
+    arr = {"words": np.frombuffer(words_data, np.uint8),
+           "file": np.frombuffer(stream_data, np.uint8)}
+    nlpos = {k: np.flatnonzero(a == 0x0A) for k, a in arr.items()}
+    o = next(i for i in range(MB, 2 * MB)
+             if stream_data[i - 1] == 0x20 and stream_data[i] != 0x20)
+    lit32 = stream_data[o:o + 32]
+    lower = (ord("a"), ord("z"))
+    # name -> (patterns, syntax, the oracle's tables of each pattern)
+    sets = {
+        "the": ([b"the"], "literal", [literal_luts(b"the")]),
+        "lit32": ([lit32], "literal", [literal_luts(lit32)]),
+        "class_space": ([b"[a-z]e [t-z]"], "class", [[
+            byte_set(lower), byte_set((0x65, 0x65)), byte_set((0x20, 0x20)),
+            byte_set((ord("t"), ord("z")))]]),
+        "four_nl": ([b"the", b"er", b"and", b"\nt"], "literal",
+                    [literal_luts(p) for p in (b"the", b"er", b"and",
+                                               b"\nt")]),
+    }
+
+    # Every streamed run's row bases, for the oracles' envelope and the
+    # sample's chunk ids: the entry points return none, so run_job's
+    # result is kept on its way out.
+    runs: list = []
+    real_run_job = executor.run_job
+
+    def kept_run_job(*a, **kw):
+        runs.append(real_run_job(*a, **kw))
+        return runs[-1]
+
+    reads = {"host_read": 0}
+    real_span = wc.span
+
+    def counted_span(name, timer=None):
+        reads[name] = reads.get(name, 0) + 1
+        return real_span(name, timer)
+
+    def drive_gs(name: str, fn, tokenize_pair: int):
+        """One path between cleared counters: its launches (the sample's
+        map launches pair mode once a chunk, grep's map no kernel), no
+        spill fallback, and its ``host_read`` spans."""
+        torch.cuda.synchronize()
+        ktok.LAUNCHES.clear()
+        radix.LAUNCHES.clear()
+        wc.BRANCHES.clear()
+        reads["host_read"] = 0
+        t_a = time.perf_counter()
+        got = fn()
+        seconds = time.perf_counter() - t_a
+        by_path[name] = {**ktok.LAUNCHES, **radix.LAUNCHES}
+        want = {"tokenize_pair": tokenize_pair} if tokenize_pair else {}
+        if by_path[name] != want or wc.BRANCHES:
+            raise SystemExit(f"{name} launched {by_path[name]}, took "
+                             f"{dict(wc.BRANCHES)}; expected {want}")
+        return got, seconds, reads["host_read"]
+
+    def file_cuts(rr, f: int):
+        """File f's row starts relative to the file, from a run's bases."""
+        b = rr.bases[:, 0]
+        rel = b[(b >= f * file_bytes) & (b < (f + 1) * file_bytes)] \
+            - f * file_bytes
+        return rel, int(np.flatnonzero(b >= f * file_bytes)[0])
+
+    def grep_want(key: str, luts_list, cuts_per_file):
+        """(matches, lines) of each pattern, summed over the files."""
+        out = []
+        cache: dict = {}
+        for luts in luts_list:
+            m = ln = 0
+            for cuts in cuts_per_file:
+                ck = (id(luts), cuts.tobytes())
+                if ck not in cache:
+                    hits = pattern_hits(arr[key], luts, cuts)
+                    cache[ck] = (len(hits), matching_lines(hits, nlpos[key]))
+                m += cache[ck][0]
+                ln += cache[ck][1]
+            out.append((m, ln))
+        return out
+
+    executor.run_job = kept_run_job
+    wc.span = counted_span
+    try:
+        # 10a. grep: each pattern set over the 32 MB buffer (one row), the
+        # phase-4 file and the 8-file corpus.
+        for name, (pats, syntax, luts) in sets.items():
+            single = len(pats) == 1
+            inputs = [("grep_bytes", "words", None),
+                      ("grep_file", "file", [str(path)]),
+                      ("grep_file_8files", "file", corpus8)]
+            for entry, key, files in inputs:
+                path_name = f"{entry}_{name}"
+                runs.clear()
+                if files is None:
+                    fn = (lambda: [grep.grep_bytes(words_data, pats[0],
+                                                   syntax)]) if single \
+                        else (lambda: grep.grep_bytes_multi(words_data, pats,
+                                                            syntax))
+                else:
+                    fn = (lambda: [grep.grep_file(files, pats[0], cfg,
+                                                  syntax=syntax)]) if single \
+                        else (lambda: grep.grep_file_multi(files, pats, cfg,
+                                                           syntax=syntax))
+                got, seconds, n_reads = drive_gs(path_name, fn, 0)
+                if files is None:
+                    cuts, chunks = [np.zeros(0, np.int64)], 1
+                else:
+                    cuts = [file_cuts(runs[0], f)[0][1:]
+                            for f in range(len(files))]
+                    chunks = runs[0].bases.shape[0]
+                want = grep_want(key, luts, cuts)
+                have = [(r.matches, r.lines) for r in got]
+                if have != want:
+                    raise SystemExit(f"{path_name}: {have}, oracle {want}")
+                if n_reads:
+                    raise SystemExit(f"{path_name} read the host {n_reads} "
+                                     "times")
+                emit("grep_sample", path=path_name, patterns=[
+                    p.decode(errors="backslashreplace") for p in pats],
+                    syntax=syntax, bytes=len(words_data) if files is None
+                    else file_bytes * len(files), chunks=chunks,
+                    matches=[h[0] for h in have], lines=[h[1] for h in have],
+                    seconds=round(seconds, 4), host_reads=n_reads,
+                    launches=by_path[path_name], equal_to_oracle=True)
+
+        # 10b. sample: k = 16 and 4,096 over the same inputs.
+        spans = {"words": token_spans(words_data),
+                 "file": token_spans(stream_data)}
+        for k in (16, 4096):
+            for entry, key, files in (("sample_bytes", "words", None),
+                                      ("sample_file", "file", [str(path)]),
+                                      ("sample_file_8files", "file",
+                                       corpus8)):
+                path_name = f"{entry}_k{k}"
+                runs.clear()
+                chunks = 1 if files is None \
+                    else len(files) * -(-file_bytes // cfg.chunk_bytes)
+                fn = (lambda: sample.sample_bytes(words_data, k, cfg)) \
+                    if files is None \
+                    else (lambda: sample.sample_file(files, k, cfg))
+                got, seconds, n_reads = drive_gs(path_name, fn, chunks)
+                if files is None:
+                    cands, total = sample_candidates(
+                        spans["words"], np.zeros(1, np.int64), 0, k, w)
+                    cands, population = [cands], total
+                else:
+                    cands, population = [], 0
+                    for f in range(len(files)):
+                        rows, row0 = file_cuts(runs[0], f)
+                        c, n_tok = sample_candidates(spans["file"], rows,
+                                                     row0, k, w)
+                        cands.append(c)
+                        population += n_tok
+                data = words_data if files is None else stream_data
+                s_, e_ = bottom_k(cands, k)
+                want = [data[a:b] for a, b in zip(s_.tolist(),
+                                                  e_.tolist())]
+                if got.tokens != want or got.total != population:
+                    raise SystemExit(f"{path_name}: sample or population "
+                                     f"({got.total} of {population}) "
+                                     "differs from the oracle")
+                if n_reads > chunks:
+                    raise SystemExit(f"{path_name} read the host {n_reads} "
+                                     f"times in {chunks} chunks")
+                emit("grep_sample", path=path_name, k=k,
+                     bytes=len(words_data) if files is None
+                     else file_bytes * len(files), chunks=chunks,
+                     population=got.total, sampled=len(got.tokens),
+                     first=[t.decode(errors="backslashreplace")
+                            for t in got.tokens[:4]],
+                     seconds=round(seconds, 4), host_reads=n_reads,
+                     launches=by_path[path_name], equal_to_oracle=True)
+    finally:
+        executor.run_job = real_run_job
+        wc.span = real_span
+    del spans
+
+    # 10c. streamed GB/s over the 8-file corpus, in turns with the word
+    # count.
+    n8 = 8 * file_bytes
+    four = sets["four_nl"][0]
+    turns = ["wordcount", "grep", "grep4", "sample16", "sample16", "grep4",
+             "grep", "wordcount"]
+    arms = {"wordcount": lambda: count_file(corpus8, cfg),
+            "grep": lambda: grep.grep_file(corpus8, b"the", cfg),
+            "grep4": lambda: grep.grep_file_multi(corpus8, four, cfg),
+            "sample16": lambda: sample.sample_file(corpus8, 16, cfg)}
+    gbs: dict = {k: [] for k in arms}
+    for name in turns:
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        arms[name]()
+        gbs[name].append(n8 / (time.perf_counter() - t_a) / 1e9)
+    med = {k: statistics.median(v) for k, v in gbs.items()}
+    emit("grep_sample", case="stream_gb_per_s", card=card, bytes=n8,
+         turns=", ".join(turns), gb_per_s=med, runs=gbs,
+         over_wordcount={k: v / med["wordcount"] for k, v in med.items()})
+
+    # 10d. one device-resident 32 MB chunk: each job's step (map +
+    # combine), host clock in turns; its device time and kernel launches
+    # (profiler); its peak memory above the chunk; its host syncs (CUDA's
+    # sync debug mode, which warns on every synchronising call).
+    chunk = torch.frombuffer(bytearray(words_data), dtype=torch.uint8).to(dev)
+    jobs = {"wordcount": wc.WordCountJob(cfg),
+            "grep_p1": grep.GrepJob(b"the"),
+            "grep_p4": grep.MultiGrepJob(four),
+            "sample_k16": sample.ReservoirSampleJob(16, cfg),
+            "sample_k4096": sample.ReservoirSampleJob(4096, cfg)}
+    states = {k: j.init_state() for k, j in jobs.items()}
+
+    def step(name):
+        j = jobs[name]
+        fn = getattr(j, "map_chunk_sharded", j.map_chunk)
+        return j.combine(states[name], fn(chunk, 0))
+
+    step_ms: dict = {k: [] for k in jobs}
+    for rep in range(11):
+        for name in jobs:
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            step(name)
+            torch.cuda.synchronize()
+            if rep:
+                step_ms[name].append((time.perf_counter() - t_a) * 1e3)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    device_ms, launches, peak_mb, syncs = {}, {}, {}, {}
+    for name in jobs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(name)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total]
+        device_ms[name] = sum(e.self_device_time_total for e in events) / 3e3
+        launches[name] = sum(e.count for e in events) / 3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        step(name)
+        torch.cuda.synchronize()
+        peak_mb[name] = (torch.cuda.max_memory_allocated(dev) - base) / MB
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(name)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs[name] = sum("synchroniz" in str(c.message) for c in caught)
+    if syncs["grep_p1"] or syncs["grep_p4"] \
+            or syncs["sample_k16"] > 1 or syncs["sample_k4096"] > 1:
+        raise SystemExit(f"host syncs in a step: {syncs}")
+    emit("grep_sample", case="times", card=card, chunk_bytes=chunk.shape[0],
+         step_ms={k: statistics.median(v) for k, v in step_ms.items()},
+         device_ms_per_step=device_ms, device_launches_per_step=launches,
+         peak_mb_above_chunk=peak_mb, host_syncs_per_step=syncs)
+    del chunk, states
+    wall = time.perf_counter() - t_phase
+    emit("grep_sample", case="wall", seconds=wall, limit_s=120,
+         within_limit=wall <= 120)
+
+
 def main() -> int:
     import torch
 
@@ -2120,9 +2532,12 @@ def main() -> int:
         # 9. the n-gram and sketched word-count families
         families_phase(drive, by_path, Path(tmp), path, stream_data,
                        words_data, dev)
+        # 10. grep and the reservoir sample
+        grep_sample_phase(by_path, Path(tmp), path, stream_data,
+                          words_data, dev)
         del stream_data
 
-    # 10. times at the main path's shape: one 32 MB chunk
+    # 11. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -2305,7 +2720,7 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
-    # 11. Where a step's device time goes, for the default, combiner and
+    # 12. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

@@ -1,13 +1,15 @@
 """Command line of the port: ``python -m mapreduce_tpu_torch file [file...]``.
 
 Counterpart of :mod:`mapreduce_tpu.cli` for word count, n-grams
-(``--ngram``) and the sketched runs (``--distinct-sketch``,
-``--count-sketch``, ``--estimate``).  Its stdout is
-byte-identical to the JAX CLI's for the flags it takes; every other flag
-of the JAX CLI is refused with a usage error.  The run goes to the card
-unless ``--platform cpu`` asks for the CPU.  Progress logs and ``--stats``
-go to stderr.  A preempted streamed run (SIGINT, or an injected
-preemption) drains, checkpoints and exits 75.
+(``--ngram``), the sketched runs (``--distinct-sketch``,
+``--count-sketch``, ``--estimate``), grep (``--grep``, ``--grep-syntax``),
+the reservoir sample (``--sample``) and the exact recount
+(``--verify-sample``).  Its stdout is byte-identical to the JAX CLI's for
+the flags it takes; every other flag of the JAX CLI is refused with a
+usage error.  The run goes to the card unless ``--platform cpu`` asks for
+the CPU.  Progress logs and ``--stats`` go to stderr.  A preempted
+streamed run (SIGINT, or an injected preemption) drains, checkpoints and
+exits 75.
 
 ``--ledger PATH`` appends the run ledger (and, on a failure, dumps
 ``PATH.flight.json``), ``--metrics-out PATH`` writes the metrics registry
@@ -33,6 +35,12 @@ _CTRL_ESCAPES = str.maketrans({"\t": "\\t", "\n": "\\n", "\r": "\\r",
 #: and the ROADMAP.md item that ports each.
 _UNPORTED_FLAGS = {"--merge-overlap": "A8b (iii)",
                    "--autotune": "A8b (ii), the autotuner"}
+
+#: The JAX CLI's collective merge strategies.  One card merges nothing:
+#: 'tree' is what its one-device run names, and the others need many
+#: devices (ROADMAP.md item A9).
+MERGE_STRATEGIES = ("tree", "gather", "keyrange", "hier-kr-tree",
+                    "hier-tree-tree")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -111,6 +119,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sketched runs: stage per-chunk sketch updates and "
                         "apply them once every K steps (results are "
                         "identical)")
+    p.add_argument("--grep", action="append", default=None, metavar="PATTERN",
+                   help="count occurrences of PATTERN instead of words "
+                        "(overlapping matches + exact matching lines; "
+                        "composes with --stream for sharded corpora; "
+                        "repeatable — P patterns share ONE pass over the "
+                        "corpus)")
+    p.add_argument("--grep-syntax", choices=("literal", "class"),
+                   default="literal",
+                   help="pattern syntax for --grep: 'class' enables "
+                        "regex-lite byte classes — '.' (any byte but "
+                        "newline), '[a-z0-9]', '[^...]', '\\\\x' escapes; "
+                        "fixed length, no repetition/alternation")
+    p.add_argument("--sample", type=int, default=None, metavar="K",
+                   help="report a uniform random sample of K token "
+                        "occurrences instead of counts (mergeable bottom-k "
+                        "sketch; composes with --stream; deterministic for "
+                        "a given corpus + chunking)")
+    p.add_argument("--merge-every", type=int, default=1, metavar="K",
+                   help="fold per-chunk batch tables into the running table "
+                        "once every K steps (word-count family only; not "
+                        "ported yet past 1: ROADMAP.md item A14)")
+    p.add_argument("--merge-strategy", choices=MERGE_STRATEGIES + ("auto",),
+                   default="tree",
+                   help="collective global-reduce strategy for streamed "
+                        "word-count runs; one card merges nothing, so only "
+                        "'tree' runs (the others: ROADMAP.md item A9)")
+    p.add_argument("--verify-sample", type=int, default=0, metavar="K",
+                   help="after a word-count run, exactly recount K reported "
+                        "words host-side (byte-string keyed, no hashing) "
+                        "and fail loudly on any mismatch — the detection "
+                        "path for the ~n^2/2^65 64-bit key-collision "
+                        "envelope (see utils/verify.py); costs one host "
+                        "pass over the corpus")
     for flag, item in _UNPORTED_FLAGS.items():
         p.add_argument(flag, action="store_true",
                        help=f"not ported yet (ROADMAP.md item {item})")
@@ -330,13 +371,158 @@ def _wordcount(args, paths, data, config: Config, device, input_bytes: int,
         result = wordcount.apply_top_k(result, args.top_k)
     _print_result(args, paths, result)
     if args.stats:
-        print(f"[stats] {input_bytes} bytes, {result.total} words, "
-              f"{elapsed:.3f}s, {input_bytes / 1e9 / elapsed:.3f} GB/s",
-              file=sys.stderr)
+        _print_stats(input_bytes, result.total, "words", elapsed)
         if result.run is not None:
             print("[stats] " + json.dumps({
                 "phases": result.run.metrics.as_dict()["phases"],
                 "pipeline": result.run.pipeline}), file=sys.stderr)
+    if args.verify_sample:
+        return _verify(result, paths, args.verify_sample)
+    return 0
+
+
+def _verify(result, paths, sample: int) -> int:
+    """``--verify-sample``: recount ``sample`` reported words exactly on
+    the host; exit 4 on a mismatch (a key collision's signature)."""
+    from mapreduce_tpu_torch.utils.verify import verify_result
+
+    mismatches = verify_result(result.words, result.counts, paths,
+                               sample=sample)
+    if mismatches:
+        for w, rep, true in mismatches:
+            print(f"verify: MISMATCH {w!r}: reported {rep}, exact "
+                  f"recount {true} (possible 64-bit key collision — "
+                  "see mapreduce_tpu_torch/utils/verify.py)",
+                  file=sys.stderr)
+        return 4
+    print(f"verify: ok ({min(sample, len(result.words))} words "
+          "recounted exactly)", file=sys.stderr)
+    return 0
+
+
+def _print_stats(input_bytes: int, count: int, unit: str,
+                 elapsed: float) -> None:
+    print(f"[stats] {input_bytes} bytes, {count} {unit}, "
+          f"{elapsed:.3f}s, {input_bytes / 1e9 / elapsed:.3f} GB/s",
+          file=sys.stderr)
+
+
+def _grep_main(args, paths, data, config: Config, device, input_bytes: int,
+               tel) -> int:
+    """``--grep``: pattern counts instead of word counts (the JAX
+    ``_grep_main``).  Several ``--grep`` flags run as one pass."""
+    from mapreduce_tpu_torch.models import grep
+    from mapreduce_tpu_torch.runtime import profiling
+
+    patterns = [g.encode() for g in args.grep]
+    syntax = args.grep_syntax
+    kw = dict(config=config, device=device, syntax=syntax,
+              checkpoint_path=args.checkpoint,
+              checkpoint_every=args.checkpoint_every if args.checkpoint
+              else 0, retry=args.retry, telemetry=tel)
+    batch_tel = tel if not args.stream else None
+    if batch_tel is not None:
+        _batch_run_start(batch_tel, "grep", paths, config, input_bytes)
+    t0 = time.perf_counter()
+    try:
+        with profiling.trace(args.profile):
+            if args.stream and len(patterns) == 1:
+                results = [grep.grep_file(paths, patterns[0], **kw)]
+            elif args.stream:
+                results = grep.grep_file_multi(paths, patterns, **kw)
+            else:
+                # Each file is grepped on its own and the counts summed: a
+                # pattern holding the join byte would match across a join.
+                per_file = [grep.grep_bytes_multi(c, patterns, syntax,
+                                                  device) for c in data]
+                results = [grep.GrepResult(
+                    p, sum(f[i].matches for f in per_file),
+                    sum(f[i].lines for f in per_file))
+                    for i, p in enumerate(patterns)]
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    elapsed = time.perf_counter() - t0
+    if batch_tel is not None:
+        batch_tel.ledger_write("run_end", bytes=input_bytes,
+                               words=sum(r.matches for r in results),
+                               elapsed_s=round(elapsed, 6))
+    out = sys.stdout
+    multi = len(results) > 1
+    if args.format == "json":
+        if multi:
+            out.write(json.dumps({"patterns": [
+                {"pattern": g, "matches": r.matches, "lines": r.lines}
+                for g, r in zip(args.grep, results)]}) + "\n")
+        else:
+            out.write(json.dumps({"pattern": args.grep[0],
+                                  "matches": results[0].matches,
+                                  "lines": results[0].lines}) + "\n")
+    elif args.format == "tsv":
+        if multi:
+            for g, r in zip(args.grep, results):
+                out.write(f"{g}\t{r.matches}\t{r.lines}\n")
+        else:
+            out.write(f"matches\t{results[0].matches}\n"
+                      f"lines\t{results[0].lines}\n")
+    else:
+        for g, r in zip(args.grep, results):
+            if multi:
+                out.write(f"Pattern:{g}\n")
+            out.write(f"Matches:{r.matches}\n")
+            out.write(f"Matching Lines:{r.lines}\n")
+    if args.stats:
+        _print_stats(input_bytes, sum(r.matches for r in results),
+                     "matches", elapsed)
+    return 0
+
+
+def _sample_main(args, paths, data, config: Config, device,
+                 input_bytes: int, tel) -> int:
+    """``--sample``: a uniform token sample instead of counts (the JAX
+    ``_sample_main``)."""
+    from mapreduce_tpu_torch.models import sample as sample_mod
+    from mapreduce_tpu_torch.runtime import profiling
+
+    batch_tel = tel if not args.stream else None
+    if batch_tel is not None:
+        _batch_run_start(batch_tel, "sample", paths, config, input_bytes)
+    t0 = time.perf_counter()
+    try:
+        with profiling.trace(args.profile):
+            if args.stream:
+                result = sample_mod.sample_file(
+                    paths, args.sample, config, device,
+                    checkpoint_path=args.checkpoint,
+                    checkpoint_every=args.checkpoint_every if args.checkpoint
+                    else 0, retry=args.retry, telemetry=tel)
+            else:
+                result = sample_mod.sample_bytes(data, args.sample, config,
+                                                 device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    elapsed = time.perf_counter() - t0
+    if batch_tel is not None:
+        batch_tel.ledger_write("run_end", bytes=input_bytes,
+                               words=result.total,
+                               elapsed_s=round(elapsed, 6))
+    out = sys.stdout
+    display = _decode(result.tokens)
+    if args.format == "json":
+        out.write(json.dumps({"sample": display, "k": args.sample,
+                              "total": result.total}) + "\n")
+    elif args.format == "tsv":
+        for w in display:
+            out.write(w + "\n")
+    else:
+        out.write("--------------------------\n")
+        for w in display:
+            out.write(w + "\n")
+        out.write("--------------------------\n")
+        out.write(f"Sampled:{len(display)} of {result.total}\n")
+    if args.stats:
+        _print_stats(input_bytes, result.total, "tokens", elapsed)
     return 0
 
 
@@ -370,9 +556,48 @@ def main(argv: list[str] | None = None) -> int:
     if args.fault_plan is not None and not args.stream:
         parser.error("--fault-plan requires --stream (the injection seams "
                      "exist only on the streamed path)")
+    if args.grep_syntax != "literal" and args.grep is None:
+        parser.error("--grep-syntax requires --grep")
     if (args.count_sketch or args.estimate) and args.distinct_sketch:
         parser.error("--count-sketch/--estimate and --distinct-sketch are "
                      "mutually exclusive per run")
+    if args.sample is not None and args.sample < 1:
+        parser.error(f"--sample must be >= 1, got {args.sample}")
+    if args.grep is not None or args.sample is not None:
+        # Grep and sample count no words: a word-count flag is an error.
+        mode = "--grep" if args.grep is not None else "--sample"
+        for flag, present in (("--ngram", args.ngram != 1),
+                              ("--top-k", bool(args.top_k)),
+                              ("--distinct-sketch", args.distinct_sketch),
+                              ("--count-sketch", args.count_sketch),
+                              ("--estimate", bool(args.estimate)),
+                              ("--merge-every", args.merge_every != 1)):
+            if present:
+                parser.error(f"{flag} is not supported with {mode}")
+    if args.grep is not None and args.sample is not None:
+        parser.error("--grep and --sample are mutually exclusive")
+    if args.verify_sample:
+        if args.verify_sample < 0:
+            parser.error(f"--verify-sample must be >= 0, got "
+                         f"{args.verify_sample}")
+        if args.ngram > 1 or args.grep is not None \
+                or args.sample is not None:
+            # Recounting is word-keyed: gram spans hold separators, and
+            # grep and sample report no counts to check.
+            parser.error("--verify-sample applies to word-count runs only")
+    if args.ngram > 1 and args.merge_every > 1:
+        parser.error("--merge-every applies to word-count runs only "
+                     "(not --ngram)")
+    if args.merge_every != 1 and not args.stream:
+        parser.error("--merge-every requires --stream")
+    if args.merge_strategy != "tree":
+        if not args.stream:
+            parser.error("--merge-strategy requires --stream")
+        if args.grep is not None or args.sample is not None:
+            parser.error("--merge-strategy applies to word-count runs only")
+        parser.error(f"--merge-strategy {args.merge_strategy} merges across "
+                     "devices, which is not ported to the PyTorch package "
+                     "yet (ROADMAP.md item A9)")
     paths = args.input
     try:
         chunks = []
@@ -383,7 +608,14 @@ def main(argv: list[str] | None = None) -> int:
                 if not args.stream:
                     chunks.append(f.read())
         # Files are independent token streams: a separator joins them.
-        data = None if args.stream else b"\n".join(chunks)
+        # Grep keeps the list: its patterns may hold the separator, so a
+        # join could make a match across two files.
+        if args.stream:
+            data = None
+        elif args.grep is not None:
+            data = chunks
+        else:
+            data = b"\n".join(chunks)
         del chunks
     except OSError as e:
         print(f"error: cannot read {path}: {e}", file=sys.stderr)
@@ -405,6 +637,7 @@ def main(argv: list[str] | None = None) -> int:
                         inflight_groups=args.inflight,
                         prefetch_depth=args.prefetch_depth,
                         sketch_flush_every=args.sketch_flush_every,
+                        merge_every=args.merge_every,
                         fault_plan=args.fault_plan)
     except ValueError as e:
         parser.error(str(e))
@@ -428,6 +661,12 @@ def main(argv: list[str] | None = None) -> int:
                   file=sys.stderr)
             return 2
     try:
+        if args.grep is not None:
+            return _grep_main(args, paths, data, config, device,
+                              input_bytes, tel)
+        if args.sample is not None:
+            return _sample_main(args, paths, data, config, device,
+                                input_bytes, tel)
         return _wordcount(args, paths, data, config, device, input_bytes,
                           tel)
     except Exception as e:

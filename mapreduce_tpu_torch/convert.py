@@ -7,9 +7,10 @@ move one across as numpy arrays, so both packages can start from one state
 and their results compare field by field; :func:`state_from_numpy` and
 :func:`state_to_numpy` do the same for the composite states of the n-gram
 and sketch jobs (``NGramState``, ``GramCarry``, registers, Count-Min
-sketches, ``BatchedSketchState``).  :func:`state_to_leaves` gives a state
-the layout of a one-device JAX engine state (the checkpoint's leaves), so
-a snapshot from either package resumes in the other.
+sketches, ``BatchedSketchState``), grep's ``GrepState`` and the sample's
+``ReservoirState``.  :func:`state_to_leaves` gives a state the layout of a
+one-device JAX engine state (the checkpoint's leaves), so a snapshot from
+either package resumes in the other.
 """
 from __future__ import annotations
 
@@ -63,22 +64,24 @@ def leaves_to_table(leaves, device=None) -> CountTable:
 
 def _state_classes() -> dict:
     """The port's state NamedTuples by name, the JAX package's names."""
+    from mapreduce_tpu_torch.models import grep, sample
     from mapreduce_tpu_torch.models import wordcount as wc
     from mapreduce_tpu_torch.ops import ngram
 
     return {cls.__name__: cls for cls in (
         CountTable, ngram.GramCarry, ngram.ChunkSummary, wc.NGramState,
         wc.TopKTable, wc.SketchedState, wc.FreqSketchedState,
-        wc.BatchedSketchState)}
+        wc.BatchedSketchState, grep.GrepState, sample.ReservoirState)}
 
 
 def state_from_numpy(state, device=None):
     """A port state from a JAX one of the same structure: a ``CountTable``,
-    ``GramCarry``, ``NGramState``, ``SketchedState``, ``FreqSketchedState``
-    or ``BatchedSketchState`` (matched by class name, nested as in the JAX
-    pytree), or a bare array (registers, a Count-Min sketch).  Every array
-    becomes an int64 tensor holding its uint32 values; a
-    ``BatchedSketchState``'s cursor becomes the host int the port keeps."""
+    ``GramCarry``, ``NGramState``, ``SketchedState``, ``FreqSketchedState``,
+    ``BatchedSketchState``, ``GrepState`` or ``ReservoirState`` (matched by
+    class name, nested as in the JAX pytree), or a bare array (registers,
+    a Count-Min sketch).  Every array becomes an int64 tensor holding its
+    uint32 values; a ``BatchedSketchState``'s cursor becomes the host int
+    the port keeps."""
     dev = resolve_device(device)
     if isinstance(state, tuple) and hasattr(state, "_fields"):
         cls = _state_classes()[type(state).__name__]

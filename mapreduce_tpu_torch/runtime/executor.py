@@ -1,8 +1,14 @@
-"""Streamed word count over files, on one device: the pipelined executor.
+"""Streamed jobs over files, on one device: the pipelined executor.
 
-It runs any job of the word-count family: the word count, its top-k, the
-n-gram job and the sketch wrappers (``count_file(ngram=,
-distinct_sketch=, count_sketch=)``).
+``run_job`` runs any job whose state is a NamedTuple of tensors (nested,
+or with host ints): the word-count family (the word count, its top-k, the
+n-gram job and the sketch wrappers, through ``count_file(ngram=,
+distinct_sketch=, count_sketch=)``), grep (``models/grep.py:grep_file``)
+and the reservoir sample (``models/sample.py:sample_file``).  A job
+supplies ``init_state``, ``map_chunk`` (or the streamed
+``map_chunk_sharded``), ``combine``, ``finalize``, ``identity`` and a
+``device``; ``on_input_boundary`` and the data-statistics hooks
+(``map_chunk_stats``, ``state_stats``) are optional.
 
 Counterpart of :mod:`mapreduce_tpu.runtime.executor` (``run_job`` and its
 ``_drive_stream`` loop, ``count_file``, ``recover_from_file``,
@@ -1192,10 +1198,13 @@ _MERGE_STRATEGY = "tree"
 def _metrics_word_count(value) -> int:
     """The total words inside any finalized state, for ``RunMetrics``:
     sketch states hold a ``table`` that may itself be a :class:`TopKTable`,
-    unwrapped down to the count table."""
+    unwrapped down to the count table.  A state that holds no count table
+    (grep, sample) reports 0, as in the JAX package: its numbers are its
+    own result's."""
     while isinstance(value, (SketchedState, FreqSketchedState, TopKTable)):
         value = value.table
-    return value.total_count()
+    return value.total_count() \
+        if isinstance(value, table_ops.CountTable) else 0
 
 
 def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,

@@ -11,7 +11,10 @@ refuse a plain run's snapshot for a top-k run.  So it does for the n-gram
 and sketch families (``ngram2``, ``ngram2-top5``, and distinct- and
 count-sketched runs at ``sketch_flush_every`` 1 and 4, whose composite
 states are written in the JAX pytree's leaf order), and a snapshot of
-another job identity is refused.  The refusals (another
+another job identity is refused; and for grep (one literal pattern, a
+class pattern, three patterns in one pass) and the sample, whose
+snapshots resume across packages and whose other pattern is refused.  The
+refusals (another
 chunk size, capacity or input; future and legacy formats) and the
 ``.prev`` fallback after corruption are the port's alone.
 """
@@ -27,9 +30,12 @@ import pytest
 import torch
 
 from mapreduce_tpu.config import Config as JConfig
+from mapreduce_tpu.models import grep as jgrep
+from mapreduce_tpu.models import sample as jsample
 from mapreduce_tpu.parallel.mesh import data_mesh
 from mapreduce_tpu.runtime import executor as jexecutor
 from mapreduce_tpu_torch import convert
+from mapreduce_tpu_torch.models import grep, sample
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt
 from mapreduce_tpu_torch.runtime import executor
@@ -51,7 +57,8 @@ def _shared_jax_engines():
     real = jexecutor.Engine
 
     def engine(job, mesh, **kw):
-        key = (job.identity(), job.config, tuple(sorted(kw.items())))
+        key = (job.identity(), getattr(job, "config", None),
+               tuple(sorted(kw.items())))
         if key not in memo:
             memo[key] = real(job, mesh, **kw)
         return memo[key]
@@ -422,3 +429,89 @@ def test_state_leaves_round_trip_in_jax_order():
     assert back.cursor == 1 and isinstance(back.cursor, int)
     assert torch.equal(back.pend_cnt, state.pend_cnt)
     assert torch.equal(back.table.carry.kind, state.table.carry.kind)
+
+
+def _grep_families():
+    return {
+        "grep": (lambda p, c, **kw: jgrep.grep_file(p, b"w1", c, **kw),
+                 lambda p, c, **kw: grep.grep_file(p, b"w1", c, **kw)),
+        "grepc": (lambda p, c, **kw: jgrep.grep_file(
+            p, b"w[0-9]", c, syntax="class", **kw),
+            lambda p, c, **kw: grep.grep_file(p, b"w[0-9]", c,
+                                              syntax="class", **kw)),
+        "grep3": (lambda p, c, **kw: jgrep.grep_file_multi(
+            p, [b"w1", b" w", b"e"], c, **kw),
+            lambda p, c, **kw: grep.grep_file_multi(p, [b"w1", b" w", b"e"],
+                                                    c, **kw)),
+        "sample16": (lambda p, c, **kw: jsample.sample_file(p, 16, c, **kw),
+                     lambda p, c, **kw: sample.sample_file(p, 16, c, **kw)),
+    }
+
+
+@pytest.fixture(scope="module")
+def grep_runs(run):
+    """Both packages' grep and sample runs over ``run``'s corpus, a
+    snapshot every 2 steps (``jax_<kind>.npz``, ``port_<kind>.npz``)."""
+    d = run["dir"]
+    out = {}
+    for kind, (jfn, pfn) in _grep_families().items():
+        want = jfn(run["paths"], JCFG, mesh=data_mesh(1),
+                   checkpoint_path=str(d / f"jax_{kind}.npz"),
+                   checkpoint_every=2)
+        got = pfn(run["paths"], CFG, device="cpu",
+                  checkpoint_path=str(d / f"port_{kind}.npz"),
+                  checkpoint_every=2)
+        out[kind] = {"jax": want, "port": got, "fns": (jfn, pfn)}
+    return out
+
+
+@pytest.mark.parametrize("kind", ["grep", "grepc", "grep3", "sample16"])
+def test_grep_and_sample_snapshots_equal_jax(run, grep_runs, kind):
+    f = grep_runs[kind]
+    assert f["port"] == f["jax"]
+    for suffix, step in (("", 4), (".prev", 2)):
+        want = np.load(run["dir"] / f"jax_{kind}.npz{suffix}")
+        got = np.load(run["dir"] / f"port_{kind}.npz{suffix}")
+        assert sorted(got.files) == sorted(want.files)
+        assert int(got["__step"]) == int(want["__step"]) == step
+        for k in want.files:
+            if k == "__meta":
+                assert json.loads(bytes(got[k])) \
+                    == json.loads(bytes(want[k]))
+                continue
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["grep", "grepc", "grep3", "sample16"])
+def test_grep_and_sample_snapshots_resume_across_packages(run, grep_runs,
+                                                          kind, tmp_path):
+    f = grep_runs[kind]
+    jfn, pfn = f["fns"]
+    ck = _copy_snapshot(run["dir"] / f"jax_{kind}.npz.prev",
+                        tmp_path / "from_jax.npz")
+    assert pfn(run["paths"], CFG, device="cpu", checkpoint_path=ck) \
+        == f["jax"]
+    ck = _copy_snapshot(run["dir"] / f"port_{kind}.npz.prev",
+                        tmp_path / "from_port.npz")
+    assert jfn(run["paths"], JCFG, mesh=data_mesh(1), checkpoint_path=ck) \
+        == f["jax"]
+
+
+@pytest.mark.parametrize("kind,other", [
+    ("grep", lambda p, c, **kw: grep.grep_file(p, b"w2", c, **kw)),
+    ("grep", lambda p, c, **kw: grep.grep_file(p, b"w1", c, syntax="class",
+                                               **kw)),
+    ("grep3", lambda p, c, **kw: grep.grep_file_multi(
+        p, [b"w1", b" w", b"f"], c, **kw)),
+    ("sample16", lambda p, c, **kw: sample.sample_file(p, 17, c, **kw)),
+    ("grep", lambda p, c, **kw: executor.count_file(p, c, **kw)),
+], ids=["other-pattern", "other-syntax", "other-set", "other-k",
+        "wordcount"])
+def test_grep_and_sample_snapshot_of_another_job_is_refused(
+        run, grep_runs, kind, other, tmp_path):
+    """Same state shape, another pattern (or syntax, pattern set or k): the
+    job identity in the fingerprint refuses the resume."""
+    ck = _copy_snapshot(run["dir"] / f"port_{kind}.npz", tmp_path / "ck.npz")
+    with pytest.raises(ckpt.CheckpointMismatch, match="job"):
+        other(run["paths"], CFG, device="cpu", checkpoint_path=ck)

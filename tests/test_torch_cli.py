@@ -159,8 +159,7 @@ def test_bad_compact_slots_are_refused_as_by_jax(flags, capsys):
     assert "compact_slots" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--verify-sample", "3"], ["--grep", "x"],
-                                  ["--sample", "3"], ["--top"]])
+@pytest.mark.parametrize("flag", [["--top"]])
 def test_other_jax_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["test.txt", "--platform", "cpu", *flag])
@@ -287,3 +286,180 @@ def test_family_usage_errors_match_jax_cli(flags, capsys):
         errs.append(capsys.readouterr().err.strip().splitlines()[-1])
     want, got = errs
     assert got.split("error: ", 1)[1] == want.split("error: ", 1)[1]
+
+
+@pytest.fixture(scope="module")
+def lines_file(tmp_path_factory):
+    """~30 KB of short lines and one line far longer than a 4 KB chunk:
+    matches, and matching lines split across chunks."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    words = [b"the", b"cat", b"sat", b"w1", b"a1b", b"dog", b"o W"]
+    seps = [b" ", b" ", b"\n", b"\t"]
+    body = b"".join(words[int(i)] + seps[int(j)] for i, j in zip(
+        rng.integers(0, 7, 4000), rng.integers(0, 4, 4000)))
+    p = tmp_path_factory.mktemp("grep") / "lines.txt"
+    p.write_bytes(body + b"the " + b"x " * 3000 + b"cat\n")
+    return str(p)
+
+
+GREP_CASES = {
+    "one": ("--grep", "the"),
+    "one-json": ("--grep", "the", "--format", "json"),
+    "one-tsv": ("--grep", "o W", "--format", "tsv"),
+    "three": ("--grep", "the", "--grep", "o W", "--grep", "1\n"),
+    "three-json": ("--grep", "cat", "--grep", "\n", "--grep", "zz",
+                   "--format", "json"),
+    "three-tsv": ("--grep", "the", "--grep", "sat", "--grep", "dog",
+                  "--format", "tsv"),
+    "class": ("--grep", "[a-z][0-9]", "--grep-syntax", "class"),
+    "class-multi-json": ("--grep", "w.", "--grep", "[^ ]1[a-c]",
+                         "--grep-syntax", "class", "--format", "json"),
+}
+
+
+def _in_repo_main(argv: list) -> int:
+    old = os.getcwd()
+    os.chdir(REPO)
+    try:
+        return cli.main(argv)
+    finally:
+        os.chdir(old)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["batch", "stream"])
+@pytest.mark.parametrize("case", list(GREP_CASES))
+def test_grep_stdout_identical_to_jax_cli(case, stream, lines_file,
+                                          capsysbinary):
+    """``--grep``: one and three patterns, class syntax, every format, on
+    test.txt and on a file of many 4 KB chunks (streamed there), the port
+    in-process against the JAX CLI in-process (its streamed run takes the
+    conftest's 8-device mesh: grep's counts do not depend on it)."""
+    flags = GREP_CASES[case]
+    for path in ("test.txt", lines_file):
+        extra = ("--stream", "--chunk-bytes", "4096") if stream else ()
+        want = _jax_stdout(path, *flags, *extra)
+        assert _in_repo_main([path, *flags, *extra, "--platform", "cpu"]) \
+            == 0
+        assert capsysbinary.readouterr().out == want, (path, flags)
+
+
+SAMPLE_CASES = {
+    "reference": ("--sample", "4"),
+    "json": ("--sample", "7", "--format", "json"),
+    "tsv-all": ("--sample", "100000", "--format", "tsv"),
+}
+
+
+@pytest.mark.parametrize("case", list(SAMPLE_CASES))
+def test_sample_stdout_identical_to_jax_cli(case, lines_file, capsysbinary):
+    """``--sample`` in batch mode, on test.txt and the lines file; the
+    buffers hold no token longer than W, so the JAX CLI's ``auto`` (the
+    plain path on the CPU) and the port's (the kernel path) draw the same
+    sample."""
+    flags = SAMPLE_CASES[case]
+    for path in ("test.txt", lines_file):
+        want = _jax_stdout(path, *flags)
+        assert _in_repo_main([path, *flags, "--platform", "cpu"]) == 0
+        assert capsysbinary.readouterr().out == want, (path, flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--sample", "9", "--format", "json"),
+    ("--sample", "5", "--backend", "pallas", "--max-token-bytes", "8"),
+], ids=["plain", "kernel"])
+def test_streamed_sample_stdout_identical_to_jax_cli(flags, lines_file,
+                                                     capsysbinary):
+    """A streamed sample hashes the chunk ids, so the JAX CLI runs on one
+    device (``./main`` without the conftest's mesh): 4 KB chunks, the
+    plain path and the kernel path (W = 8)."""
+    argv = [lines_file, *flags, "--stream", "--chunk-bytes", "4096"]
+    proc = _jax_cli(argv)
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert _in_repo_main([*argv, "--platform", "cpu"]) == 0
+    assert capsysbinary.readouterr().out == proc.stdout
+
+
+@pytest.mark.parametrize("flags", [
+    ("--grep-syntax", "class"),
+    ("--sample", "0"),
+    ("--grep", "x", "--ngram", "2"),
+    ("--sample", "3", "--top-k", "2"),
+    ("--grep", "x", "--stream", "--distinct-sketch"),
+    ("--sample", "3", "--stream", "--count-sketch"),
+    ("--grep", "x", "--stream", "--estimate", "a"),
+    ("--grep", "x", "--stream", "--merge-every", "2"),
+    ("--grep", "x", "--sample", "3"),
+    ("--grep", "x", "--verify-sample", "3"),
+    ("--sample", "3", "--verify-sample", "3"),
+    ("--ngram", "2", "--verify-sample", "3"),
+    ("--verify-sample", "-1"),
+    ("--grep", "x", "--stream", "--merge-strategy", "gather"),
+    ("--sample", "3", "--merge-strategy", "keyrange"),
+], ids=["syntax-alone", "sample0", "grep-ngram", "sample-topk",
+        "grep-distinct", "sample-count", "grep-estimate", "grep-merge-every",
+        "grep-sample", "grep-verify", "sample-verify", "ngram-verify",
+        "verify-negative", "grep-merge-strategy", "sample-merge-no-stream"])
+def test_grep_and_sample_usage_errors_match_jax_cli(flags, capsys):
+    """Each usage error of the two modes exits 2 with the JAX message."""
+    errs = []
+    for main in (jcli.main, cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["test.txt", *flags] + (["--platform", "cpu"]
+                                         if main is cli.main else []))
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    want, got = errs
+    assert got.split("error: ", 1)[1] == want.split("error: ", 1)[1]
+
+
+@pytest.mark.parametrize("flags", [
+    ("--grep", "a\\", "--grep-syntax", "class"),
+    ("--grep", "b" * 257),
+    ("--grep", "ok", "--grep", "[z-a]", "--grep-syntax", "class"),
+], ids=["dangling", "too-long", "empty-range"])
+def test_bad_patterns_exit_2_as_in_jax(flags, capsys):
+    """A pattern the job refuses: ``error: ...`` and exit 2, no usage."""
+    errs = []
+    for main in (jcli.main, cli.main):
+        argv = ["test.txt", *flags]
+        assert (main(argv) if main is jcli.main
+                else _in_repo_main(argv + ["--platform", "cpu"])) == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0] == errs[1] and errs[1].startswith("error: ") \
+        and "grep" in errs[1]
+
+
+@pytest.mark.parametrize("strategy", ["gather", "keyrange"])
+def test_other_merge_strategies_name_a9(strategy, capsys):
+    """One card merges nothing: a streamed word count refuses a strategy
+    that merges across devices, naming its item; 'tree' runs."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["test.txt", "--platform", "cpu", "--stream",
+                  "--merge-strategy", strategy])
+    assert e.value.code == 2
+    assert "(ROADMAP.md item A9)" in capsys.readouterr().err
+    assert _in_repo_main(["test.txt", "--platform", "cpu", "--stream",
+                          "--merge-strategy", "tree", "--no-echo"]) == 0
+
+
+@pytest.mark.parametrize("mode", [("--grep", "o"), ("--sample", "3")])
+def test_batch_ledger_of_grep_and_sample_matches_jax(mode, tmp_path):
+    """A telemetered batch grep or sample writes ``run_start`` and
+    ``run_end`` only, with the JAX CLI's fields (clock readings and the
+    backend, which ``auto`` resolves differently, aside)."""
+    from mapreduce_tpu_torch.obs import ledger
+
+    recs = []
+    for main, name in ((jcli.main, "jax"), (cli.main, "port")):
+        path = str(tmp_path / f"{name}.jsonl")
+        argv = ["test.txt", *mode, "--ledger", path]
+        assert (main(argv) if main is jcli.main
+                else _in_repo_main(argv + ["--platform", "cpu"])) == 0
+        recs.append([{k: v for k, v in r.items() if k not in (
+            "ts", "run_id", "elapsed_s", "backend")}
+            for r in ledger.read_ledger(path)])
+    want, got = recs
+    assert [r["kind"] for r in got] == ["run_start", "run_end"]
+    assert got == want

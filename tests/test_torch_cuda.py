@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from mapreduce_tpu_torch.data import reader as reader_mod
 from mapreduce_tpu_torch.models import wordcount as wc
 from mapreduce_tpu_torch.ops.cuda import radix
 from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
@@ -815,3 +816,82 @@ def test_families_read_the_host_once_a_chunk(cuda_device, tmp_path, make):
                              "ops/sketch.py")}
     assert not [p for p in syncs if p in own]
     assert syncs.count(pkg / "models" / "wordcount.py") == rr.bases.shape[0]
+
+
+@pytest.mark.cuda
+def test_grep_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """Grep's torch map on the card (literal, class and newline patterns,
+    one buffer and a streamed corpus of 64 KB chunks) equals the CPU's;
+    it launches no hand-written kernel."""
+    from mapreduce_tpu_torch.models import grep
+
+    corpus = _zipf_text(7, 1 << 20)
+    for pats, syntax in (([b"w1", b"\nw", b"w2\n", b"\n"], "literal"),
+                         ([b"w[0-9a-f]", b"[^ ]\t"], "class")):
+        ktok.LAUNCHES.clear()
+        got = grep.grep_bytes_multi(corpus, pats, syntax)
+        assert got == grep.grep_bytes_multi(corpus, pats, syntax,
+                                            device="cpu")
+        assert got[0].matches > 0 and not ktok.LAUNCHES
+    paths, _ = _stream_files(tmp_path)
+    cfg = wc.Config(chunk_bytes=1 << 16)
+    got = grep.grep_file_multi(paths, [b"w1", b"\nw", b" w"], cfg)
+    assert got == grep.grep_file_multi(paths, [b"w1", b"\nw", b" w"], cfg,
+                                       device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 4096])
+def test_sample_on_the_card_equals_the_cpu(cuda_device, tmp_path, k):
+    """The sample's kernel map (pair mode, the dense stream masked past
+    its live rows, which the kernel leaves unwritten) equals the plain
+    version's on the CPU, one launch a chunk."""
+    from mapreduce_tpu_torch.models import sample
+
+    corpus = _zipf_text(8, 1 << 20)
+    cfg = wc.Config()
+    ktok.LAUNCHES.clear()
+    got = sample.sample_bytes(corpus, k, cfg)
+    assert got == sample.sample_bytes(corpus, k, cfg, device="cpu")
+    assert dict(ktok.LAUNCHES) == {"tokenize_pair": 1}
+    paths, _ = _stream_files(tmp_path)
+    cfg = wc.Config(chunk_bytes=1 << 16)
+    ktok.LAUNCHES.clear()
+    got = sample.sample_file(paths, k, cfg)
+    launched = ktok.LAUNCHES["tokenize_pair"]
+    assert got == sample.sample_file(paths, k, cfg, device="cpu")
+    assert launched == len(list(reader_mod.iter_batches_multi(
+        paths, 1, cfg.chunk_bytes)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", ["grep", "sample"])
+def test_grep_and_sample_never_read_the_host_in_a_step(cuda_device, tmp_path,
+                                                       make):
+    """Under the sync debug mode a streamed grep or sample synchronises
+    nowhere in its map, its combine or the executor."""
+    import warnings
+
+    from mapreduce_tpu_torch.models import grep, sample
+
+    paths, _ = _stream_files(tmp_path, n_files=2)
+    cfg = wc.Config(chunk_bytes=1 << 16)
+    job = grep.MultiGrepJob([b"w1", b"\nw"]) if make == "grep" \
+        else sample.ReservoirSampleJob(64, cfg)
+    executor.run_job(job, paths, cfg)  # warm: build, allocate, pin
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            executor.run_job(job, paths, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [pathlib.Path(w.filename).resolve() for w in caught
+             if "synchroniz" in str(w.message)]
+    pkg = REPO / "mapreduce_tpu_torch"
+    own = {pkg / f for f in ("runtime/executor.py", "data/reader.py",
+                             "parallel/mapreduce.py", "models/grep.py",
+                             "models/sample.py", "models/wordcount.py",
+                             "ops/cuda/tokenize.py", "ops/table.py",
+                             "ops/tokenize.py")}
+    assert not [p for p in syncs if p in own]

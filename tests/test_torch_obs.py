@@ -42,6 +42,8 @@ import torch
 from mapreduce_tpu import cli as jcli
 from mapreduce_tpu import obs as jobs
 from mapreduce_tpu.config import Config as JConfig
+from mapreduce_tpu.models import grep as jgrep
+from mapreduce_tpu.models import sample as jsample
 from mapreduce_tpu.models import wordcount as jwc
 from mapreduce_tpu.obs import datahealth as jdatahealth
 from mapreduce_tpu.obs import flight as jflight
@@ -54,6 +56,7 @@ from mapreduce_tpu.parallel.mesh import data_mesh
 from mapreduce_tpu.runtime import executor as jexecutor
 from mapreduce_tpu_torch import cli, convert, native
 from mapreduce_tpu_torch.data import reader as reader_mod
+from mapreduce_tpu_torch.models import grep, sample
 from mapreduce_tpu_torch.models import wordcount as wc
 from mapreduce_tpu_torch.obs import flight, ledger, registry, telemetry, \
     timeline
@@ -97,10 +100,12 @@ def _shared_jax_engines():
     real = jexecutor.Engine
 
     def engine(job, mesh, **kw):
-        cfg = dataclasses.replace(job.config, fault_plan=None,
-                                  failure_policy=None, inflight_groups=1,
-                                  superstep=1, prefetch_depth=None)
-        key = (type(job), cfg, tuple(sorted(kw.items())))
+        cfg = getattr(job, "config", None)
+        if cfg is not None:
+            cfg = dataclasses.replace(cfg, fault_plan=None,
+                                      failure_policy=None, inflight_groups=1,
+                                      superstep=1, prefetch_depth=None)
+        key = (type(job), job.identity(), cfg, tuple(sorted(kw.items())))
         if key not in memo:
             memo[key] = real(job, mesh, **kw)
         return memo[key]
@@ -150,13 +155,18 @@ def _configs(inflight, superstep, **kw):
 
 
 def _run_pair(tmp_path, path, inflight, superstep, *, plan=None,
-              policy=None, retry=0, checkpoint=False, jax_config=None):
+              policy=None, retry=0, checkpoint=False, jax_config=None,
+              job_pair=None):
     """Both packages' telemetered ``run_job`` over ``path``: ``{pkg:
     (result or exception, ledger path, registry snapshot)}``.  A fresh
     registry each; a heartbeat cadence of an hour, so each run writes
-    exactly its first ``progress`` record."""
+    exactly its first ``progress`` record.  ``job_pair``: ``(JAX job of a
+    config, port job of a config)`` factories (default: the word
+    count)."""
     jcfg, cfg = _configs(inflight, superstep, fault_plan=plan,
                          failure_policy=policy, **(jax_config or {}))
+    jjob, pjob = job_pair or (jwc.WordCountJob,
+                          lambda c: wc.WordCountJob(c, "cpu"))
     out = {}
     for name in ("jax", "port"):
         led = str(tmp_path / f"{name}.jsonl")
@@ -167,14 +177,14 @@ def _run_pair(tmp_path, path, inflight, superstep, *, plan=None,
             tel = jobs.Telemetry.create(ledger_path=led, registry=reg,
                                         progress_every_s=3600)
             fn = lambda: jexecutor.run_job(  # noqa: E731
-                jwc.WordCountJob(jcfg), path, jcfg, mesh=data_mesh(1),
+                jjob(jcfg), path, jcfg, mesh=data_mesh(1),
                 retry=retry, telemetry=tel, **kw)
         else:
             reg = registry.MetricsRegistry()
             tel = telemetry.Telemetry.create(ledger_path=led, registry=reg,
                                              progress_every_s=3600)
             fn = lambda: executor.run_job(  # noqa: E731
-                wc.WordCountJob(cfg, "cpu"), path, cfg, retry=retry,
+                pjob(cfg), path, cfg, retry=retry,
                 telemetry=tel, **kw)
         try:
             res = fn()
@@ -491,6 +501,76 @@ def test_ledger_parity_under_faults(tmp_path, monkeypatch, corpus, case,
         jledger.read_ledger(out["jax"][1]))
     replay = faults.FaultPlan.from_ledger(ledger.read_ledger(out["port"][1]))
     assert sorted(replay.events) == sorted((s, i) for s, i, _ in fired)
+
+
+#: Grep and the sample through ``run_job``: the JAX and the port job of
+#: a config.
+GREP_JOBS = {
+    "grep": (lambda c: jgrep.GrepJob(b"w1"),
+             lambda c: grep.GrepJob(b"w1", device="cpu")),
+    "grep3c": (lambda c: jgrep.MultiGrepJob([b"w[0-9]", b" w", b"\n"],
+                                            "class"),
+               lambda c: grep.MultiGrepJob([b"w[0-9]", b" w", b"\n"],
+                                           "class", device="cpu")),
+    "sample": (lambda c: jsample.ReservoirSampleJob(16, c),
+               lambda c: sample.ReservoirSampleJob(16, c, "cpu")),
+}
+
+
+@pytest.mark.parametrize("inflight,superstep", [(4, 1), (4, 3)])
+@pytest.mark.parametrize("kind", sorted(GREP_JOBS))
+def test_grep_and_sample_ledger_parity(tmp_path, corpus, kind, inflight,
+                                       superstep):
+    """A telemetered streamed grep or sample writes the JAX ledger: its
+    job identity in ``run_start``, the ``data`` record its family fills
+    (grep: ``tokens`` = the matches over all patterns; sample: the
+    population, and the live reservoir slots as ``table_valid``) and
+    ``run_end.words == 0``; the result is the untelemetered one."""
+    path, want = corpus
+    out = _run_pair(tmp_path, path, inflight, superstep,
+                    job_pair=GREP_JOBS[kind])
+    recs = _assert_same_ledger(out)
+    _assert_same_registry(out)
+    res = out["port"][0]
+    assert not isinstance(res, BaseException), res
+    start = recs[0]
+    assert start["job"] == GREP_JOBS[kind][0](JCFG).identity()
+    data = next(r for r in recs if r["kind"] == "data")
+    assert recs[-1]["kind"] == "run_end" and recs[-1]["words"] == 0
+    assert data["chunks"] == 5
+    if kind == "sample":
+        assert data["table_valid"] == 16
+        assert data["tokens"] == int(res.value.total_lo)
+    else:
+        m = res.value.matches_lo + (res.value.matches_hi << 32)
+        assert data["tokens"] == int(m.sum()) > 0
+    jres = out["jax"][0]
+    for a, b in zip(jres.value, res.value):
+        np.testing.assert_array_equal(b.numpy().astype(np.uint32),
+                                      np.asarray(a).reshape(b.shape))
+
+
+@pytest.mark.parametrize("plan", ["at=dispatch:2:transient",
+                                  "at=token-wait:1:transient",
+                                  "at=h2d:3:transient"])
+def test_absorbed_faults_leave_grep_lines_exact(tmp_path, plan):
+    """A fault plan that ``--retry 1`` absorbs replays from the anchor,
+    the line carry with it: the CLI prints the fault-free counts."""
+    p = tmp_path / "lines.txt"
+    p.write_bytes((b"MATCH " + b"w " * 2500 + b"MATCH\nplain line\n") * 4
+                  + b"x MATCH y\n" * 300)
+    argv = [str(p), "--grep", "MATCH", "--grep", "in", "--stream",
+            "--chunk-bytes", "4096", "--inflight", "4", "--superstep", "2",
+            "--format", "json", "--platform", "cpu"]
+    outs = []
+    for extra in ([], ["--retry", "1", "--fault-plan", plan]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(argv + extra) == 0
+        outs.append(json.loads(buf.getvalue()))
+    assert outs[0] == outs[1]
+    assert outs[0]["patterns"][0] == {"pattern": "MATCH", "matches": 308,
+                                      "lines": 304}
 
 
 # ---------------------------------------------------------------------------

@@ -306,6 +306,21 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "telemetry, timeline); "
             "from mapreduce_tpu_torch.ops import datastats; "
             "from mapreduce_tpu_torch.runtime import profiling; "
+            "from mapreduce_tpu_torch.models import (build_model, grep, "
+            "model_names, sample); "
+            "from mapreduce_tpu_torch.utils import verify; "
+            "assert grep.grep_bytes(b'a b\\na', b'a', device='cpu')[1:] "
+            "== (2, 2); "
+            "assert grep.grep_file_multi('test.txt', [b'o', b'Hello'], "
+            "device='cpu')[1].lines == 2; "
+            "assert sample.sample_file('test.txt', 4, device='cpu').total "
+            "== 9; "
+            "assert len(sample.sample_bytes(b'a b a', 9, device='cpu')"
+            ".tokens) == 3; "
+            "assert all(build_model(n, device='cpu') for n in model_names() "
+            "if 'fleet' not in n); "
+            "assert verify.recount_exact('test.txt', [b'Hello']) "
+            "== {b'Hello': 2}; "
             "tel = telemetry.Telemetry.create(ledger_path='%s.jsonl'); "
             "r = m.count_file('test.txt', device='cpu', "
             "checkpoint_path='%s', checkpoint_every=1, telemetry=tel); "
@@ -351,3 +366,28 @@ def test_config_from_jax_dict():
                                      radix_block_rows=128))
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     assert (cfg.combiner_slots, cfg.radix_bits, cfg.geometry) == (24, 2, None)
+
+
+def test_registry_names_and_identities_equal_jax():
+    """The port's registry names every model the JAX registry names; each
+    builds a job with the JAX job's identity, and the fleet names raise
+    naming their item."""
+    from mapreduce_tpu import models as jmodels
+    from mapreduce_tpu_torch import models
+
+    assert models.model_names() == jmodels.model_names()
+    for name in models.model_names():
+        if "fleet" in name:
+            with pytest.raises(ValueError, match="ROADMAP.md item A9"):
+                models.build_model(name, device="cpu")
+            continue
+        job = models.build_model(name, device="cpu")
+        assert job.identity() == jmodels.build_model(name).identity(), name
+        assert job.device == torch.device("cpu")
+    assert models.build_model("wordcount_combiner", device="cpu").config \
+        == convert.config_from_dict(dataclasses.asdict(
+            jmodels.COMBINER_ANALYSIS_CONFIG))
+    assert models.build_model("wordcount_telemetry", device="cpu").config \
+        == models.build_model("wordcount_pallas", device="cpu").config
+    with pytest.raises(ValueError, match="unknown model"):
+        models.build_model("nope", device="cpu")
