@@ -161,17 +161,34 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               8-file corpus, in turns; one 32 MB chunk's step ms, device ms,
               kernel launches, peak memory and host syncs of each job; and
               the phase's wall time;
-11. times  -- each kernel's median time per 32 MB chunk beside its bound,
+11. many_ranks -- the streamed run over D ranks of one
+              ``torch.distributed`` world, one process a rank
+              (``MANY_RANKS_CHILD``): prints ``torch.cuda.device_count()``,
+              then an NCCL world of ``min(device_count, 4)`` ranks (one
+              card a rank) and a gloo world of 2 ranks asked for
+              explicitly, both on card 0 (the kernels on the card, the
+              collectives through the host), each over the phase-4 file:
+              ``count_file`` with the tree, gather and keyrange merges,
+              ``--ngram 2`` (grams cross the join between ranks in every
+              step), grep with four patterns and the sample with k =
+              4,096; every run held to one rank's run on the card and to
+              the oracle (the sample to the oracle of D rows a step),
+              every rank's K1a/K1b launches one a step, and per world the
+              finish ms, the bytes each rank sent by collective, the
+              launches per rank and the per-step all_gather ms of the
+              n-gram and grep maps; any rank's failure or a join past its
+              time limit fails the smoke;
+12. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists, and the time of each launch of the combiner and the
               radix seam (CUDA events between launches); the chunk's
               end-to-end time by stage; the step time (map + merge) of
               every path's configuration on one chunk, with the rows each
               step's sort sees;
-12. profile -- where the device time of a default, a combiner and a
+13. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 10 each drive a main path: the launch counters are set to 0
+Phases 3 to 11 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -1505,9 +1522,10 @@ def sketch_corpus(n_regions: int, region_bytes: int, vocab_n: int,
 
 
 def families_phase(drive, by_path: dict, tmp: Path, path: Path,
-                   stream_data: bytes, words_data: bytes, dev) -> None:
+                   stream_data: bytes, words_data: bytes, dev) -> tuple:
     """Phase 9: the n-gram and sketched word-count families (see the
-    module docstring)."""
+    module docstring).  Returns the bigram oracle of the phase-4 file,
+    ``(want, total, dropped_count, distinct)``, for phase 11."""
     import contextlib
     import io
     import signal
@@ -1636,6 +1654,7 @@ def families_phase(drive, by_path: dict, tmp: Path, path: Path,
     finally:
         ngram_ops.seam_gram_table = real_seam
         reader_mod.scan_gram_lengths = real_scan
+    ngram2_want = stream_oracle[2][:4]
     del stream_oracle
 
     # 9c. preemption: SIGINT to a streamed n-gram CLI child once its first
@@ -1820,6 +1839,7 @@ def families_phase(drive, by_path: dict, tmp: Path, path: Path,
              cms, batch.key_hi, batch.key_lo, batch.count)),
          cms_update_rows=4 * batch.key_hi.shape[0])
     emit("families", case="wall", seconds=time.perf_counter() - t_phase)
+    return ngram2_want
 
 
 # The grep and sample oracles of phase 10, in numpy and independent of the
@@ -2208,6 +2228,300 @@ def grep_sample_phase(by_path: dict, tmp: Path, path: Path,
          within_limit=wall <= 120)
 
 
+# One rank of a many-ranks world: argv = repo root, the spec (JSON).  Runs
+# every case between cleared launch counters and writes this rank's
+# {case: measurements (and, on the coordinator, the result)} as JSON.  A
+# case's finish ms holds the rank's wait for its peers' streams (the last
+# step's rows differ in length).
+MANY_RANKS_CHILD = """
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+spec = json.loads(sys.argv[2])
+import torch
+from mapreduce_tpu_torch import Config, count_file
+from mapreduce_tpu_torch.models import grep, sample
+from mapreduce_tpu_torch.obs import registry
+from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+from mapreduce_tpu_torch.parallel import collectives, distributed
+from mapreduce_tpu_torch.parallel.mesh import data_mesh
+from mapreduce_tpu_torch.runtime import executor
+
+dev = distributed.initialize("gpu", backend=spec["backend"], timeout_s=240)
+axis = data_mesh(device=dev)
+cfg = Config()
+runs = []
+real_run_job = executor.run_job
+
+def kept_run_job(*a, **kw):
+    runs.append(real_run_job(*a, **kw))
+    return runs[-1]
+
+executor.run_job = kept_run_job
+
+def sent():
+    snap = registry.get_registry().snapshot()["counters"]
+    return {k: v for k, v in snap.items()
+            if k.startswith("collectives.bytes_sent")}
+
+out = {"rank": axis.rank, "size": axis.size, "backend": axis.backend,
+       "device": str(dev), "cases": {}}
+for case in spec["cases"]:
+    kind, args = case["kind"], case["args"]
+    torch.cuda.synchronize(dev)
+    # Every rank starts the case together, so no rank's seconds hold its
+    # wait for a peer still recovering the previous case's strings.
+    torch.distributed.barrier()
+    ktok.LAUNCHES.clear()
+    runs.clear()
+    before = sent()
+    t0 = time.perf_counter()
+    if kind == "count_file":
+        r = count_file(spec["path"], Config(merge_strategy=args["strategy"]),
+                       dev, ngram=args.get("ngram", 1))
+        res = None if r is None else {"words": [w.hex() for w in r.words],
+            "counts": r.counts, "total": r.total, "distinct": r.distinct,
+            "dropped_uniques": r.dropped_uniques,
+            "dropped_count": r.dropped_count}
+    elif kind == "grep":
+        rs = grep.grep_file_multi(spec["path"],
+                                  [p.encode() for p in args["patterns"]],
+                                  cfg, dev)
+        res = [(x.matches, x.lines) for x in rs]
+    else:
+        r = sample.sample_file(spec["path"], args["k"], cfg, dev)
+        res = None if r is None else {
+            "tokens": [t.hex() for t in r.tokens], "total": r.total}
+    seconds = time.perf_counter() - t0
+    after = sent()
+    rr = runs[-1]
+    out["cases"][case["name"]] = {
+        "seconds": seconds, "result": res,
+        "reduce_s": rr.metrics.phases.get("reduce"),
+        "steps": int(rr.bases.shape[0]), "bases": rr.bases.tolist(),
+        "launches": dict(ktok.LAUNCHES),
+        "bytes_sent": {k: after[k] - before.get(k, 0) for k in after
+                       if after[k] != before.get(k, 0)}}
+# The per-step all_gather of the n-gram map (10 words, n = 2) and of
+# grep's map (3 words a pattern, P = 4): milliseconds a call, synchronised.
+for name, shape in (("ngram2_summary", (10, 1)), ("grep4_summary", (3, 4))):
+    x = torch.zeros(shape, dtype=torch.int64, device=dev)
+    for _ in range(5):
+        collectives.all_gather(x, axis)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        collectives.all_gather(x, axis)
+    torch.cuda.synchronize(dev)
+    out["all_gather_ms_" + name] = (time.perf_counter() - t0) / 50 * 1e3
+with open(os.path.join(spec["out"], f"rank{axis.rank}.json"), "w") as f:
+    json.dump(out, f)
+distributed.shutdown()
+"""
+
+
+def run_world(n: int, backend: str, spec: dict, out: Path,
+              timeout_s: float = 300) -> list:
+    """Start ``n`` ranks of one world (``MANY_RANKS_CHILD``), join them
+    with a time limit, and return each rank's measurements; any rank's
+    failure or the time limit fails the smoke."""
+    import socket
+
+    out.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spec = dict(spec, out=str(out), backend=backend)
+    procs, logs = [], []
+    for r in range(n):
+        env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(out / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MANY_RANKS_CHILD, str(ROOT),
+             json.dumps(spec)], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = {r: (out / f"rank{r}.log").read_text()[-3000:] for r in bad}
+        raise SystemExit(f"{backend} world of {n} ranks: rank(s) {bad} "
+                         f"failed or timed out: {tails}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
+                     stream_data: bytes, want_words: dict, ngram_want,
+                     dev) -> None:
+    """Phase 11: the streamed run over several ranks (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from mapreduce_tpu_torch import Config, count_file
+    from mapreduce_tpu_torch.data import reader as reader_mod
+    from mapreduce_tpu_torch.models import grep
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    w = cfg.pallas_max_token
+    n_cards = torch.cuda.device_count()
+    emit("many_ranks", cuda_device_count=n_cards, card=card_name())
+    patterns = ["the", "er", "and", "\nt"]
+    k = 4096
+    # The first run of a process pays its warm-up (the caching
+    # allocator's first blocks, first launches): a tree run, checked like
+    # the others, takes it, so the strategies' finishes compare.
+    cases = [{"name": f"count_file_{s}", "kind": "count_file",
+              "args": {"strategy": s.split("_")[0]}}
+             for s in ("tree_warmup", "tree", "gather", "keyrange")]
+    cases += [{"name": "count_file_ngram2", "kind": "count_file",
+               "args": {"strategy": "tree", "ngram": 2}},
+              {"name": "grep_file_p4", "kind": "grep",
+               "args": {"patterns": patterns}},
+              {"name": "sample_file_k4096", "kind": "sample",
+               "args": {"k": k}}]
+    spec = {"path": str(path), "cases": cases}
+
+    # The one-rank runs the worlds are held to, here on the card.
+    one = {"count": count_file(str(path), cfg),
+           "ngram2": count_file(str(path), cfg, ngram=2),
+           "grep": [(r.matches, r.lines) for r in grep.grep_file_multi(
+               str(path), [p.encode() for p in patterns], cfg)]}
+    if one["ngram2"].as_dict() != ngram_want[0] \
+            or one["ngram2"].total != ngram_want[1]:
+        raise SystemExit("one-rank bigrams differ from the oracle")
+    arr = np.frombuffer(stream_data, np.uint8)
+    nlpos = np.flatnonzero(arr == 0x0A)
+    spans = token_spans(stream_data)
+
+    worlds = [("nccl", max(1, min(n_cards, 4))), ("gloo", 2)]
+    for backend, n in worlds:
+        t_w = time.perf_counter()
+        ranks = run_world(n, backend, spec, tmp / f"world_{backend}{n}")
+        world_s = time.perf_counter() - t_w
+        # The reader's cuts of n rows a step: the oracles' row starts.
+        bases = np.stack([b.base_offsets for b in reader_mod.iter_batches(
+            str(path), n, cfg.chunk_bytes)])
+        head = ranks[0]["cases"]
+        for name, case in head.items():
+            if np.asarray(case["bases"]).tolist() != bases.tolist():
+                raise SystemExit(f"{backend}{n} {name}: row bases differ "
+                                 "from the reader's cuts")
+            for r in ranks:
+                mine = r["cases"][name]
+                if r["rank"] and mine["result"] is not None \
+                        and name != "grep_file_p4":
+                    raise SystemExit(f"{name}: rank {r['rank']} returned a "
+                                     "result")
+        # Word count and bigrams: field by field against one rank's run,
+        # and the words (grams) against the oracle.  A table that spilled
+        # (every gram table does) bounds its dropped keys per merge order:
+        # ``dropped_uniques`` is then held to the oracle's true count
+        # from above, as the JAX package's tests hold it.
+        for name, ref, oracle_words in (
+                ("count_file_tree_warmup", "count", want_words),
+                ("count_file_tree", "count", want_words),
+                ("count_file_gather", "count", want_words),
+                ("count_file_keyrange", "count", want_words),
+                ("count_file_ngram2", "ngram2", ngram_want[0])):
+            got = head[name]["result"]
+            words = [bytes.fromhex(x) for x in got["words"]]
+            fields = {"words": words, **{f: got[f] for f in (
+                "counts", "total", "distinct", "dropped_uniques",
+                "dropped_count")}}
+            spilled = ref == "ngram2" and ngram_want[3] > len(ngram_want[0])
+            differ = [f for f, v in fields.items()
+                      if v != getattr(one[ref], f)
+                      and not (spilled and f == "dropped_uniques")]
+            if differ:
+                raise SystemExit(f"{backend}{n} {name} differs from one "
+                                 f"rank's run in {differ}")
+            if dict(zip(words, got["counts"])) != oracle_words \
+                    or words != list(oracle_words):
+                raise SystemExit(f"{backend}{n} {name} differs from the "
+                                 "oracle")
+            if spilled and (got["dropped_count"] != ngram_want[2]
+                            or got["dropped_uniques"]
+                            < ngram_want[3] - len(ngram_want[0])):
+                raise SystemExit(f"{backend}{n} {name}: dropped "
+                                 f"{got['dropped_count']} tokens, "
+                                 f"{got['dropped_uniques']} keys; oracle "
+                                 f"{ngram_want[2]}, "
+                                 f"{ngram_want[3] - len(ngram_want[0])}")
+        cuts = bases.ravel()[1:]
+        want_grep = []
+        for p in patterns:
+            hits = pattern_hits(arr, literal_luts(p.encode()), cuts)
+            want_grep.append((len(hits), matching_lines(hits, nlpos)))
+        for r in ranks:
+            got_g = [tuple(x) for x in r["cases"]["grep_file_p4"]["result"]]
+            if got_g != want_grep or got_g != one["grep"]:
+                raise SystemExit(f"{backend}{n} grep on rank {r['rank']}: "
+                                 f"{got_g}, oracle {want_grep}, one rank "
+                                 f"{one['grep']}")
+        cands, population = sample_candidates(spans, bases.ravel(), 0, k, w)
+        s_, e_ = bottom_k([cands], k)
+        want_sample = [stream_data[a:b] for a, b in zip(s_.tolist(),
+                                                        e_.tolist())]
+        got = head["sample_file_k4096"]["result"]
+        if [bytes.fromhex(x) for x in got["tokens"]] != want_sample \
+                or got["total"] != population:
+            raise SystemExit(f"{backend}{n} sample differs from the oracle")
+        # Launches: every rank maps one chunk a step (a row past the end
+        # is an empty chunk): the word count's compact mode, the bigrams'
+        # and the sample's pair mode, grep none.
+        steps = bases.shape[0]
+        need = {"count_file_tree_warmup": "tokenize_compact",
+                "count_file_tree": "tokenize_compact",
+                "count_file_gather": "tokenize_compact",
+                "count_file_keyrange": "tokenize_compact",
+                "count_file_ngram2": "tokenize_pair",
+                "sample_file_k4096": "tokenize_pair"}
+        for r in ranks:
+            for name, case in r["cases"].items():
+                want_l = {need[name]: steps} if name in need else {}
+                if case["launches"] != want_l:
+                    raise SystemExit(f"{backend}{n} {name} rank {r['rank']} "
+                                     f"launched {case['launches']}, "
+                                     f"expected {want_l}")
+        for name, case in head.items():
+            by_path[f"ranks_{backend}{n}_{name}"] = case["launches"]
+        emit("many_ranks", backend=backend, ranks=n,
+             devices=sorted({r["device"] for r in ranks}),
+             transport="host" if backend == "gloo" else "device",
+             bytes=len(stream_data), steps=steps, world_s=round(world_s, 3),
+             equal_to_one_rank_and_oracle=True,
+             cases={name: {
+                 "seconds": [round(r["cases"][name]["seconds"], 4)
+                             for r in ranks],
+                 "finish_ms": [round(r["cases"][name]["reduce_s"] * 1e3, 3)
+                               for r in ranks],
+                 "bytes_sent_per_rank": [r["cases"][name]["bytes_sent"]
+                                         for r in ranks],
+                 "launches_per_rank": [r["cases"][name]["launches"]
+                                       for r in ranks]}
+                 for name in head},
+             all_gather_ms={key[len("all_gather_ms_"):]: [
+                 round(r[key], 4) for r in ranks]
+                 for key in ranks[0] if key.startswith("all_gather_ms_")})
+    emit("many_ranks", phase_s=round(time.perf_counter() - t_phase, 3))
+
+
 def main() -> int:
     import torch
 
@@ -2528,16 +2842,18 @@ def main() -> int:
         # 8. its run ledger, registry, flight recorder and profiler
         telemetry_phase(drive, by_path, branches, Path(tmp), path,
                         stream_data, want_stream)
-        del want_stream
         # 9. the n-gram and sketched word-count families
-        families_phase(drive, by_path, Path(tmp), path, stream_data,
-                       words_data, dev)
+        ngram2_want = families_phase(drive, by_path, Path(tmp), path,
+                                     stream_data, words_data, dev)
         # 10. grep and the reservoir sample
         grep_sample_phase(by_path, Path(tmp), path, stream_data,
                           words_data, dev)
-        del stream_data
+        # 11. the streamed run over several ranks
+        many_ranks_phase(by_path, Path(tmp), path, stream_data, want_stream,
+                         ngram2_want, dev)
+        del stream_data, want_stream
 
-    # 11. times at the main path's shape: one 32 MB chunk
+    # 12. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -2720,7 +3036,7 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
-    # 12. Where a step's device time goes, for the default, combiner and
+    # 13. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

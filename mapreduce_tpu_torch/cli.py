@@ -14,6 +14,13 @@ exits 75.
 ``--ledger PATH`` appends the run ledger (and, on a failure, dumps
 ``PATH.flight.json``), ``--metrics-out PATH`` writes the metrics registry
 and ``--profile DIR`` a Chrome trace; none of them changes stdout.
+
+Under a launcher (``torchrun --nproc-per-node D -m mapreduce_tpu_torch
+FILE --stream``) the D processes are one ``torch.distributed`` world and
+each streams its row of every step (NCCL on the card, gloo with
+``--platform cpu``); ``--merge-strategy`` picks the collective merge, and
+only the coordinator (rank 0) prints, writes the ledger and the metrics.
+The output does not depend on D.
 """
 
 from __future__ import annotations
@@ -36,9 +43,10 @@ _CTRL_ESCAPES = str.maketrans({"\t": "\\t", "\n": "\\n", "\r": "\\r",
 _UNPORTED_FLAGS = {"--merge-overlap": "A8b (iii)",
                    "--autotune": "A8b (ii), the autotuner"}
 
-#: The JAX CLI's collective merge strategies.  One card merges nothing:
-#: 'tree' is what its one-device run names, and the others need many
-#: devices (ROADMAP.md item A9).
+#: The JAX CLI's collective merge strategies.  The two-level ``hier-*``
+#: ones are not ported yet (ROADMAP.md item A9 (ii)); neither is 'auto',
+#: which resolves through the run-history prior (ROADMAP.md item A8b (ii),
+#: the autotuner).
 MERGE_STRATEGIES = ("tree", "gather", "keyrange", "hier-kr-tree",
                     "hier-tree-tree")
 
@@ -143,8 +151,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--merge-strategy", choices=MERGE_STRATEGIES + ("auto",),
                    default="tree",
                    help="collective global-reduce strategy for streamed "
-                        "word-count runs; one card merges nothing, so only "
-                        "'tree' runs (the others: ROADMAP.md item A9)")
+                        "word-count runs over several ranks (torchrun): "
+                        "butterfly tree (log2(D) rounds), all_gather + "
+                        "fold, or key-range all_to_all reduce-scatter (one "
+                        "round); identical results.  'hier-*' (two-level "
+                        "meshes, ROADMAP.md item A9 (ii)) and 'auto' "
+                        "(item A8b (ii), the autotuner) are not ported yet")
     p.add_argument("--verify-sample", type=int, default=0, metavar="K",
                    help="after a word-count run, exactly recount K reported "
                         "words host-side (byte-string keyed, no hashing) "
@@ -351,6 +363,8 @@ def _wordcount(args, paths, data, config: Config, device, input_bytes: int,
                 if args.ngram > 1 \
                 else wordcount.count_words(data, config, device)
     elapsed = time.perf_counter() - t0
+    if result is None:  # a rank other than the coordinator, which reports
+        return 0
     if batch_tel is not None:
         batch_tel.ledger_write(
             "data", groups=1, chunks=1, backend=config.resolved_backend(),
@@ -412,6 +426,7 @@ def _grep_main(args, paths, data, config: Config, device, input_bytes: int,
     """``--grep``: pattern counts instead of word counts (the JAX
     ``_grep_main``).  Several ``--grep`` flags run as one pass."""
     from mapreduce_tpu_torch.models import grep
+    from mapreduce_tpu_torch.parallel import distributed
     from mapreduce_tpu_torch.runtime import profiling
 
     patterns = [g.encode() for g in args.grep]
@@ -443,6 +458,8 @@ def _grep_main(args, paths, data, config: Config, device, input_bytes: int,
         print(f"error: {e}", file=sys.stderr)
         return 2
     elapsed = time.perf_counter() - t0
+    if not distributed.is_coordinator():  # the coordinator reports
+        return 0
     if batch_tel is not None:
         batch_tel.ledger_write("run_end", bytes=input_bytes,
                                words=sum(r.matches for r in results),
@@ -503,6 +520,8 @@ def _sample_main(args, paths, data, config: Config, device,
         print(f"error: {e}", file=sys.stderr)
         return 2
     elapsed = time.perf_counter() - t0
+    if result is None:  # a rank other than the coordinator, which reports
+        return 0
     if batch_tel is not None:
         batch_tel.ledger_write("run_end", bytes=input_bytes,
                                words=result.total,
@@ -527,7 +546,7 @@ def _sample_main(args, paths, data, config: Config, device,
 
 
 def main(argv: list[str] | None = None) -> int:
-    from mapreduce_tpu_torch.runtime.platform import resolve_device
+    from mapreduce_tpu_torch.parallel import distributed
 
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -595,9 +614,26 @@ def main(argv: list[str] | None = None) -> int:
             parser.error("--merge-strategy requires --stream")
         if args.grep is not None or args.sample is not None:
             parser.error("--merge-strategy applies to word-count runs only")
-        parser.error(f"--merge-strategy {args.merge_strategy} merges across "
-                     "devices, which is not ported to the PyTorch package "
-                     "yet (ROADMAP.md item A9)")
+        if args.merge_strategy.startswith("hier-"):
+            parser.error(f"--merge-strategy {args.merge_strategy} needs a "
+                         "two-level device mesh, which is not ported to the "
+                         "PyTorch package yet (ROADMAP.md item A9 (ii))")
+        if args.merge_strategy == "auto":
+            parser.error("--merge-strategy auto resolves through the "
+                         "run-history prior, which is not ported to the "
+                         "PyTorch package yet (ROADMAP.md item A8b (ii), "
+                         "the autotuner)")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1:
+        # A world of ranks streams: the single-buffer path has no steps
+        # to spread, and window replay needs the ranks to agree on its
+        # anchor first.
+        if not args.stream:
+            parser.error(f"a world of {world} ranks runs --stream only")
+        if args.retry:
+            parser.error(f"--retry across {world} ranks (window replay) is "
+                         "not ported to the PyTorch package yet (ROADMAP.md "
+                         "item A9 (ii))")
     paths = args.input
     try:
         chunks = []
@@ -638,24 +674,41 @@ def main(argv: list[str] | None = None) -> int:
                         prefetch_depth=args.prefetch_depth,
                         sketch_flush_every=args.sketch_flush_every,
                         merge_every=args.merge_every,
-                        fault_plan=args.fault_plan)
+                        fault_plan=args.fault_plan,
+                        merge_strategy=args.merge_strategy)
     except ValueError as e:
         parser.error(str(e))
+    joined = not distributed.initialized()
     try:
-        device = resolve_device(args.platform.replace("gpu", "cuda"))
+        device = distributed.initialize(args.platform)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 3
+    try:
+        return _run(args, paths, data, config, device, input_bytes)
+    finally:
+        if joined:  # a caller's world stays the caller's
+            distributed.shutdown()
+
+
+def _run(args, paths, data, config: Config, device, input_bytes: int) -> int:
+    """The run and its report; only the coordinator writes the ledger,
+    the metrics and stdout."""
+    from mapreduce_tpu_torch.parallel import distributed
 
     # One telemetry handle for the run: the ledger and flight recorder
     # (--ledger) and the registry snapshot (--metrics-out), written in the
-    # finally, so a run that failed leaves them too.
+    # finally, so a run that failed leaves them too.  Every rank of a
+    # world runs the same stats mode: each gets a handle, the ledger is
+    # the coordinator's.
+    coordinator = distributed.is_coordinator()
     tel = None
     if args.ledger or args.metrics_out:
         from mapreduce_tpu_torch.obs.telemetry import Telemetry
 
         try:
-            tel = Telemetry.create(ledger_path=args.ledger)
+            tel = Telemetry.create(
+                ledger_path=args.ledger if coordinator else None)
         except OSError as e:
             print(f"error: cannot open ledger {args.ledger}: {e}",
                   file=sys.stderr)
@@ -681,7 +734,7 @@ def main(argv: list[str] | None = None) -> int:
         return 75
     finally:
         if tel is not None:
-            if args.metrics_out:
+            if args.metrics_out and coordinator:
                 try:
                     with open(args.metrics_out, "w") as f:
                         json.dump(tel.registry.snapshot(), f, indent=1)

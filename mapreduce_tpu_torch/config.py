@@ -17,6 +17,11 @@ from typing import Optional
 from mapreduce_tpu_torch.runtime import faults
 
 
+#: The JAX package's merge strategies (``mapreduce_tpu.config``).
+MERGE_STRATEGIES = ("tree", "gather", "keyrange", "hier-kr-tree",
+                    "hier-tree-tree")
+
+
 def _not_ported(what: str, item: str) -> ValueError:
     return ValueError(f"{what} is not ported to the PyTorch package yet "
                       f"(ROADMAP.md item {item})")
@@ -70,6 +75,12 @@ class Config:
         (:class:`...runtime.faults.FaultPlan` grammar, e.g.
         ``'seed=42,rate=0.02'`` or ``'at=dispatch:3:resource'``), parsed
         here so a bad spec fails at construction.  None: no injection.
+      merge_strategy: the streamed run's collective merge across ranks:
+        'tree' (default: the butterfly, log2(D) rounds), 'gather' (gather
+        and fold) or 'keyrange' (the count table's reduce-scatter by key;
+        word-count family only), or 'auto', which the driver resolves and
+        which behaves as 'tree' unresolved.  The two-level 'hier-*'
+        strategies are not ported yet (ROADMAP.md item A9 (ii)).
       failure_policy: the streamed executor's per-class retry budgets,
         backoff, completion timeout and degradation ladder (None, a
         :class:`...runtime.faults.FailurePolicy` or a dict of its fields,
@@ -101,6 +112,7 @@ class Config:
     prefetch_depth: Optional[int] = None
     fault_plan: Optional[str] = None
     failure_policy: object = None
+    merge_strategy: str = "tree"
 
     def __post_init__(self) -> None:
         if self.chunk_bytes % 128 != 0:
@@ -177,6 +189,15 @@ class Config:
             raise ValueError(
                 f"pallas backend needs {self.pallas_min_chunk} <= "
                 f"chunk_bytes <= {1 << 26}, got {self.chunk_bytes}")
+        if self.merge_strategy.startswith("hier-") \
+                and self.merge_strategy in MERGE_STRATEGIES:
+            raise _not_ported(f"merge_strategy={self.merge_strategy!r}",
+                              "A9 (ii)")
+        if self.merge_strategy != "auto" \
+                and self.merge_strategy not in MERGE_STRATEGIES:
+            raise ValueError(
+                f"unknown merge_strategy {self.merge_strategy!r} (expected "
+                f"'auto' or one of {list(MERGE_STRATEGIES)})")
         if self.fault_plan is not None:
             if not isinstance(self.fault_plan, str):
                 raise ValueError(
@@ -191,6 +212,13 @@ class Config:
             raise ValueError(
                 f"failure_policy must be None, a FailurePolicy or a dict of "
                 f"its fields, got {type(self.failure_policy).__name__}")
+
+    @property
+    def resolved_merge_strategy(self) -> str:
+        """The strategy the engine builds: an unresolved 'auto' behaves as
+        'tree' (resolving it is the driver's job, never the engine's)."""
+        return "tree" if self.merge_strategy == "auto" \
+            else self.merge_strategy
 
     @property
     def rescue_slots(self) -> int:

@@ -8,8 +8,9 @@ construction (grep: the pattern is the job) accept and ignore the config.
 The pinned ``wordcount_*`` configurations are the JAX package's analysis
 configurations, which the port's ``Config`` accepts as they are; the
 analysis passes that read them are not ported yet (ROADMAP.md item A13).
-The ``wordcount_fleet*`` names describe simulated multi-host meshes and
-raise until the port runs many devices (ROADMAP.md item A9).
+The ``wordcount_fleet*`` names describe simulated multi-host fleets on
+two-level meshes and raise until the port runs them (ROADMAP.md item
+A9 (ii)); one axis of many ranks runs through the streamed executor.
 """
 
 from __future__ import annotations
@@ -77,8 +78,9 @@ def _sketch(config: Config, device):
 
 def _fleet(config: Config, device):
     raise ValueError("the wordcount_fleet* models run a simulated "
-                     "multi-host mesh, which is not ported to the PyTorch "
-                     "package yet (ROADMAP.md item A9)")
+                     "multi-host fleet on a two-level mesh, which is not "
+                     "ported to the PyTorch package yet (ROADMAP.md item "
+                     "A9 (ii))")
 
 
 _REGISTRY: Dict[str, Callable] = {

@@ -1,6 +1,6 @@
 """Distributed grep: count occurrences and matching lines of fixed patterns.
 
-Counterpart of :mod:`mapreduce_tpu.models.grep`, on one card.  The state is
+Counterpart of :mod:`mapreduce_tpu.models.grep`.  The state is
 a handful of 64-bit scalars (per pattern) instead of a count table, so the
 reduction is a plain add.
 
@@ -26,9 +26,9 @@ Envelope (as in the JAX package):
   emits a line-boundary summary (has-newline, first and last segment
   matched) and a carry bit in the state threads "the open line has
   matched" from chunk to chunk as the boolean-affine transfer
-  ``c' = a | (b & c)``.  The streamed map receives the summaries of its
-  step "gathered" over the one card (a leading axis of 1), so the
-  composition is the JAX package's and widens to many devices unchanged;
+  ``c' = a | (b & c)``.  The streamed map gathers the summaries of its
+  step's D rows over the data axis (one all_gather of 3 words a pattern),
+  so each rank composes its incoming carry as the JAX package does;
 * counts are 64-bit: uint32 ``lo``/``hi`` lanes with an explicit carry,
   each held in an int64 tensor (the port's uint32 convention).
 """
@@ -336,8 +336,7 @@ def _seam_corrected_update(matches, seg_cnt, nl, first_m, last_m,
     """The seam correction of the JAX package's sharded map, from the
     step's gathered row summaries ``gathered`` (``[D, 3, ...]``: each
     device's ``nl``, ``first_m``, ``last_m`` in row order): this device's
-    incoming carry by prefix composition, and its corrected contribution.
-    On one card ``D`` is 1."""
+    incoming carry by prefix composition, and its corrected contribution."""
     nl_g, fm_g, lm_g = gathered[:, 0], gathered[:, 1], gathered[:, 2]
     # Row transfer c' = a | (b & c): a newline row pins c to its trailing
     # match; a newline-free row is transparent (first == last == any).
@@ -358,7 +357,7 @@ def _seam_corrected_update(matches, seg_cnt, nl, first_m, last_m,
 
 
 class GrepJob:
-    """Pattern-occurrence counting as a MapReduce job on one device."""
+    """Pattern-occurrence counting as a MapReduce job."""
 
     def __init__(self, pattern: bytes, syntax: str = "literal", device=None):
         self.pattern = compile_pattern(pattern, syntax)
@@ -378,12 +377,15 @@ class GrepJob:
         driven sequentially through map_chunk + combine."""
         return _single_row_update(*self._summary(chunk))
 
-    def map_chunk_sharded(self, chunk: torch.Tensor, chunk_id,
+    def map_chunk_sharded(self, chunk: torch.Tensor, chunk_id, axis=None,
                           device_index: int = 0) -> GrepUpdate:
-        """The streamed map: the seam correction over the step's gathered
-        summaries (a leading axis of 1 on one card)."""
+        """The streamed map: one all_gather of the row summaries over the
+        data axis (without an axis, a leading axis of 1), then the seam
+        correction."""
+        from mapreduce_tpu_torch.parallel import collectives
+
         summ = self._summary(chunk)
-        gathered = torch.stack(summ[2:])[None]  # (nl, first_m, last_m)
+        gathered = collectives.all_gather(torch.stack(summ[2:]), axis)
         return _seam_corrected_update(*summ, gathered, device_index)
 
     def combine(self, state: GrepState, update: GrepUpdate) -> GrepState:
@@ -404,11 +406,13 @@ class GrepJob:
         """Fresh counts that keep the carry (cross-step context)."""
         return self.init_state()._replace(line_carry=local.line_carry)
 
-    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id):
+    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id, axis=None,
+                        device_index: int = 0):
         """Stats-mode map: grep has no kernel window, rescue or table, so
         the chunk counters are the chunk itself; :meth:`state_stats` fills
         the gauges."""
-        return self.map_chunk_sharded(chunk, chunk_id), datastats.map_stats()
+        return (self.map_chunk_sharded(chunk, chunk_id, axis, device_index),
+                datastats.map_stats())
 
     def state_stats(self, state: GrepState, stats):
         """Grep's data volume is its match count, summed over patterns:

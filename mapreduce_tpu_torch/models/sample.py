@@ -1,6 +1,6 @@
 """Uniform token sampling: a bottom-k sketch as a MapReduce job.
 
-Counterpart of :mod:`mapreduce_tpu.models.sample`, on one card.  Every
+Counterpart of :mod:`mapreduce_tpu.models.sample`.  Every
 token occurrence gets a pseudo-uniform 64-bit priority (a hash of its
 global identity: chunk id and byte offset), and the sample is the k
 smallest.  Bottom-k of a union is the bottom-k of the parts' bottom-k's:
@@ -91,7 +91,7 @@ def _select_k(key: torch.Tensor, tie: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class ReservoirSampleJob:
-    """Uniform bottom-k token sampling as a MapReduce job on one device."""
+    """Uniform bottom-k token sampling as a MapReduce job."""
 
     def __init__(self, k: int, config: Config = DEFAULT_CONFIG, device=None):
         if k < 1:
@@ -162,7 +162,8 @@ class ReservoirSampleJob:
             total_lo=stream.total,
             total_hi=torch.zeros((), dtype=torch.int64, device=chunk.device))
 
-    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id):
+    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id, axis=None,
+                        device_index: int = 0):
         """Stats-mode map: the reservoir has no spill or rescue machinery,
         so the chunk counters are the chunk itself; :meth:`state_stats`
         fills the gauges."""
@@ -228,13 +229,17 @@ def sample_file(path, k: int, config: Config = DEFAULT_CONFIG, device=None,
                 **kw) -> SampleResult:
     """Uniform k-sample over a file (or a list of files, one corpus)
     through the streamed executor, tokens in priority order; ``kw`` goes
-    to ``run_job``."""
+    to ``run_job``.  Across ranks the coordinator recovers the tokens and
+    returns the result; the other ranks return None."""
     from mapreduce_tpu_torch.data import reader
     from mapreduce_tpu_torch.runtime import executor
 
     rr = executor.run_job(ReservoirSampleJob(k, config, device), path,
                           config, **kw)
+    if rr.rank != 0:
+        return None
     chunk_id, pos, length, total = _host_sample(rr.value)
-    absolute = executor.absolute_offsets(chunk_id, pos, rr.bases, 1)
+    absolute = executor.absolute_offsets(chunk_id, pos, rr.bases,
+                                         rr.bases.shape[1])
     spans = [(int(a), int(n)) for a, n in zip(absolute, length)]
     return SampleResult(reader.read_words_at_multi(path, spans), total)

@@ -422,7 +422,8 @@ class WordCountJob:
         return _map_stream(chunk, self.config, self.batch_capacity,
                            pos_hi=chunk_id)
 
-    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id):
+    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id, axis=None,
+                        device_index: int = 0):
         """The stats-mode map: the same table and the chunk's
         :class:`...ops.datastats.DataStats` (the engine calls this in
         place of :meth:`map_chunk` only for a telemetered run)."""
@@ -441,6 +442,18 @@ class WordCountJob:
         return table_ops.merge(state, update, capacity=self.capacity)
 
     def merge(self, a, b) -> table_ops.CountTable:
+        return table_ops.merge(a, b, capacity=self.capacity)
+
+    def keyrange_merge(self, state, axis) -> table_ops.CountTable:
+        """The ``merge_strategy='keyrange'`` hook: the key-range reduce of
+        every rank's table (:func:`...parallel.collectives.key_range_merge`),
+        the same plain table on every rank."""
+        from mapreduce_tpu_torch.parallel import collectives
+
+        return collectives.key_range_merge(state, axis)
+
+    def keyrange_result_merge(self, a, b) -> table_ops.CountTable:
+        """Merge two keyrange results (plain tables)."""
         return table_ops.merge(a, b, capacity=self.capacity)
 
     def finalize(self, state) -> table_ops.CountTable:
@@ -499,9 +512,8 @@ class NGramState(NamedTuple):
 
 class NGramUpdate(NamedTuple):
     """One streamed step's update: the chunk's in-chunk gram table, the
-    step's chunk summaries gathered with a leading device axis (of 1 on
-    one card, so the combine is the JAX package's) and this device's
-    index in it."""
+    step's D chunk summaries gathered over the data axis (leaves with a
+    leading axis of D, rank order) and this rank's index in it."""
 
     batch: table_ops.CountTable
     summaries: Any
@@ -552,25 +564,34 @@ class NGramCountJob(WordCountJob):
         return NGramState(table=table_ops.empty(self.capacity, self.device),
                           carry=ngram_ops.empty_carry(self.n, self.device))
 
-    def map_chunk_sharded(self, chunk: torch.Tensor, chunk_id,
+    def map_chunk_sharded(self, chunk: torch.Tensor, chunk_id, axis=None,
                           device_index: int = 0):
-        """The streamed map: the chunk's table and its seam summary, the
-        summaries "gathered" over the one card (a leading axis of 1)."""
+        """The streamed map: the chunk's table and its seam summary, with
+        one small all_gather so every rank sees the step's D summaries
+        (without an axis, a leading axis of 1).  A summary is 10 words of
+        n-1 entries: noise next to the chunk."""
+        from mapreduce_tpu_torch.parallel import collectives
+
         if self.n == 1:
             return self.map_chunk(chunk, chunk_id)
         t, summ = _ngram_map(chunk, self.n, self.batch_capacity, chunk_id,
                              self.config, summary=True)
-        gathered = ChunkSummary(*(type(c)(*(x[None] for x in c))
-                                  for c in summ))
+        g = collectives.all_gather(
+            torch.stack([x for c in summ for x in c]), axis)  # [D, 10, n-1]
+        k = len(ngram_ops.GramCarry._fields)
+        gathered = ChunkSummary(
+            ngram_ops.GramCarry(*(g[:, i] for i in range(k))),
+            ngram_ops.GramCarry(*(g[:, k + i] for i in range(k))))
         return NGramUpdate(batch=t, summaries=gathered,
                            device_index=device_index)
 
-    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id):
+    def map_chunk_stats(self, chunk: torch.Tensor, chunk_id, axis=None,
+                        device_index: int = 0):
         """The stats-mode map of the gram family: the gram build takes no
         spill or rescue branch, so the chunk's counters carry only the
         batch table's dropped accounting (poisoned grams); the gauges come
         off the running table as for the word count."""
-        upd = self.map_chunk_sharded(chunk, chunk_id)
+        upd = self.map_chunk_sharded(chunk, chunk_id, axis, device_index)
         tbl = upd.batch if isinstance(upd, NGramUpdate) else upd
         return upd, datastats.map_stats(dropped_tokens=tbl.dropped_count,
                                         dropped_uniques=tbl.dropped_uniques)
@@ -606,6 +627,15 @@ class NGramCountJob(WordCountJob):
         return NGramState(table=table_ops.merge(a.table, b.table,
                                                 capacity=self.capacity),
                           carry=a.carry)
+
+    def keyrange_merge(self, state, axis) -> table_ops.CountTable:
+        """The key-range reduce of the gram table (the carry is spent once
+        every chunk's combine ran: only the table crosses ranks)."""
+        from mapreduce_tpu_torch.parallel import collectives
+
+        if self.n == 1:
+            return super().keyrange_merge(state, axis)
+        return collectives.key_range_merge(state.table, axis)
 
     def partial_reset(self, local):
         """An empty table that keeps the seam carry: the carry is the
@@ -714,15 +744,17 @@ class _SketchComposedJob:
     def map_chunk(self, chunk, chunk_id):
         return self.base.map_chunk(chunk, chunk_id)
 
-    def map_chunk_sharded(self, chunk, chunk_id, device_index: int = 0):
+    def map_chunk_sharded(self, chunk, chunk_id, axis=None,
+                          device_index: int = 0):
         """The base job's streamed map (the n-gram seam machinery)."""
         fn = getattr(self.base, "map_chunk_sharded", None)
         if fn is not None:
-            return fn(chunk, chunk_id, device_index)
+            return fn(chunk, chunk_id, axis, device_index)
         return self.base.map_chunk(chunk, chunk_id)
 
-    def map_chunk_stats(self, chunk, chunk_id):
-        return self.base.map_chunk_stats(chunk, chunk_id)
+    def map_chunk_stats(self, chunk, chunk_id, axis=None,
+                        device_index: int = 0):
+        return self.base.map_chunk_stats(chunk, chunk_id, axis, device_index)
 
     def state_stats(self, state, stats):
         base_state = state.table if isinstance(state, BatchedSketchState) \
@@ -782,6 +814,25 @@ class _SketchComposedJob:
                                   self._merge(fa.sketch, fb.sketch),
                                   fa.pend_hi, fa.pend_lo, fa.pend_cnt,
                                   fa.cursor)
+
+    def keyrange_merge(self, state, axis):
+        """The base job's key-range table reduce, with the sketch's own
+        monoid tree-merged over the axis (small next to the table)."""
+        from mapreduce_tpu_torch.parallel import collectives
+
+        if isinstance(state, BatchedSketchState):
+            st = self._flushed(state)
+            table_state, sketch = st.table, st.sketch
+        else:
+            table_state, sketch = state[0], state[1]
+        return self.state_cls(
+            self.base.keyrange_merge(table_state, axis),
+            collectives.tree_merge(sketch, self._merge, axis))
+
+    def keyrange_result_merge(self, a, b):
+        """Merge two keyrange results (``state_cls(table, sketch)``)."""
+        return self.state_cls(self.base.keyrange_result_merge(a[0], b[0]),
+                              self._merge(a[1], b[1]))
 
     def finalize(self, state):
         if isinstance(state, BatchedSketchState):

@@ -67,10 +67,14 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                t0 = time.perf_counter()
-                _build(path)
-                telemetry.record_build("gxx_chunker",
-                                       time.perf_counter() - t0)
+                from mapreduce_tpu_torch.ops.cuda._build import build_lock
+
+                with build_lock():  # the ranks of a run start together
+                    if not path.exists():
+                        t0 = time.perf_counter()
+                        _build(path)
+                        telemetry.record_build("gxx_chunker",
+                                               time.perf_counter() - t0)
             lib = ctypes.CDLL(str(path))
             u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
             i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")

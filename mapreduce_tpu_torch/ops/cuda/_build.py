@@ -7,12 +7,16 @@ source and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing here runs at import: the CPU tests import every module.
 Each build reports its seconds to the telemetry plane
 (:func:`...obs.telemetry.record_build`, as ``nvcc_<name>``), so a run
-that pays a build shows it as a compile event.
+that pays a build shows it as a compile event.  Builds take a file lock
+(:func:`build_lock`): the D ranks of one run start together, and one of
+them builds while the others wait for its library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -45,6 +49,19 @@ def nvcc() -> str:
                        "kernels build on a machine with the CUDA toolkit")
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold the build directory's lock (``_build/.lock``, an exclusive
+    ``flock``) for the block: one process builds, the others wait."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current text."""
     digest = hashlib.sha256(
@@ -65,10 +82,18 @@ def build_all(names=None) -> dict[str, tuple[Path, str]]:
     registers and shared memory) is empty for a library that was there."""
     names = sources() if names is None else list(names)
     done = {name: (library_path(name), "") for name in names}
+    if all(out.exists() for out, _ in done.values()):
+        return done
+    with build_lock():
+        return _build_missing(done)
+
+
+def _build_missing(done: dict) -> dict:
+    """:func:`build_all`'s builds, under the lock: a library another
+    process built while this one waited is taken as it is."""
     todo = [name for name, (out, _) in done.items() if not out.exists()]
     if todo:
         compiler = nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

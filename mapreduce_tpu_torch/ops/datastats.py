@@ -114,21 +114,40 @@ class StatsFetch:
     fields go into one int64 vector, which on the card is copied
     ``non_blocking`` into pinned memory on the current stream.  Read
     :meth:`result` only once the group's completion event (recorded after
-    this) has completed; on the CPU the vector is already there."""
+    this) has completed; on the CPU the vector is already there.
 
-    def __init__(self, stats: DataStats):
+    Across ranks (an ``axis`` with a process group) every field goes into
+    the vector, one all_gather (enqueued on the stream under NCCL) brings
+    the D ranks' vectors, and :meth:`result` folds them as the JAX
+    aggregator folds its ``[D]`` leaves: counters and the table gauges
+    summed, the largest count the maximum."""
+
+    def __init__(self, stats: DataStats, axis=None):
         self._host = {}
         self._fields = []
         values = []
+        gather = axis is not None and axis.group is not None
+        dev = next((v.device for v in stats if isinstance(v, torch.Tensor)),
+                   torch.device("cpu"))
         for name, v in zip(DataStats._fields, stats):
             if isinstance(v, torch.Tensor):
                 self._fields.append(name)
                 values.append(v.reshape(()).to(torch.int64))
+            elif gather:  # a fill on the device: no copy, no sync
+                self._fields.append(name)
+                values.append(torch.full((), int(v), dtype=torch.int64,
+                                         device=dev))
             else:
                 self._host[name] = int(v)
         self._buf = None
+        self._ranks = 1
         if values:
             vec = torch.stack(values)
+            if gather:
+                from mapreduce_tpu_torch.parallel import collectives
+
+                vec = collectives.all_gather(vec, axis).reshape(-1)
+                self._ranks = axis.size
             if vec.is_cuda:
                 self._buf = torch.empty(vec.shape, dtype=torch.int64,
                                         pin_memory=True)
@@ -138,7 +157,12 @@ class StatsFetch:
 
     def result(self) -> DataStats:
         values = self._buf.tolist() if self._buf is not None else []
-        return DataStats(**self._host, **dict(zip(self._fields, values)))
+        n = len(self._fields)
+        rows = [values[i * n:(i + 1) * n] for i in range(self._ranks)]
+        folded = [max(col) if f == "top_count" else sum(col)
+                  for f, col in zip(self._fields, zip(*rows))] if rows \
+            else []
+        return DataStats(**self._host, **dict(zip(self._fields, folded)))
 
 
 class DataAggregator:
@@ -148,8 +172,8 @@ class DataAggregator:
     ``data`` record."""
 
     def __init__(self, *, capacity: int, backend: str, map_impl: str,
-                 combiner: str = "off"):
-        self.capacity = int(capacity)
+                 combiner: str = "off", devices: int = 1):
+        self.capacity = int(capacity) * int(devices)  # every rank's table
         self.backend = backend
         self.map_impl = map_impl
         self.combiner = combiner
@@ -158,10 +182,11 @@ class DataAggregator:
         self.final: dict = {}
 
     @classmethod
-    def for_run(cls, config) -> "DataAggregator":
+    def for_run(cls, config, devices: int = 1) -> "DataAggregator":
         return cls(capacity=config.table_capacity,
                    backend=config.resolved_backend(),
-                   map_impl=config.map_impl, combiner=config.combiner)
+                   map_impl=config.map_impl, combiner=config.combiner,
+                   devices=devices)
 
     def group_data(self, stats: DataStats) -> dict:
         """One retired group's statistics (ints) -> its ``data`` dict

@@ -1,4 +1,4 @@
-"""Streamed jobs over files, on one device: the pipelined executor.
+"""Streamed jobs over files, on D ranks: the pipelined executor.
 
 ``run_job`` runs any job whose state is a NamedTuple of tensors (nested,
 or with host ints): the word-count family (the word count, its top-k, the
@@ -12,7 +12,11 @@ supplies ``init_state``, ``map_chunk`` (or the streamed
 
 Counterpart of :mod:`mapreduce_tpu.runtime.executor` (``run_job`` and its
 ``_drive_stream`` loop, ``count_file``, ``recover_from_file``,
-``absolute_offsets``) for one card.  Per run:
+``absolute_offsets``) over one data axis of D ranks, one card a rank
+(:mod:`...parallel.mesh`; D = 1 outside a ``torch.distributed`` world).
+Every rank runs the same loop over the same batches: a step cuts D rows,
+and rank r maps row r as chunk ``step * D + r``, so a D-rank run equals
+the JAX package's run on ``data_mesh(D)``.  Per run and rank:
 
   1. a reader thread (:func:`...data.reader.prefetch`) cuts the corpus into
      boundary-aligned chunks with the native chunker, each filled straight
@@ -86,14 +90,19 @@ group's retirement, from pinned memory behind its completion event: no new
 sync).  The ``ledger-append`` seam is crossed when a ledger is attached.
 Without a handle the loop runs as it did without telemetry.
 
-Not ported yet (ROADMAP A8b): window-boundary merges, the autotuner and
-byte ranges.
+Across ranks the finish is a collective merge (``merge_strategy``), a
+snapshot is the coordinator's to write, and the ledger is the
+coordinator's, its ``data`` record summed over the ranks.
+
+Not ported yet (ROADMAP A8b, A9 (ii)): window-boundary merges, the
+autotuner, byte ranges, and window replay and preemption across ranks.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import os
 import signal
@@ -119,7 +128,9 @@ from mapreduce_tpu_torch.ops import datastats
 from mapreduce_tpu_torch.ops import ngram as ngram_ops
 from mapreduce_tpu_torch.ops import sketch as sketch_ops
 from mapreduce_tpu_torch.ops import table as table_ops
+from mapreduce_tpu_torch.parallel import collectives
 from mapreduce_tpu_torch.parallel.mapreduce import Engine
+from mapreduce_tpu_torch.parallel.mesh import data_mesh
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
 from mapreduce_tpu_torch.runtime import faults as faults_mod
 from mapreduce_tpu_torch.runtime import metrics as metrics_mod
@@ -140,8 +151,9 @@ class RunResult:
 
     value: Any  # the finished job state (a CountTable on the run's device)
     metrics: metrics_mod.RunMetrics
-    bases: np.ndarray  # int64[steps, 1] row base offsets (string recovery)
+    bases: np.ndarray  # int64[steps, D] row base offsets (string recovery)
     pipeline: Optional[dict] = None  # the window statistics (``pipe``)
+    rank: int = 0  # this process's rank on the data axis
 
 
 def _overlap_fraction(timer) -> Optional[float]:
@@ -212,14 +224,17 @@ def _sigint_deferred():
 
 
 class _HostStage:
-    """Staging of a CPU run: the reader's array is the chunk (no copy, no
-    events; work is done when the call returns, so every token is
-    ready)."""
+    """Staging of a CPU run: row ``row`` of the reader's array is the
+    chunk (no copy, no events; work is done when the call returns, so
+    every token is ready)."""
 
     take = None
 
+    def __init__(self, row: int = 0):
+        self.row = row
+
     def stage(self, batch, hold: bool = False):
-        return torch.from_numpy(batch.data).reshape(-1), None
+        return torch.from_numpy(batch.data[self.row]), None
 
     @staticmethod
     def read(flags, timeout_s: Optional[float]) -> list:
@@ -245,9 +260,10 @@ class _HostStage:
 class _PinnedStage:
     """Staging of a CUDA run: pinned host buffers and a copy stream.
 
-    The reader thread fills a pinned buffer it gets from :meth:`take`; the
-    loop copies it to the card on the copy stream and records an event
-    after the copy (:meth:`stage`).  The buffer returns to the pool with
+    The reader thread fills a pinned buffer (the step's ``[D, C]`` batch)
+    it gets from :meth:`take`; the loop copies this rank's row ``row`` to
+    the card on the copy stream and records an event after the copy
+    (:meth:`stage`).  The buffer returns to the pool with
     that event and is handed out again only once the event has completed,
     i.e. once the copy has read it; a buffer refilled earlier would corrupt
     a chunk silently.  A buffer staged with ``hold=True`` (a group a replay
@@ -260,8 +276,9 @@ class _PinnedStage:
     """
 
     def __init__(self, device: torch.device, nbytes: int, depth: int,
-                 held: int = 0):
+                 held: int = 0, row: int = 0):
         self.nbytes = nbytes
+        self.row = row
         self.device = device
         self.compute = torch.cuda.current_stream(device)
         self.copy_stream = torch.cuda.Stream(device)
@@ -297,9 +314,10 @@ class _PinnedStage:
         return buf.numpy()
 
     def stage(self, batch, hold: bool = False):
-        """Copy a batch to the card on the copy stream: ``(device chunk,
-        copy event)``.  ``hold`` keeps the buffer out of the pool."""
-        host = torch.from_numpy(batch.data).reshape(-1)
+        """Copy this rank's row of a batch to the card on the copy
+        stream: ``(device chunk, copy event)``.  ``hold`` keeps the buffer
+        out of the pool."""
+        host = torch.from_numpy(batch.data[self.row])
         start = torch.cuda.Event(enable_timing=True)
         done = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self.copy_stream):
@@ -514,16 +532,16 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                   start_step: int, start_offset: int, bases_list: list,
                   checkpoint_path, checkpoint_every: int, fingerprint,
                   resumed_file, logger, progress_every: int, timer,
-                  plan, policy, rebuild, sigint: list, tel, data_agg,
-                  device):
+                  plan, policy, replay: bool, rebuild, sigint: list, tel,
+                  data_agg, device):
     """The streaming loop, the JAX ``_drive_stream`` without window-boundary
     merges.  Returns ``(state, bytes_done, pipe)``: ``bytes_done`` is the
     absolute cursor (it starts at ``start_offset``) and ``pipe`` the window
     statistics.
 
     ``plan`` is the run's fault plan (or None), ``policy`` its failure
-    policy; a budget for any class (``replayable``) arms the anchor and
-    the window replay (see the module docstring); ``rebuild(config)``
+    policy; ``replay`` (a budget for any class, on one rank) arms the
+    anchor and the window replay (see the module docstring); ``rebuild(config)``
     gives the engine of a degraded config.  ``cur_config`` is the ladder's
     moving target: the loop's own knobs (superstep, window, prefetch) stay
     the caller's.  ``sigint`` is the record of :func:`_sigint_deferred`.
@@ -541,7 +559,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     The ``ledger-append`` seam is crossed only when a ledger is attached.
     """
     cur_config = config
-    replayable = policy.dispatch_budget > 0
+    replayable = replay
     bytes_done = int(start_offset)
     step_index = start_step
     last_ckpt = start_step // checkpoint_every if checkpoint_every else 0
@@ -678,7 +696,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                     state = out
             if stats is not None:
                 stats = datastats.StatsFetch(
-                    engine.job.state_stats(state, stats))
+                    engine.job.state_stats(state, stats), engine.axis)
             done = stage.completion()
         return state, done, group, stats
 
@@ -957,15 +975,21 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         """The checkpoint write behind the ``checkpoint-save`` seam: a
         failed save retries on its class budget (the write is atomic), and
         an exhausted budget is absorbed: the run goes on without this
-        snapshot.  True when it landed."""
+        snapshot.  True when it landed.  Every rank gives its state to
+        the snapshot (one gather) and crosses the seam; the coordinator
+        alone writes."""
+        leaves = engine.replicate_to_host(state)
+        writer = engine.axis.coordinator
+
         def save() -> None:
             try:
                 if plan is not None:
                     cross("checkpoint-save")
-                ckpt_mod.save(checkpoint_path, convert.state_to_leaves(state),
-                              step_index, bytes_done, np.stack(bases_list),
-                              fingerprint=fingerprint,
-                              file_index=last_file_dispatched)
+                if writer:
+                    ckpt_mod.save(checkpoint_path, leaves, step_index,
+                                  bytes_done, np.stack(bases_list),
+                                  fingerprint=fingerprint,
+                                  file_index=last_file_dispatched)
             except Exception as ce:
                 observed(ce, "checkpoint-save", step_index)
                 raise
@@ -976,7 +1000,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                          on_retry=lambda attempt, ce, cls: retry_record(
                              step_index, attempt, ce, cls,
                              seam="checkpoint-save"))
-            return True
+            return writer
         except faults_mod.PreemptionFault:
             raise
         except Exception as ce:
@@ -1074,7 +1098,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     boundary_hook = getattr(engine.job, "on_input_boundary", None)
     last_file: Optional[int] = resumed_file
     it = reader_mod.prefetch(
-        reader_mod.iter_batches_multi(path, 1, config.chunk_bytes,
+        reader_mod.iter_batches_multi(path, engine.n_devices,
+                                      config.chunk_bytes,
                                       start_offset=start_offset,
                                       start_step=start_step, out=stage.take),
         depth=config.resolved_prefetch_depth)
@@ -1142,8 +1167,10 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             # them, snapshot the committed state, and exit with the resume
             # cursor.  The plan is disarmed first, so no second injected
             # fault interrupts the shutdown.  A preempted run writes no
-            # flight dump.
-            if faults_mod.classify(pe) != "preemption":
+            # flight dump.  Across ranks a preemption is not drained: the
+            # ranks would first have to agree on the cursor (A9 (ii)).
+            if faults_mod.classify(pe) != "preemption" \
+                    or engine.n_devices > 1:
                 raise
             # Mid-replay, the committed state is not the replayed one: exit
             # without a snapshot, so the last one on disk stays consistent.
@@ -1190,9 +1217,60 @@ def _path_names(path) -> list[str]:
     return [os.fsdecode(p) for p in path]
 
 
-#: The ``merge_strategy`` a ``run_start`` names: one card merges nothing,
-#: and the JAX package's default is what its one-device run names.
-_MERGE_STRATEGY = "tree"
+def _collective_call(thunk, plan, policy, tel, logger):
+    """A collective behind the ``collective-finish`` seam.  Injected
+    faults fire before the collective runs, so retrying them on their
+    class budget is safe (every rank crosses the seam alike and retries
+    alike); a real failure is recorded and propagates: the peers of a
+    failed collective are blocked mid-call, and checkpoint/resume is the
+    recovery path."""
+    attempt = 0
+    while True:
+        try:
+            if plan is not None:
+                exc = plan.check("collective-finish")
+                if exc is not None:
+                    log_event(logger, "fault injected",
+                              seam="collective-finish", index=exc.index,
+                              fault_class=exc.fault_class)
+                    _record_fault(tel, exc, seam="collective-finish",
+                                  injected=True, index=exc.index)
+                    raise exc
+            return thunk()
+        except faults_mod.FaultError as fe:
+            if not fe.injected or fe.fault_class == "preemption" \
+                    or attempt >= policy.budget(fe.fault_class):
+                raise
+            attempt += 1
+            tel.registry.counter("executor.retry_attempts").inc()
+            tel.registry.counter("executor.retries_by_class",
+                                 fault_class=fe.fault_class).inc()
+            tel.ledger_write("retry", attempt=attempt, error=repr(fe),
+                             fault_class=fe.fault_class,
+                             seam="collective-finish")
+            log_event(logger, "collective finish fault; retrying",
+                      attempt=attempt, fault_class=fe.fault_class,
+                      error=repr(fe), seam="collective-finish")
+            s = policy.backoff_s(fe.fault_class, attempt,
+                                 seam="collective-finish")
+            if s > 0:
+                time.sleep(s)
+        except Exception as e:
+            _record_fault(tel, e, seam="collective-finish", injected=False)
+            raise
+
+
+def _collective_finish(engine, state, plan, policy, tel, logger):
+    """``engine.finish`` through the ``collective-finish`` seam; the
+    result is on the device when it returns (a CUDA run synchronises, as
+    the JAX package fetches the result inside the ``reduce`` phase)."""
+    def finish():
+        value = engine.finish(state)
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+        return value
+
+    return _collective_call(finish, plan, policy, tel, logger)
 
 
 def _metrics_word_count(value) -> int:
@@ -1207,22 +1285,75 @@ def _metrics_word_count(value) -> int:
         if isinstance(value, table_ops.CountTable) else 0
 
 
+def _refuse_across_ranks(config: Config, retry: int, plan,
+                         size: int) -> None:
+    """What a run of several ranks does not do yet (ROADMAP.md item A9
+    (ii)): window replay, whose anchor the ranks would first have to agree
+    on, and preemption's drain and snapshot.  ``retry`` asks for replay
+    and is refused; an explicit failure policy keeps its budgets on the
+    seams that never replay (reader, checkpoint save, collective finish),
+    with window replay disarmed, as the JAX package's overlapped runs do."""
+    if size == 1:
+        return
+    if retry > 0 and config.failure_policy is None:
+        raise ValueError(
+            f"window replay (retry > 0) across {size} ranks is not ported "
+            "to the PyTorch package yet (ROADMAP.md item A9 (ii)); run "
+            "with retry=0 and resume from a checkpoint")
+    if plan is not None and (
+            "preemption" in plan.events.values()
+            or (plan.rate and "preemption" in plan.classes)):
+        raise ValueError(
+            f"preemption across {size} ranks is not ported to the PyTorch "
+            "package yet (ROADMAP.md item A9 (ii))")
+
+
+def _agree(axis, *values: int) -> None:
+    """Every rank starts the same run: the values (the stats mode, the
+    resume cursor) must agree, or the ranks' collectives would pair up
+    wrongly.  One all_gather of a few words."""
+    if axis.group is None:
+        return
+    dev = axis.device if axis.backend == "nccl" else torch.device("cpu")
+    got = collectives.all_gather(
+        torch.tensor(values, dtype=torch.int64, device=dev), axis).cpu()
+    if not bool((got == got[0]).all()):
+        raise RuntimeError(
+            f"the {axis.size} ranks disagree on the run they start "
+            f"(stats mode, resume step, resume offset): {got.tolist()}; "
+            "every rank passes telemetry or none, and resumes the same "
+            "snapshot")
+
+
 def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
             logger=None, progress_every: int = 50,
-            retry: int = 0, telemetry=None) -> RunResult:
+            retry: int = 0, telemetry=None,
+            merge_strategy: Optional[str] = None) -> RunResult:
     """Stream ``path`` (a file or a list of files, one corpus) through
-    ``job`` on one device; see the module docstring.
+    ``job`` on this rank's device; see the module docstring.
+
+    The data axis is the initialised ``torch.distributed`` world (else a
+    world of one).  Every rank of it calls ``run_job`` with the same
+    arguments: each step cuts D rows, the
+    JAX reader's cuts, and each rank maps its own; the finish merges the D
+    states with ``merge_strategy`` (default ``config``'s: 'tree', 'gather'
+    or 'keyrange'), and every rank returns the same value.  Snapshots are
+    the coordinator's (rank 0) to write and every rank's to resume; the
+    run ledger is the coordinator's alone, its ``data`` record summed over
+    the ranks.  Across ranks, window replay (``retry`` > 0) and
+    preemption's drain are refused (ROADMAP.md item A9 (ii)), and a
+    SIGINT is not deferred.
 
     ``device`` defaults to the job's.  ``config`` sets the chunking, the
     pipeline (``chunk_bytes``, ``superstep``, ``inflight_groups``,
     ``prefetch_depth``), the fault plan and the failure policy.  With
     ``checkpoint_path``, a snapshot there is resumed (the previous good one
-    if it is corrupt; a different job, capacity, chunk size or input raises
-    ``CheckpointMismatch``), and with ``checkpoint_every`` > 0 one is saved
-    every that many steps.  ``retry``: the transient and resource budgets
-    when ``config.failure_policy`` is None.  A preempted run raises
-    :class:`...runtime.faults.Preempted`.
+    if it is corrupt; a different job, capacity, chunk size, device count
+    or input raises ``CheckpointMismatch``), and with ``checkpoint_every``
+    > 0 one is saved every that many steps.  ``retry``: the transient and
+    resource budgets when ``config.failure_policy`` is None.  A preempted
+    run raises :class:`...runtime.faults.Preempted`.
 
     ``telemetry`` (:class:`...obs.telemetry.Telemetry`, optional): the run
     ledger's records, the flight recorder's dump on a failure and the
@@ -1236,14 +1367,26 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     dev = job.device if device is None else torch.device(device)
     if dev != job.device:
         raise ValueError(f"run_job on {dev} got a job on {job.device}")
+    axis = data_mesh(device=dev)
+    n_dev = axis.size
+    merge_strategy = config.resolved_merge_strategy \
+        if merge_strategy is None else merge_strategy
     tel = obs_telemetry.maybe(telemetry)
+    if tel.enabled and not axis.coordinator and (
+            tel.ledger is not None or tel.flight_path):
+        # The ledger and the flight dump are the coordinator's.
+        tel = copy.copy(tel)
+        tel.ledger, tel.flight_path = None, None
     plan = faults_mod.FaultPlan.resolve(config.fault_plan)
     policy = faults_mod.FailurePolicy.resolve(config.failure_policy,
                                               retry=retry)
+    _refuse_across_ranks(config, retry, plan, n_dev)
+    replay = policy.dispatch_budget > 0 and n_dev == 1
     data_stats = tel.enabled and datastats.supports(job)
-    engine = Engine(job, dev, data_stats=data_stats)
-    data_agg = datastats.DataAggregator.for_run(config) if data_stats \
-        else None
+    engine = Engine(job, dev, data_stats=data_stats, axis=axis,
+                    merge_strategy=merge_strategy)
+    data_agg = datastats.DataAggregator.for_run(config, n_dev) \
+        if data_stats else None
     logger = logger or get_logger()
     native.load()  # a failed chunker build fails here, not in the reader
     timer = metrics_mod.PhaseTimer()
@@ -1252,84 +1395,65 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     start_step, start_offset, resumed_file = 0, 0, None
     bases_list: list = []
     fingerprint = ckpt_mod.run_fingerprint(
-        path, 1, config.chunk_bytes, backend=config.resolved_backend(),
+        path, n_dev, config.chunk_bytes, backend=config.resolved_backend(),
         pallas_max_token=config.pallas_max_token,
         job_identity=job.identity()) if checkpoint_path else None
     fallback = None
     if checkpoint_path and ckpt_mod.exists(checkpoint_path):
+        # The snapshot holds every rank's state (leaves [D, ...]); each
+        # rank takes its own row.
+        template = [np.empty((n_dev,) + leaf.shape[1:], leaf.dtype)
+                    for leaf in convert.state_to_leaves(state)]
         (leaves, start_step, start_offset, bases, resumed_file), fallback = \
-            ckpt_mod.load_resilient(
-                checkpoint_path, template=convert.state_to_leaves(state),
-                expect_fingerprint=fingerprint)
-        state = convert.leaves_to_state(leaves, state, dev)
+            ckpt_mod.load_resilient(checkpoint_path, template=template,
+                                    expect_fingerprint=fingerprint)
+        state = convert.leaves_to_state(
+            [leaf[axis.rank:axis.rank + 1] for leaf in leaves], state, dev)
         bases_list = list(bases)
         log_event(logger, "resumed from checkpoint", step=start_step,
                   offset=start_offset)
         if fallback is not None:
             log_event(logger, "corrupt checkpoint; resumed from previous "
                       "good snapshot", **fallback)
+    _agree(axis, int(data_stats), start_step, start_offset)
     # With retry, the buffers of every group since the anchor are held
     # (at most a full window, plus the group being filled).
     held = (config.inflight_groups + 1) * config.superstep - 1 \
-        if policy.dispatch_budget > 0 else 0
-    stage = _PinnedStage(dev, config.chunk_bytes,
-                         config.resolved_prefetch_depth, held) \
-        if dev.type == "cuda" else _HostStage()
+        if replay else 0
+    stage = _PinnedStage(dev, n_dev * config.chunk_bytes,
+                         config.resolved_prefetch_depth, held, axis.rank) \
+        if dev.type == "cuda" else _HostStage(axis.rank)
 
     def rebuild(new_config: Config) -> Engine:
         """The ladder's engine: the job rebound to the degraded config."""
         nonlocal job, engine
         job = job_with_config(job, new_config)
-        engine = Engine(job, dev, data_stats=data_stats)
+        engine = Engine(job, dev, data_stats=data_stats, axis=axis,
+                        merge_strategy=merge_strategy)
         return engine
 
     # A SIGINT from here to run_end is deferred to the stream's safe
     # points (and, after the stream, to the end of the run), so no ledger
-    # line is torn.
-    with _sigint_deferred() as sigint:
+    # line is torn.  Across ranks it is not: a preempted rank exits.
+    sigint_scope = _sigint_deferred() if n_dev == 1 \
+        else contextlib.nullcontext([])
+    with sigint_scope as sigint:
         tel.registry.counter("executor.runs", driver="run_job").inc()
         tel.ledger_write(
-            "run_start", driver="run_job", job=job.identity(), devices=1,
+            "run_start", driver="run_job", job=job.identity(), devices=n_dev,
             chunk_bytes=config.chunk_bytes, superstep=config.superstep,
             backend=config.resolved_backend(), map_impl=config.map_impl,
             combiner=config.combiner, geometry="default",
             **({"fault_plan": plan.spec} if plan is not None else {}),
-            merge_strategy=_MERGE_STRATEGY, input=_path_names(path),
+            merge_strategy=merge_strategy, input=_path_names(path),
             resume_step=start_step, resume_offset=start_offset,
-            retry=policy.dispatch_budget)
+            retry=policy.dispatch_budget if replay else 0)
         if fallback is not None:
             tel.ledger_write("fault", seam="checkpoint-load",
                              fault_class="transient", injected=False,
                              error=fallback["error"],
                              fallback=fallback["loaded"],
                              corrupt=fallback["corrupt"])
-
-        def finish():
-            if plan is not None:
-                exc = plan.check("collective-finish")
-                if exc is not None:
-                    log_event(logger, "fault injected",
-                              seam="collective-finish", index=exc.index,
-                              fault_class=exc.fault_class)
-                    _record_fault(tel, exc, seam="collective-finish",
-                                  injected=True, index=exc.index)
-                    raise exc
-            try:
-                return engine.finish(state)
-            except Exception as fe:
-                _record_fault(tel, fe, seam="collective-finish",
-                              injected=False)
-                raise
-
-        def finish_retried(attempt: int, fe, cls: str) -> None:
-            tel.registry.counter("executor.retry_attempts").inc()
-            tel.registry.counter("executor.retries_by_class",
-                                 fault_class=cls).inc()
-            tel.ledger_write("retry", attempt=attempt, error=repr(fe),
-                             fault_class=cls, seam="collective-finish")
-            log_event(logger, "collective finish fault; retrying",
-                      attempt=attempt, fault_class=cls, error=repr(fe),
-                      seam="collective-finish")
 
         timer.start("stream")
         try:
@@ -1341,18 +1465,16 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
                     checkpoint_every=checkpoint_every,
                     fingerprint=fingerprint, resumed_file=resumed_file,
                     logger=logger, progress_every=progress_every,
-                    timer=timer, plan=plan, policy=policy, rebuild=rebuild,
-                    sigint=sigint, tel=tel, data_agg=data_agg, device=dev)
+                    timer=timer, plan=plan, policy=policy, replay=replay,
+                    rebuild=rebuild, sigint=sigint, tel=tel,
+                    data_agg=data_agg, device=dev)
             timer.stop("stream")
-            # Injected faults fire before the finish runs, so retrying
-            # them is safe; a real failure propagates.
             with span("reduce", timer):
                 fin_t0 = time.perf_counter()
-                value = _with_budget(finish, "collective-finish", policy,
-                                     injected_only=True,
-                                     on_retry=finish_retried)
+                value = _collective_finish(engine, state, plan, policy, tel,
+                                           logger)
                 tel.ledger_write("collective", op="finish",
-                                 strategy=_MERGE_STRATEGY,
+                                 strategy=merge_strategy,
                                  started_at=round(fin_t0, 6),
                                  ended_at=round(time.perf_counter(), 6))
         except faults_mod.Preempted:
@@ -1379,8 +1501,9 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
         tel.ledger_write("run_end", **m.as_dict(), pipeline=pipe)
     log_event(logger, "run complete", **m.as_dict())
     bases = np.stack(bases_list) if bases_list \
-        else np.zeros((0, 1), np.int64)
-    return RunResult(value=value, metrics=m, bases=bases, pipeline=pipe)
+        else np.zeros((0, n_dev), np.int64)
+    return RunResult(value=value, metrics=m, bases=bases, pipeline=pipe,
+                     rank=axis.rank)
 
 
 def absolute_offsets(chunk_id: np.ndarray, pos: np.ndarray,
@@ -1447,6 +1570,8 @@ def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
     fills ``cms`` (``result.estimate_count(word)``); one or the other per
     run.  The result's ``run`` is the run's :class:`RunResult` (its value
     dropped), with the host string recovery as the ``recover`` phase.
+    Across the ranks of an initialised world every rank calls it alike; the coordinator recovers and returns the result, the
+    other ranks return None.
     """
     if distinct_sketch and count_sketch:
         raise ValueError("distinct_sketch and count_sketch are mutually "
@@ -1461,6 +1586,8 @@ def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
     elif count_sketch:
         job = FreqSketchedWordCountJob(job)
     rr = run_job(job, path, config, **kw)
+    if rr.rank != 0:
+        return None
     timer = metrics_mod.PhaseTimer(phases=rr.metrics.phases)
     with span("recover", timer):
         tbl, kmv_est, registers, cms = rr.value, None, None, None
@@ -1473,8 +1600,8 @@ def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
                 int(tbl.kmv_n_valid), int(tbl.kmv_kth_hi),
                 int(tbl.kmv_kth_lo), config.table_capacity)
             tbl = tbl.table
-        result = recover_from_file(tbl, path, rr.bases, 1, ngram=ngram,
-                                   estimate_distinct=not top_k)
+        result = recover_from_file(tbl, path, rr.bases, rr.bases.shape[1],
+                                   ngram=ngram, estimate_distinct=not top_k)
         if kmv_est is not None:
             result = dataclasses.replace(
                 result, distinct=max(len(result.words), int(round(kmv_est))))

@@ -433,15 +433,21 @@ def test_bad_patterns_exit_2_as_in_jax(flags, capsys):
 
 @pytest.mark.parametrize("strategy", ["gather", "keyrange"])
 def test_other_merge_strategies_name_a9(strategy, capsys):
-    """One card merges nothing: a streamed word count refuses a strategy
-    that merges across devices, naming its item; 'tree' runs."""
+    """On one rank every one-axis strategy runs and prints what 'tree'
+    prints (the multi-rank runs: tests/test_torch_distributed*.py); its
+    two-level counterpart is refused naming its item, A9 (ii)."""
+    out = {}
+    for s in ("tree", strategy):
+        assert _in_repo_main(["test.txt", "--platform", "cpu", "--stream",
+                              "--merge-strategy", s, "--no-echo"]) == 0
+        out[s] = capsys.readouterr().out
+    assert out[strategy] == out["tree"] and "Total Count:9" in out["tree"]
+    hier = {"gather": "hier-tree-tree", "keyrange": "hier-kr-tree"}[strategy]
     with pytest.raises(SystemExit) as e:
         cli.main(["test.txt", "--platform", "cpu", "--stream",
-                  "--merge-strategy", strategy])
+                  "--merge-strategy", hier])
     assert e.value.code == 2
-    assert "(ROADMAP.md item A9)" in capsys.readouterr().err
-    assert _in_repo_main(["test.txt", "--platform", "cpu", "--stream",
-                          "--merge-strategy", "tree", "--no-echo"]) == 0
+    assert "(ROADMAP.md item A9 (ii))" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("mode", [("--grep", "o"), ("--sample", "3")])

@@ -378,7 +378,8 @@ def test_registry_names_and_identities_equal_jax():
     assert models.model_names() == jmodels.model_names()
     for name in models.model_names():
         if "fleet" in name:
-            with pytest.raises(ValueError, match="ROADMAP.md item A9"):
+            with pytest.raises(ValueError,
+                               match=r"ROADMAP.md item A9 \(ii\)"):
                 models.build_model(name, device="cpu")
             continue
         job = models.build_model(name, device="cpu")

@@ -1,0 +1,324 @@
+"""A world of D CPU ranks for the port's multi-rank tests.
+
+``spawn_world(n, cases, tmp)`` starts this file as ``n`` processes of one
+``torch.distributed`` gloo world (the environment a launcher exports:
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), each running every case in order, and returns
+``[per-rank {case name: result}]``.  The ranks import only the port,
+never JAX.  The join has a time limit: a rank that fails or hangs ends
+the world, and the test fails with every rank's stderr.
+
+A case is ``{"name", "kind", "args"}``; ``kind`` names a function of
+``CASES`` below, and ``args`` are plain JSON (a ``config`` is a dict of
+``Config`` fields).  A case that raises records ``("error", repr)``: a
+refusal raised alike on every rank is a result, and the next case runs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _config(d):
+    from mapreduce_tpu_torch.config import Config
+
+    return Config(**(d or {}))
+
+
+def _numpy(state):
+    from mapreduce_tpu_torch import convert
+
+    return convert.state_to_numpy(state)
+
+
+def _result_fields(r):
+    if r is None:
+        return None
+    return {"words": list(r.words), "counts": list(r.counts),
+            "total": r.total, "distinct": r.distinct,
+            "dropped_uniques": r.dropped_uniques,
+            "dropped_count": r.dropped_count,
+            "distinct_estimate": r.distinct_estimate,
+            "cms": None if r.cms is None else r.cms}
+
+
+def _job(kind: str, config, args):
+    from mapreduce_tpu_torch.models import grep, sample
+    from mapreduce_tpu_torch.models import wordcount as wc
+
+    if kind == "wordcount":
+        return wc.WordCountJob(config, "cpu")
+    if kind == "topk":
+        return wc.TopKWordCountJob(args["k"], config, "cpu")
+    if kind == "ngram":
+        return wc.NGramCountJob(args["n"], config, "cpu")
+    if kind == "hll":
+        return wc.SketchedWordCountJob(wc.WordCountJob(config, "cpu"))
+    if kind == "cms":
+        return wc.FreqSketchedWordCountJob(wc.WordCountJob(config, "cpu"))
+    if kind == "grep":
+        return grep.GrepJob(args["patterns"][0].encode(), device="cpu")
+    if kind == "grep_multi":
+        return grep.MultiGrepJob([p.encode() for p in args["patterns"]],
+                                 device="cpu")
+    if kind == "sample":
+        return sample.ReservoirSampleJob(args["k"], config, "cpu")
+    raise ValueError(f"unknown job {kind!r}")
+
+
+def case_run_job(job, path, config=None, merge_strategy=None,
+                 checkpoint_path=None, checkpoint_every=0, retry=0,
+                 ledger=None, telemetered_ranks=None, **job_args):
+    """``run_job``'s finished value as numpy (the JAX layout), its bases
+    and the bytes it streamed.  With ``ledger``, the ranks in
+    ``telemetered_ranks`` (default: all) run telemetered (a heartbeat an
+    hour) and the coordinator writes the ledger there, as the CLI does."""
+    import torch.distributed as dist
+
+    from mapreduce_tpu_torch.obs.telemetry import Telemetry
+    from mapreduce_tpu_torch.parallel import distributed
+    from mapreduce_tpu_torch.runtime import executor
+
+    cfg = _config(config)
+    on = ledger is not None and (telemetered_ranks is None
+                                 or dist.get_rank() in telemetered_ranks)
+    tel = None if not on else Telemetry.create(
+        ledger_path=ledger if distributed.is_coordinator() else None,
+        progress_every_s=3600)
+    try:
+        rr = executor.run_job(_job(job, cfg, job_args), path, cfg,
+                              merge_strategy=merge_strategy,
+                              checkpoint_path=checkpoint_path,
+                              checkpoint_every=checkpoint_every,
+                              retry=retry, telemetry=tel)
+    finally:
+        if tel is not None:
+            tel.close()
+    return {"value": _numpy(rr.value), "bases": rr.bases,
+            "bytes": rr.metrics.bytes_processed}
+
+
+def case_count_file(path, config=None, **kw):
+    """``count_file``'s result fields (None off the coordinator)."""
+    from mapreduce_tpu_torch.runtime import executor
+
+    return _result_fields(executor.count_file(path, _config(config),
+                                              device="cpu", **kw))
+
+
+def case_grep_file(path, patterns, config=None, **kw):
+    from mapreduce_tpu_torch.models import grep
+
+    if len(patterns) == 1:
+        r = grep.grep_file(path, patterns[0].encode(), _config(config),
+                           device="cpu", **kw)
+        return [(r.matches, r.lines)]
+    return [(r.matches, r.lines) for r in grep.grep_file_multi(
+        path, [p.encode() for p in patterns], _config(config), device="cpu",
+        **kw)]
+
+
+def case_sample_file(path, k, config=None, **kw):
+    from mapreduce_tpu_torch.models import sample
+
+    r = sample.sample_file(path, k, _config(config), device="cpu", **kw)
+    return None if r is None else (list(r.tokens), r.total)
+
+
+def case_collective(op, tables=None, capacity=0, pairs=None):
+    """One collective: ``psum64`` of rank r's ``pairs[r]`` (lo, hi) or
+    ``psum`` of the state ``(pairs[r], pairs[r][0])``, or
+    tree, gather or keyrange over crafted tables, rank r's built from
+    ``tables[r]`` (rows of (key_hi, key_lo, pos_hi, pos_lo, count,
+    length))."""
+    import torch
+
+    from mapreduce_tpu_torch.ops import table as table_ops
+    from mapreduce_tpu_torch.parallel import collectives
+    from mapreduce_tpu_torch.parallel.mesh import data_mesh
+
+    axis = data_mesh()
+    if op == "psum64":
+        lo, hi = (torch.tensor(v, dtype=torch.int64)
+                  for v in pairs[axis.rank])
+        return tuple(int(x) for x in collectives.psum64(lo, hi, axis))
+    if op == "psum":  # a state of two leaves
+        v = torch.tensor(pairs[axis.rank], dtype=torch.int64)
+        return tuple(x.tolist() for x in collectives.psum((v, v[0]), axis))
+    rows = tables[axis.rank]
+    n = max(len(rows), 1)
+    pad = -(-n // 8) * 8
+    cols = [[table_ops.SENT] * pad, [table_ops.SENT] * pad,
+            [table_ops.INF] * pad, [table_ops.INF] * pad, [0] * pad,
+            [0] * pad]
+    for i, row in enumerate(rows):
+        for c, v in zip(cols, row):
+            c[i] = v
+    khi, klo, phi, plo, cnt, ln = (torch.tensor(c, dtype=torch.int64)
+                                   for c in cols)
+    z = torch.zeros((), dtype=torch.int64)
+    t = table_ops._build(khi, klo, phi, plo, cnt, torch.zeros_like(cnt), ln,
+                         capacity, z, z, z, z)
+
+    def merge(a, b):
+        return table_ops.merge(a, b, capacity=capacity)
+
+    if op == "tree":
+        out = collectives.tree_merge(t, merge, axis)
+    elif op == "gather":
+        out = collectives.gather_merge(t, merge, axis)
+    else:
+        out = collectives.key_range_merge(t, axis)
+    return _numpy(out)
+
+
+def case_cli(argv):
+    """The CLI's exit code and stdout (bytes: the echo writes raw)."""
+    from mapreduce_tpu_torch import cli
+
+    raw = io.BytesIO()
+    out = io.TextIOWrapper(raw, encoding="utf-8", write_through=True)
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            rc = e.code
+        out.flush()
+    return rc, raw.getvalue()
+
+
+CASES = {"run_job": case_run_job, "count_file": case_count_file,
+         "grep_file": case_grep_file, "sample_file": case_sample_file,
+         "collective": case_collective, "cli": case_cli}
+
+
+def _worker(spec_path: str) -> int:
+    import torch
+
+    from mapreduce_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(1)
+    spec = json.loads(Path(spec_path).read_text())
+    distributed.initialize(spec["platform"], backend=spec["backend"],
+                           timeout_s=spec["timeout_s"])
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    results = {}
+    for case in spec["cases"]:
+        try:
+            results[case["name"]] = CASES[case["kind"]](**case["args"])
+        except Exception as e:  # a refusal is a result; the world goes on
+            results[case["name"]] = ("error", repr(e))
+    with open(Path(spec["out"]) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(results, f)
+    distributed.shutdown()
+    return 0
+
+
+@contextlib.contextmanager
+def shared_jax_engines():
+    """For the JAX references of a test module: the JAX executor builds an
+    Engine per run and compiles its step anew (~10 s interpreted).  The
+    step reads neither the merge strategy nor a top-k finalize, so
+    engines of one job kind, config and mesh size share it (the finish
+    programs stay each engine's); equal engines are one.  Imports JAX, so
+    only the test process calls it."""
+    from mapreduce_tpu.runtime import executor as jexecutor
+
+    real = jexecutor.Engine
+    whole: dict = {}
+    steps: dict = {}
+
+    def engine(job, mesh, **kw):
+        kind = job.identity().split("-top")[0]
+        key = (kind, getattr(job, "config", None), mesh.size,
+               kw.get("data_stats", False))
+        full = (job.identity(), key, tuple(sorted(kw.items())))
+        if full in whole:
+            return whole[full]
+        eng = whole[full] = real(job, mesh, **kw)
+        donor = steps.setdefault(key, eng)
+        if donor is not eng and donor._step_fn is not None:
+            eng._step_fn = donor._step_fn
+        return eng
+
+    jexecutor.Engine = engine
+    try:
+        yield
+    finally:
+        jexecutor.Engine = real
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(n: int, cases: list, tmp: Path, timeout_s: float = 120,
+                platform: str = "cpu") -> list:
+    """Run ``cases`` on a gloo world of ``n`` ranks (on the CPU, or with
+    ``platform='gpu'`` every rank's job on the card); returns each rank's
+    ``{name: result}``.  Raises (with every rank's stderr) when a rank
+    fails or the world outlives ``timeout_s``."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    spec = tmp / "world.json"
+    spec.write_text(json.dumps({"cases": cases, "out": str(tmp),
+                                "timeout_s": timeout_s,
+                                "platform": platform, "backend": "gloo"}))
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("XLA_FLAGS", "PYTEST_XDIST_WORKER")}
+    base.update({"WORLD_SIZE": str(n), "LOCAL_WORLD_SIZE": str(n),
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                 "OMP_NUM_THREADS": "1",
+                 "PYTHONPATH": os.pathsep.join(
+                     [str(REPO), base.get("PYTHONPATH", "")])})
+    procs = []
+    for r in range(n):
+        e = dict(base, RANK=str(r), LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, str(spec)], cwd=REPO, env=e,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + timeout_s
+    outs = [None] * n
+    try:
+        for r, p in enumerate(procs):
+            outs[r] = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        errs = "\n".join(f"--- rank {r} (rc {procs[r].returncode}) ---\n"
+                         f"{(outs[r] or ('', ''))[1][-4000:]}"
+                         for r in range(n))
+        raise RuntimeError(f"a world of {n} ranks failed or timed out "
+                           f"(ranks {failed}):\n{errs}")
+    results = []
+    for r in range(n):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+if __name__ == "__main__":
+    raise SystemExit(_worker(sys.argv[1]))
