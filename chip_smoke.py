@@ -178,17 +178,38 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               launches per rank and the per-step all_gather ms of the
               n-gram and grep maps; any rank's failure or a join past its
               time limit fails the smoke;
-12. times  -- each kernel's median time per 32 MB chunk beside its bound,
+12. many_hosts -- the streamed run over several hosts, one process a
+              rank (``MANY_HOSTS_CHILD``): a gloo world of 4 ranks on card
+              0 laid out as 2 hosts of 2 (``LOCAL_WORLD_SIZE`` 2,
+              ``GROUP_RANK`` the node) over ``two_level_mesh(2, 2)``, and
+              an NCCL world of ``min(device_count, 4)`` ranks, one host,
+              over ``two_level_mesh(1, n)``, each over the phase-4 file at
+              ``Config()``: ``count_file`` with tree, gather, keyrange,
+              hier-tree-tree and hier-kr-tree, ``--ngram 2``, grep with
+              four patterns, mode (a) (each host's aligned
+              ``host_byte_range`` over its own ranks, the partial tables
+              merged by a tree across hosts, the partial counts summed
+              here), and ``run_job_global`` over the world (with a ledger:
+              one shard a host, each record stamped with its host) and
+              over the two-level mesh; the gloo world's last case plans a
+              ``process-kill`` at the same crossing on every rank (each
+              exits 113 after the coordinator's snapshot) and a fresh
+              world resumes; every result held to one rank's run and to
+              the oracle, every rank's K1a/K1b launches one a step, and
+              per world and case the finish ms, the bytes each rank sent
+              by collective and level, and the launches per rank;
+13. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
-              exists, and the time of each launch of the combiner and the
-              radix seam (CUDA events between launches); the chunk's
-              end-to-end time by stage; the step time (map + merge) of
-              every path's configuration on one chunk, with the rows each
-              step's sort sees;
-13. profile -- where the device time of a default, a combiner and a
+              exists (the segmented sort's: one lexsort with the group
+              index first), and the time of each launch of the combiner
+              and the radix seam (CUDA events between launches); the
+              chunk's end-to-end time by stage; the step time (map +
+              merge) of every path's configuration on one chunk, with the
+              rows each step's sort sees;
+14. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 11 each drive a main path: the launch counters are set to 0
+Phases 3 to 12 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -1525,7 +1546,7 @@ def families_phase(drive, by_path: dict, tmp: Path, path: Path,
                    stream_data: bytes, words_data: bytes, dev) -> tuple:
     """Phase 9: the n-gram and sketched word-count families (see the
     module docstring).  Returns the bigram oracle of the phase-4 file,
-    ``(want, total, dropped_count, distinct)``, for phase 11."""
+    ``(want, total, dropped_count, distinct)``, for phases 11 and 12."""
     import contextlib
     import io
     import signal
@@ -2320,10 +2341,14 @@ distributed.shutdown()
 
 
 def run_world(n: int, backend: str, spec: dict, out: Path,
-              timeout_s: float = 300) -> list:
-    """Start ``n`` ranks of one world (``MANY_RANKS_CHILD``), join them
-    with a time limit, and return each rank's measurements; any rank's
-    failure or the time limit fails the smoke."""
+              timeout_s: float = 300, child: str = MANY_RANKS_CHILD,
+              hosts: int = 1, expect_rc: int = 0) -> list:
+    """Start ``n`` ranks of one world (``child``, by default
+    ``MANY_RANKS_CHILD``) laid out as ``hosts`` nodes of ``n // hosts``
+    ranks (``LOCAL_WORLD_SIZE``, ``GROUP_RANK``), join them with a time
+    limit, and return each rank's measurements; any rank's failure (an
+    exit code other than ``expect_rc``) or the time limit fails the
+    smoke."""
     import socket
 
     out.mkdir(parents=True, exist_ok=True)
@@ -2331,15 +2356,17 @@ def run_world(n: int, backend: str, spec: dict, out: Path,
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     spec = dict(spec, out=str(out), backend=backend)
+    local = n // hosts
     procs, logs = [], []
     for r in range(n):
         env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r),
-                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r % local), LOCAL_WORLD_SIZE=str(local),
+                   GROUP_RANK=str(r // local),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         log = open(out / f"rank{r}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", MANY_RANKS_CHILD, str(ROOT),
+            [sys.executable, "-c", child, str(ROOT),
              json.dumps(spec)], cwd=ROOT, env=env, stdout=log,
             stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout_s
@@ -2355,7 +2382,7 @@ def run_world(n: int, backend: str, spec: dict, out: Path,
                 p.wait(timeout=60)
         for log in logs:
             log.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    bad = [r for r, p in enumerate(procs) if p.returncode != expect_rc]
     if bad:
         tails = {r: (out / f"rank{r}.log").read_text()[-3000:] for r in bad}
         raise SystemExit(f"{backend} world of {n} ranks: rank(s) {bad} "
@@ -2364,11 +2391,38 @@ def run_world(n: int, backend: str, spec: dict, out: Path,
             for r in range(n)]
 
 
+def hold_count(label: str, got: dict, ref, oracle_words: dict,
+               ngram_want=None) -> None:
+    """A world's word-count (or bigram) result field by field against one
+    rank's run, and its words against the oracle.  A spilled gram table
+    bounds its dropped keys per merge order: ``dropped_uniques`` is then
+    held to the oracle's true count from above."""
+    words = [bytes.fromhex(x) for x in got["words"]]
+    fields = {"words": words, **{f: got[f] for f in (
+        "counts", "total", "distinct", "dropped_uniques", "dropped_count")}}
+    spilled = ngram_want is not None \
+        and ngram_want[3] > len(ngram_want[0])
+    differ = [f for f, v in fields.items() if v != getattr(ref, f)
+              and not (spilled and f == "dropped_uniques")]
+    if differ:
+        raise SystemExit(f"{label} differs from one rank's run in {differ}")
+    if dict(zip(words, got["counts"])) != oracle_words \
+            or words != list(oracle_words):
+        raise SystemExit(f"{label} differs from the oracle")
+    if spilled and (got["dropped_count"] != ngram_want[2]
+                    or got["dropped_uniques"]
+                    < ngram_want[3] - len(ngram_want[0])):
+        raise SystemExit(f"{label}: dropped {got['dropped_count']} tokens, "
+                         f"{got['dropped_uniques']} keys; oracle "
+                         f"{ngram_want[2]}, "
+                         f"{ngram_want[3] - len(ngram_want[0])}")
+
+
 def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                      stream_data: bytes, want_words: dict, ngram_want,
                      dev) -> None:
     """Phase 11: the streamed run over several ranks (see the module
-    docstring)."""
+    docstring).  Returns the one-rank runs the worlds were held to."""
     import numpy as np
     import torch
 
@@ -2429,40 +2483,15 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                     raise SystemExit(f"{name}: rank {r['rank']} returned a "
                                      "result")
         # Word count and bigrams: field by field against one rank's run,
-        # and the words (grams) against the oracle.  A table that spilled
-        # (every gram table does) bounds its dropped keys per merge order:
-        # ``dropped_uniques`` is then held to the oracle's true count
-        # from above, as the JAX package's tests hold it.
-        for name, ref, oracle_words in (
-                ("count_file_tree_warmup", "count", want_words),
-                ("count_file_tree", "count", want_words),
-                ("count_file_gather", "count", want_words),
-                ("count_file_keyrange", "count", want_words),
-                ("count_file_ngram2", "ngram2", ngram_want[0])):
-            got = head[name]["result"]
-            words = [bytes.fromhex(x) for x in got["words"]]
-            fields = {"words": words, **{f: got[f] for f in (
-                "counts", "total", "distinct", "dropped_uniques",
-                "dropped_count")}}
-            spilled = ref == "ngram2" and ngram_want[3] > len(ngram_want[0])
-            differ = [f for f, v in fields.items()
-                      if v != getattr(one[ref], f)
-                      and not (spilled and f == "dropped_uniques")]
-            if differ:
-                raise SystemExit(f"{backend}{n} {name} differs from one "
-                                 f"rank's run in {differ}")
-            if dict(zip(words, got["counts"])) != oracle_words \
-                    or words != list(oracle_words):
-                raise SystemExit(f"{backend}{n} {name} differs from the "
-                                 "oracle")
-            if spilled and (got["dropped_count"] != ngram_want[2]
-                            or got["dropped_uniques"]
-                            < ngram_want[3] - len(ngram_want[0])):
-                raise SystemExit(f"{backend}{n} {name}: dropped "
-                                 f"{got['dropped_count']} tokens, "
-                                 f"{got['dropped_uniques']} keys; oracle "
-                                 f"{ngram_want[2]}, "
-                                 f"{ngram_want[3] - len(ngram_want[0])}")
+        # and the words (grams) against the oracle (``hold_count``).
+        for name, ref, oracle_words, ng in (
+                ("count_file_tree_warmup", "count", want_words, None),
+                ("count_file_tree", "count", want_words, None),
+                ("count_file_gather", "count", want_words, None),
+                ("count_file_keyrange", "count", want_words, None),
+                ("count_file_ngram2", "ngram2", ngram_want[0], ngram_want)):
+            hold_count(f"{backend}{n} {name}", head[name]["result"],
+                       one[ref], oracle_words, ng)
         cuts = bases.ravel()[1:]
         want_grep = []
         for p in patterns:
@@ -2520,6 +2549,302 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                  round(r[key], 4) for r in ranks]
                  for key in ranks[0] if key.startswith("all_gather_ms_")})
     emit("many_ranks", phase_s=round(time.perf_counter() - t_phase, 3))
+    return one
+
+
+# Phase 12's child: one rank of a world laid out as hosts (nodes) of
+# ranks.  Every case's measurements are written after the case, so a
+# planned process-kill (the last case) leaves the earlier ones on disk.
+MANY_HOSTS_CHILD = """
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+spec = json.loads(sys.argv[2])
+import torch
+from mapreduce_tpu_torch import Config, count_file
+from mapreduce_tpu_torch.models import grep
+from mapreduce_tpu_torch.models.wordcount import WordCountJob
+from mapreduce_tpu_torch.obs import registry
+from mapreduce_tpu_torch.obs.telemetry import Telemetry
+from mapreduce_tpu_torch.ops import table as table_ops
+from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+from mapreduce_tpu_torch.parallel import collectives, distributed
+from mapreduce_tpu_torch.parallel.mesh import two_level_mesh
+from mapreduce_tpu_torch.runtime import executor
+
+dev = distributed.initialize("gpu", backend=spec["backend"], timeout_s=120)
+hosts, local = distributed.process_count(), distributed.local_device_count()
+mesh = two_level_mesh(hosts, local, device=dev)
+path, cfg = spec["path"], Config()
+runs = []
+real_run_job = executor.run_job
+
+def kept_run_job(*a, **kw):
+    runs.append(real_run_job(*a, **kw))
+    return runs[-1]
+
+executor.run_job = kept_run_job
+
+def sent():
+    snap = registry.get_registry().snapshot()["counters"]
+    return {k: v for k, v in snap.items()
+            if k.startswith("collectives.bytes_sent")}
+
+def fields(r):
+    return None if r is None else {"words": [w.hex() for w in r.words],
+        "counts": r.counts, "total": r.total, "distinct": r.distinct,
+        "dropped_uniques": r.dropped_uniques,
+        "dropped_count": r.dropped_count}
+
+out = {"rank": mesh.rank, "host": distributed.process_index(),
+       "hosts": hosts, "local": local, "device": str(dev),
+       "outer_ranks": list(mesh.outer.ranks),
+       "inner_ranks": list(mesh.inner.ranks), "cases": {}}
+dst = os.path.join(spec["out"], f"rank{mesh.rank}.json")
+for case in spec["cases"]:
+    kind, args = case["kind"], case["args"]
+    torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+    ktok.LAUNCHES.clear()
+    runs.clear()
+    before = sent()
+    t0 = time.perf_counter()
+    extra = {}
+    if kind == "count_file":
+        res = fields(count_file(path, Config(merge_strategy=args["strategy"]),
+                                dev, mesh=mesh, ngram=args.get("ngram", 1)))
+    elif kind == "grep":
+        res = [(x.matches, x.lines) for x in grep.grep_file_multi(
+            path, [p.encode() for p in args["patterns"]], cfg, dev,
+            mesh=mesh)]
+    elif kind == "host_range":
+        # Mode (a): this host's aligned range over its own ranks; then
+        # the hosts' partial tables merged by a tree across hosts.
+        lo, hi = distributed.align_range_to_separator(
+            path, *distributed.host_byte_range(os.path.getsize(path)))
+        res = fields(count_file(path, cfg, dev,
+                                mesh=distributed.local_data_mesh(device=dev),
+                                byte_range=(lo, hi)))
+        merged = collectives.tree_merge(
+            runs[-1].value, lambda a, b: table_ops.merge(
+                a, b, capacity=cfg.table_capacity), mesh.outer)
+        extra = {"range": [lo, hi], "merged_total": merged.total_count(),
+                 "merged_distinct": int(merged.occupied().sum()),
+                 "merged_dropped": list(merged.dropped_totals())}
+    else:  # the global driver, with a ledger, a snapshot, a fault plan
+        c = Config(fault_plan=args.get("fault_plan"))
+        tel = (Telemetry.create(ledger_path=args["ledger"],
+                                progress_every_s=3600)
+               if args.get("ledger") else None)
+        try:
+            rr = executor.run_job_global(
+                WordCountJob(c, dev), path, c,
+                mesh=mesh if args.get("two_level") else None,
+                checkpoint_path=args.get("checkpoint"),
+                checkpoint_every=args.get("every", 0), telemetry=tel)
+        finally:
+            if tel is not None:
+                tel.close()
+        runs.append(rr)
+        res = (fields(executor.recover_from_file(
+            rr.value, path, rr.bases, rr.bases.shape[1]))
+               if mesh.rank == 0 else None)
+    seconds = time.perf_counter() - t0
+    after = sent()
+    rr = runs[-1]
+    out["cases"][case["name"]] = {
+        "seconds": seconds, "result": res, **extra,
+        "reduce_s": rr.metrics.phases.get("reduce"),
+        "steps": int(rr.bases.shape[0]), "bases": rr.bases.tolist(),
+        "launches": dict(ktok.LAUNCHES),
+        "bytes_sent": {k: after[k] - before.get(k, 0) for k in after
+                       if after[k] != before.get(k, 0)}}
+    with open(dst, "w") as f:
+        json.dump(out, f)
+distributed.shutdown()
+"""
+
+
+def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
+                     stream_data: bytes, want_words: dict, ngram_want,
+                     one: dict) -> None:
+    """Phase 12: the streamed run over several hosts (see the module
+    docstring).  ``one`` holds phase 11's one-rank runs on the card."""
+    import numpy as np
+    import torch
+
+    from mapreduce_tpu_torch import Config
+    from mapreduce_tpu_torch.data import reader as reader_mod
+    from mapreduce_tpu_torch.obs import ledger
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    n_cards = torch.cuda.device_count()
+    patterns = ["the", "er", "and", "\nt"]
+    strategies = ("tree", "gather", "keyrange", "hier-tree-tree",
+                  "hier-kr-tree")
+    led = str(tmp / "hosts_ledger.jsonl")
+    ck = str(tmp / "hosts_global.npz")
+    for old in tmp.glob("hosts_*"):  # a snapshot would be resumed
+        if old.is_file():
+            old.unlink()
+    cases = [{"name": f"count_file_{s}", "kind": "count_file",
+              "args": {"strategy": s.split("_")[0]}}
+             for s in ("tree_warmup",) + strategies]
+    cases += [{"name": "count_file_ngram2", "kind": "count_file",
+               "args": {"strategy": "tree", "ngram": 2}},
+              {"name": "grep_file_p4", "kind": "grep",
+               "args": {"patterns": patterns}},
+              {"name": "host_range", "kind": "host_range", "args": {}},
+              {"name": "global", "kind": "global",
+               "args": {"ledger": led}},
+              {"name": "global_hier", "kind": "global",
+               "args": {"two_level": True}}]
+    kill = {"name": "global_kill", "kind": "global",
+            "args": {"checkpoint": ck, "every": 1,
+                     "fault_plan": "at=process-kill:1:permanent"}}
+    resume = {"name": "global_resume", "kind": "global",
+              "args": {"checkpoint": ck, "every": 1}}
+    arr = np.frombuffer(stream_data, np.uint8)
+    nlpos = np.flatnonzero(arr == 0x0A)
+    w_counts = sorted(want_words.values())
+    # The gloo world: 2 hosts of 2 ranks on card 0 (NCCL refuses two
+    # ranks on one card), whose last case kills every rank at the same
+    # crossing; then a fresh world resumes.  The NCCL world: one host of
+    # a card a rank.
+    worlds = [("gloo", 4, 2), ("nccl", max(1, min(n_cards, 4)), 1)]
+    for backend, n, hosts in worlds:
+        t_w = time.perf_counter()
+        label = f"{backend}{n}x{hosts}"
+        spec = {"path": str(path), "cases": cases
+                + ([kill] if backend == "gloo" else [])}
+        ranks = run_world(n, backend, spec, tmp / f"hosts_{label}",
+                          child=MANY_HOSTS_CHILD, hosts=hosts,
+                          expect_rc=113 if backend == "gloo" else 0)
+        resumed = run_world(n, backend, {"path": str(path),
+                                         "cases": [resume]},
+                            tmp / f"hosts_{label}_resume",
+                            child=MANY_HOSTS_CHILD, hosts=hosts) \
+            if backend == "gloo" else None
+        world_s = time.perf_counter() - t_w
+        head = ranks[0]["cases"]
+        bases = np.stack([b.base_offsets for b in reader_mod.iter_batches(
+            str(path), n, cfg.chunk_bytes)])
+        for r in ranks:
+            if r["hosts"] != hosts or r["host"] != r["rank"] // (n // hosts):
+                raise SystemExit(f"{label}: rank {r['rank']} is on host "
+                                 f"{r['host']} of {r['hosts']}")
+        for name in [c["name"] for c in cases if c["kind"] != "host_range"]:
+            if np.asarray(head[name]["bases"]).tolist() != bases.tolist():
+                raise SystemExit(f"{label} {name}: row bases differ from "
+                                 "the reader's cuts")
+        for s in ("tree_warmup",) + strategies:
+            hold_count(f"{label} count_file_{s}",
+                       head[f"count_file_{s}"]["result"], one["count"],
+                       want_words)
+        hold_count(f"{label} count_file_ngram2",
+                   head["count_file_ngram2"]["result"], one["ngram2"],
+                   ngram_want[0], ngram_want)
+        cuts = bases.ravel()[1:]
+        want_grep = []
+        for p in patterns:
+            hits = pattern_hits(arr, literal_luts(p.encode()), cuts)
+            want_grep.append((len(hits), matching_lines(hits, nlpos)))
+        for r in ranks:
+            got_g = [tuple(x) for x in r["cases"]["grep_file_p4"]["result"]]
+            if got_g != want_grep or got_g != one["grep"]:
+                raise SystemExit(f"{label} grep on rank {r['rank']}: "
+                                 f"{got_g}, oracle {want_grep}")
+        # Mode (a): each host leader's partial words, summed over the
+        # hosts, are the oracle's; the ranges tile the file; the tree of
+        # partial tables across hosts holds every word once.
+        local = n // hosts
+        summed: dict = {}
+        spans = []
+        for r in ranks:
+            case = r["cases"]["host_range"]
+            spans.append(tuple(case["range"]))
+            got = case["result"]
+            if r["rank"] % local:
+                if got is not None:
+                    raise SystemExit(f"{label} host_range: rank "
+                                     f"{r['rank']} returned a result")
+                continue
+            for wd, c in zip(got["words"], got["counts"]):
+                summed[bytes.fromhex(wd)] = summed.get(
+                    bytes.fromhex(wd), 0) + c
+            if (case["merged_total"], case["merged_distinct"],
+                    case["merged_dropped"]) != (
+                    sum(w_counts), len(w_counts), [0, 0]):
+                raise SystemExit(f"{label} host_range: merged table "
+                                 f"{case['merged_total']} tokens, "
+                                 f"{case['merged_distinct']} keys")
+        tiles = sorted(set(spans))
+        if summed != want_words or tiles[0][0] != 0 \
+                or tiles[-1][1] != len(stream_data) \
+                or any(a[1] != b[0] for a, b in zip(tiles, tiles[1:])):
+            raise SystemExit(f"{label} host_range: the hosts' partial "
+                             f"counts or ranges are not the corpus's: "
+                             f"{tiles}")
+        for name in ("global", "global_hier"):
+            hold_count(f"{label} {name}", head[name]["result"],
+                       one["count"], want_words)
+        shards = {}
+        if hosts > 1:
+            for p in range(hosts):
+                recs = list(ledger.read_ledger(ledger.shard_path(led, p)))
+                kinds = [x["kind"] for x in recs]
+                if any(x.get("host") != p for x in recs) \
+                        or kinds[0] != "run_start" or kinds[-1] != "run_end" \
+                        or recs[0].get("processes") != hosts:
+                    raise SystemExit(f"{label}: shard {p} holds {kinds}")
+                shards[p] = {"records": len(recs),
+                             "groups": kinds.count("group"),
+                             "host_bytes": sum(x.get("host_bytes", 0)
+                                               for x in recs
+                                               if x["kind"] == "group")}
+            if sum(v["host_bytes"] for v in shards.values()) \
+                    != len(stream_data):
+                raise SystemExit(f"{label}: the shards' host_bytes do not "
+                                 f"sum to the corpus: {shards}")
+        if resumed is not None:
+            kills = [r for r in ranks if "global_kill" in r["cases"]]
+            if kills:
+                raise SystemExit(f"{label}: the killed run finished")
+            hold_count(f"{label} global_resume",
+                       resumed[0]["cases"]["global_resume"]["result"],
+                       one["count"], want_words)
+        # Launches: every rank maps one chunk a step of each run: the
+        # word count's compact mode, the bigrams' pair mode, grep none.
+        need = {name: "tokenize_compact" for name in head
+                if name.startswith(("count_file_", "global", "host_range"))}
+        need["count_file_ngram2"] = "tokenize_pair"
+        for r in ranks:
+            for name, case in r["cases"].items():
+                want_l = {need[name]: case["steps"]} if name in need else {}
+                if case["launches"] != want_l:
+                    raise SystemExit(f"{label} {name} rank {r['rank']} "
+                                     f"launched {case['launches']}, "
+                                     f"expected {want_l}")
+        for name, case in head.items():
+            by_path[f"hosts_{label}_{name}"] = case["launches"]
+        emit("many_hosts", backend=backend, ranks=n, hosts=hosts,
+             mesh=[hosts, n // hosts], card=card_name(),
+             transport="host" if backend == "gloo" else "device",
+             bytes=len(stream_data), world_s=round(world_s, 3),
+             equal_to_one_rank_and_oracle=True, shards=shards,
+             killed_exit=113 if resumed is not None else None,
+             cases={name: {
+                 "seconds": [round(r["cases"][name]["seconds"], 4)
+                             for r in ranks],
+                 "finish_ms": [round((r["cases"][name]["reduce_s"] or 0)
+                                     * 1e3, 3) for r in ranks],
+                 "steps": head[name]["steps"],
+                 "bytes_sent_per_rank": [r["cases"][name]["bytes_sent"]
+                                         for r in ranks],
+                 "launches_per_rank": [r["cases"][name]["launches"]
+                                       for r in ranks]}
+                 for name in head})
+    emit("many_hosts", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
 def main() -> int:
@@ -2849,11 +3174,14 @@ def main() -> int:
         grep_sample_phase(by_path, Path(tmp), path, stream_data,
                           words_data, dev)
         # 11. the streamed run over several ranks
-        many_ranks_phase(by_path, Path(tmp), path, stream_data, want_stream,
-                         ngram2_want, dev)
-        del stream_data, want_stream
+        one_rank = many_ranks_phase(by_path, Path(tmp), path, stream_data,
+                                    want_stream, ngram2_want, dev)
+        # 12. the streamed run over several hosts
+        many_hosts_phase(by_path, Path(tmp), path, stream_data, want_stream,
+                         ngram2_want, one_rank)
+        del stream_data, want_stream, one_rank
 
-    # 12. times at the main path's shape: one 32 MB chunk
+    # 13. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -2956,6 +3284,13 @@ def main() -> int:
                         "last_pass": (12 * n_live + 24 * n_rows) * hbm_ms})
     lvl, lvl_ends = radix.partition_level(*rows, 32 - radix.DEFAULT_BITS,
                                           radix.DEFAULT_BITS)
+    # The library call for the segmented sort: one stable lexsort with the
+    # group index as the most significant key (within a group the
+    # partition's digit is equal, so the whole key orders the same), the
+    # dead rows past the last end a group of their own.
+    group = torch.searchsorted(
+        lvl_ends.to(torch.int64),
+        torch.arange(n_rows, dtype=torch.int64, device=dev), right=True)
     row("radix_sort", "radix.cu", "mapreduce_tpu/ops/pallas/radix.py:306",
         cuda_ms(lambda: radix.segmented_sort(*lvl, lvl_ends,
                                              radix.DEFAULT_BITS)),
@@ -2963,8 +3298,11 @@ def main() -> int:
                                                    radix.DEFAULT_BITS),
                 iters=5),
         3 * 8 * n_live + 3 * 8 * n_rows,  # read the live rows, write all
+        library_ms=cuda_ms(lambda: table_ops._lexsort(
+            group, table_ops._key64(lvl[0], lvl[1]), lvl[2])),
         rows=n_rows, live_rows=n_live, passes=len(radix.sort_passes(
             radix.DEFAULT_BITS, with_packed=True)))
+    del group
     del lvl
 
     # The chunk's end-to-end time, by stage (each stage synchronised).
@@ -3036,7 +3374,7 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
-    # 13. Where a step's device time goes, for the default, combiner and
+    # 14. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

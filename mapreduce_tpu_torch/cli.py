@@ -44,9 +44,10 @@ _UNPORTED_FLAGS = {"--merge-overlap": "A8b (iii)",
                    "--autotune": "A8b (ii), the autotuner"}
 
 #: The JAX CLI's collective merge strategies.  The two-level ``hier-*``
-#: ones are not ported yet (ROADMAP.md item A9 (ii)); neither is 'auto',
-#: which resolves through the run-history prior (ROADMAP.md item A8b (ii),
-#: the autotuner).
+#: ones need a two-level mesh, which the CLI's one axis is not (a usage
+#: error, as in the JAX CLI); 'auto' resolves through the run-history
+#: prior, which is not ported yet (ROADMAP.md item A8b (ii), the
+#: autotuner).
 MERGE_STRATEGIES = ("tree", "gather", "keyrange", "hier-kr-tree",
                     "hier-tree-tree")
 
@@ -154,9 +155,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "word-count runs over several ranks (torchrun): "
                         "butterfly tree (log2(D) rounds), all_gather + "
                         "fold, or key-range all_to_all reduce-scatter (one "
-                        "round); identical results.  'hier-*' (two-level "
-                        "meshes, ROADMAP.md item A9 (ii)) and 'auto' "
-                        "(item A8b (ii), the autotuner) are not ported yet")
+                        "round); identical results.  The hierarchical 2-D "
+                        "programs (hier-kr-tree / hier-tree-tree) run on "
+                        "fleet meshes only; the CLI's 1-D mesh rejects "
+                        "them.  'auto' (ROADMAP.md item A8b (ii), the "
+                        "autotuner) is not ported yet")
     p.add_argument("--verify-sample", type=int, default=0, metavar="K",
                    help="after a word-count run, exactly recount K reported "
                         "words host-side (byte-string keyed, no hashing) "
@@ -615,9 +618,13 @@ def main(argv: list[str] | None = None) -> int:
         if args.grep is not None or args.sample is not None:
             parser.error("--merge-strategy applies to word-count runs only")
         if args.merge_strategy.startswith("hier-"):
+            # The two-level programs place their legs on named mesh axes;
+            # the CLI drives one axis of ranks, as the JAX CLI drives a
+            # 1-D mesh: the same usage error.
             parser.error(f"--merge-strategy {args.merge_strategy} needs a "
-                         "two-level device mesh, which is not ported to the "
-                         "PyTorch package yet (ROADMAP.md item A9 (ii))")
+                         "multi-axis device mesh; the CLI drives a 1-D "
+                         "mesh (2-D programs run via the fleet registry "
+                         "twins / run_job_global)")
         if args.merge_strategy == "auto":
             parser.error("--merge-strategy auto resolves through the "
                          "run-history prior, which is not ported to the "

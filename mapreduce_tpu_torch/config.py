@@ -79,8 +79,12 @@ class Config:
         'tree' (default: the butterfly, log2(D) rounds), 'gather' (gather
         and fold) or 'keyrange' (the count table's reduce-scatter by key;
         word-count family only), or 'auto', which the driver resolves and
-        which behaves as 'tree' unresolved.  The two-level 'hier-*'
-        strategies are not ported yet (ROADMAP.md item A9 (ii)).
+        which behaves as 'tree' unresolved; on a two-level mesh
+        (``parallel/mesh.py:two_level_mesh``) also 'hier-tree-tree' (a
+        tree a level, within a host first) and 'hier-kr-tree' (keyrange
+        within a host, a tree across hosts).  The Engine checks that a
+        'hier-*' strategy has two mesh levels and the keyrange family a
+        job with a keyrange hook.
       failure_policy: the streamed executor's per-class retry budgets,
         backoff, completion timeout and degradation ladder (None, a
         :class:`...runtime.faults.FailurePolicy` or a dict of its fields,
@@ -189,10 +193,6 @@ class Config:
             raise ValueError(
                 f"pallas backend needs {self.pallas_min_chunk} <= "
                 f"chunk_bytes <= {1 << 26}, got {self.chunk_bytes}")
-        if self.merge_strategy.startswith("hier-") \
-                and self.merge_strategy in MERGE_STRATEGIES:
-            raise _not_ported(f"merge_strategy={self.merge_strategy!r}",
-                              "A9 (ii)")
         if self.merge_strategy != "auto" \
                 and self.merge_strategy not in MERGE_STRATEGIES:
             raise ValueError(

@@ -42,17 +42,23 @@ class Batch:
 def iter_batches(path, n_shards: int, chunk_bytes: int,
                  max_token_bytes: int = 4096, start_offset: int = 0,
                  start_step: int = 0,
-                 out: Optional[Callable[[], np.ndarray]] = None
-                 ) -> Iterator[Batch]:
+                 out: Optional[Callable[[], np.ndarray]] = None,
+                 end_offset: Optional[int] = None) -> Iterator[Batch]:
     """Stream a file as boundary-aligned ``[n_shards, chunk_bytes]``
     batches.
 
     ``start_offset``/``start_step`` continue from a reported cursor
-    (checkpoint resume).  ``out()``, when given, returns the uint8 buffer
-    (``n_shards * chunk_bytes`` bytes, C-contiguous) each batch is filled
-    into."""
-    total = os.path.getsize(path)
-    mm = np.memmap(path, dtype=np.uint8, mode="r") if total else None
+    (checkpoint resume).  ``end_offset`` bounds the stream to the
+    half-open range ``[start_offset, end_offset)``: a host's byte range
+    of a corpus read by several hosts
+    (:func:`...parallel.distributed.host_byte_range`, aligned with
+    ``align_range_to_separator``, so the range's end is a token boundary
+    and the end-of-file rule applies there).  ``out()``, when given,
+    returns the uint8 buffer (``n_shards * chunk_bytes`` bytes,
+    C-contiguous) each batch is filled into."""
+    size = os.path.getsize(path)
+    mm = np.memmap(path, dtype=np.uint8, mode="r") if size else None
+    total = size if end_offset is None else min(size, end_offset)
     offset = start_offset
     step = start_step
     stride = n_shards * chunk_bytes
@@ -76,11 +82,12 @@ def iter_batches(path, n_shards: int, chunk_bytes: int,
 def iter_batches_multi(paths, n_shards: int, chunk_bytes: int,
                        max_token_bytes: int = 4096, start_offset: int = 0,
                        start_step: int = 0,
-                       out: Optional[Callable[[], np.ndarray]] = None
-                       ) -> Iterator[Batch]:
+                       out: Optional[Callable[[], np.ndarray]] = None,
+                       end_offset: Optional[int] = None) -> Iterator[Batch]:
     """Stream several files as one corpus.  Offsets (``start_offset``,
-    ``Batch.base_offsets``) are virtual: positions in the concatenation of
-    the files.  A file's end is a hard token boundary; step numbering
+    ``end_offset``, ``Batch.base_offsets``) are virtual: positions in the
+    concatenation of the files, so a byte range may start and end inside
+    any member.  A file's end is a hard token boundary; step numbering
     continues across files."""
     if isinstance(paths, (str, bytes, os.PathLike)):
         paths = [paths]
@@ -89,11 +96,13 @@ def iter_batches_multi(paths, n_shards: int, chunk_bytes: int,
     for fi, path in enumerate(paths):
         size = os.path.getsize(path)
         local_lo = max(0, start_offset - file_start)
-        if local_lo < size:
+        local_hi = size if end_offset is None \
+            else min(size, max(0, end_offset - file_start))
+        if local_lo < local_hi:
             for b in iter_batches(path, n_shards, chunk_bytes,
                                   max_token_bytes=max_token_bytes,
                                   start_offset=local_lo, start_step=step,
-                                  out=out):
+                                  out=out, end_offset=local_hi):
                 yield dataclasses.replace(
                     b, base_offsets=b.base_offsets + file_start,
                     file_index=fi)

@@ -8,9 +8,12 @@ construction (grep: the pattern is the job) accept and ignore the config.
 The pinned ``wordcount_*`` configurations are the JAX package's analysis
 configurations, which the port's ``Config`` accepts as they are; the
 analysis passes that read them are not ported yet (ROADMAP.md item A13).
-The ``wordcount_fleet*`` names describe simulated multi-host fleets on
-two-level meshes and raise until the port runs them (ROADMAP.md item
-A9 (ii)); one axis of many ranks runs through the streamed executor.
+The ``wordcount_fleet*`` names are the JAX package's fleet twins: a word
+count at the pinned analysis configuration marked with the fleet it is
+certified over (``analysis_fleet``: hosts and ranks a host) and the merge
+its finish builds (``analysis_merge_strategy``); the port runs them over a
+two-level mesh (``parallel/mesh.py:two_level_mesh``) through
+``run_job_global``.
 """
 
 from __future__ import annotations
@@ -76,11 +79,21 @@ def _sketch(config: Config, device):
     return SketchedWordCountJob(WordCountJob(config, device))
 
 
-def _fleet(config: Config, device):
-    raise ValueError("the wordcount_fleet* models run a simulated "
-                     "multi-host fleet on a two-level mesh, which is not "
-                     "ported to the PyTorch package yet (ROADMAP.md item "
-                     "A9 (ii))")
+def _fleet(processes: int, local_devices: int, merge: str = "tree"):
+    """A fleet twin's factory: the word count at ``ANALYSIS_CONFIG`` (the
+    caller's config is ignored, as in the JAX registry), marked with its
+    topology and merge strategy."""
+    def build(config: Config, device):
+        from mapreduce_tpu_torch.models.wordcount import WordCountJob
+
+        del config
+        job = WordCountJob(ANALYSIS_CONFIG, device)
+        job.analysis_fleet = {"processes": processes,
+                              "local_devices": local_devices}
+        job.analysis_merge_strategy = merge
+        return job
+
+    return build
 
 
 _REGISTRY: Dict[str, Callable] = {
@@ -96,9 +109,11 @@ _REGISTRY: Dict[str, Callable] = {
     "wordcount_nocombiner": _wordcount_with(NOCOMBINER_ANALYSIS_CONFIG),
     "wordcount_telemetry": _wordcount_with(PALLAS_ANALYSIS_CONFIG),
     "wordcount_fused_telemetry": _wordcount_with(FUSED_ANALYSIS_CONFIG),
-    "wordcount_fleet2": _fleet,
-    "wordcount_fleet2x4": _fleet,
-    "wordcount_fleet8": _fleet,
+    # 2 hosts x 4 ranks on the per-level tree, the same fleet on the
+    # placed hier-kr-tree, and 8 hosts x 1 rank on keyrange.
+    "wordcount_fleet2": _fleet(2, 4),
+    "wordcount_fleet2x4": _fleet(2, 4, "hier-kr-tree"),
+    "wordcount_fleet8": _fleet(8, 1, "keyrange"),
 }
 
 

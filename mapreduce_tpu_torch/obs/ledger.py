@@ -41,8 +41,8 @@ run_end        the run's metrics (bytes, words, elapsed, phases, GB/s)
 
 A run without a ``run_end`` did not complete.  Readers skip unknown kinds
 and fields, and lines that do not parse.  :func:`shard_path` and
-:func:`shard_flight_path` name a multi-host run's per-host files; the
-port runs on one card and writes neither yet.
+:func:`shard_flight_path` name a multi-host run's per-host files
+(:meth:`...obs.telemetry.Telemetry.attach_host`).
 """
 
 from __future__ import annotations

@@ -27,10 +27,13 @@ Two parts differ from the JAX package's, because the device differs:
   of a run then shows as a compile, not as an unexplained ``dispatch``
   spike.
 
-The port has one card, so the JAX handle's multi-host attachment (host
-stamps, shard ledgers) and its autotune note are not here, and a flight
-dump carries the data summary without the JAX ``data_health`` verdict
-(its classifier is not ported yet).
+Several hosts (:meth:`Telemetry.attach_host`, the JAX handle's): every
+record carries its ``host``, ``run_start`` the topology and the
+``run_epoch`` clock pair, and the global driver's handle writes every
+record to its host's shard ledger ``<ledger>.h<p>.jsonl`` while the main
+file keeps the coordinator's (the ``write`` gate).  The autotune note is
+not here, and a flight dump carries the data summary without the JAX
+``data_health`` verdict (its classifier is not ported yet).
 """
 
 from __future__ import annotations
@@ -106,6 +109,12 @@ class Telemetry:
         self.ledger = ledger
         self.flight = flight
         self.flight_path = flight_path
+        # Several hosts (attach_host): the record stamp, run_start's
+        # topology and the host's shard ledger; empty on one host, so its
+        # records keep their shapes.
+        self.host: dict = {}
+        self.topology: Optional[dict] = None
+        self.shard: Optional[ledger_mod.RunLedger] = None
         # The latest data-plane summary: a flight dump carries it.
         self.last_data: Optional[dict] = None
         self.progress_every_s = float(progress_every_s)
@@ -145,6 +154,42 @@ class Telemetry:
             cls._DISABLED = cls(enabled=False)
         return cls._DISABLED
 
+    # -- several hosts ----------------------------------------------------
+
+    def attach_host(self, process_index: int, process_count: int, *,
+                    local_devices: Optional[int] = None,
+                    clock: Optional[dict] = None,
+                    shard: bool = True) -> None:
+        """Join this handle to a run over several hosts.
+
+        Every later record is stamped with ``host`` (``process_index``);
+        ``run_start`` also carries ``processes``, ``local_devices`` and
+        the ``clock`` pair (``parallel.distributed.run_epoch``).  With
+        ``shard`` (the global driver) the host's shard ledger
+        ``<ledger>.h<p>.jsonl`` opens next to the main file and gets every
+        record whatever the write gate says, and a host other than 0
+        dumps its flight record to its own path (the shard's, or
+        ``<flight>.h<p>`` without a ledger).  Without ``shard`` (each host
+        drives its own run and owns its ledger) only the stamps."""
+        if not self.enabled:
+            return
+        self.host = {"host": int(process_index)}
+        self.topology = {"processes": int(process_count)}
+        if local_devices is not None:
+            self.topology["local_devices"] = int(local_devices)
+        if clock is not None:
+            self.topology["clock"] = dict(clock)
+        if shard and self.ledger is not None and self.shard is None:
+            self.shard = ledger_mod.RunLedger(
+                ledger_mod.shard_path(self.ledger.path, process_index),
+                self.ledger.run_id)
+        if shard and process_index != 0:
+            if self.ledger is not None:
+                self.flight_path = ledger_mod.shard_flight_path(
+                    self.ledger.path, process_index)
+            elif self.flight_path:
+                self.flight_path = f"{self.flight_path}.h{process_index}"
+
     # -- builds -----------------------------------------------------------
 
     def _pend_compile(self, name: str, seconds: float) -> None:
@@ -171,10 +216,25 @@ class Telemetry:
         if self.enabled and self.flight is not None:
             self.flight.record(kind, **fields)
 
-    def ledger_write(self, kind: str, **fields) -> None:
-        """Write one ledger record."""
-        if self.enabled and self.ledger is not None:
+    def ledger_write(self, kind: str, write: bool = True, **fields) -> None:
+        """Write one ledger record.  ``write=False`` (a process without
+        the main file's write gate) skips the main file; the host's shard
+        gets the record either way."""
+        if not self.enabled:
+            return
+        if self.host:
+            fields = {**self.host, **fields}
+        if kind == "run_start" and self.topology:
+            fields = {**fields, **self.topology}
+        if write and self.ledger is not None:
             self.ledger.write(kind, **fields)
+        if self.shard is not None:
+            self.shard.write(kind, **fields)
+
+    @property
+    def writing(self) -> bool:
+        """Does any record land in a file (the main ledger or a shard)?"""
+        return self.ledger is not None or self.shard is not None
 
     def step_record(self, *, step_first: int, step_last: int,
                     group_bytes: int, cursor_bytes: int, timer,
@@ -205,7 +265,7 @@ class Telemetry:
                                   phases["dispatch"])
         self.event("step", step_first=step_first, step_last=step_last,
                    cursor_bytes=cursor_bytes)
-        if self.ledger is None:
+        if not self.writing:
             return
         rec: dict[str, Any] = dict(step_first=step_first, step_last=step_last,
                                    steps=steps, group_bytes=group_bytes,
@@ -229,8 +289,8 @@ class Telemetry:
         with the cursor, completion fraction, groups dispatched and
         retired, depth, rate and ETA.  Host-side only; the not-due path is
         one monotonic read.  True when a record was written; always False
-        without a ledger."""
-        if not self.enabled or self.ledger is None:
+        without a ledger or a shard."""
+        if not self.enabled or not self.writing:
             return False
         now = time.monotonic()
         if self._progress_t0 is None:
@@ -290,11 +350,12 @@ class Telemetry:
                                 data=self.last_data)
 
     def close(self) -> None:
-        """Close the ledger and stop receiving builds."""
+        """Close the ledger (and the shard) and stop receiving builds."""
         with _LIVE_LOCK:
             _LIVE.discard(self)
-        if self.ledger is not None:
-            self.ledger.close()
+        for f in (self.ledger, self.shard):
+            if f is not None:
+                f.close()
 
     def __enter__(self) -> "Telemetry":
         return self

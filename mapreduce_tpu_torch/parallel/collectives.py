@@ -1,8 +1,10 @@
-"""Collective reductions of job states over the data axis.
+"""Collective reductions of job states over the data axis or a
+two-level mesh.
 
-Counterpart of :mod:`mapreduce_tpu.parallel.collectives` for one axis of
+Counterpart of :mod:`mapreduce_tpu.parallel.collectives` over axes of
 ``torch.distributed`` ranks (:class:`...parallel.mesh.DataAxis`), in the
-JAX package's three single-axis strategies:
+JAX package's three single-axis strategies and its two-level
+compositions:
 
 * :func:`tree_merge` -- the butterfly: log2(D) rounds, each exchanging
   the whole state with partner ``rank ^ bit`` and computing
@@ -12,7 +14,13 @@ JAX package's three single-axis strategies:
 * :func:`key_range_merge` -- the count table's reduce-scatter by
   ``key_lo % D``: one ``all_to_all`` of fixed ``[D, B]`` blocks, an owner
   build at capacity B, one ``all_gather`` of the reduced blocks and a
-  final build at capacity C (exactness: the JAX docstring).
+  final build at capacity C (exactness: the JAX docstring);
+* :func:`hierarchical_merge` -- tree or gather level by level over a
+  :class:`...parallel.mesh.TwoLevelMesh`, innermost (within a host)
+  first, so the outer level (across hosts) moves one merged state a host;
+  :func:`hier_tree_tree_merge` is its named tree form and
+  :func:`hier_kr_tree_merge` runs the job's keyrange hook on the inner
+  axis, then a tree over the outer axis on the result shape.
 
 :func:`psum` and :func:`psum64` sum additive leaves (the 64-bit totals
 exactly).  Every result is the same on every rank, and equals the JAX
@@ -24,7 +32,9 @@ Transport.  A state travels as one int64 vector (:func:`_pack`).  NCCL
 moves CUDA tensors; a gloo world moves CPU tensors, so a gloo rank whose
 job runs on the card copies through the host around each collective (the
 kernels stay on the card).  Each call adds the bytes this rank sends to
-the registry counter ``collectives.bytes_sent`` (label ``op``), and each
+the registry counter ``collectives.bytes_sent`` (labels ``op`` and
+``level``, the axis's mesh name: ``data``, ``replica``, or ``world`` for
+the flattened mesh), and each
 Engine build counts ``collectives.builds`` (``strategy``, ``axis_size``)
 as the JAX package does at trace time.
 """
@@ -43,24 +53,37 @@ from mapreduce_tpu_torch.parallel.mesh import DataAxis
 T = TypeVar("T")
 MergeFn = Callable[[T, T], T]
 
-#: The merge strategies of a one-axis run, the JAX package's names and
-#: builders.  The two-level ``hier-*`` compositions are ROADMAP.md item
-#: A9 (ii).
+#: The merge strategies, the JAX package's names, builders and flags.
 STRATEGIES: dict[str, dict] = {
     "tree": {
         "builder": f"{__name__}.tree_merge",
         "power_of_two_only": True,  # other axis sizes take gather
         "needs_keyrange_hook": False,
+        "per_axis": True,  # hierarchical_merge runs it innermost first
     },
     "gather": {
         "builder": f"{__name__}.gather_merge",
         "power_of_two_only": False,
         "needs_keyrange_hook": False,
+        "per_axis": True,
     },
     "keyrange": {
         "builder": f"{__name__}.key_range_merge",
         "power_of_two_only": False,
         "needs_keyrange_hook": True,  # the Engine requires job.keyrange_merge
+        "per_axis": False,  # one collective over the flattened mesh
+    },
+    "hier-kr-tree": {
+        "builder": f"{__name__}.hier_kr_tree_merge",
+        "power_of_two_only": True,  # the outer tree legs (gather otherwise)
+        "needs_keyrange_hook": True,  # the inner leg is the job's hook
+        "per_axis": False,  # keyrange inner, tree outer
+    },
+    "hier-tree-tree": {
+        "builder": f"{__name__}.hier_tree_tree_merge",
+        "power_of_two_only": True,
+        "needs_keyrange_hook": False,
+        "per_axis": False,  # the named two-level composition
     },
 }
 
@@ -82,9 +105,9 @@ def resolved_strategy(strategy: str, axis_size: int) -> Optional[str]:
     return strategy
 
 
-def _sent(op: str, nbytes: int) -> None:
-    obs_registry.get_registry().counter("collectives.bytes_sent",
-                                        op=op).inc(nbytes)
+def _sent(op: str, nbytes: int, axis: DataAxis) -> None:
+    obs_registry.get_registry().counter(
+        "collectives.bytes_sent", op=op, level=axis.name).inc(nbytes)
 
 
 def _wire(x: torch.Tensor, axis: DataAxis) -> torch.Tensor:
@@ -101,7 +124,7 @@ def all_gather(x: torch.Tensor, axis: Optional[DataAxis]) -> torch.Tensor:
     w = _wire(x.reshape(-1), axis)
     out = [torch.empty_like(w) for _ in range(axis.size)]
     dist.all_gather(out, w, group=axis.group)
-    _sent("all_gather", (axis.size - 1) * w.numel() * w.element_size())
+    _sent("all_gather", (axis.size - 1) * w.numel() * w.element_size(), axis)
     return torch.stack(out).to(x.device).reshape(axis.size, *x.shape)
 
 
@@ -111,21 +134,24 @@ def all_to_all(x: torch.Tensor, axis: DataAxis) -> torch.Tensor:
     w = _wire(x, axis)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=axis.group)
-    _sent("all_to_all", (axis.size - 1) * w[0].numel() * w.element_size())
+    _sent("all_to_all", (axis.size - 1) * w[0].numel() * w.element_size(),
+          axis)
     return out.to(x.device)
 
 
 def exchange(x: torch.Tensor, axis: DataAxis, partner: int) -> torch.Tensor:
-    """Send ``x`` to ``partner`` and receive its tensor of the same shape:
-    one round of the butterfly."""
+    """Send ``x`` to the axis's member ``partner`` and receive its tensor
+    of the same shape: one round of the butterfly.  A point-to-point op
+    addresses its peer by world rank, in a subgroup too."""
     w = _wire(x, axis)
     buf = torch.empty_like(w)
+    peer = axis.world_rank(partner)
     reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, w, partner, axis.group),
-        dist.P2POp(dist.irecv, buf, partner, axis.group)])
+        dist.P2POp(dist.isend, w, peer, axis.group),
+        dist.P2POp(dist.irecv, buf, peer, axis.group)])
     for r in reqs:
         r.wait()
-    _sent("exchange", w.numel() * w.element_size())
+    _sent("exchange", w.numel() * w.element_size(), axis)
     return buf.to(x.device)
 
 
@@ -196,7 +222,8 @@ def psum(state: T, axis: DataAxis) -> T:
     flat = _pack(state)
     w = _wire(flat, axis)
     dist.all_reduce(w, group=axis.group)
-    _sent("all_reduce", (axis.size - 1) * w.numel() * w.element_size())
+    _sent("all_reduce", (axis.size - 1) * w.numel() * w.element_size(),
+          axis)
     return _unpack(w.to(flat.device), state)
 
 
@@ -283,3 +310,41 @@ def key_range_merge(table: table_ops.CountTable, axis: DataAxis,
     gdu_lo, gdu_hi = table_ops.sum64(ag[:, 7 * b])
     gdc_lo, gdc_hi = table_ops.sum64(ag[:, 7 * b + 1])
     return table_ops._build(*blocks, cap, gdu_lo, gdu_hi, gdc_lo, gdc_hi)
+
+
+def hierarchical_merge(state: T, merge: MergeFn, axes: tuple,
+                       strategy: str = "tree") -> T:
+    """Level-by-level merge over a mesh's ``axes`` (outermost first, as
+    the mesh is built), innermost axis first: within a host, then across
+    hosts, so the slow link moves one merged state a host.  Each level
+    runs :func:`tree_merge` or :func:`gather_merge`, in the JAX operand
+    order."""
+    if strategy == "hier-tree-tree":
+        strategy = "tree"
+    if strategy not in ("tree", "gather"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    fn = tree_merge if strategy == "tree" else gather_merge
+    for axis in reversed(axes):
+        state = fn(state, merge, axis)
+    return state
+
+
+def hier_tree_tree_merge(state: T, merge: MergeFn, axes: tuple) -> T:
+    """The named two-level tree (``hier-tree-tree``): exactly
+    :func:`hierarchical_merge` with ``strategy='tree'``."""
+    return hierarchical_merge(state, merge, axes, strategy="tree")
+
+
+def hier_kr_tree_merge(state: T, keyrange_fn, result_merge: MergeFn,
+                       axes: tuple) -> T:
+    """The placed two-level reduction (``hier-kr-tree``): the job's
+    keyrange hook ``keyrange_fn(state, axis)`` on the innermost axis (one
+    host's ranks), then a tree over the outer axes on the hook's result
+    shape with ``result_merge`` (the job's ``keyrange_result_merge``)."""
+    if len(axes) < 2:
+        raise ValueError(
+            f"hier-kr-tree composes two mesh levels; got {len(axes)} axis")
+    merged = keyrange_fn(state, axes[-1])
+    for axis in reversed(axes[:-1]):
+        merged = tree_merge(merged, result_merge, axis)
+    return merged

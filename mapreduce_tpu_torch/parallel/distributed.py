@@ -1,18 +1,38 @@
-"""Bringing D processes into one ``torch.distributed`` world, and which
-bytes of a corpus a host reads.
+"""Bringing processes into one ``torch.distributed`` world, which hosts
+they run on, and which bytes of a corpus a host reads.
 
-Counterpart of :mod:`mapreduce_tpu.parallel.distributed`.  A JAX run
-reaches every local chip from one process; the port runs one process a
-card, started by a launcher (``torchrun --nproc-per-node D``) that exports
-``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-``MASTER_PORT``.  :func:`initialize` joins that world (a no-op for a world
-of one without a launcher), so the same program runs unmodified at every
-size::
+Counterpart of :mod:`mapreduce_tpu.parallel.distributed`.  A JAX process
+is a host that reaches every local chip; the port runs one process a
+card, started by a launcher (``torchrun --nnodes N --nproc-per-node L``)
+that exports ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``GROUP_RANK`` (the node's index), ``MASTER_ADDR``
+and ``MASTER_PORT``.  A JAX host is therefore a node: the
+``LOCAL_WORLD_SIZE`` ranks one machine runs.  :func:`process_index` is
+``RANK // LOCAL_WORLD_SIZE`` and :func:`process_count` ``WORLD_SIZE //
+LOCAL_WORLD_SIZE``; ranks are process-major, as the JAX device order is.
+:func:`initialize` joins the world (a no-op for a world of one without a
+launcher), so the same program runs unmodified at every size.
+
+Two multi-host modes, as in the JAX package::
 
     from mapreduce_tpu_torch.parallel import distributed as dist
 
-    device = dist.initialize("gpu")      # cuda:LOCAL_RANK over NCCL
-    rr = executor.run_job(job, path)     # the world is the data axis
+    device = dist.initialize("gpu")        # cuda:LOCAL_RANK over NCCL
+
+    # (a) per-host-driven: each host runs the executor over its OWN ranks
+    #     (a host-local mesh) and its own byte range, then the partial
+    #     tables are merged (table_ops.merge on the host, or any transport).
+    lo, hi = dist.host_byte_range(os.path.getsize(path))
+    lo, hi = dist.align_range_to_separator(path, lo, hi)
+    rr = executor.run_job(job, path, mesh=dist.local_data_mesh(),
+                          byte_range=(lo, hi))
+
+    # (b) one global program over every rank of every host: every process
+    #     calls executor.run_job_global with the same arguments; the
+    #     collective finish replicates the result, checkpoints are the
+    #     coordinator's to write and every host's to resume, and each host
+    #     keeps its own ledger shard.
+    rr = executor.run_job_global(job, path, config=cfg, checkpoint_path=ck)
     if dist.is_coordinator():
         print(...)
     dist.shutdown()
@@ -26,11 +46,9 @@ on, so a rank that dies ends its peers' runs with an error instead of
 leaving them blocked.
 
 The byte-range helpers (:func:`host_byte_range`,
-:func:`align_range_to_separator`, :func:`host_shards`) are pure; the
-multi-host driver that uses them (``run_job_global``) is ROADMAP.md item
-A9 (ii).
+:func:`align_range_to_separator`, :func:`host_shards`) are pure, and
+default to this process's host.
 """
-
 from __future__ import annotations
 
 import datetime
@@ -43,6 +61,7 @@ import torch.distributed as dist
 
 from mapreduce_tpu_torch import constants
 from mapreduce_tpu_torch.obs import registry as obs_registry
+from mapreduce_tpu_torch.parallel import mesh as mesh_mod
 from mapreduce_tpu_torch.runtime.logging import get_logger, log_event
 from mapreduce_tpu_torch.runtime.platform import resolve_device
 
@@ -135,6 +154,7 @@ def initialized() -> bool:
 def shutdown() -> None:
     """Leave the world (a no-op when none was joined)."""
     if dist.is_initialized():
+        mesh_mod._GROUPS.clear()
         dist.destroy_process_group()
 
 
@@ -163,21 +183,76 @@ def run_epoch() -> dict:
     return dict(_stamp_epoch())
 
 
+def _topology() -> tuple[int, int, int]:
+    """``(process_index, process_count, local ranks)`` of this process's
+    world: a host is a node of ``LOCAL_WORLD_SIZE`` ranks (the whole world
+    without a launcher's value).  Raises when the nodes would hold
+    different numbers of ranks, or when the launcher's node rank
+    (``GROUP_RANK``) disagrees with the rank's place."""
+    if not dist.is_initialized():
+        return 0, 1, 1
+    rank, world = dist.get_rank(), dist.get_world_size()
+    local = _env_int("LOCAL_WORLD_SIZE", world)
+    if local < 1 or world % local:
+        raise ValueError(
+            f"a world of {world} ranks does not split into hosts of "
+            f"LOCAL_WORLD_SIZE={local} ranks: every node must run the "
+            "same number of ranks")
+    p = rank // local
+    node = os.environ.get("GROUP_RANK")
+    if node not in (None, "") and int(node) != p:
+        raise ValueError(
+            f"rank {rank} of hosts of {local} ranks is on host {p}, but the "
+            f"launcher says node {node}: ranks must be numbered node by node")
+    return p, world // local, local
+
+
+def process_index() -> int:
+    """This process's host: its node, ``RANK // LOCAL_WORLD_SIZE``."""
+    return _topology()[0]
+
+
+def process_count() -> int:
+    """The number of hosts: ``WORLD_SIZE // LOCAL_WORLD_SIZE``."""
+    return _topology()[1]
+
+
+def local_device_count() -> int:
+    """The ranks (cards) of this process's host."""
+    return _topology()[2]
+
+
+def global_data_mesh(device=None) -> mesh_mod.DataAxis:
+    """The 1-D axis over every rank of every host, in rank order
+    (process-major, so a host's rows are contiguous): the world's."""
+    return mesh_mod.data_mesh(device=device)
+
+
+def local_data_mesh(device=None) -> mesh_mod.DataAxis:
+    """The axis of this host's ranks, a subgroup of the world: what mode
+    (a) runs each host's partial over.  Every rank of the world calls it
+    alike (the hosts' groups are made together)."""
+    _, n, local = _topology()
+    if n == 1:
+        return global_data_mesh(device)
+    return mesh_mod.two_level_mesh(n, local, device=device).inner
+
+
 def _world(process_index: Optional[int],
            process_count: Optional[int]) -> tuple[int, int]:
-    """The given index and count, each defaulting to the world's."""
-    up = dist.is_initialized()
-    p = (dist.get_rank() if up else 0) if process_index is None \
-        else process_index
-    n = (dist.get_world_size() if up else 1) if process_count is None \
-        else process_count
-    return p, n
+    """The given host index and count, each defaulting to this process's
+    host and the world's hosts."""
+    if process_index is None or process_count is None:
+        p, n, _ = _topology()
+        process_index = p if process_index is None else process_index
+        process_count = n if process_count is None else process_count
+    return process_index, process_count
 
 
 def host_byte_range(file_size: int, process_index: Optional[int] = None,
                     process_count: Optional[int] = None) -> tuple[int, int]:
     """The half-open byte range of the corpus host ``process_index`` of
-    ``process_count`` (default: this rank of the world) ingests: an even
+    ``process_count`` (default: this process's host) ingests: an even
     split by bytes, the last host taking the remainder (see
     :func:`align_range_to_separator`)."""
     p, n = _world(process_index, process_count)
@@ -223,7 +298,8 @@ def align_range_to_separator(path: str, lo: int, hi: int,
 def host_shards(n_global_shards: int, process_index: Optional[int] = None,
                 process_count: Optional[int] = None) -> Sequence[int]:
     """The global shard indices host ``process_index`` (default: this
-    rank) owns: contiguous, process-major."""
+    process's host) owns: contiguous, process-major, the order of
+    :func:`global_data_mesh`."""
     p, n = _world(process_index, process_count)
     if n_global_shards % n:
         raise ValueError(

@@ -1,17 +1,23 @@
-"""The MapReduce engine over the data axis.
+"""The MapReduce engine over the data axis or a two-level mesh.
 
-Counterpart of :class:`mapreduce_tpu.parallel.mapreduce.Engine` for one
-axis of D ranks (:class:`...parallel.mesh.DataAxis`; a process outside a
-``torch.distributed`` world is an axis of one).  A job supplies
+Counterpart of :class:`mapreduce_tpu.parallel.mapreduce.Engine` over a
+mesh of one axis of D ranks (:class:`...parallel.mesh.DataAxis`; a
+process outside a ``torch.distributed`` world is an axis of one) or two
+(:class:`...parallel.mesh.TwoLevelMesh`, R·L ranks).  A job supplies
 ``init_state``, ``map_chunk(chunk, chunk_id)`` (or the streamed
 ``map_chunk_sharded(chunk, chunk_id, axis, device_index)``), ``combine``,
 ``merge`` and ``finalize``.  Each step maps this rank's chunk with
-``chunk_id = step * D + rank``, the JAX numbering on ``data_mesh(D)``;
-:meth:`Engine.finish` merges the D states with the configured collective
-strategy (:mod:`...parallel.collectives`) and finalizes, the same result
-on every rank.  With ``data_stats`` (a telemetered streamed run) a step
-also gives the chunk's data-plane statistics, as the JAX stats-mode
-engine does.
+``chunk_id = step * D + linear_rank`` (row-major over the mesh's axes),
+the JAX numbering; the maps' gathers run over the flattened mesh, the
+world in rank order.  :meth:`Engine.finish` merges the D states with the
+configured collective strategy (:mod:`...parallel.collectives`) and
+finalizes, the same result on every rank.  On a two-level mesh every
+per-axis strategy (tree and gather) merges level by level, innermost
+first, as the JAX Engine does, which decides the operand order of the
+jobs that keep one operand's coordination leaves (grep's line carry, the
+n-gram seam carry); keyrange flattens the mesh into one round.  With
+``data_stats`` (a telemetered streamed run) a step also gives the chunk's
+data-plane statistics, as the JAX stats-mode engine does.
 """
 
 from __future__ import annotations
@@ -23,30 +29,30 @@ import torch
 
 from mapreduce_tpu_torch import convert
 from mapreduce_tpu_torch.parallel import collectives
-from mapreduce_tpu_torch.parallel.mesh import DataAxis, data_mesh
+from mapreduce_tpu_torch.parallel.mesh import DataAxis, axes_of, data_mesh
 from mapreduce_tpu_torch.runtime.platform import resolve_device
 
 
-def check_strategy(job, merge_strategy: str) -> None:
-    """The JAX Engine's strategy checks, on a one-axis run."""
+def check_strategy(job, merge_strategy: str, n_axes: int = 1) -> None:
+    """The JAX Engine's strategy checks, on a mesh of ``n_axes`` axes."""
     if merge_strategy == "auto":
         raise ValueError(
             "merge_strategy='auto' reaches the Engine unresolved: "
             "resolution is the driver's job - pass the resolved strategy "
             "name")
-    if merge_strategy.startswith("hier-"):
-        raise ValueError(
-            f"merge_strategy={merge_strategy!r} composes two mesh levels, "
-            "which is not ported to the PyTorch package yet (ROADMAP.md "
-            "item A9 (ii)); use 'tree'/'gather'/'keyrange' on one axis")
     if merge_strategy not in collectives.STRATEGIES:
         raise ValueError(f"unknown merge_strategy {merge_strategy!r}")
-    if merge_strategy == "keyrange" \
+    if merge_strategy in ("keyrange", "hier-kr-tree") \
             and getattr(job, "keyrange_merge", None) is None:
         raise ValueError(
             f"merge_strategy={merge_strategy!r} needs a job with a "
             "keyrange_merge hook (the CountTable wordcount family); "
             f"use 'tree'/'gather' for {type(job).__name__}")
+    if merge_strategy.startswith("hier-") and n_axes < 2:
+        raise ValueError(
+            f"merge_strategy={merge_strategy!r} composes two mesh "
+            "levels; the mesh has one axis ('data') - use "
+            "'tree'/'gather'/'keyrange' on single-axis meshes")
 
 
 class Engine:
@@ -59,21 +65,33 @@ class Engine:
         for step, batch in enumerate(reader):  # batch.data: uint8[D, C]
             state = eng.step(state, batch.data[eng.rank], step)
         result = eng.finish(state)             # the same on every rank
+
+    ``mesh`` is a :class:`DataAxis` or a two-level mesh (default: the
+    world's axis); ``axis`` is the flattened mesh the maps gather over.
     """
 
     def __init__(self, job, device=None, data_stats: bool = False,
-                 axis: Optional[DataAxis] = None,
+                 mesh: Optional[DataAxis] = None,
                  merge_strategy: str = "tree"):
-        check_strategy(job, merge_strategy)
+        self.axis = data_mesh() if mesh is None else mesh
+        self.axes = axes_of(self.axis)
+        check_strategy(job, merge_strategy, len(self.axes))
         self.job = job
         self.device = resolve_device(device)
         self.data_stats = data_stats
-        self.axis = data_mesh() if axis is None else axis
         self.n_devices = self.axis.size
         self.rank = self.axis.rank
         self.merge_strategy = merge_strategy
-        self._strategy = collectives.resolved_strategy(merge_strategy,
-                                                       self.n_devices)
+        self._kr_family = merge_strategy in ("keyrange", "hier-kr-tree")
+        self._result_merge = getattr(job, "keyrange_result_merge", None) \
+            if self._kr_family else None
+        if self._kr_family and self._result_merge is None:
+            self._result_merge = job.merge
+        if len(self.axes) > 1:
+            self._strategy = merge_strategy
+        else:
+            self._strategy = collectives.resolved_strategy(merge_strategy,
+                                                           self.n_devices)
         if self._strategy is not None:
             collectives._count_build(self._strategy, self.n_devices)
 
@@ -106,13 +124,20 @@ class Engine:
         """The D states merged with the configured strategy (the same
         value on every rank; the keyrange family gives its result shape,
         which ``finalize`` accepts)."""
-        if self._strategy is None:
+        job, s = self.job, self._strategy
+        if s is None:
             return state
-        if self._strategy == "keyrange":
-            return self.job.keyrange_merge(state, self.axis)
-        if self._strategy == "tree":
-            return collectives.tree_merge(state, self.job.merge, self.axis)
-        return collectives.gather_merge(state, self.job.merge, self.axis)
+        if s == "keyrange":
+            return job.keyrange_merge(state, self.axis)
+        if s == "hier-kr-tree":
+            return collectives.hier_kr_tree_merge(
+                state, job.keyrange_merge, self._result_merge, self.axes)
+        if len(self.axes) > 1:
+            return collectives.hierarchical_merge(state, job.merge,
+                                                  self.axes, strategy=s)
+        if s == "tree":
+            return collectives.tree_merge(state, job.merge, self.axis)
+        return collectives.gather_merge(state, job.merge, self.axis)
 
     def finish(self, state: Any) -> Any:
         """Collective merge + finalize; the result is the same on every
@@ -121,7 +146,8 @@ class Engine:
 
     def replicate_to_host(self, state: Any) -> list[np.ndarray]:
         """Every rank's state as a checkpoint's leaves: one uint32 array a
-        leaf with a leading axis of D, rank order (one all_gather)."""
+        leaf with a leading axis of D, in the flattened mesh's rank order
+        (row-major over two levels; one all_gather)."""
         local = convert.state_to_leaves(state)
         if self.axis.group is None:
             return local

@@ -90,12 +90,16 @@ group's retirement, from pinned memory behind its completion event: no new
 sync).  The ``ledger-append`` seam is crossed when a ledger is attached.
 Without a handle the loop runs as it did without telemetry.
 
-Across ranks the finish is a collective merge (``merge_strategy``), a
-snapshot is the coordinator's to write, and the ledger is the
-coordinator's, its ``data`` record summed over the ranks.
+Across ranks the finish is a collective merge (``merge_strategy``, over
+one axis or a two-level mesh), a snapshot is the coordinator's to write,
+and the ledger is the coordinator's, its ``data`` record summed over the
+ranks.  Over several hosts, ``run_job(byte_range=)`` streams one host's
+range over its own ranks (the JAX package's mode (a)), and
+``run_job_global`` runs one program over every host's ranks with a
+ledger shard a host (mode (b)).
 
 Not ported yet (ROADMAP A8b, A9 (ii)): window-boundary merges, the
-autotuner, byte ranges, and window replay and preemption across ranks.
+autotuner, and window replay and preemption across ranks.
 """
 
 from __future__ import annotations
@@ -128,7 +132,7 @@ from mapreduce_tpu_torch.ops import datastats
 from mapreduce_tpu_torch.ops import ngram as ngram_ops
 from mapreduce_tpu_torch.ops import sketch as sketch_ops
 from mapreduce_tpu_torch.ops import table as table_ops
-from mapreduce_tpu_torch.parallel import collectives
+from mapreduce_tpu_torch.parallel import collectives, distributed
 from mapreduce_tpu_torch.parallel.mapreduce import Engine
 from mapreduce_tpu_torch.parallel.mesh import data_mesh
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
@@ -517,10 +521,14 @@ def _group_record(tel, life: dict, token_ready_at: float, retired_at: float,
     tel.ledger_write("group", **rec)
 
 
-def _stream_total_bytes(path, start_offset: int) -> Optional[int]:
-    """The bytes this stream will read, the heartbeat's denominator (None
-    when the input cannot be sized)."""
+def _stream_total_bytes(path, start_offset: int,
+                        end_offset: Optional[int] = None) -> Optional[int]:
+    """The bytes this stream will read, the heartbeat's denominator: a
+    byte range's own size, else the files' (None when the input cannot be
+    sized)."""
     try:
+        if end_offset is not None:
+            return max(0, int(end_offset) - int(start_offset))
         paths = path if isinstance(path, (list, tuple)) else [path]
         return max(0, sum(os.path.getsize(p) for p in paths)
                    - int(start_offset))
@@ -533,7 +541,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                   checkpoint_path, checkpoint_every: int, fingerprint,
                   resumed_file, logger, progress_every: int, timer,
                   plan, policy, replay: bool, rebuild, sigint: list, tel,
-                  data_agg, device):
+                  data_agg, device, end_offset: Optional[int] = None,
+                  host_rows=None):
     """The streaming loop, the JAX ``_drive_stream`` without window-boundary
     merges.  Returns ``(state, bytes_done, pipe)``: ``bytes_done`` is the
     absolute cursor (it starts at ``start_offset``) and ``pipe`` the window
@@ -542,7 +551,10 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     ``plan`` is the run's fault plan (or None), ``policy`` its failure
     policy; ``replay`` (a budget for any class, on one rank) arms the
     anchor and the window replay (see the module docstring); ``rebuild(config)``
-    gives the engine of a degraded config.  ``cur_config`` is the ladder's
+    gives the engine of a degraded config.  ``end_offset`` ends the stream
+    (a host's byte range); ``host_rows``, the rows of this process's host
+    on the global driver, add ``host_bytes`` to the ``group`` records.
+    ``cur_config`` is the ladder's
     moving target: the loop's own knobs (superstep, window, prefetch) stay
     the caller's.  ``sigint`` is the record of :func:`_sigint_deferred`.
 
@@ -583,7 +595,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             "prefetch_depth": config.resolved_prefetch_depth,
             "dispatch_groups": 0, "depth_sum": 0, "depth_max": 0,
             "full_retires": 0, "boundary_drains": 0}
-    stream_total = _stream_total_bytes(path, start_offset) \
+    stream_total = _stream_total_bytes(path, start_offset, end_offset) \
         if tel.enabled else None
     retired_groups = 0
 
@@ -939,7 +951,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         bytes_done += group_bytes
         step_index = batches[-1].step + 1
         skip_record = False
-        if plan is not None and tel.ledger is not None:
+        if plan is not None and tel.writing:
             try:
                 cross("ledger-append")
             except faults_mod.FaultError as fe:
@@ -1046,6 +1058,9 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             read_t.pop(b.step, None)
         life = _group_life(batches, read_at,
                            int(sum(int(b.lengths.sum()) for b in batches)))
+        if host_rows is not None:
+            life["host_bytes"] = int(sum(int(b.lengths[host_rows].sum())
+                                         for b in batches))
         try:
             out, done, group, stats = dispatch(state, group)
         except Exception as e:
@@ -1101,7 +1116,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         reader_mod.iter_batches_multi(path, engine.n_devices,
                                       config.chunk_bytes,
                                       start_offset=start_offset,
-                                      start_step=start_step, out=stage.take),
+                                      start_step=start_step, out=stage.take,
+                                      end_offset=end_offset),
         depth=config.resolved_prefetch_depth)
 
     def stream(state):
@@ -1329,31 +1345,46 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
             checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
             logger=None, progress_every: int = 50,
             retry: int = 0, telemetry=None,
-            merge_strategy: Optional[str] = None) -> RunResult:
+            merge_strategy: Optional[str] = None, mesh=None,
+            byte_range: Optional[tuple[int, int]] = None) -> RunResult:
     """Stream ``path`` (a file or a list of files, one corpus) through
     ``job`` on this rank's device; see the module docstring.
 
-    The data axis is the initialised ``torch.distributed`` world (else a
-    world of one).  Every rank of it calls ``run_job`` with the same
-    arguments: each step cuts D rows, the
-    JAX reader's cuts, and each rank maps its own; the finish merges the D
-    states with ``merge_strategy`` (default ``config``'s: 'tree', 'gather'
-    or 'keyrange'), and every rank returns the same value.  Snapshots are
-    the coordinator's (rank 0) to write and every rank's to resume; the
-    run ledger is the coordinator's alone, its ``data`` record summed over
-    the ranks.  Across ranks, window replay (``retry`` > 0) and
-    preemption's drain are refused (ROADMAP.md item A9 (ii)), and a
-    SIGINT is not deferred.
+    ``mesh`` is the ranks the run spreads over: the initialised
+    ``torch.distributed`` world's axis by default (a world of one without
+    one), a host's own ranks (``parallel.distributed.local_data_mesh``),
+    or a two-level mesh (``parallel.mesh.two_level_mesh``).  Every rank
+    of it calls ``run_job`` with the same arguments: each step cuts D
+    rows, the JAX reader's cuts, and each rank maps its own; the finish
+    merges the D states with ``merge_strategy`` (default ``config``'s:
+    'tree', 'gather' or 'keyrange', and on a two-level mesh also
+    'hier-tree-tree' and 'hier-kr-tree'), and every rank returns the same
+    value.  Snapshots are the mesh's coordinator's (its rank 0) to write
+    and every rank's to resume; the run ledger is the coordinator's alone,
+    its ``data`` record summed over the ranks.  Across ranks, window
+    replay (``retry`` > 0) and preemption's drain are refused (ROADMAP.md
+    item A9 (ii)), and a SIGINT is not deferred.
+
+    ``byte_range``: read only ``[lo, hi)`` of the corpus (virtual offsets
+    over a list of files), this host's range
+    (``parallel.distributed.host_byte_range`` aligned with
+    ``align_range_to_separator``); the value is then the host's *partial*
+    state, which the caller merges across hosts (``ops.table.merge``).
+    A snapshot of one range refuses to resume another.  This is the JAX
+    package's per-host mode (a), over a host-local mesh; for one program
+    over every host see :func:`run_job_global`.  In a world of several
+    hosts the ledger's records carry the ``host``.
 
     ``device`` defaults to the job's.  ``config`` sets the chunking, the
     pipeline (``chunk_bytes``, ``superstep``, ``inflight_groups``,
     ``prefetch_depth``), the fault plan and the failure policy.  With
     ``checkpoint_path``, a snapshot there is resumed (the previous good one
-    if it is corrupt; a different job, capacity, chunk size, device count
-    or input raises ``CheckpointMismatch``), and with ``checkpoint_every``
-    > 0 one is saved every that many steps.  ``retry``: the transient and
-    resource budgets when ``config.failure_policy`` is None.  A preempted
-    run raises :class:`...runtime.faults.Preempted`.
+    if it is corrupt; a different job, capacity, chunk size, device count,
+    byte range or input raises ``CheckpointMismatch``), and with
+    ``checkpoint_every`` > 0 one is saved every that many steps.
+    ``retry``: the transient and resource budgets when
+    ``config.failure_policy`` is None.  A preempted run raises
+    :class:`...runtime.faults.Preempted`.
 
     ``telemetry`` (:class:`...obs.telemetry.Telemetry`, optional): the run
     ledger's records, the flight recorder's dump on a failure and the
@@ -1364,26 +1395,103 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     """
     if retry < 0:
         raise ValueError(f"retry must be >= 0, got {retry}")
+    return _run_streamed(
+        job, path, config, device, driver="run_job", mesh=mesh,
+        merge_strategy=merge_strategy, byte_range=byte_range, retry=retry,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        logger=logger, progress_every=progress_every, telemetry=telemetry)
+
+
+def run_job_global(job, path, config: Config = DEFAULT_CONFIG, device=None,
+                   mesh=None, merge_strategy: Optional[str] = None,
+                   checkpoint_path: Optional[str] = None,
+                   checkpoint_every: int = 0, logger=None,
+                   progress_every: int = 50, telemetry=None) -> RunResult:
+    """One streamed program over every rank of every host: the JAX
+    package's multi-host mode (b).
+
+    Every process calls it with the same arguments after
+    ``parallel.distributed.initialize``.  The mesh is every rank of the
+    world (``parallel.distributed.global_data_mesh``) by default, or a
+    given ``two_level_mesh`` (hosts x ranks a host).  Every rank reads the
+    same batches and stages only its own row, so a host stages only its
+    ``host_shards`` rows, as the JAX driver's ``device_put_local`` does,
+    with no second stager; the collective finish replicates the result,
+    the same on every rank (report on ``is_coordinator``).
+
+    As in the JAX package: no ``retry`` (the failure policy resolves with
+    ``retry=0``: a failed collective leaves its peers blocked, so
+    checkpoint and resume is the recovery path, with no window replay and
+    no degradation ladder), no data-statistics mode and no byte range.
+    The coordinator alone writes the main ledger and the snapshot; every
+    rank resumes its row of it.  Over several hosts each host's first
+    rank writes every record to the host's shard ledger
+    ``<ledger>.h<p>.jsonl`` (``Telemetry.attach_host``), its ``run_end``
+    with the host's own phase totals, and a host other than 0 dumps its
+    flight record to its own path.  A fault plan's ``process-kill`` is
+    crossed after each dispatched group, where a plan firing at the same
+    crossing on every rank leaves no peer waiting.  Preemption across
+    ranks is refused (ROADMAP.md item A9 (ii)).
+    """
+    dev = job.device if device is None else torch.device(device)
+    if mesh is None:
+        mesh = distributed.global_data_mesh(device=dev)
+    return _run_streamed(
+        job, path, config, dev, driver="run_job_global", mesh=mesh,
+        merge_strategy=merge_strategy, byte_range=None, retry=0,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        logger=logger, progress_every=progress_every, telemetry=telemetry)
+
+
+def _host_telemetry(tel, axis, driver: str):
+    """The rank's telemetry handle.  Over several hosts it is attached to
+    this rank's host (``attach_host``): the global driver's host leaders
+    (each host's first rank) open their host's shard, the per-host driver
+    stamps only.  The main ledger and the flight dump are the mesh
+    coordinator's: another rank's handle is a copy without the main
+    ledger (a host leader keeps its shard and its host's flight path) and,
+    off the host leaders, without a flight path."""
+    if not tel.enabled:
+        return tel
+    glob = driver == "run_job_global"
+    n, local = distributed.process_count(), distributed.local_device_count()
+    leader = not glob or axis.rank % local == 0
+    if n > 1 and leader:
+        tel.attach_host(distributed.process_index(), n, local_devices=local,
+                        clock=distributed.run_epoch(), shard=glob)
+    if axis.coordinator or (tel.ledger is None and not tel.flight_path):
+        return tel
+    tel = copy.copy(tel)
+    tel.ledger = None
+    if not (glob and leader and tel.shard is not None):
+        tel.flight_path = None
+    return tel
+
+
+def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
+                  merge_strategy, byte_range, retry: int, checkpoint_path,
+                  checkpoint_every: int, logger, progress_every: int,
+                  telemetry) -> RunResult:
+    """The streamed run of :func:`run_job` (``driver='run_job'``) and
+    :func:`run_job_global` (``driver='run_job_global'``)."""
+    glob = driver == "run_job_global"
     dev = job.device if device is None else torch.device(device)
     if dev != job.device:
-        raise ValueError(f"run_job on {dev} got a job on {job.device}")
-    axis = data_mesh(device=dev)
+        raise ValueError(f"{driver} on {dev} got a job on {job.device}")
+    axis = data_mesh(device=dev) if mesh is None \
+        else dataclasses.replace(mesh, device=dev)
     n_dev = axis.size
     merge_strategy = config.resolved_merge_strategy \
         if merge_strategy is None else merge_strategy
-    tel = obs_telemetry.maybe(telemetry)
-    if tel.enabled and not axis.coordinator and (
-            tel.ledger is not None or tel.flight_path):
-        # The ledger and the flight dump are the coordinator's.
-        tel = copy.copy(tel)
-        tel.ledger, tel.flight_path = None, None
+    tel = _host_telemetry(obs_telemetry.maybe(telemetry), axis, driver)
     plan = faults_mod.FaultPlan.resolve(config.fault_plan)
     policy = faults_mod.FailurePolicy.resolve(config.failure_policy,
                                               retry=retry)
     _refuse_across_ranks(config, retry, plan, n_dev)
-    replay = policy.dispatch_budget > 0 and n_dev == 1
-    data_stats = tel.enabled and datastats.supports(job)
-    engine = Engine(job, dev, data_stats=data_stats, axis=axis,
+    replay = policy.dispatch_budget > 0 and n_dev == 1 and not glob
+    # The global driver has no data-statistics mode, as in the JAX package.
+    data_stats = tel.enabled and datastats.supports(job) and not glob
+    engine = Engine(job, dev, data_stats=data_stats, mesh=axis,
                     merge_strategy=merge_strategy)
     data_agg = datastats.DataAggregator.for_run(config, n_dev) \
         if data_stats else None
@@ -1392,11 +1500,12 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     timer = metrics_mod.PhaseTimer()
     timer.start("total")
     state = engine.init_states()
-    start_step, start_offset, resumed_file = 0, 0, None
+    range_lo, range_hi = byte_range if byte_range is not None else (0, None)
+    start_step, start_offset, resumed_file = 0, range_lo, None
     bases_list: list = []
     fingerprint = ckpt_mod.run_fingerprint(
         path, n_dev, config.chunk_bytes, backend=config.resolved_backend(),
-        pallas_max_token=config.pallas_max_token,
+        pallas_max_token=config.pallas_max_token, byte_range=byte_range,
         job_identity=job.identity()) if checkpoint_path else None
     fallback = None
     if checkpoint_path and ckpt_mod.exists(checkpoint_path):
@@ -1423,12 +1532,15 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     stage = _PinnedStage(dev, n_dev * config.chunk_bytes,
                          config.resolved_prefetch_depth, held, axis.rank) \
         if dev.type == "cuda" else _HostStage(axis.rank)
+    host_rows = None
+    if glob:
+        host_rows = np.asarray(distributed.host_shards(n_dev), np.int64)
 
     def rebuild(new_config: Config) -> Engine:
         """The ladder's engine: the job rebound to the degraded config."""
         nonlocal job, engine
         job = job_with_config(job, new_config)
-        engine = Engine(job, dev, data_stats=data_stats, axis=axis,
+        engine = Engine(job, dev, data_stats=data_stats, mesh=axis,
                         merge_strategy=merge_strategy)
         return engine
 
@@ -1438,16 +1550,17 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     sigint_scope = _sigint_deferred() if n_dev == 1 \
         else contextlib.nullcontext([])
     with sigint_scope as sigint:
-        tel.registry.counter("executor.runs", driver="run_job").inc()
+        tel.registry.counter("executor.runs", driver=driver).inc()
         tel.ledger_write(
-            "run_start", driver="run_job", job=job.identity(), devices=n_dev,
+            "run_start", driver=driver, job=job.identity(), devices=n_dev,
             chunk_bytes=config.chunk_bytes, superstep=config.superstep,
             backend=config.resolved_backend(), map_impl=config.map_impl,
             combiner=config.combiner, geometry="default",
             **({"fault_plan": plan.spec} if plan is not None else {}),
             merge_strategy=merge_strategy, input=_path_names(path),
             resume_step=start_step, resume_offset=start_offset,
-            retry=policy.dispatch_budget if replay else 0)
+            **({} if glob else
+               {"retry": policy.dispatch_budget if replay else 0}))
         if fallback is not None:
             tel.ledger_write("fault", seam="checkpoint-load",
                              fault_class="transient", injected=False,
@@ -1467,7 +1580,8 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
                     logger=logger, progress_every=progress_every,
                     timer=timer, plan=plan, policy=policy, replay=replay,
                     rebuild=rebuild, sigint=sigint, tel=tel,
-                    data_agg=data_agg, device=dev)
+                    data_agg=data_agg, device=dev, end_offset=range_hi,
+                    host_rows=host_rows)
             timer.stop("stream")
             with span("reduce", timer):
                 fin_t0 = time.perf_counter()
@@ -1482,7 +1596,7 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
         except Exception as e:
             # A failure the loop did not dump already (the reader, the
             # finish) leaves forensics too; the first dump wins.
-            tel.flight_dump(context={"where": "run_job", "error": repr(e)})
+            tel.flight_dump(context={"where": driver, "error": repr(e)})
             raise
         total_s = timer.stop("total")
         pipe["overlap_fraction"] = _overlap_fraction(timer)
@@ -1499,7 +1613,7 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
                                    elapsed_s=total_s,
                                    phases=dict(timer.phases))
         tel.ledger_write("run_end", **m.as_dict(), pipeline=pipe)
-    log_event(logger, "run complete", **m.as_dict())
+    log_event(logger, "run complete", driver=driver, **m.as_dict())
     bases = np.stack(bases_list) if bases_list \
         else np.zeros((0, n_dev), np.int64)
     return RunResult(value=value, metrics=m, bases=bases, pipeline=pipe,
@@ -1570,8 +1684,10 @@ def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
     fills ``cms`` (``result.estimate_count(word)``); one or the other per
     run.  The result's ``run`` is the run's :class:`RunResult` (its value
     dropped), with the host string recovery as the ``recover`` phase.
-    Across the ranks of an initialised world every rank calls it alike; the coordinator recovers and returns the result, the
-    other ranks return None.
+    Across the ranks of an initialised world (or of a ``mesh`` given in
+    ``kw``) every rank calls it alike; the mesh's coordinator recovers
+    and returns the result, the other ranks return None.  With a
+    ``byte_range`` the result is the host's partial count.
     """
     if distinct_sketch and count_sketch:
         raise ValueError("distinct_sketch and count_sketch are mutually "

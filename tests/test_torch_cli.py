@@ -435,7 +435,8 @@ def test_bad_patterns_exit_2_as_in_jax(flags, capsys):
 def test_other_merge_strategies_name_a9(strategy, capsys):
     """On one rank every one-axis strategy runs and prints what 'tree'
     prints (the multi-rank runs: tests/test_torch_distributed*.py); its
-    two-level counterpart is refused naming its item, A9 (ii)."""
+    two-level counterpart is the JAX CLI's usage error (the CLI drives
+    one axis), exit 2 with the JAX message."""
     out = {}
     for s in ("tree", strategy):
         assert _in_repo_main(["test.txt", "--platform", "cpu", "--stream",
@@ -447,7 +448,14 @@ def test_other_merge_strategies_name_a9(strategy, capsys):
         cli.main(["test.txt", "--platform", "cpu", "--stream",
                   "--merge-strategy", hier])
     assert e.value.code == 2
-    assert "(ROADMAP.md item A9 (ii))" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    with pytest.raises(SystemExit) as je:
+        jcli.main(["test.txt", "--stream", "--merge-strategy", hier])
+    assert je.value.code == 2
+    jerr = capsys.readouterr().err
+    assert "needs a multi-axis device mesh" in err
+    assert err.splitlines()[-1].split(": ", 2)[-1] \
+        == jerr.splitlines()[-1].split(": ", 2)[-1]
 
 
 @pytest.mark.parametrize("mode", [("--grep", "o"), ("--sample", "3")])

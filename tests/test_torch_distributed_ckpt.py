@@ -12,8 +12,9 @@ job, whose state carries the seam carry.
 
 The CLI: ``--stream --merge-strategy keyrange`` on 2 gloo ranks prints the
 JAX CLI's stdout byte for byte (and what one rank prints); a hier-*
-strategy, ``--merge-overlap`` and ``--retry`` in a world of several ranks
-are refused naming their items.  The run ledger of 2 ranks equals the
+strategy is the JAX CLI's usage error (the CLI drives one axis), and
+``--merge-overlap`` and ``--retry`` in a world of several ranks are
+refused naming their items.  The run ledger of 2 ranks equals the
 JAX run's on ``data_mesh(2)`` record for record.
 """
 
@@ -197,8 +198,9 @@ def test_cli_keyrange_on_two_ranks_prints_jax_stdout(corpus,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--merge-strategy", "hier-kr-tree"], "(ROADMAP.md item A9 (ii))"),
-    (["--merge-strategy", "hier-tree-tree"], "(ROADMAP.md item A9 (ii))"),
+    (["--merge-strategy", "hier-kr-tree"], "needs a multi-axis device mesh"),
+    (["--merge-strategy", "hier-tree-tree"],
+     "needs a multi-axis device mesh"),
     (["--merge-overlap"], "(ROADMAP.md item A8b (iii))"),
 ])
 def test_cli_refusals_name_their_items(argv, item, capsys):

@@ -317,8 +317,7 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "== 9; "
             "assert len(sample.sample_bytes(b'a b a', 9, device='cpu')"
             ".tokens) == 3; "
-            "assert all(build_model(n, device='cpu') for n in model_names() "
-            "if 'fleet' not in n); "
+            "assert all(build_model(n, device='cpu') for n in model_names()); "
             "assert verify.recount_exact('test.txt', [b'Hello']) "
             "== {b'Hello': 2}; "
             "tel = telemetry.Telemetry.create(ledger_path='%s.jsonl'); "
@@ -332,6 +331,13 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "r = m.count_file('test.txt', c, device='cpu', retry=1); "
             "assert r.total == 9 and faults.classify(KeyboardInterrupt()) "
             "== 'preemption'; "
+            "from mapreduce_tpu_torch.parallel import distributed, mesh; "
+            "from mapreduce_tpu_torch.runtime import executor; "
+            "rr = executor.run_job_global(wc.WordCountJob(device='cpu'), "
+            "'test.txt', mesh=mesh.two_level_mesh(1, 1), "
+            "merge_strategy='hier-kr-tree'); "
+            "assert rr.value.total_count() == 9; "
+            "assert distributed.process_count() == 1; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'mapreduce_tpu')]; "
             "assert not bad, bad") % ((tmp_path / "ck.npz",) * 4)
@@ -370,21 +376,23 @@ def test_config_from_jax_dict():
 
 def test_registry_names_and_identities_equal_jax():
     """The port's registry names every model the JAX registry names; each
-    builds a job with the JAX job's identity, and the fleet names raise
-    naming their item."""
+    builds a job with the JAX job's identity, and the fleet twins carry
+    the JAX twins' topology and merge strategy marks."""
     from mapreduce_tpu import models as jmodels
     from mapreduce_tpu_torch import models
 
     assert models.model_names() == jmodels.model_names()
     for name in models.model_names():
-        if "fleet" in name:
-            with pytest.raises(ValueError,
-                               match=r"ROADMAP.md item A9 \(ii\)"):
-                models.build_model(name, device="cpu")
-            continue
         job = models.build_model(name, device="cpu")
-        assert job.identity() == jmodels.build_model(name).identity(), name
+        want = jmodels.build_model(name)
+        assert job.identity() == want.identity(), name
         assert job.device == torch.device("cpu")
+        for mark in ("analysis_fleet", "analysis_merge_strategy"):
+            assert getattr(job, mark, None) == getattr(want, mark, None), \
+                (name, mark)
+        if "fleet" in name:
+            assert job.config == convert.config_from_dict(
+                dataclasses.asdict(want.config)), name
     assert models.build_model("wordcount_combiner", device="cpu").config \
         == convert.config_from_dict(dataclasses.asdict(
             jmodels.COMBINER_ANALYSIS_CONFIG))

@@ -2,11 +2,14 @@
 
 ``spawn_world(n, cases, tmp)`` starts this file as ``n`` processes of one
 ``torch.distributed`` gloo world (the environment a launcher exports:
-``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
-``MASTER_PORT``), each running every case in order, and returns
-``[per-rank {case name: result}]``.  The ranks import only the port,
-never JAX.  The join has a time limit: a rank that fails or hangs ends
-the world, and the test fails with every rank's stderr.
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+``GROUP_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), each running every case
+in order, and returns ``[per-rank {case name: result}]``.  ``hosts``
+lays the ranks out as that many nodes of ``n // hosts`` ranks, as
+``torchrun --nnodes`` does.  The ranks import only the port, never JAX.
+The join has a time limit, and the process group a short timeout: a
+rank that fails or hangs ends the world, and the test fails with every
+rank's stderr.
 
 A case is ``{"name", "kind", "args"}``; ``kind`` names a function of
 ``CASES`` below, and ``args`` are plain JSON (a ``config`` is a dict of
@@ -26,6 +29,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -77,13 +81,42 @@ def _job(kind: str, config, args):
     raise ValueError(f"unknown job {kind!r}")
 
 
+def _mesh(mesh):
+    """A case's mesh: None (the world's axis), ``"local"`` (this host's
+    ranks) or ``[R, L]`` (a two-level mesh)."""
+    from mapreduce_tpu_torch.parallel import distributed
+    from mapreduce_tpu_torch.parallel.mesh import two_level_mesh
+
+    if mesh is None:
+        return None
+    if mesh == "local":
+        return distributed.local_data_mesh()
+    return two_level_mesh(*mesh)
+
+
+def _host_range(path):
+    """This host's byte range of ``path``, aligned to a separator."""
+    from mapreduce_tpu_torch.parallel import distributed
+
+    lo, hi = distributed.host_byte_range(os.path.getsize(path))
+    return distributed.align_range_to_separator(path, lo, hi)
+
+
 def case_run_job(job, path, config=None, merge_strategy=None,
                  checkpoint_path=None, checkpoint_every=0, retry=0,
-                 ledger=None, telemetered_ranks=None, **job_args):
-    """``run_job``'s finished value as numpy (the JAX layout), its bases
-    and the bytes it streamed.  With ``ledger``, the ranks in
-    ``telemetered_ranks`` (default: all) run telemetered (a heartbeat an
-    hour) and the coordinator writes the ledger there, as the CLI does."""
+                 ledger=None, telemetered_ranks=None, mesh=None,
+                 byte_range=None, driver="run_job", ledger_every=False,
+                 plan_ranks=None, **job_args):
+    """``run_job``'s (or ``run_job_global``'s) finished value as numpy
+    (the JAX layout), its bases and the bytes it streamed.  With
+    ``ledger``, the ranks in ``telemetered_ranks`` (default: all) run
+    telemetered (a heartbeat an hour) and the coordinator writes the
+    ledger there, as the CLI does; ``ledger_every`` hands every rank the
+    path (the global driver's contract).  ``byte_range`` ``"host"`` reads
+    this host's aligned range.  ``plan_ranks``
+    keeps the config's fault plan on those ranks only."""
+    import dataclasses
+
     import torch.distributed as dist
 
     from mapreduce_tpu_torch.obs.telemetry import Telemetry
@@ -91,30 +124,82 @@ def case_run_job(job, path, config=None, merge_strategy=None,
     from mapreduce_tpu_torch.runtime import executor
 
     cfg = _config(config)
+    if plan_ranks is not None and dist.get_rank() not in plan_ranks:
+        cfg = dataclasses.replace(cfg, fault_plan=None)
     on = ledger is not None and (telemetered_ranks is None
                                  or dist.get_rank() in telemetered_ranks)
     tel = None if not on else Telemetry.create(
-        ledger_path=ledger if distributed.is_coordinator() else None,
-        progress_every_s=3600)
+        ledger_path=ledger if ledger_every or distributed.is_coordinator()
+        else None, progress_every_s=3600)
+    kw = {}
+    if byte_range is not None:
+        kw["byte_range"] = _host_range(path) if byte_range == "host" \
+            else tuple(byte_range)
+    if driver == "run_job":
+        kw["retry"] = retry
+    before = _bytes_sent()
     try:
-        rr = executor.run_job(_job(job, cfg, job_args), path, cfg,
-                              merge_strategy=merge_strategy,
-                              checkpoint_path=checkpoint_path,
-                              checkpoint_every=checkpoint_every,
-                              retry=retry, telemetry=tel)
+        rr = getattr(executor, driver)(
+            _job(job, cfg, job_args), path, cfg, mesh=_mesh(mesh),
+            merge_strategy=merge_strategy, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, telemetry=tel, **kw)
     finally:
         if tel is not None:
             tel.close()
+    after = _bytes_sent()
     return {"value": _numpy(rr.value), "bases": rr.bases,
-            "bytes": rr.metrics.bytes_processed}
+            "bytes": rr.metrics.bytes_processed,
+            "byte_range": kw.get("byte_range"),
+            "sent": {k: v - before.get(k, 0) for k, v in after.items()
+                     if v != before.get(k, 0)}}
 
 
-def case_count_file(path, config=None, **kw):
+def _bytes_sent() -> dict:
+    """The registry's ``collectives.bytes_sent`` counters by label."""
+    from mapreduce_tpu_torch.obs import registry
+
+    return {k: v for k, v in
+            registry.get_registry().snapshot()["counters"].items()
+            if k.startswith("collectives.bytes_sent")}
+
+
+def case_topology(size, shards, mesh=None):
+    """This rank's host, the pure helpers' defaults on a corpus of
+    ``size`` bytes and ``shards`` rows, and ``mesh``'s levels."""
+    from mapreduce_tpu_torch.parallel import distributed
+
+    out = {"process_index": distributed.process_index(),
+           "process_count": distributed.process_count(),
+           "local_device_count": distributed.local_device_count(),
+           "byte_range": distributed.host_byte_range(size),
+           "shards": list(distributed.host_shards(shards)),
+           "local": _axis_fields(distributed.local_data_mesh()),
+           "global": _axis_fields(distributed.global_data_mesh())}
+    if mesh is not None:
+        m = _mesh(mesh)
+        out["mesh"] = {"flat": _axis_fields(m), "outer": _axis_fields(m.outer),
+                       "inner": _axis_fields(m.inner)}
+    return out
+
+
+def _axis_fields(axis):
+    import torch.distributed as dist
+
+    ranks = list(axis.ranks) if axis.ranks is not None \
+        else list(range(axis.size))
+    return {"rank": axis.rank, "size": axis.size, "ranks": ranks,
+            "name": axis.name,
+            "group_rank": None if axis.group is None
+            else dist.get_rank(axis.group)}
+
+
+def case_count_file(path, config=None, mesh=None, **kw):
     """``count_file``'s result fields (None off the coordinator)."""
     from mapreduce_tpu_torch.runtime import executor
 
     return _result_fields(executor.count_file(path, _config(config),
-                                              device="cpu", **kw))
+                                              device="cpu", mesh=_mesh(mesh),
+                                              **kw))
 
 
 def case_grep_file(path, patterns, config=None, **kw):
@@ -200,7 +285,8 @@ def case_cli(argv):
 
 CASES = {"run_job": case_run_job, "count_file": case_count_file,
          "grep_file": case_grep_file, "sample_file": case_sample_file,
-         "collective": case_collective, "cli": case_cli}
+         "collective": case_collective, "cli": case_cli,
+         "topology": case_topology}
 
 
 def _worker(spec_path: str) -> int:
@@ -243,8 +329,8 @@ def shared_jax_engines():
 
     def engine(job, mesh, **kw):
         kind = job.identity().split("-top")[0]
-        key = (kind, getattr(job, "config", None), mesh.size,
-               kw.get("data_stats", False))
+        key = (kind, getattr(job, "config", None),
+               tuple(mesh.shape.items()), kw.get("data_stats", False))
         full = (job.identity(), key, tuple(sorted(kw.items())))
         if full in whole:
             return whole[full]
@@ -268,28 +354,39 @@ def _free_port() -> int:
 
 
 def spawn_world(n: int, cases: list, tmp: Path, timeout_s: float = 120,
-                platform: str = "cpu") -> list:
+                platform: str = "cpu", hosts: int = 1,
+                group_timeout_s: Optional[float] = None,
+                expect_rc=0) -> list:
     """Run ``cases`` on a gloo world of ``n`` ranks (on the CPU, or with
-    ``platform='gpu'`` every rank's job on the card); returns each rank's
-    ``{name: result}``.  Raises (with every rank's stderr) when a rank
-    fails or the world outlives ``timeout_s``."""
+    ``platform='gpu'`` every rank's job on the card) laid out as ``hosts``
+    nodes; returns each rank's ``{name: result}``.  Raises (with every
+    rank's stderr) when a rank fails or the world outlives ``timeout_s``.
+    ``group_timeout_s`` is the process group's timeout (at most
+    ``timeout_s``, the default).  ``expect_rc``, one code or one a rank,
+    is the exit code each rank must end with (a planned ``process-kill``);
+    a rank expected to end otherwise than 0 has None for its results, and
+    when every rank is, the result is their exit codes."""
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
+    if n % hosts:
+        raise ValueError(f"{n} ranks do not split into {hosts} hosts")
+    local = n // hosts
     spec = tmp / "world.json"
     spec.write_text(json.dumps({"cases": cases, "out": str(tmp),
-                                "timeout_s": timeout_s,
+                                "timeout_s": min(timeout_s, group_timeout_s or timeout_s),
                                 "platform": platform, "backend": "gloo"}))
     port = _free_port()
     base = {k: v for k, v in os.environ.items()
             if k not in ("XLA_FLAGS", "PYTEST_XDIST_WORKER")}
-    base.update({"WORLD_SIZE": str(n), "LOCAL_WORLD_SIZE": str(n),
+    base.update({"WORLD_SIZE": str(n), "LOCAL_WORLD_SIZE": str(local),
                  "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
                  "OMP_NUM_THREADS": "1",
                  "PYTHONPATH": os.pathsep.join(
                      [str(REPO), base.get("PYTHONPATH", "")])})
     procs = []
     for r in range(n):
-        e = dict(base, RANK=str(r), LOCAL_RANK=str(r))
+        e = dict(base, RANK=str(r), LOCAL_RANK=str(r % local),
+                 GROUP_RANK=str(r // local))
         procs.append(subprocess.Popen(
             [sys.executable, __file__, str(spec)], cwd=REPO, env=e,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -306,15 +403,22 @@ def spawn_world(n: int, cases: list, tmp: Path, timeout_s: float = 120,
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
-    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    want_rc = expect_rc if isinstance(expect_rc, (list, tuple)) \
+        else [expect_rc] * n
+    failed = [r for r, p in enumerate(procs) if p.returncode != want_rc[r]]
     if failed:
         errs = "\n".join(f"--- rank {r} (rc {procs[r].returncode}) ---\n"
                          f"{(outs[r] or ('', ''))[1][-4000:]}"
                          for r in range(n))
         raise RuntimeError(f"a world of {n} ranks failed or timed out "
                            f"(ranks {failed}):\n{errs}")
+    if all(want_rc):
+        return [p.returncode for p in procs]
     results = []
     for r in range(n):
+        if want_rc[r]:
+            results.append(None)
+            continue
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             results.append(pickle.load(f))
     return results
