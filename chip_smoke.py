@@ -84,9 +84,10 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               print what an uninterrupted run prints.  First of all, in a
               fresh process: ``count_file`` over the 8-file corpus at
               ``retry=0`` against ``retry=1`` (the cost of the anchor and the
-              held buffers), in turns 0, 1, 1, 0, three turns; beside it,
-              three ``retry=0`` runs in this process right after phase 6
-              and three after every other case;
+              held buffers), in turns 0, 1, 1, 0, one turn (across ranks,
+              phase 11 adds its own turns); beside it, one ``retry=0`` run
+              in this process right after phase 6 and one after every
+              other case;
 8. telemetry -- the run ledger, metrics registry, flight recorder,
               data-plane statistics and profiler of ``run_job`` at
               ``Config()``, each run against the oracle, the ledgers read
@@ -113,7 +114,7 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               calls of a profiled 2-file run with and without telemetry
               (no more with); and streamed GB/s with and without telemetry
               over the 8-file corpus in a fresh process, in turns off,
-              registry only, ledger, ledger, registry only, off, five
+              registry only, ledger, ledger, registry only, off, two
               turns, and the host microseconds of each part of a group's
               telemetry (the memory read, the two records' writes, the
               gauges and their copy);
@@ -177,7 +178,21 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               finish ms, the bytes each rank sent by collective, the
               launches per rank and the per-step all_gather ms of the
               n-gram and grep maps; any rank's failure or a join past its
-              time limit fails the smoke;
+              time limit fails the smoke.  Both worlds also run, over the
+              8-file corpus (``rank_cases``, held by ``hold_rank_cases``),
+              the word count with ``merge_overlap`` under tree, gather and
+              keyrange, bigrams and grep with four patterns, each against
+              one rank's run, the oracle and the partials
+              ``predicted_partials`` gives (each partial's interval and the
+              residual finish from the coordinator's ledger), GB/s in
+              turns (overlap on, off, off, on; ``retry`` 1, 0, 0, 1), a
+              dispatch fault under ``retry=2`` on every rank and on rank 1
+              alone (the replay ms) and a resource storm that walks the
+              ladder on every rank, with the agreement's µs a crossing;
+              then a real SIGINT to rank 1 of a 2-rank CLI world
+              (``cli_world``, gloo on card 0) once its first snapshot
+              landed: both ranks must exit 75 and the relaunch print what
+              one uninterrupted rank prints;
 12. many_hosts -- the streamed run over several hosts, one process a
               rank (``MANY_HOSTS_CHILD``): a gloo world of 4 ranks on card
               0 laid out as 2 hosts of 2 (``LOCAL_WORLD_SIZE`` 2,
@@ -197,7 +212,12 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               world resumes; every result held to one rank's run and to
               the oracle, every rank's K1a/K1b launches one a step, and
               per world and case the finish ms, the bytes each rank sent
-              by collective and level, and the launches per rank;
+              by collective and level, and the launches per rank.  The
+              gloo world's kill and resume run with ``merge_overlap`` (a
+              window of one, a partial at the first checkpoint before the
+              kill), and it adds phase 11's new cases over the 8-file
+              corpus under all five strategies (no GB/s turns); the NCCL
+              world adds the two ``hier-*`` overlaps;
 13. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists (the segmented sort's: one lexsort with the group
@@ -244,8 +264,13 @@ LETTERS = b"etaoinshrdlcumwfgypbvkjxqz"
 PAIRS = b" ".join(bytes([a, b]) for a in LETTERS for b in LETTERS) + b" "
 
 
+#: The smoke's start, which every line's ``t`` (seconds) counts from.
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "t": round(time.perf_counter() - T0, 3)}), flush=True)
 
 
 def make_corpus(n_bytes: int, seed: int, dense_at: int | None = None,
@@ -633,7 +658,7 @@ from mapreduce_tpu_torch import Config, count_file
 from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
 corpus, n_bytes = [sys.argv[2]] * 8, int(sys.argv[3])
 count_file(corpus, Config())
-for turn in range(3):
+for turn in range(1):
     for retry in (0, 1, 1, 0):
         torch.cuda.synchronize()
         ktok.LAUNCHES.clear()
@@ -712,9 +737,9 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
     n_bytes = 8 * len(stream_data)
 
     def retry0_rate(name: str) -> float:
-        """The median GB/s of three retry=0 runs in this process."""
+        """The GB/s of one retry=0 run in this process."""
         rates = []
-        for turn in range(3):
+        for turn in range(1):
             got, seconds = drive(name, lambda: count_file(corpus8, Config()),
                                  want8, {"tokenize_compact": 8 * chunks})
             rates.append(n_bytes / seconds / 1e9)
@@ -726,8 +751,8 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
 
     # 7. the cost of replayability: retry=0 against retry=1, in turns 0, 1,
     # 1, 0, in a fresh process, so that nothing an earlier phase left in
-    # this one weighs on it; beside it, three retry=0 runs here now and
-    # three after every other case (what those phases leave behind).
+    # this one weighs on it; beside it, one retry=0 run here now and one
+    # after every other case (what those phases leave behind).
     here_before = retry0_rate("faults_retry0_after_phase6")
     child = subprocess.run(
         [sys.executable, "-c", RETRY_COST_CHILD, str(ROOT), str(path),
@@ -745,7 +770,7 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
             raise SystemExit(f"the retry-cost child's run {run}")
         rates[run["retry"]].append(run["gb_per_s"])
         emit("faults", case="retry_cost", run="fresh_process", **run)
-    if [len(v) for v in rates.values()] != [6, 6]:
+    if [len(v) for v in rates.values()] != [2, 2]:
         raise SystemExit(f"the retry-cost child ran {rates}")
     emit("faults", case="retry_cost",
          median_gb_per_s={r: statistics.median(v) for r, v in rates.items()},
@@ -1019,7 +1044,7 @@ def faults_phase(drive, tmp: Path, path: Path, stream_data: bytes,
 # (passed 8 times), corpus bytes, the oracle's digest and total, a scratch
 # directory for the ledgers.  After a warm-up run, one JSON line a run, in
 # turns off, registry (a handle without a ledger: data statistics and
-# instruments), ledger (the full planes), ledger, registry, off, five
+# instruments), ledger (the full planes), ledger, registry, off, two
 # turns, with each run's phases; then one line of the host microseconds of
 # each part of a group's telemetry.
 TELEMETRY_COST_CHILD = """
@@ -1034,7 +1059,7 @@ from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
 corpus, n_bytes = [sys.argv[2]] * 8, int(sys.argv[3])
 count_file(corpus, Config())
-for turn in range(5):
+for turn in range(2):
     for i, arm in enumerate(("off", "registry", "ledger", "ledger",
                              "registry", "off")):
         led = os.path.join(sys.argv[6], f"cost-{turn}-{i}.jsonl")
@@ -1323,8 +1348,9 @@ def telemetry_phase(drive, by_path: dict, branches: dict, tmp: Path,
         raise SystemExit(f"telemetry adds syncs: {syncs}")
     emit("telemetry", case="syncs", files=2, sync_calls=syncs)
 
-    # 6. the cost of telemetry (ledger + registry), in turns off, on, on,
-    # off, three turns, in a fresh process
+    # 6. the cost of telemetry (ledger + registry), in turns off,
+    # registry, ledger, ledger, registry, off, two turns, in a fresh
+    # process
     child = subprocess.run(
         [sys.executable, "-c", TELEMETRY_COST_CHILD, str(ROOT), str(path),
          str(n_bytes), result_digest(list(want8), list(want8.values())),
@@ -1345,7 +1371,7 @@ def telemetry_phase(drive, by_path: dict, branches: dict, tmp: Path,
         if run["arm"] == "ledger":
             ledger_bytes.append(run["ledger_bytes"])
         emit("telemetry", case="cost", run="fresh_process", **run)
-    if [len(v) for v in rates.values()] != [10, 10, 10]:
+    if [len(v) for v in rates.values()] != [4, 4, 4]:
         raise SystemExit(f"the telemetry-cost child ran {rates}")
     med = {arm: statistics.median(v) for arm, v in rates.items()}
     emit("telemetry", case="cost", median_gb_per_s=med,
@@ -2107,10 +2133,14 @@ def grep_sample_phase(by_path: dict, tmp: Path, path: Path,
                     seconds=round(seconds, 4), host_reads=n_reads,
                     launches=by_path[path_name], equal_to_oracle=True)
 
-        # 10b. sample: k = 16 and 4,096 over the same inputs.
+        # 10b. sample: k = 16 and 4,096 over the same inputs.  Each
+        # input's candidates are taken once, at the largest k: a smaller
+        # k's bottom-k lies among them.
         spans = {"words": token_spans(words_data),
                  "file": token_spans(stream_data)}
-        for k in (16, 4096):
+        k_max = 4096
+        cands_of: dict = {}
+        for k in (16, k_max):
             for entry, key, files in (("sample_bytes", "words", None),
                                       ("sample_file", "file", [str(path)]),
                                       ("sample_file_8files", "file",
@@ -2123,18 +2153,21 @@ def grep_sample_phase(by_path: dict, tmp: Path, path: Path,
                     if files is None \
                     else (lambda: sample.sample_file(files, k, cfg))
                 got, seconds, n_reads = drive_gs(path_name, fn, chunks)
-                if files is None:
+                if entry in cands_of:
+                    cands, population = cands_of[entry]
+                elif files is None:
                     cands, total = sample_candidates(
-                        spans["words"], np.zeros(1, np.int64), 0, k, w)
+                        spans["words"], np.zeros(1, np.int64), 0, k_max, w)
                     cands, population = [cands], total
                 else:
                     cands, population = [], 0
                     for f in range(len(files)):
                         rows, row0 = file_cuts(runs[0], f)
                         c, n_tok = sample_candidates(spans["file"], rows,
-                                                     row0, k, w)
+                                                     row0, k_max, w)
                         cands.append(c)
                         population += n_tok
+                cands_of[entry] = cands, population
                 data = words_data if files is None else stream_data
                 s_, e_ = bottom_k(cands, k)
                 want = [data[a:b] for a, b in zip(s_.tolist(),
@@ -2254,6 +2287,133 @@ def grep_sample_phase(by_path: dict, tmp: Path, path: Path,
 # {case: measurements (and, on the coordinator, the result)} as JSON.  A
 # case's finish ms holds the rank's wait for its peers' streams (the last
 # step's rows differ in length).
+#: The ladder's policy: one resource retry, then a rung down.
+LADDER_POLICY = {"resource_retries": 1, "transient_retries": 1,
+                 "degrade": True, "backoff_base_s": 0.0, "jitter_frac": 0.0}
+#: The storm's first rung: every rung of the ladder is below it.
+LADDER_START = {"map_impl": "fused", "combiner": "hot-cache",
+                "sort_impl": "radix"}
+
+
+def result_fields(r) -> dict | None:
+    """A word-count result as its digest and totals (None off the
+    coordinator)."""
+    if r is None:
+        return None
+    return {"digest": result_digest(r.words, r.counts), "words": len(r.words),
+            "total": r.total, "distinct": r.distinct,
+            "dropped_uniques": r.dropped_uniques,
+            "dropped_count": r.dropped_count}
+
+
+def predicted_partials(groups_per_file: list, window: int,
+                       hook: bool) -> int:
+    """The window-boundary partials of a run (``_OverlapMerger.due``, the
+    JAX rule): a sliding window of ``window`` groups retires its oldest
+    when full, a partial fires once ``window`` groups retired since the
+    last one, and for a job with a boundary hook every file boundary
+    drains the window and fires one."""
+    retired = last = inflight = partials = 0
+    for f, groups in enumerate(groups_per_file):
+        if f and hook:
+            retired, inflight = retired + inflight, 0
+            partials, last = partials + 1, retired
+        for _ in range(groups):
+            while inflight >= window:
+                inflight, retired = inflight - 1, retired + 1
+            if retired - last >= window:
+                partials, last = partials + 1, retired
+            inflight += 1
+    return partials
+
+
+def rank_case(kind: str, args: dict, spec: dict, dev, mesh,
+              runs: list) -> tuple:
+    """One case of phases 11 and 12 in a rank's child (both children
+    import it): window-boundary merges (``overlap``: the word count,
+    bigrams or grep over the 8-file corpus with ``merge_overlap``, the
+    coordinator's ledger giving each partial's interval and the residual
+    finish's), streamed GB/s (``turn``: overlap on or off, ``retry`` 1 or
+    0), window replay (``replay``: a dispatch fault on the ranks in
+    ``plan_ranks``, ``retry=2``) and the ladder (``storm``: every step on
+    the ranks in ``ranks`` fails as out of memory until the torch sort).
+    ``runs`` holds each ``run_job``'s result.  Returns ``(result,
+    extra)``."""
+    import torch.distributed as tdist
+
+    from mapreduce_tpu_torch import Config, count_file
+    from mapreduce_tpu_torch.models import grep
+    from mapreduce_tpu_torch.obs import ledger
+    from mapreduce_tpu_torch.obs.telemetry import Telemetry
+    from mapreduce_tpu_torch.parallel import mapreduce as pmr
+
+    rank = tdist.get_rank()
+    kw = {} if mesh is None else {"mesh": mesh}
+    path = spec["path"]
+    if kind in ("overlap", "turn"):
+        corpus8 = [path] * 8
+        cfg = Config(merge_strategy=args.get("strategy", "tree"),
+                     merge_overlap=args.get("overlap", True))
+        led = os.path.join(spec["out"], f"{args['name']}.jsonl")
+        if rank == 0 and os.path.exists(led):
+            os.unlink(led)
+        tel = Telemetry.create(ledger_path=led if rank == 0 else None,
+                               progress_every_s=3600) \
+            if kind == "overlap" else None
+        try:
+            if args.get("patterns"):
+                res = [(x.matches, x.lines) for x in grep.grep_file_multi(
+                    corpus8, [p.encode() for p in args["patterns"]], cfg,
+                    dev, telemetry=tel, **kw)]
+            else:
+                res = result_fields(count_file(
+                    corpus8, cfg, dev, ngram=args.get("ngram", 1),
+                    retry=args.get("retry", 0), telemetry=tel, **kw))
+        finally:
+            if tel is not None:
+                tel.close()
+        pipe = runs[-1].pipeline
+        extra = {"partials": pipe.get("partial_merges"),
+                 "agreements": pipe.get("agreements"),
+                 "agree_ms": pipe.get("agree_ms")}
+        if tel is not None and rank == 0:
+            recs = [r for r in ledger.read_ledger(led)
+                    if r["kind"] == "collective"]
+            extra["partial_ms"] = [
+                round((r["ended_at"] - r["started_at"]) * 1e3, 3)
+                for r in recs if r["op"] == "partial"]
+            extra["residual_ms"] = [
+                round((r["ended_at"] - r["started_at"]) * 1e3, 3)
+                for r in recs if r["op"] == "finish"]
+        return res, extra
+    if kind == "replay":
+        plan = args["plan"] if rank in args["plan_ranks"] else None
+        res = result_fields(count_file(path, Config(fault_plan=plan), dev,
+                                       retry=2, **kw))
+    else:  # storm
+        cfg = Config(**LADDER_START, inflight_groups=1,
+                     failure_policy=LADDER_POLICY)
+        real = pmr.Engine.step
+
+        def storming(self, state, chunk, step_index):
+            if rank in args["ranks"] and self.job.config.sort_impl != "xla":
+                raise RuntimeError("RESOURCE_EXHAUSTED: injected storm")
+            return real(self, state, chunk, step_index)
+
+        pmr.Engine.step = storming
+        try:
+            res = result_fields(count_file(path, cfg, dev, **kw))
+        finally:
+            pmr.Engine.step = real
+    rr = runs[-1]
+    return res, {"replay_ms": round(rr.metrics.phases.get("replay", 0.0)
+                                    * 1e3, 3),
+                 "recoveries": rr.pipeline.get("recoveries", 0),
+                 "degrade_steps": rr.pipeline.get("degrade_steps", []),
+                 "agreements": rr.pipeline.get("agreements"),
+                 "agree_ms": rr.pipeline.get("agree_ms")}
+
+
 MANY_RANKS_CHILD = """
 import json, os, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -2266,6 +2426,8 @@ from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
 from mapreduce_tpu_torch.parallel import collectives, distributed
 from mapreduce_tpu_torch.parallel.mesh import data_mesh
 from mapreduce_tpu_torch.runtime import executor
+
+from chip_smoke import rank_case
 
 dev = distributed.initialize("gpu", backend=spec["backend"], timeout_s=240)
 axis = data_mesh(device=dev)
@@ -2296,6 +2458,7 @@ for case in spec["cases"]:
     runs.clear()
     before = sent()
     t0 = time.perf_counter()
+    extra = {}
     if kind == "count_file":
         r = count_file(spec["path"], Config(merge_strategy=args["strategy"]),
                        dev, ngram=args.get("ngram", 1))
@@ -2303,6 +2466,9 @@ for case in spec["cases"]:
             "counts": r.counts, "total": r.total, "distinct": r.distinct,
             "dropped_uniques": r.dropped_uniques,
             "dropped_count": r.dropped_count}
+    elif kind in ("overlap", "turn", "replay", "storm"):
+        res, extra = rank_case(kind, dict(args, name=case["name"]), spec,
+                               dev, None, runs)
     elif kind == "grep":
         rs = grep.grep_file_multi(spec["path"],
                                   [p.encode() for p in args["patterns"]],
@@ -2316,7 +2482,7 @@ for case in spec["cases"]:
     after = sent()
     rr = runs[-1]
     out["cases"][case["name"]] = {
-        "seconds": seconds, "result": res,
+        "seconds": seconds, "result": res, **extra,
         "reduce_s": rr.metrics.phases.get("reduce"),
         "steps": int(rr.bases.shape[0]), "bases": rr.bases.tolist(),
         "launches": dict(ktok.LAUNCHES),
@@ -2418,17 +2584,212 @@ def hold_count(label: str, got: dict, ref, oracle_words: dict,
                          f"{ngram_want[3] - len(ngram_want[0])}")
 
 
+def rank_cases(strategies, patterns, turns: bool, n: int) -> list:
+    """The cases phases 11 and 12 add to their worlds: the word count over
+    the 8-file corpus with window-boundary merges under each strategy,
+    bigrams and grep with four patterns; on one axis the GB/s turns
+    (overlap on, off, off, on; ``retry`` 1, 0, 0, 1); a dispatch fault
+    under ``retry=2`` on every rank and on rank 1 alone; and a resource
+    storm on every rank."""
+    every = list(range(max(n, 2)))
+    cases = [{"name": f"overlap_{s}", "kind": "overlap",
+              "args": {"strategy": s}} for s in strategies]
+    cases += [{"name": "overlap_ngram2", "kind": "overlap",
+               "args": {"ngram": 2}},
+              {"name": "overlap_grep_p4", "kind": "overlap",
+               "args": {"patterns": patterns}}]
+    if turns:
+        for i, arm in enumerate(("on", "off", "off", "on", "retry1",
+                                 "retry0", "retry0", "retry1")):
+            cases.append({"name": f"turn{i}_{arm}", "kind": "turn",
+                          "args": {"overlap": arm == "on",
+                                   "retry": int(arm == "retry1")}})
+    plan = "at=dispatch:1:transient"
+    cases += [{"name": "replay_every_rank", "kind": "replay",
+               "args": {"plan": plan, "plan_ranks": every}},
+              {"name": "replay_rank1", "kind": "replay",
+               "args": {"plan": plan, "plan_ranks": [1]}},
+              {"name": "storm_every_rank", "kind": "storm",
+               "args": {"ranks": every}}]
+    return cases
+
+
+def hold_rank_cases(label: str, cases: list, ranks: list, steps1: int,
+                    ref: dict, ngram_want, n_bytes8: int) -> dict:
+    """Phases 11 and 12: a world's ``rank_cases`` held to one rank's runs
+    on the card (``ref``: the 8-file word count, bigrams and grep, and the
+    phase-4 file's count, each already held to the oracle) and to the
+    predicted partials and launches; returns each case's measurements."""
+    from mapreduce_tpu_torch import Config
+
+    window = Config().inflight_groups
+    n = len(ranks)
+    head = ranks[0]["cases"]
+    out = {}
+    for case in cases:
+        name, kind, args = case["name"], case["kind"], case["args"]
+        mine = [r["cases"][name] for r in ranks]
+        got = head[name]["result"]
+        want_l = {"tokenize_compact": 8 * steps1}
+        partials = None
+        if kind in ("overlap", "turn"):
+            if args.get("patterns"):
+                want_l = {}
+                hook, want = True, ref["grep8"]
+                for r, m in enumerate(mine):
+                    if [tuple(x) for x in m["result"]] != want:
+                        raise SystemExit(f"{label} {name} on rank {r}: "
+                                         f"{m['result']}, one rank {want}")
+            elif args.get("ngram"):
+                want_l = {"tokenize_pair": 8 * steps1}
+                hook, want = True, ref["ngram8"]
+                spilled = ngram_want[3] > len(ngram_want[0])
+                differ = [f for f in want if got[f] != want[f]
+                          and not (spilled and f == "dropped_uniques")]
+                if differ or got["dropped_uniques"] \
+                        < ngram_want[3] - len(ngram_want[0]):
+                    raise SystemExit(f"{label} {name} differs from one "
+                                     f"rank's run in {differ}: {got}")
+            else:
+                hook = False
+                if got != ref["count8"]:
+                    raise SystemExit(f"{label} {name}: {got}, one rank and "
+                                     f"the oracle {ref['count8']}")
+            if args.get("overlap", True):
+                partials = predicted_partials([steps1] * 8, window, hook)
+                if any(m["partials"] != partials for m in mine):
+                    raise SystemExit(f"{label} {name}: partials "
+                                     f"{[m['partials'] for m in mine]}, "
+                                     f"predicted {partials}")
+        else:
+            if got != ref["count1"]:
+                raise SystemExit(f"{label} {name}: {got}, one rank and the "
+                                 f"oracle {ref['count1']}")
+            hit = any(r in range(n) for r in args.get(
+                "plan_ranks", args.get("ranks", [])))
+            for r, m in enumerate(mine):
+                if kind == "replay" and (m["recoveries"] >= 1) != hit:
+                    raise SystemExit(f"{label} {name} on rank {r}: "
+                                     f"{m['recoveries']} recoveries")
+                if kind == "storm" and m["degrade_steps"] != (
+                        ["combiner-off", "map-split", "sort-xla"]
+                        if hit else []):
+                    raise SystemExit(f"{label} {name} on rank {r}: "
+                                     f"{m['degrade_steps']}")
+            want_l = None
+        for r, m in enumerate(mine):
+            if want_l is None:  # a replay relaunches: at least one a step
+                if m["launches"].get("tokenize_compact", 0) < steps1:
+                    raise SystemExit(f"{label} {name} rank {r} launched "
+                                     f"{m['launches']}")
+            elif m["launches"] != want_l:
+                raise SystemExit(f"{label} {name} rank {r} launched "
+                                 f"{m['launches']}, expected {want_l}")
+        rec = {"seconds": [round(m["seconds"], 4) for m in mine],
+               "finish_ms": [round((m["reduce_s"] or 0) * 1e3, 3)
+                             for m in mine],
+               "bytes_sent_per_rank": [m["bytes_sent"] for m in mine],
+               "launches_per_rank": [m["launches"] for m in mine],
+               "agree_us_per_crossing": [
+                   round(m["agree_ms"] * 1e3 / m["agreements"], 2)
+                   if m.get("agreements") else None for m in mine]}
+        if partials is not None:
+            rec.update(partials_predicted=partials,
+                       partials=[m["partials"] for m in mine],
+                       partial_ms=head[name].get("partial_ms"),
+                       residual_ms=head[name].get("residual_ms"))
+        if kind == "turn":
+            rec["gb_per_s"] = n_bytes8 / head[name]["seconds"] / 1e9
+        if kind in ("replay", "storm"):
+            rec.update(replay_ms=[m["replay_ms"] for m in mine],
+                       recoveries=[m["recoveries"] for m in mine],
+                       degrade_steps=head[name]["degrade_steps"])
+        out[name] = rec
+    return out
+
+
+#: One rank of a CLI world on card 0 (argv: the repo root, the CLI's
+#: argv as JSON): what a launcher's rank runs, over gloo.
+CLI_RANK_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from mapreduce_tpu_torch import cli
+from mapreduce_tpu_torch.parallel import distributed
+distributed.initialize("gpu", backend="gloo", timeout_s=120)
+try:
+    rc = cli.main(json.loads(sys.argv[2]))
+finally:
+    sys.stdout.flush()
+    distributed.shutdown()
+raise SystemExit(rc)
+"""
+
+
+def cli_world(argv: list, out: Path, n: int = 2, sigint_rank=None,
+              snapshot=None, timeout_s: float = 300) -> list:
+    """``n`` ranks of the CLI (``CLI_RANK_CHILD``) on card 0; with
+    ``sigint_rank``, that rank alone gets a SIGINT once ``snapshot``'s
+    first integrity file landed.  Returns each rank's ``(exit code,
+    stdout)``; a join past the time limit fails the smoke."""
+    import signal
+    import socket
+
+    out.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    procs, files = [], []
+    for r in range(n):
+        env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                   GROUP_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        fo, fe = open(out / f"rank{r}.out", "wb"), open(out / f"rank{r}.log",
+                                                         "wb")
+        files += [fo, fe]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", CLI_RANK_CHILD, str(ROOT),
+             json.dumps(argv)], cwd=ROOT, env=env, stdout=fo, stderr=fe))
+    deadline = time.monotonic() + timeout_s
+    try:
+        if sigint_rank is not None:
+            while procs[sigint_rank].poll() is None \
+                    and time.monotonic() < deadline:
+                if os.path.exists(snapshot + ".sum"):
+                    procs[sigint_rank].send_signal(signal.SIGINT)
+                    break
+                time.sleep(0.002)
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"the CLI world of {n} ranks outlived "
+                         f"{timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for f in files:
+            f.close()
+    return [(p.returncode, (out / f"rank{r}.out").read_bytes())
+            for r, p in enumerate(procs)]
+
+
 def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                      stream_data: bytes, want_words: dict, ngram_want,
                      dev) -> None:
     """Phase 11: the streamed run over several ranks (see the module
     docstring).  Returns the one-rank runs the worlds were held to."""
+    import contextlib
+    import io
+
     import numpy as np
     import torch
 
-    from mapreduce_tpu_torch import Config, count_file
+    from mapreduce_tpu_torch import Config, cli, count_file
     from mapreduce_tpu_torch.data import reader as reader_mod
     from mapreduce_tpu_torch.models import grep
+    from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
 
     t_phase = time.perf_counter()
     cfg = Config()
@@ -2449,8 +2810,6 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                "args": {"patterns": patterns}},
               {"name": "sample_file_k4096", "kind": "sample",
                "args": {"k": k}}]
-    spec = {"path": str(path), "cases": cases}
-
     # The one-rank runs the worlds are held to, here on the card.
     one = {"count": count_file(str(path), cfg),
            "ngram2": count_file(str(path), cfg, ngram=2),
@@ -2462,17 +2821,52 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
     arr = np.frombuffer(stream_data, np.uint8)
     nlpos = np.flatnonzero(arr == 0x0A)
     spans = token_spans(stream_data)
+    # The 8-file corpus's one-rank runs, held to the oracle: every file is
+    # cut alike, so the word and gram counts, the dropped occurrences and
+    # grep's matches and lines are 8 times one file's.
+    corpus8 = [str(path)] * 8
+    cuts1 = np.stack([b.base_offsets for b in reader_mod.iter_batches(
+        str(path), 1, cfg.chunk_bytes)]).ravel()[1:]
+    grep1 = []
+    for p in patterns:
+        hits = pattern_hits(arr, literal_luts(p.encode()), cuts1)
+        grep1.append((len(hits), matching_lines(hits, nlpos)))
+    one8 = count_file(corpus8, cfg)
+    one8_ng = count_file(corpus8, cfg, ngram=2)
+    ref8 = {"count1": result_fields(one["count"]),
+           "count8": result_fields(one8), "ngram8": result_fields(one8_ng),
+           "grep8": [(r.matches, r.lines) for r in grep.grep_file_multi(
+               corpus8, [p.encode() for p in patterns], cfg)]}
+    if one["count"].as_dict() != want_words \
+            or list(one["count"].words) != list(want_words) \
+            or one8.as_dict() != {k: 8 * v for k, v in want_words.items()} \
+            or list(one8.words) != list(want_words) \
+            or one8_ng.as_dict() != {k: 8 * v
+                                     for k, v in ngram_want[0].items()} \
+            or (one8_ng.total, one8_ng.dropped_count) != (
+                8 * ngram_want[1], 8 * ngram_want[2]) \
+            or ref8["grep8"] != [(8 * m, 8 * n_) for m, n_ in grep1] \
+            or one["grep"] != grep1:
+        raise SystemExit("the one-rank runs over 8 files differ from the "
+                         "oracle")
 
     worlds = [("nccl", max(1, min(n_cards, 4))), ("gloo", 2)]
     for backend, n in worlds:
         t_w = time.perf_counter()
-        ranks = run_world(n, backend, spec, tmp / f"world_{backend}{n}")
+        new = rank_cases(("tree", "gather", "keyrange"), patterns, True, n)
+        ranks = run_world(n, backend, {"path": str(path),
+                                       "cases": cases + new},
+                          tmp / f"world_{backend}{n}")
         world_s = time.perf_counter() - t_w
         # The reader's cuts of n rows a step: the oracles' row starts.
         bases = np.stack([b.base_offsets for b in reader_mod.iter_batches(
             str(path), n, cfg.chunk_bytes)])
         head = ranks[0]["cases"]
-        for name, case in head.items():
+        new_cases = hold_rank_cases(f"{backend}{n}", new, ranks,
+                                    bases.shape[0], ref8, ngram_want,
+                                    8 * len(stream_data))
+        for name in [c["name"] for c in cases]:
+            case = head[name]
             if np.asarray(case["bases"]).tolist() != bases.tolist():
                 raise SystemExit(f"{backend}{n} {name}: row bases differ "
                                  "from the reader's cuts")
@@ -2522,7 +2916,8 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                 "count_file_ngram2": "tokenize_pair",
                 "sample_file_k4096": "tokenize_pair"}
         for r in ranks:
-            for name, case in r["cases"].items():
+            for name in [c["name"] for c in cases]:
+                case = r["cases"][name]
                 want_l = {need[name]: steps} if name in need else {}
                 if case["launches"] != want_l:
                     raise SystemExit(f"{backend}{n} {name} rank {r['rank']} "
@@ -2548,8 +2943,54 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
              all_gather_ms={key[len("all_gather_ms_"):]: [
                  round(r[key], 4) for r in ranks]
                  for key in ranks[0] if key.startswith("all_gather_ms_")})
+        # Window-boundary merges, GB/s in turns, replay and the ladder
+        # across the ranks; a tree partial moves what a finish moves.
+        partials = new_cases["overlap_tree"]["partials_predicted"]
+        emit("many_ranks", backend=backend, ranks=n, corpus_files=8,
+             bytes=8 * len(stream_data), window=cfg.inflight_groups,
+             tree_bytes_predicted_per_rank=(partials + 1) * 14_680_096
+             if n == 2 else 0, new_cases=new_cases,
+             gb_per_s={arm: [c["gb_per_s"] for name, c in new_cases.items()
+                             if name.endswith("_" + arm)]
+                       for arm in ("on", "off", "retry1", "retry0")})
+
+    # A real SIGINT to one rank of a 2-rank CLI world on card 0, once the
+    # first snapshot landed: every rank must drain at the same step and
+    # exit 75, and the relaunch print what one uninterrupted rank prints.
+    t_c = time.perf_counter()
+    argv = [*corpus8, "--stream", "--no-echo", "--format", "json"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(argv) != 0:
+            raise SystemExit("the uninterrupted CLI run failed")
+    want_out = buf.getvalue().encode()
+    ck = str(tmp / "ranks_sigint.npz")
+    argv += ["--checkpoint", ck, "--checkpoint-every", "2"]
+    first = cli_world(argv, tmp / "ranks_cli_sigint", sigint_rank=1,
+                      snapshot=ck)
+    if first != [(75, b""), (75, b"")]:
+        raise SystemExit(
+            f"the SIGINT'd CLI world ended "
+            f"{[(rc, len(o)) for rc, o in first]}: "
+            + (tmp / "ranks_cli_sigint" / "rank0.log").read_text(
+                errors="replace")[-3000:])
+    _, step, offset, _, _ = ckpt_mod.load(ck)
+    again = cli_world(argv, tmp / "ranks_cli_resume")
+    if again != [(0, want_out), (0, b"")]:
+        raise SystemExit(f"the relaunched CLI world ended "
+                         f"{[(rc, len(o)) for rc, o in again]}, rank 0's "
+                         f"stdout equal {again[0][1] == want_out}")
+    emit("many_ranks", case="cli_sigint", ranks=2, backend="gloo",
+         signalled_rank=1, exits=[75, 75], snapshot_step=step,
+         snapshot_offset=offset, preempted_lines=[
+             ln for r in range(2) for ln in (
+                 tmp / "ranks_cli_sigint" / f"rank{r}.log").read_text(
+                 errors="replace").splitlines()
+             if ln.startswith("preempted:")],
+         relaunch_equal_to_uninterrupted=True,
+         seconds=round(time.perf_counter() - t_c, 3))
     emit("many_ranks", phase_s=round(time.perf_counter() - t_phase, 3))
-    return one
+    return one, ref8
 
 
 # Phase 12's child: one rank of a world laid out as hosts (nodes) of
@@ -2570,6 +3011,8 @@ from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
 from mapreduce_tpu_torch.parallel import collectives, distributed
 from mapreduce_tpu_torch.parallel.mesh import two_level_mesh
 from mapreduce_tpu_torch.runtime import executor
+
+from chip_smoke import rank_case
 
 dev = distributed.initialize("gpu", backend=spec["backend"], timeout_s=120)
 hosts, local = distributed.process_count(), distributed.local_device_count()
@@ -2616,6 +3059,9 @@ for case in spec["cases"]:
         res = [(x.matches, x.lines) for x in grep.grep_file_multi(
             path, [p.encode() for p in args["patterns"]], cfg, dev,
             mesh=mesh)]
+    elif kind in ("overlap", "replay", "storm"):
+        res, extra = rank_case(kind, dict(args, name=case["name"]), spec,
+                               dev, mesh, runs)
     elif kind == "host_range":
         # Mode (a): this host's aligned range over its own ranks; then
         # the hosts' partial tables merged by a tree across hosts.
@@ -2631,7 +3077,9 @@ for case in spec["cases"]:
                  "merged_distinct": int(merged.occupied().sum()),
                  "merged_dropped": list(merged.dropped_totals())}
     else:  # the global driver, with a ledger, a snapshot, a fault plan
-        c = Config(fault_plan=args.get("fault_plan"))
+        overlap = args.get("overlap", False)
+        c = Config(fault_plan=args.get("fault_plan"), merge_overlap=overlap,
+                   inflight_groups=1 if overlap else 4)
         tel = (Telemetry.create(ledger_path=args["ledger"],
                                 progress_every_s=3600)
                if args.get("ledger") else None)
@@ -2666,9 +3114,10 @@ distributed.shutdown()
 
 def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
                      stream_data: bytes, want_words: dict, ngram_want,
-                     one: dict) -> None:
+                     one: dict, ref: dict) -> None:
     """Phase 12: the streamed run over several hosts (see the module
-    docstring).  ``one`` holds phase 11's one-rank runs on the card."""
+    docstring).  ``one`` holds phase 11's one-rank runs on the card,
+    ``ref`` its 8-file ones."""
     import numpy as np
     import torch
 
@@ -2699,11 +3148,14 @@ def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
                "args": {"ledger": led}},
               {"name": "global_hier", "kind": "global",
                "args": {"two_level": True}}]
+    # The kill lands after the first step's checkpoint boundary, where a
+    # window of one merged a partial into the snapshot's accumulator; the
+    # resume merges the snapshot's accumulator and the residual.
     kill = {"name": "global_kill", "kind": "global",
-            "args": {"checkpoint": ck, "every": 1,
+            "args": {"checkpoint": ck, "every": 1, "overlap": True,
                      "fault_plan": "at=process-kill:1:permanent"}}
     resume = {"name": "global_resume", "kind": "global",
-              "args": {"checkpoint": ck, "every": 1}}
+              "args": {"checkpoint": ck, "every": 1, "overlap": True}}
     arr = np.frombuffer(stream_data, np.uint8)
     nlpos = np.flatnonzero(arr == 0x0A)
     w_counts = sorted(want_words.values())
@@ -2715,7 +3167,11 @@ def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
     for backend, n, hosts in worlds:
         t_w = time.perf_counter()
         label = f"{backend}{n}x{hosts}"
-        spec = {"path": str(path), "cases": cases
+        # Phase 11's world of one rank ran every new case at D = 1 already:
+        # the one-host world here adds the two-level overlaps only.
+        new = [c for c in rank_cases(strategies, patterns, False, n)
+               if hosts > 1 or c["name"].startswith("overlap_hier")]
+        spec = {"path": str(path), "cases": cases + new
                 + ([kill] if backend == "gloo" else [])}
         ranks = run_world(n, backend, spec, tmp / f"hosts_{label}",
                           child=MANY_HOSTS_CHILD, hosts=hosts,
@@ -2729,6 +3185,8 @@ def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
         head = ranks[0]["cases"]
         bases = np.stack([b.base_offsets for b in reader_mod.iter_batches(
             str(path), n, cfg.chunk_bytes)])
+        new_cases = hold_rank_cases(label, new, ranks, bases.shape[0], ref,
+                                    ngram_want, 8 * len(stream_data))
         for r in ranks:
             if r["hosts"] != hosts or r["host"] != r["rank"] // (n // hosts):
                 raise SystemExit(f"{label}: rank {r['rank']} is on host "
@@ -2819,7 +3277,8 @@ def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
                 if name.startswith(("count_file_", "global", "host_range"))}
         need["count_file_ngram2"] = "tokenize_pair"
         for r in ranks:
-            for name, case in r["cases"].items():
+            for name in [c["name"] for c in cases]:
+                case = r["cases"][name]
                 want_l = {need[name]: case["steps"]} if name in need else {}
                 if case["launches"] != want_l:
                     raise SystemExit(f"{label} {name} rank {r['rank']} "
@@ -2843,7 +3302,11 @@ def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
                                          for r in ranks],
                  "launches_per_rank": [r["cases"][name]["launches"]
                                        for r in ranks]}
-                 for name in head})
+                 for name in [c["name"] for c in cases]})
+        emit("many_hosts", backend=backend, ranks=n, hosts=hosts,
+             corpus_files=8, bytes=8 * len(stream_data),
+             window=cfg.inflight_groups, new_cases=new_cases,
+             killed_after_partial=resumed is not None)
     emit("many_hosts", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
@@ -2855,6 +3318,15 @@ def main() -> int:
               "false); this script measures the port on the card only",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def mark(phase: str) -> None:
+        """The wall seconds of the phase that just ended."""
+        now = time.perf_counter()
+        emit("phase_time", name=phase, seconds=round(now - t_mark[0], 3))
+        t_mark[0] = now
+
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
@@ -2894,6 +3366,7 @@ def main() -> int:
          ptxas={k: [ln for ln in r.splitlines() if "ptxas info" in ln
                     and ("Used" in ln or "Function properties" in ln)][-6:]
                 for k, (_, r) in built.items()})
+    mark("build")
 
     # 2. the wrappers the main paths call against the plain versions
     # (launches here do not count: the counters are cleared after)
@@ -3064,6 +3537,8 @@ def main() -> int:
                 emit("kernel", probe=name, mode="radix_partition", impl=impl,
                      sort=what, rows=planes[0].shape[0], equal=True)
 
+    mark("kernel")
+
     # 3 - 8. the main paths, with the launch counters read around each
     by_path: dict[str, dict] = {}
     branches: dict[str, dict] = {}
@@ -3107,6 +3582,7 @@ def main() -> int:
          distinct=got.distinct, dropped_count=got.dropped_count,
          seconds=round(words_s, 4), launches=by_path["count_words"],
          branches=branches["count_words"], equal_to_oracle=True)
+    mark("words")
 
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         path = Path(tmp) / "corpus.txt"
@@ -3123,6 +3599,7 @@ def main() -> int:
              gb_per_s=round(len(stream_data) / stream_s / 1e9, 4),
              launches=by_path["count_file"], branches=branches["count_file"],
              equal_to_oracle=True)
+        mark("stream")
 
         fused_cfg = Config(map_impl="fused")
         comb_cfg = Config(map_impl="fused", combiner="hot-cache")
@@ -3158,27 +3635,36 @@ def main() -> int:
                  launches=by_path[name], branches=branches[name],
                  equal_to_oracle=True)
         del comb_words, comb_file_data
+        mark("paths")
 
         # 6. the pipelined executor over ~1 GB
         stream_pipeline(drive, Path(tmp), path, stream_data, want_stream,
                         chunk32, dev)
+        mark("stream_pipeline")
         # 7. its failure policy, fault plans and preemption
         faults_phase(drive, Path(tmp), path, stream_data, want_stream)
+        mark("faults")
         # 8. its run ledger, registry, flight recorder and profiler
         telemetry_phase(drive, by_path, branches, Path(tmp), path,
                         stream_data, want_stream)
+        mark("telemetry")
         # 9. the n-gram and sketched word-count families
         ngram2_want = families_phase(drive, by_path, Path(tmp), path,
                                      stream_data, words_data, dev)
+        mark("families")
         # 10. grep and the reservoir sample
         grep_sample_phase(by_path, Path(tmp), path, stream_data,
                           words_data, dev)
+        mark("grep_sample")
         # 11. the streamed run over several ranks
-        one_rank = many_ranks_phase(by_path, Path(tmp), path, stream_data,
-                                    want_stream, ngram2_want, dev)
+        one_rank, ref8 = many_ranks_phase(by_path, Path(tmp), path,
+                                          stream_data, want_stream,
+                                          ngram2_want, dev)
+        mark("many_ranks")
         # 12. the streamed run over several hosts
         many_hosts_phase(by_path, Path(tmp), path, stream_data, want_stream,
-                         ngram2_want, one_rank)
+                         ngram2_want, one_rank, ref8)
+        mark("many_hosts")
         del stream_data, want_stream, one_rank
 
     # 13. times at the main path's shape: one 32 MB chunk
@@ -3374,6 +3860,8 @@ def main() -> int:
              "stream_rows": comb_rows, "dense_stream_rows": dense_rows,
              "spill_fallbacks": comb_branches.get("spill_fallbacks", 0)})
 
+    mark("times")
+
     # 14. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
@@ -3409,6 +3897,9 @@ def main() -> int:
              top=[{"op": k[:60], "ms_per_step": round(ms, 4), "calls": n_}
                   for k, ms, n_ in by_kernel[:12]])
     del run
+    mark("profile")
+    emit("phase_time", name="total",
+         seconds=round(time.perf_counter() - t_start, 3))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_name(), flush=True)

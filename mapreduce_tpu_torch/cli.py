@@ -9,7 +9,8 @@ the flags it takes; every other flag of the JAX CLI is refused with a
 usage error.  The run goes to the card unless ``--platform cpu`` asks for
 the CPU.  Progress logs and ``--stats`` go to stderr.  A preempted
 streamed run (SIGINT, or an injected preemption) drains, checkpoints and
-exits 75.
+exits 75; under a launcher a SIGINT to one rank drains every rank at the
+same step, and every rank exits 75.
 
 ``--ledger PATH`` appends the run ledger (and, on a failure, dumps
 ``PATH.flight.json``), ``--metrics-out PATH`` writes the metrics registry
@@ -18,9 +19,10 @@ and ``--profile DIR`` a Chrome trace; none of them changes stdout.
 Under a launcher (``torchrun --nproc-per-node D -m mapreduce_tpu_torch
 FILE --stream``) the D processes are one ``torch.distributed`` world and
 each streams its row of every step (NCCL on the card, gloo with
-``--platform cpu``); ``--merge-strategy`` picks the collective merge, and
-only the coordinator (rank 0) prints, writes the ledger and the metrics.
-The output does not depend on D.
+``--platform cpu``); ``--merge-strategy`` picks the collective merge,
+``--merge-overlap`` merges at window boundaries, ``--retry`` replays a
+failed window on every rank, and only the coordinator (rank 0) prints,
+writes the ledger and the metrics.  The output does not depend on D.
 """
 
 from __future__ import annotations
@@ -40,8 +42,7 @@ _CTRL_ESCAPES = str.maketrans({"\t": "\\t", "\n": "\\n", "\r": "\\r",
 
 #: Flags of the JAX CLI's streamed executor whose planes are not ported,
 #: and the ROADMAP.md item that ports each.
-_UNPORTED_FLAGS = {"--merge-overlap": "A8b (iii)",
-                   "--autotune": "A8b (ii), the autotuner"}
+_UNPORTED_FLAGS = {"--autotune": "A8b (ii), the autotuner"}
 
 #: The JAX CLI's collective merge strategies.  The two-level ``hier-*``
 #: ones need a two-level mesh, which the CLI's one axis is not (a usage
@@ -160,6 +161,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "fleet meshes only; the CLI's 1-D mesh rejects "
                         "them.  'auto' (ROADMAP.md item A8b (ii), the "
                         "autotuner) is not ported yet")
+    p.add_argument("--merge-overlap", action="store_true",
+                   help="with --stream: drain the local tables into a "
+                        "device-resident merged accumulator at window "
+                        "boundaries (one async partial collective per "
+                        "--inflight retired groups), overlapping "
+                        "interconnect time with map compute; results stay "
+                        "bit-identical and each partial lands as an "
+                        "op='partial' collective ledger record (v10); "
+                        "requires --retry 0")
     p.add_argument("--verify-sample", type=int, default=0, metavar="K",
                    help="after a word-count run, exactly recount K reported "
                         "words host-side (byte-string keyed, no hashing) "
@@ -630,17 +640,19 @@ def main(argv: list[str] | None = None) -> int:
                          "run-history prior, which is not ported to the "
                          "PyTorch package yet (ROADMAP.md item A8b (ii), "
                          "the autotuner)")
-    world = int(os.environ.get("WORLD_SIZE") or 1)
-    if world > 1:
-        # A world of ranks streams: the single-buffer path has no steps
-        # to spread, and window replay needs the ranks to agree on its
-        # anchor first.
+    if args.merge_overlap:
         if not args.stream:
-            parser.error(f"a world of {world} ranks runs --stream only")
+            parser.error("--merge-overlap requires --stream")
         if args.retry:
-            parser.error(f"--retry across {world} ranks (window replay) is "
-                         "not ported to the PyTorch package yet (ROADMAP.md "
-                         "item A9 (ii))")
+            parser.error("--merge-overlap requires --retry 0 (the replay "
+                         "anchor snapshots local state only; an overlapped "
+                         "window has shipped counts the anchor cannot "
+                         "restore)")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1 and not args.stream:
+        # A world of ranks streams: the single-buffer path has no steps
+        # to spread.
+        parser.error(f"a world of {world} ranks runs --stream only")
     paths = args.input
     try:
         chunks = []
@@ -682,7 +694,8 @@ def main(argv: list[str] | None = None) -> int:
                         sketch_flush_every=args.sketch_flush_every,
                         merge_every=args.merge_every,
                         fault_plan=args.fault_plan,
-                        merge_strategy=args.merge_strategy)
+                        merge_strategy=args.merge_strategy,
+                        merge_overlap=args.merge_overlap)
     except ValueError as e:
         parser.error(str(e))
     joined = not distributed.initialized()

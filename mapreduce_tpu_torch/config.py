@@ -91,6 +91,14 @@ class Config:
         stored as the frozen policy so the config stays hashable).  None:
         the executor's ``retry`` count gives the transient and resource
         budgets.
+      merge_overlap: window-boundary merges: every ``inflight_groups``
+        retired groups (and at checkpoint, file and preemption boundaries)
+        the streamed run merges the ranks' local states into one
+        replicated accumulator and resets them, and the stream's end
+        merges only the residual (identical results).  Requires
+        ``retry=0`` (an explicit failure policy keeps its budgets, with
+        window replay disarmed); each partial is an ``op='partial'``
+        ``collective`` ledger record.
     """
 
     chunk_bytes: int = 1 << 25
@@ -117,6 +125,7 @@ class Config:
     fault_plan: Optional[str] = None
     failure_policy: object = None
     merge_strategy: str = "tree"
+    merge_overlap: bool = False
 
     def __post_init__(self) -> None:
         if self.chunk_bytes % 128 != 0:
@@ -158,6 +167,10 @@ class Config:
                              f"{self.merge_every}")
         if self.geometry is not None:
             raise _not_ported("a kernel geometry preset", "A14")
+        if not isinstance(self.merge_overlap, bool):
+            raise ValueError(
+                f"merge_overlap must be a bool, got "
+                f"{type(self.merge_overlap).__name__}")
         if self.compact_slots not in (None, 0):
             raise ValueError(
                 "compact_slots must be None (compact mode) or 0 (pair mode): "

@@ -157,11 +157,10 @@ def combiner_cache_from_numpy(fields: Mapping[str, Any],
         for f in CombinerCache._fields})
 
 
-#: JAX ``Config`` fields of the streamed executor's merge and tuning planes,
-#: not ported yet: the value the port behaves as, and the ROADMAP.md item
-#: that ports each.
-_UNPORTED_DEFAULTS = {"merge_overlap": (False, "A8b (iii)"),
-                      "autotune": ("off", "A8b (ii), the autotuner")}
+#: JAX ``Config`` fields of the streamed executor's tuning plane, not
+#: ported yet: the value the port behaves as, and the ROADMAP.md item that
+#: ports each.
+_UNPORTED_DEFAULTS = {"autotune": ("off", "A8b (ii), the autotuner")}
 
 
 def config_from_dict(d: Mapping[str, Any]) -> Config:
@@ -177,9 +176,9 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     knobs with no counterpart (the results do not depend on them).  A
     geometry preset name still raises.  The pipeline knobs (superstep,
     in-flight groups, prefetch), the fault plan and the failure policy
-    (``asdict`` makes it a dict of its fields) carry across; a
-    window-boundary merge or autotuner away from its default raises,
-    naming its ROADMAP item.
+    (``asdict`` makes it a dict of its fields) and ``merge_overlap`` carry
+    across; an autotuner away from its default raises, naming its ROADMAP
+    item.
     """
     for name, (default, item) in _UNPORTED_DEFAULTS.items():
         if d.get(name, default) != default:

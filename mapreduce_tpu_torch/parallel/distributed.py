@@ -155,6 +155,7 @@ def shutdown() -> None:
     """Leave the world (a no-op when none was joined)."""
     if dist.is_initialized():
         mesh_mod._GROUPS.clear()
+        mesh_mod._CONTROL.clear()
         dist.destroy_process_group()
 
 

@@ -15,7 +15,11 @@ finalizes, the same result on every rank.  On a two-level mesh every
 per-axis strategy (tree and gather) merges level by level, innermost
 first, as the JAX Engine does, which decides the operand order of the
 jobs that keep one operand's coordination leaves (grep's line carry, the
-n-gram seam carry); keyrange flattens the mesh into one round.  With
+n-gram seam carry); keyrange flattens the mesh into one round.  The
+window-boundary overlap (``Config.merge_overlap``) merges the local
+states into a replicated accumulator as it goes
+(:meth:`Engine.partial_merge`, :meth:`Engine.partial_reset`) and ends
+with :meth:`Engine.finish_residual`.  With
 ``data_stats`` (a telemetered streamed run) a step also gives the chunk's
 data-plane statistics, as the JAX stats-mode engine does.
 """
@@ -126,7 +130,10 @@ class Engine:
         which ``finalize`` accepts)."""
         job, s = self.job, self._strategy
         if s is None:
-            return state
+            # Keyrange on one rank merges nothing, but gives the result
+            # shape all the same (the n-gram job's is its table alone).
+            return job.keyrange_merge(state, self.axis) if self._kr_family \
+                else state
         if s == "keyrange":
             return job.keyrange_merge(state, self.axis)
         if s == "hier-kr-tree":
@@ -143,6 +150,48 @@ class Engine:
         """Collective merge + finalize; the result is the same on every
         rank."""
         return self.job.finalize(self.merged(state))
+
+    def _fold_merged(self, latest: Any, accum: Any) -> Any:
+        """Fold the latest merged window into the accumulator: the result
+        merge for the keyrange family, the job's merge otherwise.  The
+        latest value is operand ``a``, as in the JAX Engine: the jobs that
+        keep one operand's coordination leaves (grep's line carry, the
+        n-gram seam carry) keep its, the stream-end value a monolithic
+        finish would report."""
+        return self._result_merge(latest, accum) if self._kr_family \
+            else self.job.merge(latest, accum)
+
+    def partial_merge(self, accum: Any, state: Any) -> Any:
+        """The window-boundary partial merge: the local states merged with
+        the configured strategy, folded into ``accum`` (None for the
+        first window).  The new accumulator is the same on every rank."""
+        latest = self.merged(state)
+        return latest if accum is None else self._fold_merged(latest, accum)
+
+    def finish_residual(self, accum: Any, state: Any) -> Any:
+        """The stream's end under overlap: merge the residual states, fold
+        ``accum`` in and finalize; with ``accum=None`` exactly
+        :meth:`finish`."""
+        if accum is None:
+            return self.finish(state)
+        return self.job.finalize(self._fold_merged(self.merged(state),
+                                                   accum))
+
+    def partial_reset(self, state: Any) -> Any:
+        """The local state after a partial merge shipped it: the job's
+        initial state, or its ``partial_reset`` hook's, which keeps the
+        cross-step context (the n-gram seam carry, grep's line carry)."""
+        hook = getattr(self.job, "partial_reset", None)
+        return hook(state) if hook is not None else self.job.init_state()
+
+    def accum_template(self) -> Any:
+        """A state of the accumulator's structure and shapes (a snapshot's
+        template): the initial state, or for the keyrange family its
+        result shape, computed on an axis of one (no collective)."""
+        init = self.job.init_state()
+        if not self._kr_family:
+            return init
+        return self.job.keyrange_merge(init, DataAxis(device=self.device))
 
     def replicate_to_host(self, state: Any) -> list[np.ndarray]:
         """Every rank's state as a checkpoint's leaves: one uint32 array a

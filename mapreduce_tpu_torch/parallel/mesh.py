@@ -176,6 +176,35 @@ def two_level_mesh(n_replicas: int, n_data: Optional[int] = None,
                         outer=outer, inner=inner)
 
 
+#: The gloo groups of control words, by member ranks, made once.
+_CONTROL: dict = {}
+
+
+def control_group(axis: DataAxis):
+    """A gloo group over ``axis``'s ranks for the streamed run's control
+    words (its start-up and step agreements): small host tensors, kept
+    apart from the group that carries the job's own collectives, so an
+    agreement never pairs with a map's gather and never waits on the card.
+    None for an axis of one.  Every rank of the world calls it alike:
+    for an axis of part of the world (a host's ranks, whose blocks are
+    contiguous), every block's group is made, in rank order."""
+    if axis.group is None:
+        return None
+    members = tuple(axis.ranks) if axis.ranks is not None \
+        else tuple(range(axis.size))
+    if members not in _CONTROL:
+        world = dist.get_world_size()
+        n = len(members)
+        if world % n or members != tuple(range(members[0],
+                                                members[0] + n)):
+            raise ValueError(f"no control group for ranks {members}: an "
+                             "axis of part of the world is a host's block")
+        for lo in range(0, world, n):
+            _CONTROL[tuple(range(lo, lo + n))] = dist.new_group(
+                list(range(lo, lo + n)), backend="gloo")
+    return _CONTROL[members]
+
+
 def axes_of(mesh: DataAxis) -> tuple:
     """The levels of ``mesh`` outermost first: a two-level mesh's two
     axes, or the one axis itself."""

@@ -98,8 +98,24 @@ range over its own ranks (the JAX package's mode (a)), and
 ``run_job_global`` runs one program over every host's ranks with a
 ledger shard a host (mode (b)).
 
-Not ported yet (ROADMAP A8b, A9 (ii)): window-boundary merges, the
-autotuner, and window replay and preemption across ranks.
+The JAX reference runs one process over the mesh, where a fault or a
+SIGINT stops every device at once; here each rank is a process, so the
+ranks agree (:class:`_Accord`): at every crossing where a local event
+decides the loop's next move (a read, a group's seams, its step, its
+completion wait, a snapshot, a collective's seam) each rank gives the
+class of its failure and a pending SIGINT in one small all_reduce over a
+gloo control group, and every rank acts on the outcome.  Window replay,
+the degradation ladder and preemption's drain and snapshot therefore run
+across ranks as on one: every rank anchors, replays, steps down and drains
+at the same group, and a SIGINT to one rank preempts every rank at the
+same step.
+
+Window-boundary merges (``Config.merge_overlap``, :class:`_OverlapMerger`)
+merge the ranks' local states into a replicated accumulator every
+``inflight_groups`` retired groups and at checkpoint, file and preemption
+boundaries, and the finish merges only the residual.
+
+Not ported yet (ROADMAP A8b (ii)): the autotuner.
 """
 
 from __future__ import annotations
@@ -116,6 +132,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mapreduce_tpu_torch import convert, native
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
@@ -134,7 +151,7 @@ from mapreduce_tpu_torch.ops import sketch as sketch_ops
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.parallel import collectives, distributed
 from mapreduce_tpu_torch.parallel.mapreduce import Engine
-from mapreduce_tpu_torch.parallel.mesh import data_mesh
+from mapreduce_tpu_torch.parallel.mesh import control_group, data_mesh
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
 from mapreduce_tpu_torch.runtime import faults as faults_mod
 from mapreduce_tpu_torch.runtime import metrics as metrics_mod
@@ -401,6 +418,140 @@ class _DegradeSignal(Exception):
         self.error = error
 
 
+#: The fault classes in the order the ranks' agreement ranks them: when
+#: ranks fail at one crossing with different classes, every rank acts on
+#: the last of them.
+_AGREE_ORDER = ("transient", "resource", "permanent", "preemption")
+
+
+class _Accord:
+    """The ranks' agreement on the stream's control flow.
+
+    At each crossing where a local event (a fault, a timeout, a SIGINT)
+    decides the loop's next move, every rank calls it with its own error
+    (None: none) and a flag (a pending SIGINT, or a landed snapshot): one
+    all_reduce (max) of two int64 words over the run's gloo control group
+    (:func:`...parallel.mesh.control_group`).  It returns the error every
+    rank acts on (this rank's own when its class is the agreed one, else a
+    :func:`...runtime.faults.peer_fault` of that class) and whether any
+    rank raised the flag.  The words go through the host, never the
+    card's stream, and the group is apart from the job's collectives, so
+    an agreement waits on no kernel and never pairs with a map's gather.
+    ``rounds`` and ``seconds`` count the calls and their time."""
+
+    def __init__(self, axis):
+        self.group = control_group(axis)
+        self.rounds = 0
+        self.seconds = 0.0
+
+    def __call__(self, err: Optional[BaseException], seam: str,
+                 flag: bool = False):
+        mine = 0 if err is None \
+            else _AGREE_ORDER.index(faults_mod.classify(err)) + 1
+        t0 = time.perf_counter()
+        word = torch.tensor([mine, int(flag)], dtype=torch.int64)
+        dist.all_reduce(word, op=dist.ReduceOp.MAX, group=self.group)
+        self.seconds += time.perf_counter() - t0
+        self.rounds += 1
+        code, any_flag = int(word[0]), bool(word[1])
+        if code == 0:
+            return None, any_flag
+        if code == mine:
+            return err, any_flag
+        return faults_mod.peer_fault(_AGREE_ORDER[code - 1], seam), any_flag
+
+
+class _OverlapMerger:
+    """Window-boundary merges (``Config.merge_overlap``): the JAX package's
+    ``_OverlapMerger`` over the ranks of a run.
+
+    One replicated accumulator and at most one partial in flight.  At a
+    boundary (a window's worth of retired groups, a checkpoint, a file
+    boundary of a job with a boundary hook, a preemption) :meth:`boundary`
+    retires the previous partial, merges the ranks' local states into the
+    accumulator with the run's strategy (``Engine.partial_merge``) through
+    the ``collective-finish`` seam, so a plan's crossing 0 is the first
+    partial, and returns the local state reset (``Engine.partial_reset``).
+    :meth:`due` is a pure function of the group sequence, so every rank
+    merges at the same boundary.
+
+    The partial is issued on the loop's thread and the compute stream,
+    where the job's collectives run, so it pairs with the same call on
+    every rank.  Over gloo it copies through the host and returns once it
+    is done: nothing overlaps it.  Under NCCL its kernels and collectives
+    are queued on the stream behind the window's steps.  Each retired
+    partial writes one ``op='partial'`` ``collective`` record, from the
+    call to the moment its completion event was seen done (the next
+    boundary or the finish)."""
+
+    def __init__(self, engine, stage, tel, plan, policy, logger, strategy,
+                 window_cap: int, accord=None):
+        self.engine = engine
+        self.stage = stage
+        self.tel = tel
+        self.plan = plan
+        self.policy = policy
+        self.logger = logger
+        self.strategy = strategy
+        self.window_cap = max(1, int(window_cap))
+        self.accord = accord
+        self.accum = None
+        self.partials = 0
+        self._retired_at_last = 0
+        self._inflight = None  # (completion token, started_at, step)
+
+    def disarm(self) -> None:
+        """Preemption's shutdown: no further injected faults."""
+        self.plan = None
+
+    def due(self, retired_groups: int) -> bool:
+        """A window's worth of groups retired since the last boundary."""
+        return retired_groups - self._retired_at_last >= self.window_cap
+
+    def retire(self) -> None:
+        """See the previous partial done and write its ledger record."""
+        if self._inflight is None:
+            return
+        token, t0, step = self._inflight
+        self._inflight = None
+        _wait_token(self.stage, token)
+        self.tel.ledger_write("collective", op="partial",
+                              strategy=self.strategy, step=step,
+                              started_at=t0,
+                              ended_at=round(time.perf_counter(), 6))
+
+    def boundary(self, state, step: int, retired_groups: int):
+        """Merge ``state`` into the accumulator; the reset local state."""
+        self.retire()
+        t0 = round(time.perf_counter(), 6)
+        self.accum = _collective_call(
+            lambda: self.engine.partial_merge(self.accum, state), self.plan,
+            self.policy, self.tel, self.logger, self.accord)
+        self._inflight = (self.stage.completion(), t0, step)
+        self.partials += 1
+        self._retired_at_last = retired_groups
+        self.tel.event("partial_merge", step=step)
+        return self.engine.partial_reset(state)
+
+    def host_leaves(self) -> list:
+        """The accumulator as a snapshot's leading leaves (the JAX package
+        packs ``{"a": accumulator, "s": state}``, flattened in key order):
+        replicated, so no device axis."""
+        self.retire()
+        return [leaf[0] for leaf in convert.state_to_leaves(self.accum)]
+
+    def template(self) -> list:
+        """The accumulator's leaves' shapes (a snapshot's template)."""
+        return [leaf[0] for leaf in
+                convert.state_to_leaves(self.engine.accum_template())]
+
+    def restore(self, leaves: list, device) -> None:
+        """The accumulator of a resumed snapshot."""
+        self.accum = convert.leaves_to_state(
+            [leaf[None] for leaf in leaves], self.engine.accum_template(),
+            device)
+
+
 def _config_summary(config: Config) -> dict:
     """The degradation ladder's view of a config.  The port runs no
     geometry preset, so its geometry is always ``default`` and the
@@ -542,21 +693,26 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                   resumed_file, logger, progress_every: int, timer,
                   plan, policy, replay: bool, rebuild, sigint: list, tel,
                   data_agg, device, end_offset: Optional[int] = None,
-                  host_rows=None):
-    """The streaming loop, the JAX ``_drive_stream`` without window-boundary
-    merges.  Returns ``(state, bytes_done, pipe)``: ``bytes_done`` is the
-    absolute cursor (it starts at ``start_offset``) and ``pipe`` the window
-    statistics.
+                  host_rows=None, accord=None, overlap=None):
+    """The streaming loop, the JAX ``_drive_stream``.  Returns ``(state,
+    bytes_done, pipe)``: ``bytes_done`` is the absolute cursor (it starts
+    at ``start_offset``) and ``pipe`` the window statistics.
 
     ``plan`` is the run's fault plan (or None), ``policy`` its failure
-    policy; ``replay`` (a budget for any class, on one rank) arms the
-    anchor and the window replay (see the module docstring); ``rebuild(config)``
-    gives the engine of a degraded config.  ``end_offset`` ends the stream
-    (a host's byte range); ``host_rows``, the rows of this process's host
-    on the global driver, add ``host_bytes`` to the ``group`` records.
-    ``cur_config`` is the ladder's
-    moving target: the loop's own knobs (superstep, window, prefetch) stay
-    the caller's.  ``sigint`` is the record of :func:`_sigint_deferred`.
+    policy; ``replay`` (a budget for any class, without window-boundary
+    merges) arms the anchor and the window replay (see the module
+    docstring); ``rebuild(config)`` gives the engine of a degraded config.
+    ``end_offset`` ends the stream (a host's byte range); ``host_rows``,
+    the rows of this process's host on the global driver, add
+    ``host_bytes`` to the ``group`` records.  ``cur_config`` is the
+    ladder's moving target: the loop's own knobs (superstep, window,
+    prefetch) stay the caller's.  ``sigint`` is the record of
+    :func:`_sigint_deferred`.  ``accord`` (an :class:`_Accord`, across
+    ranks) makes every rank act alike on a local event: each crossing
+    where one decides the loop's next move ends in an agreement, and a
+    SIGINT is raised on every rank at the same read.  ``overlap`` (an
+    :class:`_OverlapMerger`) merges at window, checkpoint, file and
+    preemption boundaries.
 
     ``tel`` (a :class:`...obs.telemetry.Telemetry`, the disabled one when
     the run has none) gets the JAX package's records at its points: a
@@ -600,9 +756,43 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     retired_groups = 0
 
     def interrupted() -> None:
-        if sigint and not quiet:
+        """Raise a recorded SIGINT (on one rank; across ranks a SIGINT is
+        raised only where the ranks agree, in :func:`settle`)."""
+        if accord is None and sigint and not quiet:
             sigint.clear()
             raise KeyboardInterrupt
+
+    def settle(err: Optional[BaseException], seam: str,
+               safe: bool = False) -> None:
+        """The end of a crossing: raise the error every rank acts on.  On
+        one rank that is ``err``; across ranks the agreed one, so a rank
+        whose peer failed fails alike.  At a ``safe`` point (the stream's
+        reads and its end) a recorded SIGINT is raised too, on every rank
+        when any rank has one."""
+        if accord is None:
+            if err is not None:
+                raise err
+            if safe:
+                interrupted()
+            return
+        pending = safe and bool(sigint) and not quiet
+        agreed, any_sigint = accord(err, seam, pending)
+        if agreed is not None:
+            raise agreed
+        if safe and any_sigint:
+            sigint.clear()
+            raise KeyboardInterrupt
+
+    def overlap_boundary(state):
+        """A window-boundary partial merge; the reset local state is the
+        committed one."""
+        nonlocal live
+        with span("retire_wait", timer):
+            overlap.retire()
+        with span("dispatch", timer):
+            state = overlap.boundary(state, step_index, retired_groups)
+        live = state
+        return state
 
     def heartbeat() -> None:
         """The ``progress`` record, on its wall-clock cadence (the not-due
@@ -686,30 +876,43 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         telemetered run folds the chunks' data statistics and the table's
         gauges after the group's last combine and starts their copy to the
         host before the completion token, which then covers it."""
-        with span("stage", timer):
-            if plan is not None:
-                cross("stage-acquire")
-            if restage:
-                group = [(b, stage.stage(b, hold=True)) for b, _ in group]
-            if plan is not None:
-                cross("h2d")
+        err = None
+        try:
+            with span("stage", timer):
+                if plan is not None:
+                    cross("stage-acquire")
+                if restage:
+                    group = [(b, stage.stage(b, hold=True))
+                             for b, _ in group]
+                if plan is not None:
+                    cross("h2d")
+            with span("dispatch", timer):
+                if plan is not None:
+                    cross("dispatch")
+        except Exception as e:
+            err = e
+        # Before the step, whose map may gather over the ranks: a rank
+        # that failed a seam would leave its peers waiting in the gather.
+        settle(err, "dispatch")
         with span("dispatch", timer):
-            if plan is not None:
-                cross("dispatch")
-            stage.wait_copies([ev for _, (_, ev) in group])
-            stats = None
-            for b, (chunk, _) in group:
-                out = engine.step(state, chunk, b.step)
-                if engine.data_stats:
-                    state, chunk_stats = out
-                    stats = chunk_stats if stats is None \
-                        else datastats.add(stats, chunk_stats)
-                else:
-                    state = out
-            if stats is not None:
-                stats = datastats.StatsFetch(
-                    engine.job.state_stats(state, stats), engine.axis)
-            done = stage.completion()
+            try:
+                stage.wait_copies([ev for _, (_, ev) in group])
+                stats = None
+                for b, (chunk, _) in group:
+                    out = engine.step(state, chunk, b.step)
+                    if engine.data_stats:
+                        state, chunk_stats = out
+                        stats = chunk_stats if stats is None \
+                            else datastats.add(stats, chunk_stats)
+                    else:
+                        state = out
+                if stats is not None:
+                    stats = datastats.StatsFetch(
+                        engine.job.state_stats(state, stats), engine.axis)
+                done = stage.completion()
+            except Exception as e:
+                err = e
+            settle(err, "dispatch")
         return state, done, group, stats
 
     def group_data(stats) -> Optional[dict]:
@@ -751,8 +954,13 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         while True:
             try:
                 out, done, _, stats = dispatch(state, group, restage=True)
+                err = None
                 with span("retire_wait", timer):
-                    _wait_token(stage, done, policy.token_timeout_s)
+                    try:
+                        _wait_token(stage, done, policy.token_timeout_s)
+                    except Exception as e:
+                        err = e
+                settle(err, "token-wait")
                 return out, stats, total
             except Exception as e:
                 cls = faults_mod.classify(e)
@@ -903,12 +1111,17 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         nonlocal retired_groups
         entry = window[0]
         wait_t0 = time.perf_counter()
+        err = None
         try:
             if phase is None:
                 token_wait(entry)
             else:
                 with span(phase, timer):
                     token_wait(entry)
+        except Exception as e:
+            err = e
+        try:
+            settle(err, "token-wait")
         except Exception as e:
             return recover(state, e, entry=entry)
         token_ready_at = time.perf_counter()
@@ -956,7 +1169,11 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 cross("ledger-append")
             except faults_mod.FaultError as fe:
                 if fe.fault_class == "preemption":
-                    raise
+                    if accord is None:
+                        raise
+                    # Only the coordinator writes the ledger: every rank
+                    # takes the preemption at the next read, as a SIGINT.
+                    sigint.append(signal.SIGINT)
                 skip_record = True
                 log_event(logger, "ledger append fault absorbed",
                           error=repr(fe))
@@ -989,8 +1206,11 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         an exhausted budget is absorbed: the run goes on without this
         snapshot.  True when it landed.  Every rank gives its state to
         the snapshot (one gather) and crosses the seam; the coordinator
-        alone writes."""
+        alone writes; across ranks the ranks agree on the outcome (a
+        preemption raised on one rank is raised on every rank)."""
         leaves = engine.replicate_to_host(state)
+        if overlap is not None:
+            leaves = overlap.host_leaves() + leaves
         writer = engine.axis.coordinator
 
         def save() -> None:
@@ -1006,20 +1226,26 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 observed(ce, "checkpoint-save", step_index)
                 raise
 
+        err, saved = None, False
         try:
             _with_budget(save, "checkpoint-save", policy,
                          injected_only=False,
                          on_retry=lambda attempt, ce, cls: retry_record(
                              step_index, attempt, ce, cls,
                              seam="checkpoint-save"))
-            return writer
-        except faults_mod.PreemptionFault:
-            raise
+            saved = writer
+        except faults_mod.PreemptionFault as pf:
+            err = pf
         except Exception as ce:
             log_event(logger, "checkpoint save failed; continuing without "
                       "this snapshot", error=repr(ce),
                       fault_class=faults_mod.classify(ce))
-            return False
+        if accord is not None:
+            # The coordinator's outcome is every rank's.
+            err, saved = accord(err, "checkpoint-save", saved)
+        if err is not None:
+            raise err
+        return saved
 
     def checkpoint(state, preempt: bool = False) -> bool:
         """Save a snapshot under the ``checkpoint`` phase and write its
@@ -1051,6 +1277,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             while len(window) >= window_cap:
                 pipe["full_retires"] += 1
                 state = retire_oldest(state)
+            if overlap is not None and overlap.due(retired_groups):
+                state = overlap_boundary(state)
         cursor_before = bytes_done
         batches = [b for b, _ in group]
         read_at = read_t.pop(batches[0].step, None)
@@ -1076,6 +1304,10 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             state = drain_window(state)
             pipe["boundary_drains"] += 1
             last_ckpt = step_index // checkpoint_every
+            if overlap is not None:
+                # The snapshot packs the reset local state and the
+                # accumulator.
+                state = overlap_boundary(state)
             if checkpoint(state):
                 log_event(logger, "checkpoint", step=step_index,
                           path=checkpoint_path)
@@ -1127,27 +1359,37 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         pending: list = []
         while True:
             interrupted()
+            err, batch = None, None
             with span("read_wait", timer):
-                batch = next(it, None) if plan is None else read_guarded()
-            interrupted()
+                try:
+                    batch = next(it, None) if plan is None \
+                        else read_guarded()
+                except Exception as e:
+                    err = e
+            settle(err, "reader-read", safe=True)
             if batch is None:
                 break
             read_t[batch.step] = time.perf_counter()
             with span("stage", timer):
                 staged = stage.stage(batch, hold=replayable)
-            if last_file is not None and batch.file_index != last_file:
-                # A file boundary is a group and window boundary.
+            if (boundary_hook is not None and last_file is not None
+                    and batch.file_index != last_file):
+                # For a job with a boundary hook, as in the JAX package, a
+                # file boundary is a group and window boundary (and a
+                # window-boundary merge ships the old file's counts before
+                # the hook edits the carry).
                 if pending:
                     state = flush(state, pending)
                     pending = []
-                state = drain_window(state)
+                state = drain_window(state, do_reanchor=False)
                 pipe["boundary_drains"] += 1
-                if boundary_hook is not None:
-                    # The drained state is the anchor; the hook's edit
-                    # makes a new one (nothing is in flight).
-                    state = boundary_hook(state)
-                    if replayable:
-                        reanchor(state)
+                if overlap is not None:
+                    state = overlap_boundary(state)
+                state = boundary_hook(state)
+                if replayable:
+                    # The hook's edit is the new anchor (nothing is in
+                    # flight), on every rank at the same boundary.
+                    reanchor(state)
             last_file = batch.file_index
             pending.append((batch, staged))
             if len(pending) == config.superstep:
@@ -1166,7 +1408,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 window[-1].life["h2d_done_at"] = round(time.perf_counter(), 6)
         with span("compute_tail", timer):
             state = drain_window(state, phase=None, do_reanchor=False)
-        interrupted()
+        settle(None, "stream", safe=True)
         return state
 
     bounded = contextlib.nullcontext() if policy.token_timeout_s is None \
@@ -1183,15 +1425,17 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             # them, snapshot the committed state, and exit with the resume
             # cursor.  The plan is disarmed first, so no second injected
             # fault interrupts the shutdown.  A preempted run writes no
-            # flight dump.  Across ranks a preemption is not drained: the
-            # ranks would first have to agree on the cursor (A9 (ii)).
-            if faults_mod.classify(pe) != "preemption" \
-                    or engine.n_devices > 1:
+            # flight dump.  Across ranks every rank gets here at the same
+            # crossing (the ranks agreed on it), so they drain the same
+            # window and leave with the same cursor.
+            if faults_mod.classify(pe) != "preemption":
                 raise
             # Mid-replay, the committed state is not the replayed one: exit
             # without a snapshot, so the last one on disk stays consistent.
             in_replay, quiet = quiet, True
             plan = None
+            if overlap is not None:
+                overlap.disarm()
             state = drain_window(live, do_reanchor=False)
             checkpointed = False
             if in_replay:
@@ -1199,6 +1443,11 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                           "without checkpoint", step=step_index)
             elif checkpoint_path:
                 try:
+                    if overlap is not None:
+                        # Preemption is a boundary too: the packed
+                        # snapshot resumes exactly.
+                        state = overlap.boundary(state, step_index,
+                                                 retired_groups)
                     checkpointed = checkpoint(state, preempt=True)
                 except Exception as se:
                     # The device may already be going away: an
@@ -1222,6 +1471,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     pipe["depth_mean"] = round(pipe.pop("depth_sum") / n, 2) if n else 0.0
     pipe["window_filled"] = pipe["depth_max"] >= window_cap
     pipe["full_frac"] = round(pipe["full_retires"] / n, 3) if n else 0.0
+    if overlap is not None:
+        pipe["partial_merges"] = overlap.partials
     pipe.update(stage.summary())
     return state, bytes_done, pipe
 
@@ -1233,31 +1484,26 @@ def _path_names(path) -> list[str]:
     return [os.fsdecode(p) for p in path]
 
 
-def _collective_call(thunk, plan, policy, tel, logger):
+def _collective_call(thunk, plan, policy, tel, logger, accord=None):
     """A collective behind the ``collective-finish`` seam.  Injected
     faults fire before the collective runs, so retrying them on their
-    class budget is safe (every rank crosses the seam alike and retries
-    alike); a real failure is recorded and propagates: the peers of a
-    failed collective are blocked mid-call, and checkpoint/resume is the
-    recovery path."""
+    class budget is safe; across ranks (``accord``) the ranks agree on
+    the seam's outcome before any of them enters the collective, so a
+    fault one rank cannot absorb fails every rank.  A real failure is
+    recorded and propagates: the peers of a failed collective are
+    blocked mid-call, and checkpoint/resume is the recovery path."""
     attempt = 0
     while True:
-        try:
-            if plan is not None:
-                exc = plan.check("collective-finish")
-                if exc is not None:
-                    log_event(logger, "fault injected",
-                              seam="collective-finish", index=exc.index,
-                              fault_class=exc.fault_class)
-                    _record_fault(tel, exc, seam="collective-finish",
-                                  injected=True, index=exc.index)
-                    raise exc
-            return thunk()
-        except faults_mod.FaultError as fe:
-            if not fe.injected or fe.fault_class == "preemption" \
-                    or attempt >= policy.budget(fe.fault_class):
-                raise
+        exc = None if plan is None else plan.check("collective-finish")
+        if exc is not None:
+            log_event(logger, "fault injected", seam="collective-finish",
+                      index=exc.index, fault_class=exc.fault_class)
+            _record_fault(tel, exc, seam="collective-finish", injected=True,
+                          index=exc.index)
+        if exc is not None and exc.fault_class != "preemption" \
+                and attempt < policy.budget(exc.fault_class):
             attempt += 1
+            fe = exc
             tel.registry.counter("executor.retry_attempts").inc()
             tel.registry.counter("executor.retries_by_class",
                                  fault_class=fe.fault_class).inc()
@@ -1271,22 +1517,34 @@ def _collective_call(thunk, plan, policy, tel, logger):
                                  seam="collective-finish")
             if s > 0:
                 time.sleep(s)
+            continue
+        if accord is not None:
+            exc, _ = accord(exc, "collective-finish")
+        if exc is not None:
+            raise exc
+        try:
+            return thunk()
         except Exception as e:
-            _record_fault(tel, e, seam="collective-finish", injected=False)
+            if not isinstance(e, faults_mod.FaultError):
+                _record_fault(tel, e, seam="collective-finish",
+                              injected=False)
             raise
 
 
-def _collective_finish(engine, state, plan, policy, tel, logger):
-    """``engine.finish`` through the ``collective-finish`` seam; the
+def _collective_finish(engine, state, plan, policy, tel, logger,
+                       accord=None, accum=None):
+    """The stream's end through the ``collective-finish`` seam:
+    ``engine.finish_residual`` with the window-boundary merges'
+    accumulator ``accum`` (None: none, exactly ``engine.finish``).  The
     result is on the device when it returns (a CUDA run synchronises, as
     the JAX package fetches the result inside the ``reduce`` phase)."""
     def finish():
-        value = engine.finish(state)
+        value = engine.finish_residual(accum, state)
         if engine.device.type == "cuda":
             torch.cuda.synchronize(engine.device)
         return value
 
-    return _collective_call(finish, plan, policy, tel, logger)
+    return _collective_call(finish, plan, policy, tel, logger, accord)
 
 
 def _metrics_word_count(value) -> int:
@@ -1299,29 +1557,6 @@ def _metrics_word_count(value) -> int:
         value = value.table
     return value.total_count() \
         if isinstance(value, table_ops.CountTable) else 0
-
-
-def _refuse_across_ranks(config: Config, retry: int, plan,
-                         size: int) -> None:
-    """What a run of several ranks does not do yet (ROADMAP.md item A9
-    (ii)): window replay, whose anchor the ranks would first have to agree
-    on, and preemption's drain and snapshot.  ``retry`` asks for replay
-    and is refused; an explicit failure policy keeps its budgets on the
-    seams that never replay (reader, checkpoint save, collective finish),
-    with window replay disarmed, as the JAX package's overlapped runs do."""
-    if size == 1:
-        return
-    if retry > 0 and config.failure_policy is None:
-        raise ValueError(
-            f"window replay (retry > 0) across {size} ranks is not ported "
-            "to the PyTorch package yet (ROADMAP.md item A9 (ii)); run "
-            "with retry=0 and resume from a checkpoint")
-    if plan is not None and (
-            "preemption" in plan.events.values()
-            or (plan.rate and "preemption" in plan.classes)):
-        raise ValueError(
-            f"preemption across {size} ranks is not ported to the PyTorch "
-            "package yet (ROADMAP.md item A9 (ii))")
 
 
 def _agree(axis, *values: int) -> None:
@@ -1361,9 +1596,11 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     'hier-tree-tree' and 'hier-kr-tree'), and every rank returns the same
     value.  Snapshots are the mesh's coordinator's (its rank 0) to write
     and every rank's to resume; the run ledger is the coordinator's alone,
-    its ``data`` record summed over the ranks.  Across ranks, window
-    replay (``retry`` > 0) and preemption's drain are refused (ROADMAP.md
-    item A9 (ii)), and a SIGINT is not deferred.
+    its ``data`` record summed over the ranks.  Window replay (``retry`` >
+    0), the degradation ladder and preemption run across ranks as on one:
+    the ranks agree on every failure, so a fault on one rank replays every
+    rank from its own anchor, and a SIGINT to one rank drains every rank at
+    the same step (every rank raises ``Preempted`` with the same cursor).
 
     ``byte_range``: read only ``[lo, hi)`` of the corpus (virtual offsets
     over a list of files), this host's range
@@ -1384,7 +1621,11 @@ def run_job(job, path, config: Config = DEFAULT_CONFIG, device=None,
     ``checkpoint_every`` > 0 one is saved every that many steps.
     ``retry``: the transient and resource budgets when
     ``config.failure_policy`` is None.  A preempted run raises
-    :class:`...runtime.faults.Preempted`.
+    :class:`...runtime.faults.Preempted`.  With ``config.merge_overlap``
+    the ranks' states are merged at window boundaries (see
+    :class:`_OverlapMerger`); a bare ``retry`` > 0 is then a usage error,
+    and an explicit failure policy keeps its budgets with window replay
+    disarmed, as in the JAX package.
 
     ``telemetry`` (:class:`...obs.telemetry.Telemetry`, optional): the run
     ledger's records, the flight recorder's dump on a failure and the
@@ -1430,8 +1671,8 @@ def run_job_global(job, path, config: Config = DEFAULT_CONFIG, device=None,
     with the host's own phase totals, and a host other than 0 dumps its
     flight record to its own path.  A fault plan's ``process-kill`` is
     crossed after each dispatched group, where a plan firing at the same
-    crossing on every rank leaves no peer waiting.  Preemption across
-    ranks is refused (ROADMAP.md item A9 (ii)).
+    crossing on every rank leaves no peer waiting.  Preemption and
+    ``config.merge_overlap`` run as in :func:`run_job`.
     """
     dev = job.device if device is None else torch.device(device)
     if mesh is None:
@@ -1487,8 +1728,19 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
     plan = faults_mod.FaultPlan.resolve(config.fault_plan)
     policy = faults_mod.FailurePolicy.resolve(config.failure_policy,
                                               retry=retry)
-    _refuse_across_ranks(config, retry, plan, n_dev)
-    replay = policy.dispatch_budget > 0 and n_dev == 1 and not glob
+    if config.merge_overlap and policy.dispatch_budget > 0 \
+            and config.failure_policy is None:
+        raise ValueError(
+            "merge_overlap requires retry=0: the replay anchor snapshots "
+            "local state that a window-boundary partial merge has already "
+            "shipped into the accumulator — checkpoint/resume is the "
+            "recovery path for overlapped runs")
+    # An explicit policy keeps its budgets on the seams that never replay
+    # shipped state (reader, checkpoint save, collective finish); window
+    # replay alone is disarmed under overlap, as in the JAX package.
+    replay = policy.dispatch_budget > 0 and not glob \
+        and not config.merge_overlap
+    accord = _Accord(axis) if n_dev > 1 else None
     # The global driver has no data-statistics mode, as in the JAX package.
     data_stats = tel.enabled and datastats.supports(job) and not glob
     engine = Engine(job, dev, data_stats=data_stats, mesh=axis,
@@ -1508,23 +1760,6 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
         pallas_max_token=config.pallas_max_token, byte_range=byte_range,
         job_identity=job.identity()) if checkpoint_path else None
     fallback = None
-    if checkpoint_path and ckpt_mod.exists(checkpoint_path):
-        # The snapshot holds every rank's state (leaves [D, ...]); each
-        # rank takes its own row.
-        template = [np.empty((n_dev,) + leaf.shape[1:], leaf.dtype)
-                    for leaf in convert.state_to_leaves(state)]
-        (leaves, start_step, start_offset, bases, resumed_file), fallback = \
-            ckpt_mod.load_resilient(checkpoint_path, template=template,
-                                    expect_fingerprint=fingerprint)
-        state = convert.leaves_to_state(
-            [leaf[axis.rank:axis.rank + 1] for leaf in leaves], state, dev)
-        bases_list = list(bases)
-        log_event(logger, "resumed from checkpoint", step=start_step,
-                  offset=start_offset)
-        if fallback is not None:
-            log_event(logger, "corrupt checkpoint; resumed from previous "
-                      "good snapshot", **fallback)
-    _agree(axis, int(data_stats), start_step, start_offset)
     # With retry, the buffers of every group since the anchor are held
     # (at most a full window, plus the group being filled).
     held = (config.inflight_groups + 1) * config.superstep - 1 \
@@ -1532,6 +1767,36 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
     stage = _PinnedStage(dev, n_dev * config.chunk_bytes,
                          config.resolved_prefetch_depth, held, axis.rank) \
         if dev.type == "cuda" else _HostStage(axis.rank)
+    overlap = _OverlapMerger(engine, stage, tel, plan, policy, logger,
+                             merge_strategy, config.inflight_groups,
+                             accord) if config.merge_overlap else None
+    if checkpoint_path and ckpt_mod.exists(checkpoint_path):
+        # The snapshot holds every rank's state (leaves [D, ...]); each
+        # rank takes its own row.  Under overlap its leading leaves are
+        # the replicated accumulator's (the packed structure refuses a
+        # snapshot of the other mode).
+        template = [np.empty((n_dev,) + leaf.shape[1:], leaf.dtype)
+                    for leaf in convert.state_to_leaves(state)]
+        n_acc = 0
+        if overlap is not None:
+            acc_template = overlap.template()
+            n_acc = len(acc_template)
+            template = acc_template + template
+        (leaves, start_step, start_offset, bases, resumed_file), fallback = \
+            ckpt_mod.load_resilient(checkpoint_path, template=template,
+                                    expect_fingerprint=fingerprint)
+        if overlap is not None:
+            overlap.restore(leaves[:n_acc], dev)
+        state = convert.leaves_to_state(
+            [leaf[axis.rank:axis.rank + 1] for leaf in leaves[n_acc:]],
+            state, dev)
+        bases_list = list(bases)
+        log_event(logger, "resumed from checkpoint", step=start_step,
+                  offset=start_offset)
+        if fallback is not None:
+            log_event(logger, "corrupt checkpoint; resumed from previous "
+                      "good snapshot", **fallback)
+    _agree(axis, int(data_stats), start_step, start_offset)
     host_rows = None
     if glob:
         host_rows = np.asarray(distributed.host_shards(n_dev), np.int64)
@@ -1546,10 +1811,9 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
 
     # A SIGINT from here to run_end is deferred to the stream's safe
     # points (and, after the stream, to the end of the run), so no ledger
-    # line is torn.  Across ranks it is not: a preempted rank exits.
-    sigint_scope = _sigint_deferred() if n_dev == 1 \
-        else contextlib.nullcontext([])
-    with sigint_scope as sigint:
+    # line is torn; across ranks the ranks agree on the read where every
+    # rank takes it.
+    with _sigint_deferred() as sigint:
         tel.registry.counter("executor.runs", driver=driver).inc()
         tel.ledger_write(
             "run_start", driver=driver, job=job.identity(), devices=n_dev,
@@ -1557,7 +1821,9 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
             backend=config.resolved_backend(), map_impl=config.map_impl,
             combiner=config.combiner, geometry="default",
             **({"fault_plan": plan.spec} if plan is not None else {}),
-            merge_strategy=merge_strategy, input=_path_names(path),
+            merge_strategy=merge_strategy,
+            **({"merge_overlap": True} if config.merge_overlap else {}),
+            input=_path_names(path),
             resume_step=start_step, resume_offset=start_offset,
             **({} if glob else
                {"retry": policy.dispatch_budget if replay else 0}))
@@ -1581,12 +1847,15 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
                     timer=timer, plan=plan, policy=policy, replay=replay,
                     rebuild=rebuild, sigint=sigint, tel=tel,
                     data_agg=data_agg, device=dev, end_offset=range_hi,
-                    host_rows=host_rows)
+                    host_rows=host_rows, accord=accord, overlap=overlap)
             timer.stop("stream")
             with span("reduce", timer):
+                if overlap is not None:
+                    overlap.retire()
                 fin_t0 = time.perf_counter()
-                value = _collective_finish(engine, state, plan, policy, tel,
-                                           logger)
+                value = _collective_finish(
+                    engine, state, plan, policy, tel, logger, accord,
+                    accum=None if overlap is None else overlap.accum)
                 tel.ledger_write("collective", op="finish",
                                  strategy=merge_strategy,
                                  started_at=round(fin_t0, 6),
@@ -1599,6 +1868,9 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
             tel.flight_dump(context={"where": driver, "error": repr(e)})
             raise
         total_s = timer.stop("total")
+        if accord is not None:
+            pipe["agreements"] = accord.rounds
+            pipe["agree_ms"] = round(accord.seconds * 1e3, 4)
         pipe["overlap_fraction"] = _overlap_fraction(timer)
         if pipe["overlap_fraction"] is not None:
             tel.registry.gauge("executor.overlap_fraction").set(

@@ -210,6 +210,16 @@ def make_fault(fault_class: str, seam: str, index: int) -> FaultError:
                f"(crossing {index})", seam=seam, index=index, injected=True)
 
 
+def peer_fault(fault_class: str, seam: str) -> FaultError:
+    """What a rank acts on when another rank of its run failed at
+    ``seam`` with ``fault_class`` and it did not: a typed fault of that
+    class, not injected here (the ranks of one run agree on every
+    failure, so every rank replays, degrades or stops alike)."""
+    return _FAULT_TYPES[fault_class](
+        f"a peer rank failed with a {fault_class} fault at seam {seam!r}",
+        seam=seam)
+
+
 # ---------------------------------------------------------------------------
 # deterministic randomness
 # ---------------------------------------------------------------------------

@@ -139,7 +139,7 @@ def test_version_flag_matches_jax_cli(capsysbinary):
 
 @pytest.mark.parametrize("flags,item", [
     (("--sort-mode", "segmin"), "A14"),
-    (("--merge-overlap",), "A8b (iii)"),
+    (("--stream", "--merge-strategy", "auto"), "A8b (ii), the autotuner"),
     (("--autotune",), "A8b (ii), the autotuner"),
 ])
 def test_flags_the_port_refuses_name_their_item(flags, item, capsys):
@@ -147,6 +147,43 @@ def test_flags_the_port_refuses_name_their_item(flags, item, capsys):
         cli.main(["test.txt", "--platform", "cpu", *flags])
     assert e.value.code == 2
     assert f"(ROADMAP.md item {item})" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ("--merge-overlap",),
+    ("--stream", "--merge-overlap", "--retry", "1"),
+], ids=["no-stream", "retry"])
+def test_merge_overlap_usage_errors_match_jax_cli(flags, capsys):
+    """``--merge-overlap`` requires ``--stream`` and ``--retry 0``: exit 2
+    with the JAX message."""
+    errs = []
+    for main in (jcli.main, cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["test.txt", *flags] + (["--platform", "cpu"]
+                                         if main is cli.main else []))
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    want, got = errs
+    assert got.split("error: ", 1)[1] == want.split("error: ", 1)[1]
+
+
+def test_merge_overlap_stdout_identical_to_jax_cli(capsysbinary, tmp_path):
+    """A streamed run with window-boundary merges over two files (each
+    window of one group merged as it retires) prints the JAX CLI's
+    single-buffer stdout."""
+    other = tmp_path / "more.txt"
+    other.write_bytes(b"Good Good\tbye\nHello " * 700)
+    files = ["test.txt", str(other)]
+    old = os.getcwd()
+    os.chdir(REPO)
+    try:
+        assert cli.main(["--stream", "--merge-overlap", "--chunk-bytes",
+                         "4096", "--inflight", "1", *files,
+                         "--platform", "cpu"]) == 0
+        got = capsysbinary.readouterr().out
+    finally:
+        os.chdir(old)
+    assert got == _jax_stdout(*files)
 
 
 @pytest.mark.parametrize("flags", [("--compact-slots", "64"),

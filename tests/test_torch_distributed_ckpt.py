@@ -201,7 +201,8 @@ def test_cli_keyrange_on_two_ranks_prints_jax_stdout(corpus,
     (["--merge-strategy", "hier-kr-tree"], "needs a multi-axis device mesh"),
     (["--merge-strategy", "hier-tree-tree"],
      "needs a multi-axis device mesh"),
-    (["--merge-overlap"], "(ROADMAP.md item A8b (iii))"),
+    (["--merge-overlap", "--retry", "1"],
+     "--merge-overlap requires --retry 0"),
 ])
 def test_cli_refusals_name_their_items(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
@@ -211,12 +212,14 @@ def test_cli_refusals_name_their_items(argv, item, capsys):
 
 
 def test_cli_refuses_retry_and_batch_runs_in_a_world(monkeypatch, capsys):
-    """In a world of several ranks (the launcher's ``WORLD_SIZE``) window
-    replay and the single-buffer path are usage errors, raised before
-    any rank joins the world."""
+    """In a world of several ranks (the launcher's ``WORLD_SIZE``) the
+    single-buffer path is a usage error, and ``--retry`` with
+    ``--merge-overlap`` is the JAX CLI's, both raised before any rank
+    joins the world (``--retry`` alone runs: window replay spans the
+    ranks)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    for argv, msg in ((["--stream", "--retry", "1"],
-                       "(ROADMAP.md item A9 (ii))"),
+    for argv, msg in ((["--stream", "--retry", "1", "--merge-overlap"],
+                       "--merge-overlap requires --retry 0"),
                       ([], "runs --stream only")):
         with pytest.raises(SystemExit) as e:
             cli.main(["test.txt", "--platform", "cpu", *argv])

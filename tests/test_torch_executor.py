@@ -109,9 +109,10 @@ def test_count_file_matches_jax(jax_results, one_file, three_files, corpus,
 
 
 def test_run_job_result_and_pipeline(three_files):
-    """The window statistics and phases of a streamed run: a file boundary
-    is a group boundary, so superstep 3 over 1 + 1 + 2 chunks dispatches 3
-    groups."""
+    """The window statistics and phases of a streamed run.  As in the JAX
+    package, a file boundary is a group and window boundary only for a job
+    with a boundary hook: the word count's superstep-3 groups run across
+    the files, the bigram job's end at each file."""
     cfg = _port_config(superstep=3, inflight_groups=2)
     job = wc.WordCountJob(cfg, "cpu")
     rr = executor.run_job(job, three_files, cfg)
@@ -121,8 +122,12 @@ def test_run_job_result_and_pipeline(three_files):
     assert rr.metrics.bytes_processed == sum(sizes)
     assert rr.metrics.words_counted == rr.value.total_count()
     pipe = rr.pipeline
-    assert pipe["dispatch_groups"] == len(steps)
-    assert pipe["boundary_drains"] == len(steps) - 1
+    assert pipe["dispatch_groups"] == -(-sum(steps) // 3)
+    assert pipe["boundary_drains"] == 0
+    grams = executor.run_job(wc.NGramCountJob(2, cfg, "cpu"), three_files,
+                             cfg).pipeline
+    assert grams["dispatch_groups"] == sum(-(-n // 3) for n in steps)
+    assert grams["boundary_drains"] == len(steps) - 1
     assert pipe["inflight_groups"] == 2 and pipe["prefetch_depth"] == 6
     phases = rr.metrics.phases
     for phase in ("read_wait", "stage", "dispatch", "host_read", "h2d_tail",
@@ -255,15 +260,20 @@ def _port_stdout(capsysbinary, *args: str, rc: int = 0) -> bytes:
     ["--stream", "--retry", "1"],
     ["--stream", "--fault-plan", "at=dispatch:0:transient", "--retry", "1"],
     ["--stream", "--merge-overlap"],
+    ["--stream", "--merge-overlap", "--retry", "1"],
     ["--stream", "--autotune"],
     ["--stream", "--ledger", "LEDGER"],
 ])
 def test_cli_refusals(argv, capsysbinary, tmp_path):
     """Flags of planes not ported are refused with a usage error naming
     their ROADMAP item; ``--retry`` and ``--fault-plan`` run, and a fault
-    the budget absorbs leaves the output exact; ``--ledger`` runs, prints
-    what the plain run prints and leaves a ledger that parses."""
-    if "--retry" in argv or "--ledger" in argv:
+    the budget absorbs leaves the output exact; ``--merge-overlap`` runs
+    and prints what the plain run prints, and with ``--retry`` it is the
+    JAX CLI's usage error; ``--ledger`` runs, prints what the plain run
+    prints and leaves a ledger that parses."""
+    overlap = "--merge-overlap" in argv
+    if ("--retry" in argv and not overlap) or "--ledger" in argv \
+            or argv == ["--stream", "--merge-overlap"]:
         ledger = tmp_path / "run.jsonl"
         argv = [str(ledger) if a == "LEDGER" else a for a in argv]
         want = _port_stdout(capsysbinary, "test.txt")
@@ -279,8 +289,7 @@ def test_cli_refusals(argv, capsysbinary, tmp_path):
     err = capsysbinary.readouterr().err
     assert (b"--checkpoint requires --stream" in err) \
         if argv[0] == "--checkpoint" else (
-            b"ROADMAP.md item A8b (iii)" in err
-            if argv[1] == "--merge-overlap" else
+            b"--merge-overlap requires --retry 0" in err if overlap else
             b"ROADMAP.md item A8b (ii), the autotuner" in err)
 
 
@@ -334,8 +343,12 @@ def test_config_pipeline_knobs_map_from_jax():
             assert cfg.failure_policy.as_dict() \
                 == jc.failure_policy.as_dict()
             continue
-        item = r"A8b \(iii\)" if "merge_overlap" in kw \
-            else r"A8b \(ii\), the autotuner"
+        if "merge_overlap" in kw:
+            # Window-boundary merges map across.
+            assert convert.config_from_dict(dataclasses.asdict(
+                JConfig(**kw))).merge_overlap is True
+            continue
+        item = r"A8b \(ii\), the autotuner"
         with pytest.raises(ValueError, match=item):
             convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
     for kw in ({"superstep": 0}, {"inflight_groups": 0},

@@ -20,6 +20,7 @@ refusal raised alike on every rank is a result, and the next case runs.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -34,10 +35,17 @@ from typing import Optional
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _config(d):
+def _config(d, plan_ranks=None):
+    """A case's ``Config``; with ``plan_ranks`` its fault plan stays on
+    those ranks only."""
+    import torch.distributed as dist
+
     from mapreduce_tpu_torch.config import Config
 
-    return Config(**(d or {}))
+    d = dict(d or {})
+    if plan_ranks is not None and dist.get_rank() not in plan_ranks:
+        d.pop("fault_plan", None)
+    return Config(**d)
 
 
 def _numpy(state):
@@ -106,7 +114,7 @@ def case_run_job(job, path, config=None, merge_strategy=None,
                  checkpoint_path=None, checkpoint_every=0, retry=0,
                  ledger=None, telemetered_ranks=None, mesh=None,
                  byte_range=None, driver="run_job", ledger_every=False,
-                 plan_ranks=None, **job_args):
+                 plan_ranks=None, data_stats=True, storm=None, **job_args):
     """``run_job``'s (or ``run_job_global``'s) finished value as numpy
     (the JAX layout), its bases and the bytes it streamed.  With
     ``ledger``, the ranks in ``telemetered_ranks`` (default: all) run
@@ -114,18 +122,17 @@ def case_run_job(job, path, config=None, merge_strategy=None,
     ledger there, as the CLI does; ``ledger_every`` hands every rank the
     path (the global driver's contract).  ``byte_range`` ``"host"`` reads
     this host's aligned range.  ``plan_ranks``
-    keeps the config's fault plan on those ranks only."""
-    import dataclasses
-
+    keeps the config's fault plan on those ranks only.  ``data_stats``
+    False runs a telemetered job without its data-statistics mode.
+    ``storm`` (see :func:`_storm`) makes steps fail as out of memory.
+    The result's ``pipeline`` is the run's window statistics."""
     import torch.distributed as dist
 
     from mapreduce_tpu_torch.obs.telemetry import Telemetry
     from mapreduce_tpu_torch.parallel import distributed
     from mapreduce_tpu_torch.runtime import executor
 
-    cfg = _config(config)
-    if plan_ranks is not None and dist.get_rank() not in plan_ranks:
-        cfg = dataclasses.replace(cfg, fault_plan=None)
+    cfg = _config(config, plan_ranks)
     on = ledger is not None and (telemetered_ranks is None
                                  or dist.get_rank() in telemetered_ranks)
     tel = None if not on else Telemetry.create(
@@ -138,29 +145,103 @@ def case_run_job(job, path, config=None, merge_strategy=None,
     if driver == "run_job":
         kw["retry"] = retry
     before = _bytes_sent()
+    retries = _bytes_sent("executor.retries_by_class")
     try:
-        rr = getattr(executor, driver)(
-            _job(job, cfg, job_args), path, cfg, mesh=_mesh(mesh),
-            merge_strategy=merge_strategy, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, telemetry=tel, **kw)
+        with _storm(storm), _no_stats(not data_stats):
+            rr = getattr(executor, driver)(
+                _job(job, cfg, job_args), path, cfg, mesh=_mesh(mesh),
+                merge_strategy=merge_strategy,
+                checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, telemetry=tel, **kw)
     finally:
         if tel is not None:
             tel.close()
     after = _bytes_sent()
     return {"value": _numpy(rr.value), "bases": rr.bases,
-            "bytes": rr.metrics.bytes_processed,
+            "bytes": rr.metrics.bytes_processed, "pipeline": rr.pipeline,
             "byte_range": kw.get("byte_range"),
             "sent": {k: v - before.get(k, 0) for k, v in after.items()
-                     if v != before.get(k, 0)}}
+                     if v != before.get(k, 0)},
+            "retries": {k: v - retries.get(k, 0) for k, v in
+                        _bytes_sent("executor.retries_by_class").items()
+                        if v != retries.get(k, 0)}}
 
 
-def _bytes_sent() -> dict:
-    """The registry's ``collectives.bytes_sent`` counters by label."""
+@contextlib.contextmanager
+def _storm(spec):
+    """With ``spec`` (``{"ranks": [...], "until": {field: value}}``), every
+    step on those ranks raises an out-of-memory error until the job's
+    config has every ``until`` value (never, without it): a resource
+    storm the degradation ladder walks."""
+    if spec is None:
+        yield
+        return
+    import torch.distributed as dist
+
+    from mapreduce_tpu_torch.parallel import mapreduce as pmr
+
+    real = pmr.Engine.step
+    until = spec.get("until")
+
+    def storming(self, state, chunk, step_index):
+        if dist.get_rank() in spec["ranks"] and (until is None or any(
+                getattr(self.job.config, k) != v for k, v in until.items())):
+            raise RuntimeError("RESOURCE_EXHAUSTED: injected storm")
+        return real(self, state, chunk, step_index)
+
+    pmr.Engine.step = storming
+    try:
+        yield
+    finally:
+        pmr.Engine.step = real
+
+
+@contextlib.contextmanager
+def _sigint_at(rank: int, step: int):
+    """On ``rank``, a SIGINT to this process when step ``step`` runs."""
+    import signal
+
+    import torch.distributed as dist
+
+    from mapreduce_tpu_torch.parallel import mapreduce as pmr
+
+    real = pmr.Engine.step
+
+    def step_fn(self, state, chunk, step_index):
+        if dist.get_rank() == rank and step_index == step:
+            os.kill(os.getpid(), signal.SIGINT)
+        return real(self, state, chunk, step_index)
+
+    pmr.Engine.step = step_fn
+    try:
+        yield
+    finally:
+        pmr.Engine.step = real
+
+
+@contextlib.contextmanager
+def _no_stats(on: bool):
+    """While ``on``, no job has a data-statistics mode."""
+    if not on:
+        yield
+        return
+    from mapreduce_tpu_torch.ops import datastats
+
+    real = datastats.supports
+    datastats.supports = lambda job: False
+    try:
+        yield
+    finally:
+        datastats.supports = real
+
+
+def _bytes_sent(name: str = "collectives.bytes_sent") -> dict:
+    """The registry's ``name`` counters by label."""
     from mapreduce_tpu_torch.obs import registry
 
     return {k: v for k, v in
             registry.get_registry().snapshot()["counters"].items()
-            if k.startswith("collectives.bytes_sent")}
+            if k.startswith(name)}
 
 
 def case_topology(size, shards, mesh=None):
@@ -193,13 +274,14 @@ def _axis_fields(axis):
             else dist.get_rank(axis.group)}
 
 
-def case_count_file(path, config=None, mesh=None, **kw):
-    """``count_file``'s result fields (None off the coordinator)."""
+def case_count_file(path, config=None, mesh=None, plan_ranks=None, **kw):
+    """``count_file``'s result fields (None off the coordinator);
+    ``plan_ranks`` keeps the config's fault plan on those ranks only."""
     from mapreduce_tpu_torch.runtime import executor
 
-    return _result_fields(executor.count_file(path, _config(config),
-                                              device="cpu", mesh=_mesh(mesh),
-                                              **kw))
+    return _result_fields(executor.count_file(
+        path, _config(config, plan_ranks), device="cpu", mesh=_mesh(mesh),
+        **kw))
 
 
 def case_grep_file(path, patterns, config=None, **kw):
@@ -268,9 +350,15 @@ def case_collective(op, tables=None, capacity=0, pairs=None):
     return _numpy(out)
 
 
-def case_cli(argv):
-    """The CLI's exit code and stdout (bytes: the echo writes raw)."""
+def case_cli(argv, sigint_at=None):
+    """The CLI's exit code and stdout (bytes: the echo writes raw).
+    ``sigint_at`` ``[rank, step]`` sends that rank a real SIGINT when its
+    step ``step`` is mapped."""
     from mapreduce_tpu_torch import cli
+
+    if sigint_at is not None:
+        with _sigint_at(*sigint_at):
+            return case_cli(argv)
 
     raw = io.BytesIO()
     out = io.TextIOWrapper(raw, encoding="utf-8", write_through=True)
@@ -313,30 +401,48 @@ def _worker(spec_path: str) -> int:
     return 0
 
 
+#: The JAX step programs of every ``shared_jax_engines`` block of the
+#: process, by job kind, config, mesh shape and stats mode: a test module
+#: that runs after another reuses its compiled steps.
+_JAX_STEPS: dict = {}
+
+
 @contextlib.contextmanager
 def shared_jax_engines():
     """For the JAX references of a test module: the JAX executor builds an
     Engine per run and compiles its step anew (~10 s interpreted).  The
-    step reads neither the merge strategy nor a top-k finalize, so
-    engines of one job kind, config and mesh size share it (the finish
-    programs stay each engine's); equal engines are one.  Imports JAX, so
-    only the test process calls it."""
+    step reads neither the merge strategy nor a top-k finalize, nor the
+    loop's knobs (the window, the fault plan and policy, window-boundary
+    merges), so engines of one job kind, config and mesh size share it,
+    in every block of the process (the finish programs stay each
+    engine's); equal engines are one.  Imports JAX, so only the test
+    process calls it."""
     from mapreduce_tpu.runtime import executor as jexecutor
 
     real = jexecutor.Engine
     whole: dict = {}
-    steps: dict = {}
+    steps = _JAX_STEPS
 
     def engine(job, mesh, **kw):
         kind = job.identity().split("-top")[0]
-        key = (kind, getattr(job, "config", None),
-               tuple(mesh.shape.items()), kw.get("data_stats", False))
-        full = (job.identity(), key, tuple(sorted(kw.items())))
+        cfg = getattr(job, "config", None)
+        if cfg is not None:  # knobs of the loop, not of the programs
+            cfg = dataclasses.replace(
+                cfg, merge_overlap=False, fault_plan=None,
+                failure_policy=None, inflight_groups=1, superstep=1,
+                prefetch_depth=None)
+        key = (kind, cfg, tuple(mesh.shape.items()),
+               kw.get("data_stats", False))
+        # The global driver's engine is the per-host one without stats.
+        full = (job.identity(), key,
+                tuple(sorted({"data_stats": False, **kw}.items())))
         if full in whole:
             return whole[full]
         eng = whole[full] = real(job, mesh, **kw)
-        donor = steps.setdefault(key, eng)
-        if donor is not eng and donor._step_fn is not None:
+        donor = steps.get(key)
+        if donor is None or donor._step_fn is None:
+            steps[key] = eng
+        else:
             eng._step_fn = donor._step_fn
         return eng
 
