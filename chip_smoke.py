@@ -218,7 +218,32 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               kill), and it adds phase 11's new cases over the 8-file
               corpus under all five strategies (no GB/s turns); the NCCL
               world adds the two ``hier-*`` overlaps;
-13. times  -- each kernel's median time per 32 MB chunk beside its bound,
+13. knobs  -- the map's remaining knobs on the card: ``combiner='salt'``
+              (``count_words`` on the 32 MB one-word and Zipf corpora
+              under the torch sort and the radix seam, each equal to
+              ``combiner='off'`` and the oracle, the Zipf one with a
+              2**20-key table that holds its salted segments; at the
+              default 2**18 the salted cutoff spills, as in the JAX
+              package, and every occurrence stays accounted; step ms
+              salted against off in turns and the radix seam's ms on the
+              one-word stream salted and not); ``sort_mode='segmin'`` (equal to stable2
+              without the rescue; step ms of stable2, sort3 and segmin in
+              turns and the segmented minimum's device ms from the
+              profiler); ``merge_every=4`` over the 8-file corpus equal to
+              ``merge_every=1`` (GB/s in turns on, off, off, on), and a
+              run killed at the process-kill seam just after a snapshot
+              taken mid-buffer and resumed exact (phase 11's gloo world of
+              2 adds a tree case at ``merge_every=4``); the geometries
+              ``combiner16`` (fused, hot-cache), ``tall512`` and radix
+              digit widths 2 and 5, each equal to the default, with the
+              cache depth and digit width each wrapper was called with,
+              ``run_start``'s geometry label and ``geometry_spec``, and a
+              resource storm at ``tall512`` whose first rung is
+              ``revert-geometry``; a byte-class histogram, a user's
+              ``MapReduceJob``, through the ``Engine`` equal to numpy.
+              Phase 2 holds K1d at cache depths 8, 16, 24 and 32 and
+              K2's levels, segmented sort and seam at digit widths 1 to 5;
+14. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists (the segmented sort's: one lexsort with the group
               index first), and the time of each launch of the combiner
@@ -226,10 +251,10 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               chunk's end-to-end time by stage; the step time (map +
               merge) of every path's configuration on one chunk, with the
               rows each step's sort sees;
-14. profile -- where the device time of a default, a combiner and a
+15. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 12 each drive a main path: the launch counters are set to 0
+Phases 3 to 13 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -1135,7 +1160,6 @@ def telemetry_phase(drive, by_path: dict, branches: dict, tmp: Path,
     from mapreduce_tpu_torch.models import wordcount as wc
     from mapreduce_tpu_torch.obs import ledger, registry, telemetry, timeline
     from mapreduce_tpu_torch.runtime import faults
-    from mapreduce_tpu_torch.utils import oracle
 
     chunks = -(-len(stream_data) // Config().chunk_bytes)
     corpus8 = [str(path)] * 8
@@ -1216,7 +1240,7 @@ def telemetry_phase(drive, by_path: dict, branches: dict, tmp: Path,
     pairs_data = with_pairs(stream_data, 100 * MB)
     pairs_path = tmp / "tel_pairs.txt"
     pairs_path.write_bytes(pairs_data)
-    want_pairs = oracle.word_counts(pairs_data)
+    want_pairs = word_counts(pairs_data)
     pairs_chunks = -(-len(pairs_data) // comb.chunk_bytes)
     got, seconds, recs = ledgered(
         "telemetry_combiner", lambda tel: count_file(str(pairs_path), comb,
@@ -1402,6 +1426,24 @@ def card_name() -> str:
         else f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
+def word_counts(data: bytes) -> dict:
+    """The oracle's insertion-ordered counts
+    (``mapreduce_tpu_torch/utils/oracle.py:word_counts``, a byte loop in
+    Python) by ``bytes.split``, which splits on the same separators but
+    NUL: without a NUL byte in ``data`` the two give the same dict, and
+    the smoke holds them equal on a slice of each corpus it counts."""
+    import collections
+
+    from mapreduce_tpu_torch.utils import oracle
+
+    if b"\x00" in data:
+        return oracle.word_counts(data)
+    probe = data[:MB].rpartition(b" ")[0]
+    if dict(collections.Counter(probe.split())) != oracle.word_counts(probe):
+        raise SystemExit("bytes.split counts differ from the oracle's")
+    return dict(collections.Counter(data.split()))
+
+
 def token_spans(data: bytes):
     """``(starts, ends)``: every token's span, by numpy."""
     import numpy as np
@@ -1421,11 +1463,17 @@ def host_tokens(data: bytes):
     import numpy as np
 
     starts, ends = token_spans(data)
-    index: dict = {}
-    ids = np.fromiter((index.setdefault(data[a:b], len(index)) for a, b in
-                       zip(starts.tolist(), ends.tolist())), np.int64,
-                      count=len(starts))
-    return starts, ends, ids, list(index)
+    if b"\x00" in data:  # a separator ``bytes.split`` does not know
+        toks = [data[a:b] for a, b in zip(starts.tolist(), ends.tolist())]
+    else:
+        toks = data.split()
+    vocab = list(dict.fromkeys(toks))  # first-appearance order
+    index = {t: i for i, t in enumerate(vocab)}
+    ids = np.fromiter(map(index.__getitem__, toks), np.int64,
+                      count=len(toks))
+    if len(toks) != len(starts):
+        raise SystemExit("bytes.split and the token spans disagree")
+    return starts, ends, ids, vocab
 
 
 def _fmix32(x):
@@ -2460,8 +2508,10 @@ for case in spec["cases"]:
     t0 = time.perf_counter()
     extra = {}
     if kind == "count_file":
-        r = count_file(spec["path"], Config(merge_strategy=args["strategy"]),
-                       dev, ngram=args.get("ngram", 1))
+        r = count_file(spec["path"], Config(
+            merge_strategy=args["strategy"],
+            merge_every=args.get("merge_every", 1)), dev,
+            ngram=args.get("ngram", 1))
         res = None if r is None else {"words": [w.hex() for w in r.words],
             "counts": r.counts, "total": r.total, "distinct": r.distinct,
             "dropped_uniques": r.dropped_uniques,
@@ -2851,11 +2901,16 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                          "oracle")
 
     worlds = [("nccl", max(1, min(n_cards, 4))), ("gloo", 2)]
+    # The gloo world also stages its batch tables (merge_every=4): the
+    # tree finish flushes both operands' staged rows.
+    staged = {"name": "count_file_tree_merge_every4", "kind": "count_file",
+              "args": {"strategy": "tree", "merge_every": 4}}
     for backend, n in worlds:
         t_w = time.perf_counter()
         new = rank_cases(("tree", "gather", "keyrange"), patterns, True, n)
+        cases_w = cases + ([staged] if backend == "gloo" else [])
         ranks = run_world(n, backend, {"path": str(path),
-                                       "cases": cases + new},
+                                       "cases": cases_w + new},
                           tmp / f"world_{backend}{n}")
         world_s = time.perf_counter() - t_w
         # The reader's cuts of n rows a step: the oracles' row starts.
@@ -2865,7 +2920,7 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
         new_cases = hold_rank_cases(f"{backend}{n}", new, ranks,
                                     bases.shape[0], ref8, ngram_want,
                                     8 * len(stream_data))
-        for name in [c["name"] for c in cases]:
+        for name in [c["name"] for c in cases_w]:
             case = head[name]
             if np.asarray(case["bases"]).tolist() != bases.tolist():
                 raise SystemExit(f"{backend}{n} {name}: row bases differ "
@@ -2883,7 +2938,9 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                 ("count_file_tree", "count", want_words, None),
                 ("count_file_gather", "count", want_words, None),
                 ("count_file_keyrange", "count", want_words, None),
-                ("count_file_ngram2", "ngram2", ngram_want[0], ngram_want)):
+                ("count_file_ngram2", "ngram2", ngram_want[0], ngram_want),
+                *([("count_file_tree_merge_every4", "count", want_words,
+                    None)] if backend == "gloo" else [])):
             hold_count(f"{backend}{n} {name}", head[name]["result"],
                        one[ref], oracle_words, ng)
         cuts = bases.ravel()[1:]
@@ -2913,10 +2970,11 @@ def many_ranks_phase(by_path: dict, tmp: Path, path: Path,
                 "count_file_tree": "tokenize_compact",
                 "count_file_gather": "tokenize_compact",
                 "count_file_keyrange": "tokenize_compact",
+                "count_file_tree_merge_every4": "tokenize_compact",
                 "count_file_ngram2": "tokenize_pair",
                 "sample_file_k4096": "tokenize_pair"}
         for r in ranks:
-            for name in [c["name"] for c in cases]:
+            for name in [c["name"] for c in cases_w]:
                 case = r["cases"][name]
                 want_l = {need[name]: steps} if name in need else {}
                 if case["launches"] != want_l:
@@ -3309,6 +3367,329 @@ def many_hosts_phase(by_path: dict, tmp: Path, path: Path,
              killed_after_partial=resumed is not None)
     emit("many_hosts", phase_s=round(time.perf_counter() - t_phase, 3))
 
+# Phase 13's kill: a streamed run at ``merge_every=4`` with a snapshot a
+# step, ended at the process-kill seam's second crossing, just after the
+# snapshot of step 2 (two batches staged, none folded): argv = repo root,
+# corpus file, checkpoint path.
+KNOBS_KILL_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from mapreduce_tpu_torch import Config, count_file
+cfg = Config(merge_every=4, inflight_groups=1,
+             fault_plan="at=process-kill:2:transient")
+count_file(sys.argv[2], cfg, checkpoint_path=sys.argv[3], checkpoint_every=1)
+"""
+
+
+def knobs_phase(drive, tmp: Path, path: Path, stream_data: bytes,
+                want_stream: dict, words_data: bytes, want_words: dict,
+                one_word32: bytes, dev) -> None:
+    """Phase 13: the map's remaining knobs (see the module docstring)."""
+    import collections
+    import logging
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mapreduce_tpu_torch import (Config, Engine, MapReduceJob,
+                                     count_file, count_words)
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.obs import ledger
+    from mapreduce_tpu_torch.obs.telemetry import Telemetry
+    from mapreduce_tpu_torch.ops import table as table_ops
+    from mapreduce_tpu_torch.ops.cuda import radix
+    from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+    from mapreduce_tpu_torch.runtime import checkpoint as ckpt_mod
+
+    t_phase = time.perf_counter()
+    w = Config().pallas_max_token
+    fields = ("words", "counts", "total", "distinct", "dropped_uniques",
+              "dropped_count")
+
+    def same(a, b) -> bool:
+        return all(getattr(a, f) == getattr(b, f) for f in fields)
+
+    def on_card(data: bytes) -> "torch.Tensor":
+        return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+
+    def step_turns(chunk, cfgs: dict, reps: int = 9) -> dict:
+        """Median ms of one step (map + merge into an empty running
+        table) of each configuration on ``chunk``, in turns."""
+        running = table_ops.empty(Config().table_capacity, dev)
+        times = {k: [] for k in cfgs}
+        for rep in range(reps):
+            order = list(cfgs) if rep % 2 else list(cfgs)[::-1]
+            for name in order:
+                c = cfgs[name]
+                torch.cuda.synchronize()
+                t_a = time.perf_counter()
+                upd = wc._map_stream(chunk, c, c.batch_uniques, pos_hi=0)
+                table_ops.merge(running, upd, capacity=c.table_capacity)
+                torch.cuda.synchronize()
+                if rep:
+                    times[name].append((time.perf_counter() - t_a) * 1e3)
+        return {k: round(statistics.median(v), 3) for k, v in times.items()}
+
+    # 1. combiner='salt' on the one-word and the Zipf 32 MB corpora.  A
+    # salted key spreads over up to 8 segments, and the batch table holds
+    # segments: on the Zipf chunk they outnumber the default 2**18 slots,
+    # where the cutoff falls on the salted order (the JAX envelope's
+    # second leg), so its equality runs at 2**20 and the default is
+    # measured beside it.
+    one_want = dict(collections.Counter(one_word32.split()))
+    corpora = {"one_word_32MB": (one_word32, one_want, Config().table_capacity),
+               "zipf_32MB": (words_data, want_words, 1 << 20)}
+    for label, (data, want, cap) in corpora.items():
+        for impl in ("xla", "radix_partition"):
+            need = {"tokenize_compact": 1}
+            if impl != "xla":
+                need.update(radix_partition=1, radix_sort=1)
+            off, _ = drive(f"knobs_off_{label}_{impl}", lambda: count_words(
+                data, Config(sort_impl=impl, table_capacity=cap)), want,
+                need)
+            got, seconds = drive(f"knobs_salt_{label}_{impl}",
+                                 lambda: count_words(data, Config(
+                                     combiner="salt", sort_impl=impl,
+                                     table_capacity=cap)), want, need)
+            if not same(got, off):
+                raise SystemExit(f"salt on {label} ({impl}) differs from "
+                                 "combiner='off'")
+            emit("knobs", case="salt", corpus=label, sort_impl=impl,
+                 table_capacity=cap, tokens=got.total,
+                 distinct=got.distinct, seconds=round(seconds, 4),
+                 equal_to_off_and_oracle=True)
+        stream = ktok.tokenize_split_compact(on_card(data), w)[0].cut()
+        live = stream.key_hi != ktok._SENT
+        salted = torch.unique(table_ops._key64(
+            stream.key_hi[live],
+            stream.key_lo[live] ^ ((stream.packed[live] >> 6) & 7))).numel()
+        del stream, live
+        # At the default capacity: every occurrence is still accounted.
+        spill = count_words(data, Config(combiner="salt"))
+        if spill.total != sum(want.values()) or sum(spill.counts) \
+                + spill.dropped_count != spill.total:
+            raise SystemExit(f"salt at the default capacity lost tokens on "
+                             f"{label}")
+        chunk = on_card(data)
+        emit("knobs", case="salt_step_ms", corpus=label,
+             distinct=len(want), salted_segments=salted,
+             default_capacity=Config().table_capacity,
+             default_capacity_kept=len(spill.words),
+             default_capacity_dropped_uniques=spill.dropped_uniques,
+             default_capacity_dropped_count=spill.dropped_count,
+             step_ms=step_turns(chunk, {
+                 "off": Config(), "salt": Config(combiner="salt"),
+                 "off_radix": Config(sort_impl="radix_partition"),
+                 "salt_radix": Config(combiner="salt",
+                                      sort_impl="radix_partition")}))
+    # K2's seam on the one-word stream, salted as the build salts it.
+    ow = ktok.tokenize_split_compact(on_card(one_word32), w)[0].cut()
+    salted_lo = torch.where(ow.key_hi != ktok._SENT,
+                            ow.key_lo ^ ((ow.packed >> 6) & 7), ow.key_lo)
+    seam = {name: cuda_ms(lambda lo=lo: radix.radix_sort3(
+        ow.key_hi, lo, ow.packed, impl="radix_partition",
+        packed_ordered=True)) for name, lo in (("off", ow.key_lo),
+                                                ("salt", salted_lo))}
+    biggest = {}
+    for name, lo in (("off", ow.key_lo), ("salt", salted_lo)):
+        k = table_ops._key64(ow.key_hi, lo)
+        biggest[name] = int(torch.unique(k, return_counts=True)[1].max())
+    emit("knobs", case="salt_seam_ms", rows=int(ow.key_hi.shape[0]),
+         seam_ms=seam, largest_segment_rows=biggest)
+    del ow, salted_lo
+
+    # 2. sort_mode='segmin': equal to stable2 without the rescue.
+    plain = Config(rescue_overlong=0)
+    ref = count_words(words_data, plain)
+    got, seconds = drive("knobs_segmin", lambda: count_words(
+        words_data, Config(sort_mode="segmin")), ref.as_dict(),
+        {"tokenize_compact": 1}, total=ref.total)
+    if not same(got, ref):
+        raise SystemExit("segmin differs from stable2 without the rescue")
+    chunk = on_card(words_data)
+    seg_cfg = Config(sort_mode="segmin")
+    step_ms = step_turns(chunk, {"stable2": plain,
+                                 "sort3": Config(sort_mode="sort3",
+                                                 rescue_overlong=0),
+                                 "segmin": seg_cfg})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            wc._map_stream(chunk, seg_cfg, seg_cfg.batch_uniques, pos_hi=0)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 3e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total]
+    scatter = [(k, ms) for k, ms in kernels if "scatter" in k.lower()]
+    emit("knobs", case="segmin", tokens=got.total,
+         dropped_count=got.dropped_count, seconds=round(seconds, 4),
+         equal_to_stable2=True, step_ms=step_ms,
+         device_ms_per_step=round(sum(ms for _, ms in kernels), 4),
+         segmented_min_ms=round(sum(ms for _, ms in scatter), 4),
+         segmented_min_kernels=[k[:60] for k, _ in scatter])
+    del chunk
+
+    # 3. merge_every=4 over the 8-file corpus, in turns.
+    corpus8 = [str(path)] * 8
+    want8 = {k: 8 * v for k, v in want_stream.items()}
+    per_file = -(-len(stream_data) // Config().chunk_bytes)
+    results = {}
+    for i, k in enumerate((4, 1, 1, 4)):
+        got, seconds = drive(f"knobs_merge_every{k}_turn{i}",
+                             lambda k=k: count_file(corpus8, Config(
+                                 merge_every=k)), want8,
+                             {"tokenize_compact": 8 * per_file})
+        results.setdefault(k, []).append(got)
+        emit("knobs", case="merge_every", merge_every=k, turn=i,
+             bytes=8 * len(stream_data), seconds=round(seconds, 4),
+             gb_per_s=8 * len(stream_data) / seconds / 1e9,
+             run_job_gb_per_s=got.run.metrics.gb_per_s,
+             phases=got.run.metrics.phases)
+    if not all(same(r, results[1][0]) for r in results[4] + results[1]):
+        raise SystemExit("merge_every=4 differs from merge_every=1")
+    # Killed just after a mid-buffer snapshot, then resumed.
+    ck = tmp / "knobs_kill.npz"
+    proc = subprocess.run([sys.executable, "-c", KNOBS_KILL_CHILD, str(ROOT),
+                           str(path), str(ck)], capture_output=True,
+                          timeout=300)
+    if proc.returncode != 113:
+        raise SystemExit(f"the merge_every kill ended {proc.returncode}: "
+                         + proc.stderr.decode(errors="replace")[-3000:])
+    leaves, step, offset, _, _ = ckpt_mod.load(str(ck))
+    cursor = int(np.asarray(leaves[-1]).reshape(-1)[0])
+    if not 0 < cursor < 4:
+        raise SystemExit(f"the snapshot was not mid-buffer: cursor {cursor}")
+    got, seconds = drive("knobs_merge_every_resumed", lambda: count_file(
+        str(path), Config(merge_every=4, inflight_groups=1),
+        checkpoint_path=str(ck), checkpoint_every=1), want_stream,
+        {"tokenize_compact": per_file - step})
+    emit("knobs", case="merge_every_kill", exit=proc.returncode,
+         snapshot_step=step, snapshot_cursor=cursor, offset=offset,
+         resumed_chunks=per_file - step, seconds=round(seconds, 4),
+         equal_to_oracle=True)
+
+    # 4. geometries: each equal to the default; the wrappers see the cache
+    # depth and digit width the geometry names.
+    seen: list = []
+    real_sort, real_fused = radix.radix_sort3, ktok.tokenize_fused
+
+    def sort_seen(*a, bits=radix.DEFAULT_BITS, **kw):
+        seen.append(("bits", bits))
+        return real_sort(*a, bits=bits, **kw)
+
+    def fused_seen(*a, combiner_slots=0, **kw):
+        seen.append(("combiner_slots", combiner_slots))
+        return real_fused(*a, combiner_slots=combiner_slots, **kw)
+
+    default = count_words(words_data, Config())
+    geometries = {
+        "combiner16": (Config(geometry="combiner16", map_impl="fused",
+                              combiner="hot-cache"),
+                       {"tokenize_combiner": 1}, ("combiner_slots", 16)),
+        "tall512": (Config(geometry="tall512"), {"tokenize_compact": 1},
+                    None),
+        "radix_bits2": (Config(geometry={"radix_bits": 2},
+                               sort_impl="radix_partition"),
+                        {"tokenize_compact": 1, "radix_partition": 1,
+                         "radix_sort": 1}, ("bits", 2)),
+        "radix_bits5": (Config(geometry={"radix_bits": 5},
+                               sort_impl="radix"),
+                        {"tokenize_compact": 1, "radix_partition": 2,
+                         "radix_sort": 1}, ("bits", 5)),
+    }
+    radix.radix_sort3, ktok.tokenize_fused = sort_seen, fused_seen
+    try:
+        for name, (c, need, arg) in geometries.items():
+            seen.clear()
+            got, seconds = drive(f"knobs_geometry_{name}",
+                                 lambda c=c: count_words(words_data, c),
+                                 want_words, need)
+            if not same(got, default) or seen != ([arg] if arg else []):
+                raise SystemExit(f"geometry {name}: equal to the default "
+                                 f"{same(got, default)}, wrapper arguments "
+                                 f"{seen}")
+            emit("knobs", case="geometry", geometry=name,
+                 label=c.geometry_label, wrapper_arguments=seen[:],
+                 seconds=round(seconds, 4), equal_to_default=True)
+    finally:
+        radix.radix_sort3, ktok.tokenize_fused = real_sort, real_fused
+    for c in (Config(geometry="tall512"),
+              Config(geometry={"radix_bits": 2},
+                     sort_impl="radix_partition")):
+        led = tmp / "knobs_geometry.jsonl"
+        if led.exists():
+            led.unlink()
+        tel = Telemetry.create(ledger_path=str(led))
+        try:
+            got = count_file(str(path), c, telemetry=tel)
+        finally:
+            tel.close()
+        start = [r for r in ledger.read_ledger(str(led))
+                 if r["kind"] == "run_start"][0]
+        want_spec = c.resolved_geometry.as_dict() \
+            if c.geometry_label == "custom" else None
+        if got.as_dict() != want_stream or start["geometry"] \
+                != c.geometry_label \
+                or start.get("geometry_spec") != want_spec:
+            raise SystemExit(f"run_start of {c.geometry_label}: {start}")
+        emit("knobs", case="run_start", geometry=start["geometry"],
+             geometry_spec=start.get("geometry_spec"))
+    storm = Config(geometry="tall512", inflight_groups=1,
+                   fault_plan="at=dispatch:1:resource,at=dispatch:2:resource",
+                   failure_policy={"transient_retries": 1,
+                                   "resource_retries": 0,
+                                   "backoff_base_s": 0.0})
+    got, seconds = drive("knobs_geometry_storm", lambda: count_file(
+        str(path), storm), want_stream, {"tokenize_compact": None})
+    steps = got.run.pipeline.get("degrade_steps")
+    if steps != ["revert-geometry"]:
+        raise SystemExit(f"the storm at tall512 walked {steps}")
+    emit("knobs", case="geometry_storm", degrade_steps=steps,
+         seconds=round(seconds, 4), equal_to_oracle=True)
+
+    # 5. a user's job: the byte-class histogram through the Engine.
+    class ByteClassHistogramJob(MapReduceJob):
+        def init_state(self):
+            return torch.zeros(4, dtype=torch.int64, device=dev)
+
+        def map_chunk(self, chunk, chunk_id):
+            low = chunk | 0x20
+            letter = (low >= ord("a")) & (low <= ord("z"))
+            digit = (chunk >= ord("0")) & (chunk <= ord("9"))
+            space = (chunk == 0x20) | ((chunk >= 0x09) & (chunk <= 0x0D))
+            other = ~(letter | digit | space | (chunk == 0))
+            return torch.stack([x.sum() for x in (letter, digit, space,
+                                                  other)])
+
+        def combine(self, state, update):
+            return state + update
+
+        def merge(self, a, b):
+            return a + b
+
+    arr = np.frombuffer(words_data, np.uint8)
+    low = arr | 0x20
+    letter = (low >= 97) & (low <= 122)
+    digit = (arr >= 48) & (arr <= 57)
+    space = (arr == 0x20) | ((arr >= 9) & (arr <= 13))
+    want_hist = [int(letter.sum()), int(digit.sum()), int(space.sum()),
+                 int((~(letter | digit | space | (arr == 0))).sum())]
+    ktok.LAUNCHES.clear()
+    engine = Engine(ByteClassHistogramJob(), dev)
+    rows = arr.reshape(4, -1).copy()
+    t_a = time.perf_counter()
+    hist = engine.run(rows[i:i + 1] for i in range(4)).cpu().tolist()
+    seconds = time.perf_counter() - t_a
+    if hist != want_hist or ktok.LAUNCHES:
+        raise SystemExit(f"the custom job counted {hist}, numpy "
+                         f"{want_hist}; launches {dict(ktok.LAUNCHES)}")
+    emit("knobs", case="custom_job", hist=hist, steps=4,
+         seconds=round(seconds, 4), equal_to_numpy=True)
+    emit("knobs", phase_s=round(time.perf_counter() - t_phase, 3))
+
 
 def main() -> int:
     import torch
@@ -3336,7 +3717,6 @@ def main() -> int:
     from mapreduce_tpu_torch.ops.cuda import _build
     from mapreduce_tpu_torch.ops.cuda import radix
     from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
-    from mapreduce_tpu_torch.utils import oracle
 
     dev = torch.device("cuda")
     cfg = Config()
@@ -3466,6 +3846,34 @@ def main() -> int:
                              f"version on {name}: {err}")
         emit("kernel", probe=name, mode="tokenize_combiner",
              phases=["heads", "merge", "thin"], equal=True)
+        # The cache depths a geometry or ``combiner_slots`` picks: the
+        # whole kernel and each launch against the plain versions.
+        for depth in (16, 24, 32):
+            want = ktok.tokenize_combiner_plain(t, w, ktok.COMBINER_SLOTS,
+                                                depth)
+            got = ktok.tokenize_fused(t, max_token_bytes=w,
+                                      combiner_slots=depth)
+            err = max_err((*want[:6], *want[6]),
+                          (got[0].key_hi, got[0].key_lo, got[0].packed,
+                           got[1], got[0].total, got[2], *got[3]))
+            heads, scratch = ktok.combiner_heads_kernel(t, w, depth)
+            cache = ktok.combiner_merge_kernel(heads, t.shape[0], depth)
+            thin = ktok.combiner_thin_kernel(
+                t.shape[0], ktok.COMBINER_SLOTS,
+                cache._replace(count=cache.count.clone()), scratch)
+            err = max(err, max_err(ktok.combiner_heads_plain(t, w, depth),
+                                   heads),
+                      max_err(ktok.combiner_merge_plain(heads, depth),
+                              cache),
+                      max_err(ktok.combiner_thin_plain(
+                          t, w, ktok.COMBINER_SLOTS, cache), thin))
+            errs["tokenize_combiner"] = max(errs["tokenize_combiner"], err)
+            if err:
+                raise SystemExit(f"the combiner at depth {depth} differs "
+                                 f"from its plain version on {name}: {err}")
+            emit("kernel", probe=name, mode="tokenize_combiner",
+                 combiner_slots=depth, hits=int(got[3].count.sum()),
+                 phases=["whole", "heads", "merge", "thin"], equal=True)
 
     # K2: the radix seam, each launch kind and both impls, against the
     # plain versions and the 3-key sort.
@@ -3536,6 +3944,41 @@ def main() -> int:
                                      f"3-key sort on {name}: {err}")
                 emit("kernel", probe=name, mode="radix_partition", impl=impl,
                      sort=what, rows=planes[0].shape[0], equal=True)
+    # The digit widths a geometry picks (``Geometry.radix_bits``), on the
+    # two stream probes: each level, the segmented sort after it, and the
+    # whole seam of both impls.
+    for width in (1, 2, 4, 5):
+        for name in ("k1a_stream_32MB", "one_word_stream_32MB"):
+            planes = radix_probes[name][0]
+            level_in, ends = planes, None
+            for level in (1, 2):
+                shift = 32 - level * width
+                want = radix.partition_level_plain(*level_in, shift, width,
+                                                   ends)
+                got = radix.partition_level(*level_in, shift, width, ends)
+                err = max_err((want[1], *want[0]), (got[1], *got[0]))
+                errs["radix_partition"] = max(errs["radix_partition"], err)
+                sort_err = max_err(
+                    radix.segmented_sort_plain(*want[0], want[1],
+                                               level * width),
+                    radix.segmented_sort(*want[0], want[1], level * width))
+                errs["radix_sort"] = max(errs["radix_sort"], sort_err)
+                if err or sort_err:
+                    raise SystemExit(f"radix at {width} bits, level {level}, "
+                                     f"differs from its plain versions on "
+                                     f"{name}: {err}, {sort_err}")
+                level_in, ends = got
+            want = radix.radix_sort3_plain(*planes)
+            for impl in radix.IMPLS:
+                err = max_err(want, radix.radix_sort3(
+                    *planes, impl=impl, bits=width, packed_ordered=True))
+                errs["radix_partition"] = max(errs["radix_partition"], err)
+                if err:
+                    raise SystemExit(f"radix {impl} at {width} bits differs "
+                                     f"from the 3-key sort on {name}: {err}")
+            emit("kernel", probe=name, mode="radix_partition", bits=width,
+                 levels=[1, 2], segmented_sort_equal=True,
+                 seam_impls=list(radix.IMPLS), equal=True)
 
     mark("kernel")
 
@@ -3575,7 +4018,7 @@ def main() -> int:
         return got, seconds
 
     words_data = make_corpus(32 * MB, SEED + 2, dense_at=7 * MB)
-    want = oracle.word_counts(words_data)
+    want = word_counts(words_data)
     got, words_s = drive("count_words", lambda: count_words(words_data, cfg),
                          want, {"tokenize_compact": 1})
     emit("words", bytes=len(words_data), tokens=got.total,
@@ -3588,7 +4031,7 @@ def main() -> int:
         path = Path(tmp) / "corpus.txt"
         stream_data = make_corpus(130 * MB, SEED + 3, dense_at=70 * MB)
         path.write_bytes(stream_data)
-        want_stream = oracle.word_counts(stream_data)
+        want_stream = word_counts(stream_data)
         got, stream_s = drive("count_file",
                               lambda: count_file(str(path), cfg),
                               want_stream, {"tokenize_compact": -(
@@ -3613,10 +4056,10 @@ def main() -> int:
              want, {"tokenize_fused": 1}, len(words_data)),
             ("count_words_combiner",
              lambda: count_words(comb_words, comb_cfg),
-             oracle.word_counts(comb_words), comb_need, len(comb_words)),
+             word_counts(comb_words), comb_need, len(comb_words)),
             ("count_file_combiner",
              lambda: count_file(str(comb_path), comb_cfg),
-             oracle.word_counts(comb_file_data), comb_need,
+             word_counts(comb_file_data), comb_need,
              len(comb_file_data)),
             ("count_words_radix_partition",
              lambda: count_words(words_data,
@@ -3665,9 +4108,13 @@ def main() -> int:
         many_hosts_phase(by_path, Path(tmp), path, stream_data, want_stream,
                          ngram2_want, one_rank, ref8)
         mark("many_hosts")
+        # 13. the map's remaining knobs
+        knobs_phase(drive, Path(tmp), path, stream_data, want_stream,
+                    words_data, want, one_word32, dev)
+        mark("knobs")
         del stream_data, want_stream, one_rank
 
-    # 13. times at the main path's shape: one 32 MB chunk
+    # 14. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -3862,7 +4309,7 @@ def main() -> int:
 
     mark("times")
 
-    # 14. Where a step's device time goes, for the default, combiner and
+    # 15. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

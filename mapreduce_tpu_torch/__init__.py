@@ -8,11 +8,12 @@ The tokenize + hash kernel is hand-written CUDA
 (``mapreduce_tpu_torch/csrc/tokenize.cu``), built at first use.
 """
 
-from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
+from mapreduce_tpu_torch.config import DEFAULT_CONFIG, SMALL_CONFIG, Config
 from mapreduce_tpu_torch.models.wordcount import (WordCountResult,
                                                   count_table, count_words)
-from mapreduce_tpu_torch.parallel.mapreduce import Engine
+from mapreduce_tpu_torch.parallel.mapreduce import Engine, MapReduceJob
 from mapreduce_tpu_torch.runtime.executor import count_file
 
-__all__ = ["Config", "DEFAULT_CONFIG", "Engine", "WordCountResult",
-           "count_file", "count_table", "count_words"]
+__all__ = ["Config", "DEFAULT_CONFIG", "Engine", "MapReduceJob",
+           "SMALL_CONFIG", "WordCountResult", "count_file", "count_table",
+           "count_words"]

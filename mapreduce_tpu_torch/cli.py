@@ -147,9 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "sketch; composes with --stream; deterministic for "
                         "a given corpus + chunking)")
     p.add_argument("--merge-every", type=int, default=1, metavar="K",
-                   help="fold per-chunk batch tables into the running table "
-                        "once every K steps (word-count family only; not "
-                        "ported yet past 1: ROADMAP.md item A14)")
+                   help="with --stream: stage per-chunk batch tables and "
+                        "fold them into the running table once every K "
+                        "steps, in one build (word-count runs only; "
+                        "identical results)")
     p.add_argument("--merge-strategy", choices=MERGE_STRATEGIES + ("auto",),
                    default="tree",
                    help="collective global-reduce strategy for streamed "
@@ -191,8 +192,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="aggregation sort strategy on the kernel path "
                         "(identical results): 'stable2' = a stable 2-key "
                         "sort over the kernel's byte-ordered stream, "
-                        "'sort3' = a 3-key sort; 'segmin' is not ported "
-                        "yet (ROADMAP.md item A14)")
+                        "'sort3' = a 3-key sort, 'segmin' = a 2-key sort "
+                        "and a segmented minimum (no overlong rescue; off "
+                        "the CPU only with MAPREDUCE_ALLOW_SEGMIN=1, as in "
+                        "the JAX CLI)")
     p.add_argument("--compact-slots", type=int, default=None, metavar="S",
                    help="the JAX kernel's slot compaction per window "
                         "(multiple of 8 in [8, 128]; 0 = pair mode; "
@@ -247,10 +250,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "= with --map-impl fused, the kernel counts each "
                         "chunk segment's first --combiner-slots distinct "
                         "keys in place and leaves them out of the sort; "
-                        "'salt' and 'auto' are not ported yet")
+                        "'salt' = spread a hot key over salted sort "
+                        "segments and de-salt exactly after the build; "
+                        "'auto' is not ported yet (ROADMAP.md item A8b "
+                        "(ii), the autotuner)")
     p.add_argument("--combiner-slots", type=int, default=None, metavar="C",
                    help="hot-key cache entries per segment for --combiner "
-                        "hot-cache (multiple of 8 in [8, 32]; default 8)")
+                        "hot-cache (multiple of 8 in [8, 32]; default: the "
+                        "geometry's, 8)")
+    p.add_argument("--geometry", default=None, metavar="G",
+                   help="kernel-geometry set: a preset name ('tall512', "
+                        "'combiner16'), or omit for the default; the port "
+                        "reads its radix digit width and hot-key cache "
+                        "depth (identical results).  'auto' is not ported "
+                        "yet (ROADMAP.md item A8b (ii), the autotuner)")
+    p.add_argument("--geometry-profile", default="tuned.json",
+                   metavar="PATH",
+                   help="searched geometry profiles for --geometry auto "
+                        "(accepted for the JAX CLI's sake; nothing reads "
+                        "it until the autotuner is ported)")
     p.add_argument("--platform", choices=("gpu", "cpu"), default="gpu",
                    help="'gpu' (default) runs on the card and fails without "
                         "one; 'cpu' runs on the host")
@@ -339,11 +357,14 @@ def _batch_run_start(tel, job: str, paths, config: Config,
     """A telemetered batch (non---stream) run's ``run_start``, as the JAX
     CLI writes it: the single buffer has no steps, so its ledger holds
     ``run_start``, a result-derived ``data`` record and ``run_end``."""
+    from mapreduce_tpu_torch.runtime.executor import _geometry_stamp
+
     tel.ledger_write("run_start", driver="single_buffer", job=job,
                      devices=1, chunk_bytes=input_bytes, superstep=1,
                      backend=config.resolved_backend(),
-                     map_impl=config.map_impl, combiner=config.combiner,
-                     geometry="default", merge_strategy="none",
+                     map_impl=config.map_impl,
+                     combiner=config.resolved_combiner,
+                     **_geometry_stamp(config), merge_strategy="none",
                      input=list(paths), resume_step=0, resume_offset=0,
                      retry=0)
 
@@ -381,7 +402,7 @@ def _wordcount(args, paths, data, config: Config, device, input_bytes: int,
     if batch_tel is not None:
         batch_tel.ledger_write(
             "data", groups=1, chunks=1, backend=config.resolved_backend(),
-            map_impl=config.map_impl, combiner=config.combiner,
+            map_impl=config.map_impl, combiner=config.resolved_combiner,
             capacity=config.table_capacity, tokens=result.total,
             dropped_tokens=result.dropped_count,
             dropped_uniques=result.dropped_uniques,
@@ -688,6 +709,7 @@ def main(argv: list[str] | None = None) -> int:
                         sort_impl=args.sort_impl, map_impl=args.map_impl,
                         combiner=args.combiner,
                         combiner_slots=args.combiner_slots,
+                        geometry=args.geometry,
                         superstep=args.superstep,
                         inflight_groups=args.inflight,
                         prefetch_depth=args.prefetch_depth,
@@ -698,6 +720,14 @@ def main(argv: list[str] | None = None) -> int:
                         merge_overlap=args.merge_overlap)
     except ValueError as e:
         parser.error(str(e))
+    if args.sort_mode == "segmin" and args.platform != "cpu":
+        from mapreduce_tpu_torch.config import (SEGMIN_TPU_ERROR,
+                                                segmin_allowed)
+
+        # The JAX CLI's guard, before any device work.
+        if not segmin_allowed():
+            print(f"error: {SEGMIN_TPU_ERROR}", file=sys.stderr)
+            return 2
     joined = not distributed.initialized()
     try:
         device = distributed.initialize(args.platform)

@@ -7,7 +7,8 @@ move one across as numpy arrays, so both packages can start from one state
 and their results compare field by field; :func:`state_from_numpy` and
 :func:`state_to_numpy` do the same for the composite states of the n-gram
 and sketch jobs (``NGramState``, ``GramCarry``, registers, Count-Min
-sketches, ``BatchedSketchState``), grep's ``GrepState`` and the sample's
+sketches, ``BatchedSketchState``), the staged word count's
+``BufferedTableState``, grep's ``GrepState`` and the sample's
 ``ReservoirState``.  :func:`state_to_leaves` gives a state the layout of a
 one-device JAX engine state (the checkpoint's leaves), so a snapshot from
 either package resumes in the other.
@@ -71,23 +72,25 @@ def _state_classes() -> dict:
     return {cls.__name__: cls for cls in (
         CountTable, ngram.GramCarry, ngram.ChunkSummary, wc.NGramState,
         wc.TopKTable, wc.SketchedState, wc.FreqSketchedState,
-        wc.BatchedSketchState, grep.GrepState, sample.ReservoirState)}
+        wc.BatchedSketchState, wc.BufferedTableState, grep.GrepState,
+        sample.ReservoirState)}
 
 
 def state_from_numpy(state, device=None):
     """A port state from a JAX one of the same structure: a ``CountTable``,
     ``GramCarry``, ``NGramState``, ``SketchedState``, ``FreqSketchedState``,
-    ``BatchedSketchState``, ``GrepState`` or ``ReservoirState`` (matched by
-    class name, nested as in the JAX pytree), or a bare array (registers,
-    a Count-Min sketch).  Every array becomes an int64 tensor holding its
-    uint32 values; a ``BatchedSketchState``'s cursor becomes the host int
+    ``BatchedSketchState``, ``BufferedTableState``, ``GrepState`` or
+    ``ReservoirState`` (matched by class name, nested as in the JAX
+    pytree), or a bare array (registers, a Count-Min sketch).  Every array
+    becomes an int64 tensor holding its uint32 values; the cursor of a
+    ``BatchedSketchState`` or ``BufferedTableState`` becomes the host int
     the port keeps."""
     dev = resolve_device(device)
     if isinstance(state, tuple) and hasattr(state, "_fields"):
         cls = _state_classes()[type(state).__name__]
         out = {f: state_from_numpy(getattr(state, f), dev)
                for f in state._fields}
-        if cls.__name__ == "BatchedSketchState":
+        if cls.__name__ in ("BatchedSketchState", "BufferedTableState"):
             out["cursor"] = int(np.asarray(state.cursor))
         return cls(**out)
     return torch.as_tensor(np.asarray(state, dtype=np.uint32)
@@ -121,7 +124,8 @@ def state_to_leaves(state) -> list[np.ndarray]:
 def leaves_to_state(leaves, template, device=None):
     """The state a :func:`state_to_leaves` list holds, in the structure
     of ``template`` (the running job's initial state): tensors on
-    ``device``, host ints (a batched sketch's cursor) as ints."""
+    ``device``, host ints (the cursor of a batched sketch or of a staged
+    word count) as ints."""
     dev = resolve_device(device)
     it = iter(leaves)
 
@@ -169,16 +173,14 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     Fields the port has are taken as they are, so a value the port does not
     run yet raises.  An explicit JAX ``compact_slots`` > 0 sizes the TPU
     kernel's window; it maps to compact mode (None): the port's dense
-    stream has no slots, and no result depends on them.  Of a JAX
-    kernel geometry (a ``Geometry``, which ``asdict`` makes a dict) the
-    port takes ``radix_bits`` and, under the combiner, ``combiner_slots``;
-    its window heights, slot budgets and radix slab sizes are TPU layout
-    knobs with no counterpart (the results do not depend on them).  A
-    geometry preset name still raises.  The pipeline knobs (superstep,
-    in-flight groups, prefetch), the fault plan and the failure policy
-    (``asdict`` makes it a dict of its fields) and ``merge_overlap`` carry
-    across; an autotuner away from its default raises, naming its ROADMAP
-    item.
+    stream has no slots, and no result depends on them.  A JAX kernel
+    geometry carries across as it is: a preset name, or a dict of its
+    fields (``asdict`` makes a ``Geometry`` one), which the port's
+    ``Config`` stores as its own :class:`...config.Geometry`.  The
+    pipeline knobs (superstep, in-flight groups, prefetch), the fault plan
+    and the failure policy (``asdict`` makes it a dict of its fields) and
+    ``merge_overlap`` carry across; an autotuner away from its default
+    raises, naming its ROADMAP item.
     """
     for name, (default, item) in _UNPORTED_DEFAULTS.items():
         if d.get(name, default) != default:
@@ -187,11 +189,4 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     kw = {k: v for k, v in d.items() if k in names}
     if kw.get("compact_slots"):
         kw["compact_slots"] = None
-    geometry = kw.get("geometry")
-    if isinstance(geometry, Mapping):
-        del kw["geometry"]
-        kw["radix_bits"] = geometry["radix_bits"]
-        if kw.get("combiner") == "hot-cache" \
-                and kw.get("combiner_slots") is None:
-            kw["combiner_slots"] = geometry["combiner_slots"]
     return Config(**kw)

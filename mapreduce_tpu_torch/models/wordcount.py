@@ -248,7 +248,8 @@ def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
         stream, capacity, pos_hi=pos_hi, max_token_bytes=w,
         max_pos=int(chunk.shape[0]), sort_mode=config.sort_mode,
         rescue_slots=rescue_slots, sort_impl=config.sort_impl,
-        radix_bits=config.radix_bits)
+        radix_bits=config.resolved_geometry.radix_bits,
+        salt_bits=config.resolved_salt_bits)
     if not config.rescue_slots:
         return _accounted(built, overlong), 0
     t, rescue_packed = built
@@ -384,7 +385,8 @@ def _ngram_map(chunk: torch.Tensor, n: int, capacity: int, pos_hi,
                              max_pos=int(chunk.shape[0]),
                              sort_mode=config.sort_mode,
                              sort_impl=config.sort_impl,
-                             radix_bits=config.radix_bits)
+                             radix_bits=config.resolved_geometry.radix_bits,
+                             salt_bits=config.resolved_salt_bits)
     return t, (ngram_ops.summary_from_stream(stream, pos_hi, n) if summary
                else None)
 
@@ -404,19 +406,57 @@ def count_ngrams(data: bytes, n: int, config: Config = DEFAULT_CONFIG,
     return recover_result(tbl, data, ngram=n)
 
 
+class BufferedTableState(NamedTuple):
+    """The running table and up to K staged batch tables
+    (``Config.merge_every`` = K > 1).  ``cursor`` counts the batches
+    staged since the last flush; flushed slots carry the sentinel key and
+    count 0, which the K-way build ignores.  The JAX package keeps the
+    cursor on the device and flushes under a ``lax.cond``; it is a
+    deterministic count, so the port keeps it on the host (an int), and
+    the flush is a host ``if`` with no read of the card.  A checkpoint
+    writes it as the JAX state's uint32 leaf."""
+
+    table: table_ops.CountTable
+    pend_key_hi: torch.Tensor  # [K * batch_capacity]
+    pend_key_lo: torch.Tensor
+    pend_count: torch.Tensor
+    pend_pos_hi: torch.Tensor
+    pend_pos_lo: torch.Tensor
+    pend_length: torch.Tensor
+    cursor: int
+
+
 class WordCountJob:
-    """WordCount as a one-device MapReduce job (``merge_every == 1``): a
-    running CountTable, the chunk's table folded in by :func:`merge`.
-    ``chunk_id`` becomes ``pos_hi``, so first occurrence is file order."""
+    """WordCount as a MapReduce job: a running CountTable, each chunk's
+    table folded in by :func:`merge`.  ``chunk_id`` becomes ``pos_hi``,
+    so first occurrence is file order.  With ``config.merge_every`` = K >
+    1 the batch tables stage into a :class:`BufferedTableState` and one
+    K-way build (:func:`...ops.table.merge_batched`) replaces K merges."""
 
     def __init__(self, config: Config = DEFAULT_CONFIG, device=None):
         self.config = config
         self.device = resolve_device(device)
         self.capacity = config.table_capacity
         self.batch_capacity = config.batch_uniques
+        self.merge_every = config.merge_every
 
-    def init_state(self) -> table_ops.CountTable:
-        return table_ops.empty(self.capacity, self.device)
+    def _with_empty_pending(self, table: table_ops.CountTable,
+                            n: int) -> BufferedTableState:
+        """The table with an empty pending buffer of ``n`` rows."""
+        def full(v):
+            return torch.full((n,), v, dtype=torch.int64, device=self.device)
+
+        return BufferedTableState(table, full(table_ops.SENT),
+                                  full(table_ops.SENT), full(0),
+                                  full(table_ops.INF), full(table_ops.INF),
+                                  full(0), 0)
+
+    def init_state(self):
+        table = table_ops.empty(self.capacity, self.device)
+        if self.merge_every == 1:
+            return table
+        return self._with_empty_pending(
+            table, self.merge_every * self.batch_capacity)
 
     def map_chunk(self, chunk: torch.Tensor, chunk_id) -> table_ops.CountTable:
         return _map_stream(chunk, self.config, self.batch_capacity,
@@ -431,33 +471,81 @@ class WordCountJob:
                            pos_hi=chunk_id, with_stats=True)
 
     def _stats_table(self, state) -> table_ops.CountTable:
-        """The running table the data statistics' gauges read."""
-        return state
+        """The running table the data statistics' gauges read: under
+        ``merge_every`` the unflushed one (at most K batches behind), as
+        in the JAX package, so observing costs no K-way build."""
+        return state.table if isinstance(state, BufferedTableState) \
+            else state
 
     def state_stats(self, state, stats):
         """Fill the running table's gauges after a group's last combine."""
         return datastats.with_table_gauges(stats, self._stats_table(state))
 
-    def combine(self, state, update) -> table_ops.CountTable:
-        return table_ops.merge(state, update, capacity=self.capacity)
+    def _flushed(self, st: BufferedTableState) -> BufferedTableState:
+        """Fold every staged batch into the table (no staged rows: the
+        same table)."""
+        table = table_ops.merge_batched(
+            st.table, st.pend_key_hi, st.pend_key_lo, st.pend_count,
+            st.pend_pos_hi, st.pend_pos_lo, st.pend_length, self.capacity)
+        return self._with_empty_pending(table, st.pend_key_hi.shape[0])
 
-    def merge(self, a, b) -> table_ops.CountTable:
-        return table_ops.merge(a, b, capacity=self.capacity)
+    def combine(self, state, update):
+        if self.merge_every == 1:
+            return table_ops.merge(state, update, capacity=self.capacity)
+        b = self.batch_capacity
+        off = (state.cursor % self.merge_every) * b
+        # Out of place: the input state may be a replay's anchor.
+        pend = [torch.slice_scatter(p, x, 0, off, off + b) for p, x in (
+            (state.pend_key_hi, update.key_hi),
+            (state.pend_key_lo, update.key_lo),
+            (state.pend_count, update.count),
+            (state.pend_pos_hi, update.pos_hi),
+            (state.pend_pos_lo, update.pos_lo),
+            (state.pend_length, update.length))]
+        # The batch's spill accounting folds in now: the flush carries only
+        # the running table's scalars.
+        t = state.table
+        du_lo, du_hi = table_ops.add64(t.dropped_uniques,
+                                       t.dropped_uniques_hi,
+                                       update.dropped_uniques,
+                                       update.dropped_uniques_hi)
+        dc_lo, dc_hi = table_ops.add64(t.dropped_count, t.dropped_count_hi,
+                                       update.dropped_count,
+                                       update.dropped_count_hi)
+        st = BufferedTableState(
+            t._replace(dropped_uniques=du_lo, dropped_uniques_hi=du_hi,
+                       dropped_count=dc_lo, dropped_count_hi=dc_hi),
+            *pend, state.cursor + 1)
+        return self._flushed(st) if st.cursor >= self.merge_every else st
+
+    def merge(self, a, b):
+        if self.merge_every == 1:
+            return table_ops.merge(a, b, capacity=self.capacity)
+        fa, fb = self._flushed(a), self._flushed(b)
+        return fa._replace(table=table_ops.merge(fa.table, fb.table,
+                                                 capacity=self.capacity))
+
+    def _plain_table(self, state) -> table_ops.CountTable:
+        """The folded CountTable behind either state shape."""
+        if isinstance(state, BufferedTableState):
+            return self._flushed(state).table
+        return state
 
     def keyrange_merge(self, state, axis) -> table_ops.CountTable:
-        """The ``merge_strategy='keyrange'`` hook: the key-range reduce of
-        every rank's table (:func:`...parallel.collectives.key_range_merge`),
-        the same plain table on every rank."""
+        """The ``merge_strategy='keyrange'`` hook: the staged batches
+        folded in, then the key-range reduce of every rank's table
+        (:func:`...parallel.collectives.key_range_merge`), the same plain
+        table on every rank."""
         from mapreduce_tpu_torch.parallel import collectives
 
-        return collectives.key_range_merge(state, axis)
+        return collectives.key_range_merge(self._plain_table(state), axis)
 
     def keyrange_result_merge(self, a, b) -> table_ops.CountTable:
         """Merge two keyrange results (plain tables)."""
         return table_ops.merge(a, b, capacity=self.capacity)
 
     def finalize(self, state) -> table_ops.CountTable:
-        return state
+        return self._plain_table(state)
 
     def identity(self) -> str:
         """What the state's numbers mean, for the checkpoint fingerprint
@@ -496,7 +584,7 @@ class TopKWordCountJob(WordCountJob):
         self.k = k
 
     def finalize(self, state) -> TopKTable:
-        return topk_with_snapshot(state, self.k)
+        return topk_with_snapshot(self._plain_table(state), self.k)
 
     def identity(self) -> str:
         return f"wordcount-top{self.k}"
@@ -597,7 +685,8 @@ class NGramCountJob(WordCountJob):
                                         dropped_uniques=tbl.dropped_uniques)
 
     def _stats_table(self, state) -> table_ops.CountTable:
-        return state.table if isinstance(state, NGramState) else state
+        return state.table if isinstance(state, NGramState) \
+            else super()._stats_table(state)
 
     def combine(self, state, update):
         if self.n == 1:
@@ -655,7 +744,8 @@ class NGramCountJob(WordCountJob):
                                                       for x in state.carry)))
 
     def finalize(self, state):
-        tbl = state.table if isinstance(state, NGramState) else state
+        tbl = state.table if isinstance(state, NGramState) \
+            else self._plain_table(state)
         return topk_with_snapshot(tbl, self.k) if self.k else tbl
 
     def identity(self) -> str:

@@ -105,7 +105,8 @@ def mark_long_spans(stream: TokenStream) -> TokenStream:
 
 def gram_table(gs: TokenStream, capacity: int, pos_hi, max_pos: int,
                sort_mode: str = "stable2", sort_impl: str = "xla",
-               radix_bits: int = 3) -> table_ops.CountTable:
+               radix_bits: int = 3,
+               salt_bits: int = 0) -> table_ops.CountTable:
     """Aggregate a position-ordered gram stream into a count table.
 
     Every path's gram stream arrives in ascending start order, the stable2
@@ -116,7 +117,9 @@ def gram_table(gs: TokenStream, capacity: int, pos_hi, max_pos: int,
     is the padded chunk length, the bound on positions.  Past 2**25 the
     generic build runs, where ``sort_impl`` does not apply.  A live row
     cannot pack to all-ones: ``len7 == 127`` means a span of at least 127
-    bytes, so its position is at most ``max_pos - 127``.
+    bytes, so its position is at most ``max_pos - 127``.  ``salt_bits``
+    (``combiner='salt'``) salts the packed build as the word count's,
+    with the position above the 7 length bits.
     """
     if max_pos > (1 << 25):
         return table_ops.from_stream(gs, capacity, pos_hi=pos_hi)
@@ -126,7 +129,7 @@ def gram_table(gs: TokenStream, capacity: int, pos_hi, max_pos: int,
     t = table_ops.from_packed_rows(
         gs.key_hi, gs.key_lo, packed, gs.count.sum(), capacity, pos_hi,
         len_bits=7, sort_mode=sort_mode, sort_impl=sort_impl,
-        radix_bits=radix_bits)
+        radix_bits=radix_bits, salt_bits=salt_bits)
     return t._replace(length=torch.where(t.occupied() & (t.length == 127),
                                          SEAM_GRAM_LENGTH, t.length))
 
@@ -170,7 +173,8 @@ def ngram_map_with_summary(chunk: torch.Tensor, n: int, capacity: int,
     gs = mark_long_spans(grams_from_sorted(key_hi, key_lo, packed, n))
     t = gram_table(gs, capacity, pos_hi, max_pos=int(chunk.shape[0]),
                    sort_mode=config.sort_mode, sort_impl=config.sort_impl,
-                   radix_bits=config.radix_bits)
+                   radix_bits=config.resolved_geometry.radix_bits,
+                   salt_bits=config.resolved_salt_bits)
     # The closed-form gram total counts overlong tokens too: whatever the
     # pairing did not form, a poison row killed.  Occurrences are exact;
     # distinct ones are unknowable (overlong tokens are never hashed), so

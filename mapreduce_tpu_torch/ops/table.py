@@ -223,7 +223,7 @@ def _build(key_hi, key_lo, pos_hi, pos_lo, count, count_hi, length,
 def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
                      pos_hi, len_bits: int = 6, sort_mode: str = "sort3",
                      rescue_slots: int = 0, sort_impl: str = "xla",
-                     radix_bits: int = 3):
+                     radix_bits: int = 3, salt_bits: int = 0):
     """Aggregate pre-packed single-occurrence rows (the sort-lean path).
 
     ``packed`` = ``pos << len_bits | length`` per live row (all-ones for
@@ -232,6 +232,9 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
     ``'stable2'`` sorts on the key alone, stably: its precondition is that
     rows arrive in ascending position order (the kernel's flattened
     stream), so each segment's head row is the first occurrence.
+    ``'segmin'`` sorts on the key alone (any order of ties) and takes the
+    smallest ``packed`` of each segment with one ``scatter_reduce`` over
+    the segment ranks; it has no rescue extraction and no radix seam.
 
     With ``rescue_slots = R > 0`` also returns the first R ``packed``
     values of the poison segment (reserved key (sent, sent-1), which sorts
@@ -244,12 +247,40 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
     the order stability gives under stable2's position-ordered input, so
     one branch serves both modes; under stable2 it is told so and skips its
     passes over ``packed``.
+
+    With ``salt_bits`` = B > 0 (``combiner='salt'``) the low B position
+    bits are XORed into ``key_lo`` before the sort, on every row whose
+    ``key_hi`` is not the sentinel (filler and poison rows stay as they
+    are, so the rescue extraction is unchanged): one hot key spreads over
+    2**B segments.  Every row of a salted segment shares those position
+    bits, so each kept row's own ``pos_lo`` undoes the XOR, and a
+    capacity-sized :func:`_build` coalesces the salted entries of a key
+    (counts add, the smallest position wins, ``dropped_*`` carried).  As
+    in the JAX package, two distinct keys that differ by a salt XOR would
+    coalesce (the 64-bit collision envelope, 2**B times wider), and under
+    batch spill the capacity cutoff falls on the salted key order.
     """
-    if sort_mode not in ("sort3", "stable2"):
-        raise ValueError(f"unsupported sort_mode {sort_mode!r}")
+    if sort_mode not in ("sort3", "stable2", "segmin"):
+        raise ValueError(f"unknown sort_mode {sort_mode!r}")
+    if salt_bits and sort_mode == "segmin":
+        raise ValueError("salt_bits requires sort_mode='sort3' or 'stable2'")
+    if not 0 <= salt_bits <= 6:
+        raise ValueError(f"salt_bits must be in [0, 6], got {salt_bits}")
     if sort_impl not in ("xla", "radix", "radix_partition"):
         raise ValueError(f"unknown sort_impl {sort_impl!r}")
+    if sort_impl != "xla" and sort_mode == "segmin":
+        raise ValueError("sort_impl='radix'/'radix_partition' requires "
+                         "sort_mode='sort3' or 'stable2' (segmin keeps "
+                         "packed as an unordered payload)")
+    if rescue_slots and sort_mode == "segmin":
+        raise ValueError("rescue_slots requires sort_mode='sort3' or "
+                         "'stable2' (poison extraction needs the poison "
+                         "segment position-ordered)")
     n = key_hi.shape[0]
+    if salt_bits:
+        smask = (1 << salt_bits) - 1
+        key_lo = torch.where(key_hi != SENT,
+                             key_lo ^ ((packed >> len_bits) & smask), key_lo)
     if sort_impl != "xla":
         from mapreduce_tpu_torch.ops.cuda import radix as radix_ops
 
@@ -259,8 +290,10 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
         k = _key64(key_hi, key_lo)
     else:
         k = _key64(key_hi, key_lo)
-        order = _lexsort(k, packed) if sort_mode == "sort3" \
-            else torch.argsort(k, stable=True)
+        if sort_mode == "sort3":
+            order = _lexsort(k, packed)
+        else:
+            order = torch.argsort(k, stable=sort_mode == "stable2")
         k, packed = k[order], packed[order]
 
     _, rank = _segment_boundaries(k)
@@ -268,7 +301,13 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
     fi = head[:capacity].clamp(max=n - 1)
     count_u = head[1:] - head[:capacity]
     key_hi_u, key_lo_u = _unkey64(k[fi])
-    packed_u = packed[fi]
+    if sort_mode == "segmin":
+        # Segments past the capacity share one spare bucket.
+        packed_u = packed.new_full((capacity + 1,), _ALL_ONES).scatter_reduce(
+            0, rank.clamp(max=capacity), packed, "amin",
+            include_self=False)[:capacity]
+    else:
+        packed_u = packed[fi]
     occupied = (head[:capacity] < n) & (count_u > 0) \
         & ~_reserved(key_hi_u, key_lo_u)
     count_u = torch.where(occupied, count_u, 0)
@@ -285,6 +324,16 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
         # Single-occurrence rows, <= 2**26 of them: the hi words are zero.
         dropped_count=total - count_u.sum(),
         dropped_uniques_hi=zero, dropped_count_hi=zero)
+    if salt_bits:
+        live = table.key_hi != SENT
+        table = _build(
+            table.key_hi,
+            torch.where(live, table.key_lo ^ (table.pos_lo & smask),
+                        table.key_lo),
+            table.pos_hi, table.pos_lo, table.count, table.count_hi,
+            table.length, capacity, table.dropped_uniques,
+            table.dropped_uniques_hi, table.dropped_count,
+            table.dropped_count_hi)
     if not rescue_slots:
         return table
     # The poison segment is position-ordered (third key under sort3, input
@@ -301,20 +350,21 @@ def from_stream(stream, capacity: int, pos_hi=0,
                 max_token_bytes: int | None = None,
                 max_pos: int | None = None, sort_mode: str = "sort3",
                 rescue_slots: int = 0, sort_impl: str = "xla",
-                radix_bits: int = 3):
+                radix_bits: int = 3, salt_bits: int = 0):
     """Aggregate a token stream into a fresh table.
 
     When ``max_token_bytes <= 63`` and ``max_pos <= 2**26`` the packed fast
     path (:func:`from_packed_rows`) runs; a stream that carries ``packed``
     and ``total`` (the kernel's) feeds them straight in.  Otherwise the
     generic 4-key build runs, which has no poison rows (``rescue_slots``
-    must be 0) and where ``sort_impl`` does not apply, as in the JAX
-    package.
+    must be 0) and where ``sort_impl``, ``sort_mode`` and ``salt_bits`` do
+    not apply, as in the JAX package.
     """
     if (max_token_bytes is not None and max_token_bytes <= 63
             and max_pos is not None and max_pos <= (1 << 26)):
         return _from_stream_packed(stream, capacity, pos_hi, sort_mode,
-                                   rescue_slots, sort_impl, radix_bits)
+                                   rescue_slots, sort_impl, radix_bits,
+                                   salt_bits)
     if rescue_slots:
         raise ValueError("rescue_slots requires the packed fast path "
                          "(bounded max_token_bytes/max_pos)")
@@ -328,7 +378,8 @@ def from_stream(stream, capacity: int, pos_hi=0,
 
 
 def _from_stream_packed(stream, capacity: int, pos_hi, sort_mode: str,
-                        rescue_slots: int, sort_impl: str, radix_bits: int):
+                        rescue_slots: int, sort_impl: str, radix_bits: int,
+                        salt_bits: int):
     packed = getattr(stream, "packed", None)
     if packed is None:
         packed = torch.where(stream.count > 0,
@@ -339,7 +390,7 @@ def _from_stream_packed(stream, capacity: int, pos_hi, sort_mode: str,
     return from_packed_rows(stream.key_hi, stream.key_lo, packed, total,
                             capacity, pos_hi, len_bits=6, sort_mode=sort_mode,
                             rescue_slots=rescue_slots, sort_impl=sort_impl,
-                            radix_bits=radix_bits)
+                            radix_bits=radix_bits, salt_bits=salt_bits)
 
 
 def merge(a: CountTable, b: CountTable, capacity: int | None = None,
@@ -406,6 +457,31 @@ def merge(a: CountTable, b: CountTable, capacity: int | None = None,
                       pos_hi=pos_hi, pos_lo=pos_lo, length=len_s[:cap],
                       dropped_uniques=du_lo, dropped_count=dc_lo,
                       dropped_uniques_hi=du_hi, dropped_count_hi=dc_hi)
+
+
+def merge_batched(table: CountTable, pend_key_hi, pend_key_lo, pend_count,
+                  pend_pos_hi, pend_pos_lo, pend_length,
+                  capacity: int) -> CountTable:
+    """Fold up to K staged batch tables (``Config.merge_every``) and the
+    running table in one build: the staged rows (flushed slots carry the
+    sentinel key and count 0, which the build ignores) go through one
+    (key, position) sort and segment reduce with the table's.  The kept
+    keys, counts, first occurrences and ``dropped_count`` equal K pairwise
+    merges'; ``dropped_uniques`` can be tighter (a key that spilled in
+    several batches counts once a flush), as in the JAX package.  The
+    staged rows are batch-table rows, whose high count words are zero."""
+    def cat(a, b):
+        return torch.cat([a, b])
+
+    return _build(cat(table.key_hi, pend_key_hi),
+                  cat(table.key_lo, pend_key_lo),
+                  cat(table.pos_hi, pend_pos_hi),
+                  cat(table.pos_lo, pend_pos_lo),
+                  cat(table.count, pend_count),
+                  cat(table.count_hi, torch.zeros_like(pend_count)),
+                  cat(table.length, pend_length),
+                  capacity, table.dropped_uniques, table.dropped_uniques_hi,
+                  table.dropped_count, table.dropped_count_hi)
 
 
 def top_k(table: CountTable, k: int) -> CountTable:

@@ -6,7 +6,8 @@ process outside a ``torch.distributed`` world is an axis of one) or two
 (:class:`...parallel.mesh.TwoLevelMesh`, R·L ranks).  A job supplies
 ``init_state``, ``map_chunk(chunk, chunk_id)`` (or the streamed
 ``map_chunk_sharded(chunk, chunk_id, axis, device_index)``), ``combine``,
-``merge`` and ``finalize``.  Each step maps this rank's chunk with
+``merge`` and ``finalize``: :class:`MapReduceJob` is the base class of a
+user's job, and the Engine takes any object with those hooks.  Each step maps this rank's chunk with
 ``chunk_id = step * D + linear_rank`` (row-major over the mesh's axes),
 the JAX numbering; the maps' gathers run over the flattened mesh, the
 world in rank order.  :meth:`Engine.finish` merges the D states with the
@@ -35,6 +36,51 @@ from mapreduce_tpu_torch import convert
 from mapreduce_tpu_torch.parallel import collectives
 from mapreduce_tpu_torch.parallel.mesh import DataAxis, axes_of, data_mesh
 from mapreduce_tpu_torch.runtime.platform import resolve_device
+
+
+class MapReduceJob:
+    """Base class for a user's job: override the five hooks.
+
+    The hooks run eagerly on the job's tensors (on the card unless the
+    job puts its state on the CPU): ``init_state()`` gives a rank's
+    accumulator (a tensor, or a tuple or NamedTuple of them);
+    ``map_chunk(chunk, chunk_id)`` maps one rank's chunk (a uint8 tensor
+    on the Engine's device) to an update; ``combine(state, update)`` folds
+    it in; ``merge(a, b)`` is the associative, commutative merge the
+    collective reduce runs; ``finalize(state)`` post-processes the merged
+    state.  Hooks must not change their inputs in place: a replayed
+    window starts again from a state it kept.
+    """
+
+    def init_state(self) -> Any:
+        raise NotImplementedError
+
+    def map_chunk(self, chunk: torch.Tensor, chunk_id: int) -> Any:
+        raise NotImplementedError
+
+    def map_chunk_sharded(self, chunk: torch.Tensor, chunk_id: int, axis,
+                          device_index: int) -> Any:
+        """The axis-aware map: it may run collectives over ``axis`` (the
+        Engine's flattened mesh; every rank calls it at every step).  A job
+        whose update needs the step's other chunks (a seam) overrides it;
+        by default, :meth:`map_chunk`.  ``device_index`` is the rank's
+        row in the mesh's gathers."""
+        return self.map_chunk(chunk, chunk_id)
+
+    def combine(self, state: Any, update: Any) -> Any:
+        raise NotImplementedError
+
+    def merge(self, a: Any, b: Any) -> Any:
+        raise NotImplementedError
+
+    def finalize(self, state: Any) -> Any:
+        return state
+
+    def identity(self) -> str:
+        """What the state's numbers mean, for checkpoint fingerprints: a
+        snapshot resumes only under a job of the same identity.  A job
+        with parameters that change that meaning names them here."""
+        return type(self).__name__.lower()
 
 
 def check_strategy(job, merge_strategy: str, n_axes: int = 1) -> None:

@@ -553,16 +553,19 @@ class _OverlapMerger:
 
 
 def _config_summary(config: Config) -> dict:
-    """The degradation ladder's view of a config.  The port runs no
-    geometry preset, so its geometry is always ``default`` and the
-    ladder's first step never applies."""
-    return {"geometry": "default", "combiner": config.combiner,
+    """The degradation ladder's view of a config (label values, the shape
+    ``faults.next_degrade`` reads)."""
+    return {"geometry": config.geometry_label,
+            "combiner": config.resolved_combiner,
             "map_impl": config.map_impl, "sort_impl": config.sort_impl}
 
 
 def _apply_degrade(config: Config, field: str, value: str) -> Config:
-    """One ladder step applied to the config; combiner-off also drops the
-    cache's sizing knob, which is valid only with the cache on."""
+    """One ladder step applied to the config: revert-geometry sets the
+    default geometry (None); combiner-off also drops the cache's sizing
+    knob, which is valid only with the cache on."""
+    if field == "geometry":
+        return dataclasses.replace(config, geometry=None)
     kw: dict = {field: value}
     if field == "combiner":
         kw["combiner_slots"] = None
@@ -1547,6 +1550,16 @@ def _collective_finish(engine, state, plan, policy, tel, logger,
     return _collective_call(finish, plan, policy, tel, logger, accord)
 
 
+def _geometry_stamp(config: Config) -> dict:
+    """``run_start``'s geometry fields, as the JAX package writes them: the
+    label, and on a custom geometry its fields (``geometry_spec``)."""
+    label = config.geometry_label
+    stamp = {"geometry": label}
+    if label == "custom":
+        stamp["geometry_spec"] = config.resolved_geometry.as_dict()
+    return stamp
+
+
 def _metrics_word_count(value) -> int:
     """The total words inside any finalized state, for ``RunMetrics``:
     sketch states hold a ``table`` that may itself be a :class:`TopKTable`,
@@ -1819,7 +1832,7 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
             "run_start", driver=driver, job=job.identity(), devices=n_dev,
             chunk_bytes=config.chunk_bytes, superstep=config.superstep,
             backend=config.resolved_backend(), map_impl=config.map_impl,
-            combiner=config.combiner, geometry="default",
+            combiner=config.resolved_combiner, **_geometry_stamp(config),
             **({"fault_plan": plan.spec} if plan is not None else {}),
             merge_strategy=merge_strategy,
             **({"merge_overlap": True} if config.merge_overlap else {}),

@@ -75,10 +75,19 @@ def test_kernel_flags_stdout_identical_to_jax_cli(flags):
 
 @pytest.mark.parametrize("mode", ["salt", "auto"])
 def test_unported_combiners_are_refused(mode, capsys):
+    """'salt' runs and prints the JAX CLI's stdout; 'auto' resolves
+    through the autotuner's prior, which is not ported: exit 2 naming
+    its item."""
+    if mode == "salt":
+        flags = ("--combiner", "salt", "--format", "json")
+        assert _port_stdout("test.txt", *flags) == \
+            _jax_stdout("test.txt", *flags)
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["test.txt", "--platform", "cpu", "--combiner", mode])
     assert e.value.code == 2
-    assert "ROADMAP.md item A10" in capsys.readouterr().err
+    assert "ROADMAP.md item A8b (ii), the autotuner" \
+        in capsys.readouterr().err
 
 
 def test_in_process_flags_match_jax_cli(capsysbinary, tmp_path):
@@ -138,15 +147,32 @@ def test_version_flag_matches_jax_cli(capsysbinary):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--sort-mode", "segmin"), "A14"),
+    (("--sort-mode", "segmin"), None),
     (("--stream", "--merge-strategy", "auto"), "A8b (ii), the autotuner"),
     (("--autotune",), "A8b (ii), the autotuner"),
+    (("--geometry", "auto"), "A8b (ii), the autotuner"),
 ])
-def test_flags_the_port_refuses_name_their_item(flags, item, capsys):
+def test_flags_the_port_refuses_name_their_item(flags, item, capsysbinary,
+                                                monkeypatch):
+    """The autotuner's flags exit 2 naming its item.  ``--sort-mode
+    segmin`` runs on the CPU (the JAX CLI's stdout); off the CPU the JAX
+    CLI's guard exits 2 before any device work unless
+    ``MAPREDUCE_ALLOW_SEGMIN`` says yes, in both command lines."""
+    if item is None:
+        monkeypatch.delenv("MAPREDUCE_ALLOW_SEGMIN", raising=False)
+        monkeypatch.chdir(REPO)
+        run = ["test.txt", *flags, "--format", "tsv"]
+        assert cli.main(run + ["--platform", "cpu"]) == 0
+        assert capsysbinary.readouterr().out == _jax_stdout(*run)
+        assert cli.main(run + ["--platform", "gpu"]) == 2
+        err = capsysbinary.readouterr().err.decode()
+        assert "MAPREDUCE_ALLOW_SEGMIN=1" in err and "segmin" in err
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["test.txt", "--platform", "cpu", *flags])
     assert e.value.code == 2
-    assert f"(ROADMAP.md item {item})" in capsys.readouterr().err
+    assert f"(ROADMAP.md item {item})" \
+        in capsysbinary.readouterr().err.decode()
 
 
 @pytest.mark.parametrize("flags", [

@@ -78,6 +78,13 @@ def _cases(d: int, corpus) -> list:
     if d == 2:
         cases.append({"name": "three-tree", "kind": "count_file",
                       "args": {"path": corpus["three"], "config": CFG}})
+        cases.append({"name": "merge-every-tree", "kind": "count_file",
+                      "args": {"path": corpus["one"],
+                               "config": dict(CFG, merge_every=3)}})
+        cases.append({"name": "merge-every-keyrange", "kind": "run_job",
+                      "args": {"job": "wordcount", "path": corpus["one"],
+                               "config": dict(CFG, merge_every=3),
+                               "merge_strategy": "keyrange"}})
         cases.append({"name": "retry", "kind": "count_file",
                       "args": {"path": corpus["one"], "config": CFG,
                                "retry": 1}})
@@ -190,6 +197,23 @@ def test_result_does_not_depend_on_d(worlds):
 def test_multi_file_corpus_matches_jax(worlds, jax_runs):
     _assert_result(jax_runs[2, "three", "tree"],
                    _ok(worlds[2][0]["three-tree"]))
+
+
+def test_staged_merges_across_ranks_match_jax(worlds, jax_runs):
+    """``merge_every=3`` on 2 ranks: the tree finish flushes both operands'
+    staged batches, the keyrange finish flushes first; the result and the
+    finished table equal the JAX package's (nothing spills here, so the
+    staging changes no field)."""
+    _assert_result(jax_runs[2, "count", "tree"],
+                   _ok(worlds[2][0]["merge-every-tree"]))
+    assert worlds[2][1]["merge-every-tree"] is None
+    want = jax_runs[2, "value", "keyrange"]
+    for rank in range(2):
+        got = _ok(worlds[2][rank]["merge-every-keyrange"])
+        for f in want.value._fields:
+            np.testing.assert_array_equal(
+                np.asarray(getattr(got["value"], f)),
+                np.asarray(getattr(want.value, f)), err_msg=f)
 
 
 def test_replay_and_preemption_refused_across_ranks(worlds):

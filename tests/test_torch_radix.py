@@ -204,8 +204,9 @@ def test_radix_sort3_checks_its_arguments():
                                    sort_impl="bogus")
     with pytest.raises(ValueError, match="sort_impl"):
         Config(sort_impl="bogus")
+    # The digit width lives in the geometry, as in the JAX package.
     with pytest.raises(ValueError, match="radix_bits"):
-        Config(radix_bits=6)
+        Config(geometry={"radix_bits": 6})
 
 
 N = 1 << 14  # the shape of tests/test_torch_wordcount.py

@@ -352,9 +352,14 @@ def test_config_from_jax_dict():
     assert cfg == wc.Config()
     assert cfg.rescue_slots_max == JConfig().rescue_slots_max == 32768
     assert cfg.batch_uniques == JConfig().batch_uniques
-    for kw in ({"combiner": "salt"}, {"combiner": "auto"},
-               {"geometry": "combiner16"}, {"sort_mode": "segmin"}):
-        with pytest.raises(ValueError, match="ROADMAP"):
+    # The map's knobs map across as they are; only the autotuner's 'auto'
+    # values stay refused.
+    for kw in ({"combiner": "salt"}, {"geometry": "combiner16"},
+               {"sort_mode": "segmin"}, {"merge_every": 3}):
+        assert convert.config_from_dict(dataclasses.asdict(
+            JConfig(**kw))) == wc.Config(**kw)
+    for kw in ({"combiner": "auto"}, {"geometry": "auto"}):
+        with pytest.raises(ValueError, match=r"A8b \(ii\), the autotuner"):
             convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
     # The fused map, the hot-key combiner and the radix seam map across.
     jcfg = JConfig(map_impl="fused", combiner="hot-cache", combiner_slots=16,
@@ -363,15 +368,23 @@ def test_config_from_jax_dict():
     assert (cfg.map_impl, cfg.combiner, cfg.combiner_slots, cfg.sort_impl) \
         == ("fused", "hot-cache", 16, "radix")
     assert cfg.resolved_combiner_slots == jcfg.resolved_combiner_slots == 16
-    # A JAX geometry gives its radix bits and cache depth; its TPU window
-    # and slab sizes map to nothing.
+    # A JAX geometry carries across whole, as the port's Geometry: the port
+    # reads its radix bits and cache depth.
     from mapreduce_tpu.config import Geometry
+
+    from mapreduce_tpu_torch import config as port_config
 
     jcfg = JConfig(map_impl="fused", combiner="hot-cache",
                    geometry=Geometry(combiner_slots=24, radix_bits=2,
                                      radix_block_rows=128))
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    assert (cfg.combiner_slots, cfg.radix_bits, cfg.geometry) == (24, 2, None)
+    assert cfg.geometry == port_config.Geometry(
+        combiner_slots=24, radix_bits=2, radix_block_rows=128)
+    assert (cfg.combiner_slots, cfg.resolved_combiner_slots,
+            cfg.resolved_geometry.radix_bits, cfg.geometry_label) \
+        == (None, 24, 2, "custom") == (
+            jcfg.combiner_slots, jcfg.resolved_combiner_slots,
+            jcfg.resolved_geometry.radix_bits, jcfg.geometry_label)
 
 
 def test_registry_names_and_identities_equal_jax():
