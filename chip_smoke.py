@@ -243,7 +243,33 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               ``MapReduceJob``, through the ``Engine`` equal to numpy.
               Phase 2 holds K1d at cache depths 8, 16, 24 and 32 and
               K2's levels, segmented sort and seam at digit widths 1 to 5;
-14. times  -- each kernel's median time per 32 MB chunk beside its bound,
+14. tuner  -- the autotuner, data health, run history and fleet view
+              (``tuner_phase``): (a) ``count_file`` of the phase-4 file
+              at ``Config(autotune='hint')`` with a ledger, equal to the
+              oracle, whose one ``tune`` record (between ``data`` and
+              ``run_end``) must be ``RunResult.tune``, pass
+              ``validate_knobs`` and make the move the tuner makes over
+              the finished ledger; (b) ``tuning.search`` with a budget of
+              3, each pass a telemetered run of the knobs the tuner chose
+              (``knobs_to_config``) against the oracle, then the winner
+              against ``Config()`` over the 8-file corpus in turns
+              (winner, default, default, winner); (c) the command line
+              in this process (``cli.main``), ``--combiner auto
+              --map-impl fused`` after a first ``--ledger`` run, on the
+              one-word corpus (skew-hot: 'hot-cache', K1d launched), on a
+              4 MB corpus of the 676 two-letter keys (clean: 'off', K1c)
+              and on the phase-4 file from the hint run's ledger (its
+              verdict decides), stdout against the oracle; (d)
+              ``--geometry auto`` under ``--combiner hot-cache --map-impl
+              fused`` with a ``tuned.json`` (the JAX offline driver's
+              format) whose freshest profile names ``combiner16``: K1d at
+              cache depth 16, and 8 with no profile; (e)
+              ``--merge-strategy auto`` with a reduction-planner profile
+              naming keyrange (``run_start`` says keyrange) and with none
+              (tree, with the JAX note); (f) ``obs.fleet.from_ledger``
+              over phase 12's gloo 2 x 2 shard ledgers, its
+              ``fleet_bottleneck`` and the tuner's answer (rule 0);
+15. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists (the segmented sort's: one lexsort with the group
               index first), and the time of each launch of the combiner
@@ -251,10 +277,10 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               chunk's end-to-end time by stage; the step time (map +
               merge) of every path's configuration on one chunk, with the
               rows each step's sort sees;
-15. profile -- where the device time of a default, a combiner and a
+16. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 13 each drive a main path: the launch counters are set to 0
+Phases 3 to 14 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -3691,6 +3717,306 @@ def knobs_phase(drive, tmp: Path, path: Path, stream_data: bytes,
     emit("knobs", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
+def knobs_to_config(knobs: dict):
+    """The autotuner's knob dict as the port's ``Config``, the mapping of
+    the JAX package's offline driver (``tools/autotune.py:_probe_config``):
+    a 'hot-cache' combiner runs on the fused map, the one path that has
+    the cache."""
+    from mapreduce_tpu_torch import Config
+
+    combiner = str(knobs["combiner"])
+    geometry = knobs["geometry"]
+    return Config(chunk_bytes=int(knobs["chunk_bytes"]),
+                  superstep=int(knobs["superstep"]),
+                  inflight_groups=int(knobs["inflight_groups"]),
+                  prefetch_depth=int(knobs["prefetch_depth"]),
+                  combiner=combiner,
+                  geometry=None if geometry == "default" else geometry,
+                  map_impl="fused" if combiner == "hot-cache" else "split",
+                  merge_strategy=str(knobs["merge_strategy"]),
+                  merge_overlap=str(knobs["merge_overlap"]) == "on")
+
+
+def tuner_phase(drive, by_path: dict, tmp: Path, path: Path,
+                stream_data: bytes, want_stream: dict,
+                one_word32: bytes) -> None:
+    """Phase 14: the autotuner, data health, run history and fleet view
+    on the card (see the module docstring)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mapreduce_tpu_torch import Config, cli, count_file, tuning
+    from mapreduce_tpu_torch.obs import datahealth, fleet, ledger
+    from mapreduce_tpu_torch.obs.telemetry import Telemetry
+    from mapreduce_tpu_torch.ops.cuda import radix
+    from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+
+    t_phase = time.perf_counter()
+    per_file = -(-len(stream_data) // Config().chunk_bytes)
+
+    def need_for(c, files: int = 1) -> dict:
+        """The launches a streamed run of ``c`` over ``files`` copies of
+        the phase-4 file must make: one compact launch a chunk, or, on the
+        combiner path, the combiner's."""
+        if c.resolved_combiner_slots:
+            return {"tokenize_combiner": None}
+        return {"tokenize_compact": files * -(-len(stream_data)
+                                              // c.chunk_bytes)}
+
+    def ledgered(name: str, c, files: int = 1):
+        """``count_file`` of ``c`` with a ledger, through ``drive``: the
+        result against the oracle, the launches against ``need_for``."""
+        led = tmp / f"tuner_{name}.jsonl"
+        if led.exists():
+            led.unlink()
+        tel = Telemetry.create(ledger_path=str(led), progress_every_s=3600)
+        corpus = [str(path)] * files
+        want = want_stream if files == 1 \
+            else {w: files * n for w, n in want_stream.items()}
+        try:
+            got, seconds = drive(f"tuner_{name}", lambda: count_file(
+                corpus, c, telemetry=tel), want, need_for(c, files))
+        finally:
+            tel.close()
+        return got, seconds, [r for r in ledger.read_ledger(str(led))
+                              if r.get("run_id") == tel.run_id], str(led)
+
+    # (a) the hint: one tune record between data and run_end, equal to
+    # RunResult.tune, a proposal the Config takes, and the same move from
+    # the tuner over the finished ledger.
+    hint = Config(autotune="hint")
+    got, seconds, recs, hint_led = ledgered("hint", hint)
+    kinds = [r["kind"] for r in recs]
+    if kinds.count("tune") != 1 or kinds[-2:] != ["tune", "run_end"] \
+            or "data" not in kinds[:-2]:
+        raise SystemExit(f"tuner hint: ledger kinds {kinds}")
+    tune = {k: v for k, v in recs[-2].items() if k not in ("ts", "kind")}
+    if got.run.tune != tune or tune["mode"] != "hint":
+        raise SystemExit(f"tuner hint: RunResult.tune {got.run.tune} is "
+                         f"not the ledger's {tune}")
+    tuning.validate_knobs(tune["proposal"], hint.backend)
+    again = tuning.propose(recs)
+    move = ("rule", "changed", "proposal")
+    if [again[k] for k in move] != [tune[k] for k in move]:
+        raise SystemExit(f"tuner hint: the tuner over the ledger proposes "
+                         f"{[again[k] for k in move]}, the record "
+                         f"{[tune[k] for k in move]}")
+    data = next(r for r in recs if r["kind"] == "data")
+    if "window_occupancy" in data \
+            or tune["signals"]["window_occupancy"] is not None:
+        raise SystemExit("tuner hint: the port's data record carries a "
+                         "window occupancy")
+    emit("tuner", case="hint", bytes=len(stream_data),
+         seconds=round(seconds, 4),
+         gb_per_s=len(stream_data) / seconds / 1e9,
+         launches=by_path["tuner_hint"], rule=tune["rule"],
+         changed=tune["changed"], converged=tune["converged"],
+         reason=tune["reason"], signals=tune["signals"],
+         data_health=datahealth.classify(data),
+         trail=[t["rule"] for t in tune["trail"]],
+         equal_to_oracle=True, tune_record_equal=True)
+
+    # (b) the search: three measured passes over the phase-4 file (each a
+    # telemetered run_job against the oracle), then the winner against
+    # Config() over the 8-file corpus in turns.
+    passes: list = []
+
+    def measure(knobs: dict) -> list:
+        name = f"search{len(passes)}"
+        got, seconds, recs, _ = ledgered(name, knobs_to_config(knobs))
+        passes.append({"knobs": dict(knobs), "seconds": round(seconds, 4),
+                       "gb_per_s": len(stream_data) / seconds / 1e9,
+                       "launches": by_path[f"tuner_{name}"]})
+        return recs
+
+    result = tuning.search(measure, budget=3)
+    for p, prop in zip(passes, result["trail"]):
+        p.update(rule=prop["rule"], changed=prop["changed"],
+                 run_job_gb_per_s=prop["signals"]["gb_per_s"],
+                 resource=prop["signals"]["resource"],
+                 saving_frac=prop["signals"]["saving_frac"],
+                 full_frac=prop["signals"]["full_frac"],
+                 data_verdict=prop["signals"]["data_verdict"])
+    emit("tuner", case="search", budget=3, stopped=result["stopped"],
+         winner=result["winner"], winner_gbps=result["winner_gbps"],
+         passes=passes)
+    winner = knobs_to_config(result["winner"])
+    turns: dict = {"winner": [], "default": []}
+    for name in ("winner", "default", "default", "winner"):
+        c = winner if name == "winner" else Config()
+        got, seconds, _, _ = ledgered(f"turn_{name}", c, files=8)
+        turns[name].append(8 * len(stream_data) / seconds / 1e9)
+    emit("tuner", case="search_turns", bytes=8 * len(stream_data),
+         order=["winner", "default", "default", "winner"],
+         gb_per_s=turns, winner_over_default=sum(turns["winner"])
+         / sum(turns["default"]), equal_to_oracle=True)
+
+    # (c)-(e): the command line's 'auto' resolutions, in this process, each
+    # between cleared launch counters; stdout against the oracle.
+    seen: list = []
+    real_fused = ktok.tokenize_fused
+
+    def fused_seen(*a, combiner_slots=0, **kw):
+        seen.append(combiner_slots)
+        return real_fused(*a, combiner_slots=combiner_slots, **kw)
+
+    def cli_run(name: str, argv: list) -> tuple:
+        torch.cuda.synchronize()
+        ktok.LAUNCHES.clear()
+        radix.LAUNCHES.clear()
+        seen.clear()
+        out, err = io.StringIO(), io.StringIO()
+        ktok.tokenize_fused = fused_seen
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main([*argv, "--stream", "--format", "tsv"])
+        finally:
+            ktok.tokenize_fused = real_fused
+        by_path[f"tuner_{name}"] = {**ktok.LAUNCHES, **radix.LAUNCHES}
+        if rc:
+            raise SystemExit(f"tuner {name}: exit {rc}: "
+                             f"{err.getvalue()[-2000:]}")
+        return out.getvalue(), [ln for ln in err.getvalue().splitlines()
+                                if ln.startswith(("combiner: ", "geometry: ",
+                                                  "merge-strategy: "))]
+
+    def tsv(counts: dict) -> str:
+        return "".join(f"{w.decode()}\t{n}\n" for w, n in counts.items())
+
+    hot = tmp / "tuner_one_word.txt"
+    hot.write_bytes(one_word32)
+    want_hot = tsv(word_counts(one_word32))
+    flat_data = PAIRS * (4 * MB // len(PAIRS))
+    flat = tmp / "tuner_pairs.txt"
+    flat.write_bytes(flat_data)
+    cases = []
+    for label, corpus, want in (("one_word", hot, want_hot),
+                                ("pairs", flat, tsv(word_counts(flat_data)))):
+        led = tmp / f"tuner_cli_{label}.jsonl"
+        if led.exists():
+            led.unlink()
+        first, lines = cli_run(f"cli_{label}", [str(corpus), "--ledger",
+                                                 str(led)])
+        recs = list(ledger.read_ledger(str(led)))
+        verdict = datahealth.classify_run(recs)["verdict"]
+        out, lines = cli_run(f"cli_{label}_combiner_auto", [
+            str(corpus), "--ledger", str(led), "--combiner", "auto",
+            "--map-impl", "fused"])
+        resolved = "hot-cache" if verdict == "skew-hot" else "off"
+        launches = by_path[f"tuner_cli_{label}_combiner_auto"]
+        kernel = "tokenize_combiner" if resolved == "hot-cache" \
+            else "tokenize_fused"
+        if first != want or out != want or lines != [
+                f"combiner: auto -> {resolved}"] \
+                or resolved != {"one_word": "hot-cache",
+                                "pairs": "off"}[label] \
+                or not launches.get(kernel) \
+                or (resolved == "off" and launches.get("tokenize_combiner")):
+            raise SystemExit(f"tuner combiner auto on {label}: {lines}, "
+                             f"verdict {verdict}, launches {launches}, "
+                             f"stdout equal {first == want, out == want}")
+        cases.append({"case": "combiner_auto", "corpus": label,
+                      "verdict": verdict, "stderr": lines,
+                      "launches": launches, "cache_depths": sorted(set(seen))})
+    # The Zipf file, from the hint run's ledger: its verdict decides.
+    zipf_verdict = datahealth.classify_run(list(ledger.read_ledger(
+        hint_led)))["verdict"]
+    out, lines = cli_run("cli_zipf_combiner_auto", [
+        str(path), "--ledger", hint_led, "--combiner", "auto",
+        "--map-impl", "fused"])
+    resolved = "hot-cache" if zipf_verdict == "skew-hot" else "off"
+    if out != tsv(want_stream) or lines != [f"combiner: auto -> {resolved}"]:
+        raise SystemExit(f"tuner combiner auto on the Zipf file: {lines}, "
+                         f"verdict {zipf_verdict}")
+    cases.append({"case": "combiner_auto", "corpus": "zipf",
+                  "verdict": zipf_verdict, "stderr": lines,
+                  "launches": by_path["tuner_cli_zipf_combiner_auto"]})
+
+    # (d) and (e): a tuned.json in the JAX offline driver's format
+    # (tools/autotune.py:write_profile) whose freshest geometry profile
+    # names 'combiner16', and a reduction-planner profile naming keyrange.
+    prof = tmp / "tuned.json"
+    prof.write_text(json.dumps({
+        "tuner_version": tuning.TUNER_VERSION, "profiles": {
+            "wordcount/gpu/one-word-32mb-chunk32mb": {
+                "config": {**tuning.default_knobs(),
+                           "combiner": "hot-cache",
+                           "geometry": "combiner16"},
+                "measured_gbps": None, "stopped": "converged", "passes": 1,
+                "recorded_at": "2026-10-17T00:00:00Z"},
+            "wordcount-redplan/static/1i-cap262144": {
+                "mesh": {"label": "1i"},
+                "config": {"merge_strategy": "keyrange"},
+                "recorded_at": "2026-10-17T00:00:00Z"}}}, indent=1))
+    none = str(tmp / "no_tuned.json")
+    for profile, want_lines, depth in (
+            (str(prof), ["geometry: auto -> combiner16"], 16),
+            (none, ["geometry: auto -> default"], 8)):
+        out, lines = cli_run(f"cli_geometry_auto_c{depth}", [
+            str(hot), "--geometry", "auto", "--geometry-profile", profile,
+            "--combiner", "hot-cache", "--map-impl", "fused"])
+        launches = by_path[f"tuner_cli_geometry_auto_c{depth}"]
+        if out != want_hot or lines != want_lines or not seen \
+                or set(seen) != {depth} \
+                or not launches.get("tokenize_combiner"):
+            raise SystemExit(f"tuner geometry auto: {lines}, cache depths "
+                             f"{seen}, launches {launches}")
+        cases.append({"case": "geometry_auto", "profile": profile != none,
+                      "stderr": lines, "cache_depths": sorted(set(seen)),
+                      "launches": launches})
+    for profile, want_lines, strategy in (
+            (str(prof), ["merge-strategy: auto -> keyrange"], "keyrange"),
+            (none, ["merge-strategy: auto -> tree (no redplan profile; "
+                    "tree)"], "tree")):
+        led = tmp / f"tuner_cli_strategy_{strategy}.jsonl"
+        if led.exists():
+            led.unlink()
+        out, lines = cli_run(f"cli_merge_auto_{strategy}", [
+            str(hot), "--merge-strategy", "auto", "--geometry-profile",
+            profile, "--ledger", str(led)])
+        start = next(r for r in ledger.read_ledger(str(led))
+                     if r["kind"] == "run_start")
+        if out != want_hot or lines != want_lines \
+                or start["merge_strategy"] != strategy:
+            raise SystemExit(f"tuner merge-strategy auto: {lines}, "
+                             f"run_start {start.get('merge_strategy')}")
+        cases.append({"case": "merge_strategy_auto", "profile":
+                      profile != none, "stderr": lines,
+                      "run_start_strategy": start["merge_strategy"],
+                      "launches": by_path[f"tuner_cli_merge_auto_{strategy}"]})
+    for c in cases:
+        emit("tuner", **c, stdout_equal_to_oracle=True)
+
+    # (f) the fleet view over phase 12's gloo 2 x 2 shard ledgers, and the
+    # tuner's answer to its verdict (rule 0).
+    led = str(tmp / "hosts_ledger.jsonl")
+    view = fleet.from_ledger(led)
+    if view is None or view["hosts"] != [0, 1] or not view["aligned"]:
+        raise SystemExit(f"tuner fleet: no aligned two-host view of {led}")
+    merged = fleet.merged_records({h: fleet.read_jsonl(p) for h, p in
+                                   fleet.shard_paths(led).items()})
+    prop = tuning.propose(merged)
+    verdict = view["fleet_bottleneck"]["verdict"]
+    if prop["signals"]["fleet_bottleneck"] != verdict or (
+            verdict == "collective-bound"
+            and (prop["rule"], prop["changed"]) != (
+                "fleet-collective-bound", {"merge_overlap": ["off", "on"]})):
+        raise SystemExit(f"tuner fleet: verdict {verdict}, proposal "
+                         f"{prop['rule']} {prop['changed']}")
+    emit("tuner", case="fleet", transport="gloo", hosts=view["hosts"],
+         processes=view["processes"], span_s=view["span_s"],
+         fleet_bottleneck=view["fleet_bottleneck"],
+         straggler=view["straggler"], collective=view["collective"],
+         imbalance=view["imbalance"]["verdict"],
+         collective_bound=verdict == "collective-bound", rule=prop["rule"],
+         changed=prop["changed"], reason=prop["reason"],
+         trail=[(t["rule"], t["fired"]) for t in prop["trail"]])
+    emit("tuner", phase_s=round(time.perf_counter() - t_phase, 3))
+
+
 def main() -> int:
     import torch
 
@@ -4112,9 +4438,13 @@ def main() -> int:
         knobs_phase(drive, Path(tmp), path, stream_data, want_stream,
                     words_data, want, one_word32, dev)
         mark("knobs")
+        # 14. the autotuner, data health, run history and fleet view
+        tuner_phase(drive, by_path, Path(tmp), path, stream_data,
+                    want_stream, one_word32)
+        mark("tuner")
         del stream_data, want_stream, one_rank
 
-    # 14. times at the main path's shape: one 32 MB chunk
+    # 15. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -4309,7 +4639,7 @@ def main() -> int:
 
     mark("times")
 
-    # 15. Where a step's device time goes, for the default, combiner and
+    # 16. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

@@ -15,6 +15,12 @@ same step, and every rank exits 75.
 ``--ledger PATH`` appends the run ledger (and, on a failure, dumps
 ``PATH.flight.json``), ``--metrics-out PATH`` writes the metrics registry
 and ``--profile DIR`` a Chrome trace; none of them changes stdout.
+``--autotune`` (with ``--stream``) writes the autotuner's recommendation
+as a ``tune`` record and prints it to stderr.  The ``auto`` values of
+``--combiner``, ``--geometry`` and ``--merge-strategy`` resolve before
+the run, from the ``--ledger`` file's latest ``data`` record and from the
+``--geometry-profile`` file (:func:`...obs.history.resolve_prior`), each
+announced on stderr as ``<knob>: auto -> <value>``.
 
 Under a launcher (``torchrun --nproc-per-node D -m mapreduce_tpu_torch
 FILE --stream``) the D processes are one ``torch.distributed`` world and
@@ -28,6 +34,7 @@ writes the ledger and the metrics.  The output does not depend on D.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -40,15 +47,10 @@ _CTRL_ESCAPES = str.maketrans({"\t": "\\t", "\n": "\\n", "\r": "\\r",
                                "\x0c": "\\x0c"})
 
 
-#: Flags of the JAX CLI's streamed executor whose planes are not ported,
-#: and the ROADMAP.md item that ports each.
-_UNPORTED_FLAGS = {"--autotune": "A8b (ii), the autotuner"}
-
 #: The JAX CLI's collective merge strategies.  The two-level ``hier-*``
 #: ones need a two-level mesh, which the CLI's one axis is not (a usage
 #: error, as in the JAX CLI); 'auto' resolves through the run-history
-#: prior, which is not ported yet (ROADMAP.md item A8b (ii), the
-#: autotuner).
+#: prior over the single-axis ones.
 MERGE_STRATEGIES = ("tree", "gather", "keyrange", "hier-kr-tree",
                     "hier-tree-tree")
 
@@ -101,6 +103,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --stream: batches the background reader may "
                         "run ahead (default auto: superstep * inflight, "
                         "clamped to [2, 16] — co-tuned with the window)")
+    p.add_argument("--autotune", action="store_true",
+                   help="with --stream: feed the run's own telemetry "
+                        "(timeline bottleneck, data health, window stats) "
+                        "through the config autotuner and fold the "
+                        "recommended next inflight/prefetch/superstep/"
+                        "chunk-bytes into a `tune` ledger record and the "
+                        "run summary — the live run is unchanged")
     p.add_argument("--stats", action="store_true",
                    help="print timing/throughput to stderr")
     p.add_argument("--retry", type=int, default=0, metavar="N",
@@ -160,8 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "round); identical results.  The hierarchical 2-D "
                         "programs (hier-kr-tree / hier-tree-tree) run on "
                         "fleet meshes only; the CLI's 1-D mesh rejects "
-                        "them.  'auto' (ROADMAP.md item A8b (ii), the "
-                        "autotuner) is not ported yet")
+                        "them.  'auto' warm-starts from the freshest "
+                        "reduction-planner profile in --geometry-profile "
+                        "(no matching profile falls back loudly to tree)")
     p.add_argument("--merge-overlap", action="store_true",
                    help="with --stream: drain the local tables into a "
                         "device-resident merged accumulator at window "
@@ -178,9 +188,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "path for the ~n^2/2^65 64-bit key-collision "
                         "envelope (see utils/verify.py); costs one host "
                         "pass over the corpus")
-    for flag, item in _UNPORTED_FLAGS.items():
-        p.add_argument(flag, action="store_true",
-                       help=f"not ported yet (ROADMAP.md item {item})")
     p.add_argument("--backend", choices=("auto", "xla", "pallas"),
                    default="auto",
                    help="map-phase implementation (identical results): "
@@ -252,8 +259,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "keys in place and leaves them out of the sort; "
                         "'salt' = spread a hot key over salted sort "
                         "segments and de-salt exactly after the build; "
-                        "'auto' is not ported yet (ROADMAP.md item A8b "
-                        "(ii), the autotuner)")
+                        "'auto' = resolve from the previous run's "
+                        "data-health verdict in --ledger (skew-hot -> "
+                        "hot-cache, else off)")
     p.add_argument("--combiner-slots", type=int, default=None, metavar="C",
                    help="hot-key cache entries per segment for --combiner "
                         "hot-cache (multiple of 8 in [8, 32]; default: the "
@@ -262,13 +270,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="kernel-geometry set: a preset name ('tall512', "
                         "'combiner16'), or omit for the default; the port "
                         "reads its radix digit width and hot-key cache "
-                        "depth (identical results).  'auto' is not ported "
-                        "yet (ROADMAP.md item A8b (ii), the autotuner)")
+                        "depth (identical results); 'auto' resolves from "
+                        "the searched profile in --geometry-profile")
     p.add_argument("--geometry-profile", default="tuned.json",
                    metavar="PATH",
-                   help="searched geometry profiles for --geometry auto "
-                        "(accepted for the JAX CLI's sake; nothing reads "
-                        "it until the autotuner is ported)")
+                   help="tuned.json searched profiles for --geometry auto "
+                        "and --merge-strategy auto (default ./tuned.json; "
+                        "a missing file resolves to the defaults)")
     p.add_argument("--platform", choices=("gpu", "cpu"), default="gpu",
                    help="'gpu' (default) runs on the card and fails without "
                         "one; 'cpu' runs on the host")
@@ -424,9 +432,71 @@ def _wordcount(args, paths, data, config: Config, device, input_bytes: int,
             print("[stats] " + json.dumps({
                 "phases": result.run.metrics.as_dict()["phases"],
                 "pipeline": result.run.pipeline}), file=sys.stderr)
+    if args.autotune:
+        _print_tune(tel)
     if args.verify_sample:
         return _verify(result, paths, args.verify_sample)
     return 0
+
+
+def _print_tune(tel) -> None:
+    """The run's autotune recommendation on stderr, as the JAX CLI prints
+    it; the full record (signals and decision trail) is in the ledger."""
+    t = getattr(tel, "last_tune", None)
+    if not t:
+        print("autotune: no recommendation (hint path unavailable "
+              "for this run)", file=sys.stderr)
+        return
+    changed = t.get("changed") or {}
+    moves = ", ".join(f"{k} {v[0]} -> {v[1]}" for k, v in changed.items())
+    verdict = "converged" if t.get("converged") else (moves or "no move")
+    print(f"autotune: {t.get('rule')} — {verdict}", file=sys.stderr)
+    if t.get("reason"):
+        print(f"autotune: {t['reason']}", file=sys.stderr)
+
+
+def _resolve_auto(args, config: Config) -> Config:
+    """Resolve the ``auto`` values before any device work, as the JAX CLI
+    does, each announced on stderr: the geometry from the searched profile
+    (``--geometry-profile``), the combiner from the latest ``data`` record
+    of the ``--ledger`` file (no history: 'off'), the merge strategy from
+    the freshest reduction-planner profile over the single-axis
+    strategies (none: 'tree').  The resolved values are what the run's
+    ``run_start`` records."""
+    from mapreduce_tpu_torch.obs import history
+
+    if args.geometry == "auto":
+        from mapreduce_tpu_torch.analysis.geometry import resolve_auto
+
+        resolved = resolve_auto(args.geometry_profile)
+        config = dataclasses.replace(
+            config, geometry=None if resolved == "default" else resolved)
+        print(f"geometry: auto -> {config.geometry_label}", file=sys.stderr)
+    if args.combiner == "auto":
+        records = []
+        if args.ledger and os.path.exists(args.ledger):
+            from mapreduce_tpu_torch.obs.ledger import read_ledger
+
+            records = list(read_ledger(args.ledger))
+        resolved = history.resolve_prior(records=records)["combiner"]
+        # 'off' drops an explicit cache depth: it sizes the cache only.
+        config = dataclasses.replace(
+            config, combiner=resolved,
+            combiner_slots=config.combiner_slots
+            if resolved == "hot-cache" else None)
+        print(f"combiner: auto -> {resolved}"
+              + ("" if records else " (no ledger history)"), file=sys.stderr)
+    if args.merge_strategy == "auto":
+        single_axis = tuple(m for m in MERGE_STRATEGIES
+                            if not m.startswith("hier-"))
+        prior = history.resolve_prior(profile_path=args.geometry_profile,
+                                      merge_allowed=single_axis)
+        config = dataclasses.replace(config,
+                                     merge_strategy=prior["merge_strategy"])
+        print(f"merge-strategy: auto -> {config.merge_strategy}"
+              + ("" if prior["merge_strategy_profile"]
+                 else " (no redplan profile; tree)"), file=sys.stderr)
+    return config
 
 
 def _verify(result, paths, sample: int) -> int:
@@ -584,10 +654,6 @@ def main(argv: list[str] | None = None) -> int:
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, item in _UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")):
-            parser.error(f"{flag} is not ported to the PyTorch package yet "
-                         f"(ROADMAP.md item {item})")
     if args.ngram < 1:
         parser.error(f"--ngram must be >= 1, got {args.ngram}")
     if (args.count_sketch or args.estimate) and not args.stream:
@@ -601,6 +667,11 @@ def main(argv: list[str] | None = None) -> int:
                      "(--distinct-sketch / --count-sketch / --estimate)")
     if args.checkpoint and not args.stream:
         parser.error("--checkpoint requires --stream")
+    if args.autotune and not args.stream:
+        parser.error("--autotune requires --stream (the single-buffer path "
+                     "has no pipeline knobs to tune)")
+    if args.autotune and (args.grep is not None or args.sample is not None):
+        parser.error("--autotune applies to word-count runs only")
     if args.retry and not args.stream:
         parser.error("--retry requires --stream (the non-stream path has no "
                      "step dispatch to retry)")
@@ -656,11 +727,6 @@ def main(argv: list[str] | None = None) -> int:
                          "multi-axis device mesh; the CLI drives a 1-D "
                          "mesh (2-D programs run via the fleet registry "
                          "twins / run_job_global)")
-        if args.merge_strategy == "auto":
-            parser.error("--merge-strategy auto resolves through the "
-                         "run-history prior, which is not ported to the "
-                         "PyTorch package yet (ROADMAP.md item A8b (ii), "
-                         "the autotuner)")
     if args.merge_overlap:
         if not args.stream:
             parser.error("--merge-overlap requires --stream")
@@ -717,9 +783,11 @@ def main(argv: list[str] | None = None) -> int:
                         merge_every=args.merge_every,
                         fault_plan=args.fault_plan,
                         merge_strategy=args.merge_strategy,
-                        merge_overlap=args.merge_overlap)
+                        merge_overlap=args.merge_overlap,
+                        autotune="hint" if args.autotune else "off")
     except ValueError as e:
         parser.error(str(e))
+    config = _resolve_auto(args, config)
     if args.sort_mode == "segmin" and args.platform != "cpu":
         from mapreduce_tpu_torch.config import (SEGMIN_TPU_ERROR,
                                                 segmin_allowed)
@@ -750,10 +818,11 @@ def _run(args, paths, data, config: Config, device, input_bytes: int) -> int:
     # (--ledger) and the registry snapshot (--metrics-out), written in the
     # finally, so a run that failed leaves them too.  Every rank of a
     # world runs the same stats mode: each gets a handle, the ledger is
-    # the coordinator's.
+    # the coordinator's.  --autotune forces a handle (without a ledger when
+    # --ledger is absent): the CLI prints the hint from it.
     coordinator = distributed.is_coordinator()
     tel = None
-    if args.ledger or args.metrics_out:
+    if args.ledger or args.metrics_out or args.autotune:
         from mapreduce_tpu_torch.obs.telemetry import Telemetry
 
         try:

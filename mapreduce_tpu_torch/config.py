@@ -5,8 +5,10 @@ path reads, at the JAX package's defaults and with its names, so a JAX
 ``Config`` maps across one to one (:func:`...convert.config_from_dict`).
 The backend names stay ``'pallas'`` and ``'xla'``: here ``'pallas'`` means
 the hand-written CUDA kernel path and ``'xla'`` the plain PyTorch
-tokenizer.  Values the port does not run yet raise ``ValueError`` naming
-the ``ROADMAP.md`` item that will port them.
+tokenizer.  The ``'auto'`` values of ``combiner``, ``geometry`` and
+``merge_strategy`` behave as ``'off'``, the default geometry and
+``'tree'`` until a driver resolves them (the command line does, through
+:mod:`mapreduce_tpu_torch.obs.history`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,20 +38,11 @@ SEGMIN_TPU_ERROR = (
     "(bit-identical results), run the A/B with --platform cpu, or set "
     "MAPREDUCE_ALLOW_SEGMIN=1 to run it on the card deliberately.")
 
-#: What the autotuner resolves, which is not ported yet.
-_AUTOTUNER = "A8b (ii), the autotuner"
-
-
 def segmin_allowed() -> bool:
     """The ``MAPREDUCE_ALLOW_SEGMIN`` override: only an explicit yes
     (``1``, ``true``, ``yes``) opts in, so ``0`` keeps the guard."""
     return os.environ.get("MAPREDUCE_ALLOW_SEGMIN", "").lower() \
         in ("1", "true", "yes")
-
-
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported to the PyTorch package yet "
-                      f"(ROADMAP.md item {item})")
 
 
 def radix_slab_cap(bits: int, block_rows: int, slab_slack: int) -> int:
@@ -202,11 +195,12 @@ class Config:
         'salt': the packed table build XORs ``COMBINER_SALT_BITS`` low
         position bits into ``key_lo`` before its sort and de-salts after
         it (:func:`...ops.table.from_packed_rows`; identical results while
-        the distinct keys fit the batch table; not with segmin).  'auto'
-        resolves through the autotuner's data-health prior, which is not
-        ported (ROADMAP.md item A8b (ii)).
+        the distinct keys fit the batch table; not with segmin).  'auto':
+        the command line resolves it from the prior run's data-health
+        verdict (skew-hot -> 'hot-cache', else 'off'); unresolved it runs
+        as 'off' (``resolved_combiner``).
       combiner_slots: cache entries per segment (multiple of 8 in [8, 32];
-        None: the geometry's, 8 by default).
+        None: the geometry's, 8 by default), with 'hot-cache' or 'auto'.
       merge_every: fold the chunks' batch tables into the running table
         once every K combines (``models/wordcount.py:BufferedTableState``
         stages them; one build over the table and the K batches replaces
@@ -217,8 +211,10 @@ class Config:
         ``GEOMETRY_PRESETS``, a :class:`Geometry` or a dict of its fields
         (stored as the frozen ``Geometry``).  The port reads its
         ``radix_bits`` and ``combiner_slots`` (see :class:`Geometry`);
-        results do not depend on it.  'auto' resolves through a searched
-        profile, which is not ported (ROADMAP.md item A8b (ii)).
+        results do not depend on it.  'auto': the command line resolves
+        it from a searched ``tuned.json`` profile
+        (:func:`...analysis.geometry.resolve_auto`); unresolved it runs
+        the default geometry.
       compact_slots: None (compact mode) or 0 (pair mode).  Both give the
         kernel's one dense stream; pair mode carries no combiner.
       rescue_overlong / rescue_overlong_max / rescue_window: the overlong
@@ -262,6 +258,11 @@ class Config:
         ``retry=0`` (an explicit failure policy keeps its budgets, with
         window replay disarmed); each partial is an ``op='partial'``
         ``collective`` ledger record.
+      autotune: 'off' (default) or 'hint': the streamed executor runs the
+        autotuner (:func:`...tuning.propose`) over the run's own ledger
+        records and writes its recommendation as a ``tune`` record before
+        ``run_end`` (and into ``RunResult.tune``); the live run is never
+        changed, and a failure of the hint is logged, never raised.
     """
 
     chunk_bytes: int = 1 << 25
@@ -288,6 +289,7 @@ class Config:
     failure_policy: object = None
     merge_strategy: str = "tree"
     merge_overlap: bool = False
+    autotune: str = "off"
 
     def __post_init__(self) -> None:
         if self.chunk_bytes % 128 != 0:
@@ -339,9 +341,7 @@ class Config:
             if self.rescue_window > 4096:
                 raise ValueError(f"rescue_window must be <= 4096, got "
                                  f"{self.rescue_window}")
-        if self.combiner == "auto":
-            raise _not_ported("combiner='auto'", _AUTOTUNER)
-        if self.combiner not in ("off", "hot-cache", "salt"):
+        if self.combiner not in ("off", "hot-cache", "salt", "auto"):
             raise ValueError(f"unknown combiner {self.combiner!r} (expected "
                              "'off', 'hot-cache', 'salt' or 'auto')")
         if self.combiner == "salt" and self.sort_mode == "segmin":
@@ -353,16 +353,16 @@ class Config:
             if self.combiner_slots % 8 or not 8 <= self.combiner_slots <= 32:
                 raise ValueError(f"combiner_slots must be a multiple of 8 in "
                                  f"[8, 32], got {self.combiner_slots}")
-            if self.combiner != "hot-cache":
-                raise ValueError("combiner_slots sizes the hot-key cache; set "
-                                 "combiner='hot-cache' to use it")
+            if self.combiner not in ("hot-cache", "auto"):
+                raise ValueError(
+                    "combiner_slots sizes the hot-key cache; set "
+                    "combiner='hot-cache' (or 'auto') to use it")
         if isinstance(self.geometry, dict):
             # Stored as the frozen dataclass, so the config stays hashable.
             object.__setattr__(self, "geometry", Geometry(**self.geometry))
-        if self.geometry == "auto":
-            raise _not_ported("geometry='auto'", _AUTOTUNER)
         if isinstance(self.geometry, str):
-            if self.geometry not in GEOMETRY_PRESETS:
+            if self.geometry != "auto" \
+                    and self.geometry not in GEOMETRY_PRESETS:
                 raise ValueError(
                     f"unknown geometry {self.geometry!r} (expected 'auto', "
                     f"a preset name {sorted(GEOMETRY_PRESETS)}, a Geometry, "
@@ -372,6 +372,9 @@ class Config:
             raise ValueError(
                 f"geometry must be None, 'auto', a preset name, a Geometry "
                 f"or a dict, got {type(self.geometry).__name__}")
+        if self.autotune not in ("off", "hint"):
+            raise ValueError(f"unknown autotune mode {self.autotune!r} "
+                             "(expected 'off' or 'hint')")
         if not isinstance(self.merge_overlap, bool):
             raise ValueError(
                 f"merge_overlap must be a bool, got "
@@ -453,9 +456,10 @@ class Config:
 
     @property
     def resolved_geometry(self) -> Geometry:
-        """The :class:`Geometry` this config runs (None: the default)."""
+        """The :class:`Geometry` this config runs (None, or an unresolved
+        'auto': the default)."""
         g = self.geometry
-        if g is None:
+        if g is None or g == "auto":
             return DEFAULT_GEOMETRY
         if isinstance(g, str):
             return GEOMETRY_PRESETS[g]
@@ -464,9 +468,10 @@ class Config:
     @property
     def geometry_label(self) -> str:
         """The name ledgers carry: 'default', a preset name, or 'custom'
-        for a non-preset ``Geometry``."""
+        for a non-preset ``Geometry`` (an unresolved 'auto' is the
+        default)."""
         g = self.geometry
-        if g is None:
+        if g is None or g == "auto":
             return "default"
         if isinstance(g, str):
             return g
@@ -474,10 +479,9 @@ class Config:
 
     @property
     def resolved_combiner(self) -> str:
-        """The combiner the map runs: the JAX property, whose unresolved
-        'auto' runs as 'off'; the port refuses 'auto', so it is
-        ``combiner``."""
-        return self.combiner
+        """The combiner the map runs: an unresolved 'auto' runs as 'off'
+        (the command line resolves it before a run, never the map)."""
+        return "off" if self.combiner == "auto" else self.combiner
 
     @property
     def resolved_salt_bits(self) -> int:

@@ -21,7 +21,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from mapreduce_tpu_torch.config import Config, _not_ported
+from mapreduce_tpu_torch.config import Config
 from mapreduce_tpu_torch.ops.cuda.tokenize import CombinerCache
 from mapreduce_tpu_torch.ops.table import CountTable
 from mapreduce_tpu_torch.runtime.platform import resolve_device
@@ -161,30 +161,21 @@ def combiner_cache_from_numpy(fields: Mapping[str, Any],
         for f in CombinerCache._fields})
 
 
-#: JAX ``Config`` fields of the streamed executor's tuning plane, not
-#: ported yet: the value the port behaves as, and the ROADMAP.md item that
-#: ports each.
-_UNPORTED_DEFAULTS = {"autotune": ("off", "A8b (ii), the autotuner")}
-
-
 def config_from_dict(d: Mapping[str, Any]) -> Config:
     """A port Config from a JAX Config's fields (``dataclasses.asdict``).
 
-    Fields the port has are taken as they are, so a value the port does not
-    run yet raises.  An explicit JAX ``compact_slots`` > 0 sizes the TPU
-    kernel's window; it maps to compact mode (None): the port's dense
+    Fields the port has are taken as they are.  An explicit JAX
+    ``compact_slots`` > 0 sizes the TPU kernel's window; it maps to
+    compact mode (None): the port's dense
     stream has no slots, and no result depends on them.  A JAX kernel
     geometry carries across as it is: a preset name, or a dict of its
     fields (``asdict`` makes a ``Geometry`` one), which the port's
     ``Config`` stores as its own :class:`...config.Geometry`.  The
     pipeline knobs (superstep, in-flight groups, prefetch), the fault plan
-    and the failure policy (``asdict`` makes it a dict of its fields) and
-    ``merge_overlap`` carry across; an autotuner away from its default
-    raises, naming its ROADMAP item.
+    and the failure policy (``asdict`` makes it a dict of its fields),
+    ``merge_overlap``, ``autotune`` and the ``'auto'`` values of
+    ``combiner``, ``geometry`` and ``merge_strategy`` carry across.
     """
-    for name, (default, item) in _UNPORTED_DEFAULTS.items():
-        if d.get(name, default) != default:
-            raise _not_ported(f"{name}={d[name]!r}", item)
     names = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in d.items() if k in names}
     if kw.get("compact_slots"):

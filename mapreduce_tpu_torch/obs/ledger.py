@@ -35,6 +35,10 @@ checkpoint     step, cursor_bytes, save_s, path (preempt on a drain)
 failure        step, cursor_bytes, error, fault_class, flight-dump path
 collective     the finish: op, strategy, started_at/ended_at
 data           the run's data-plane summary (before run_end)
+tune           a ``Config(autotune='hint')`` run's autotuner
+               recommendation (before run_end, after data): tuner_version,
+               current/proposal knobs, changed, rule, reason, converged,
+               the signals it read, the decision trail, mode='hint'
 run_end        the run's metrics (bytes, words, elapsed, phases, GB/s)
                and the window statistics (``pipeline``)
 =============  ===========================================================

@@ -31,9 +31,11 @@ Several hosts (:meth:`Telemetry.attach_host`, the JAX handle's): every
 record carries its ``host``, ``run_start`` the topology and the
 ``run_epoch`` clock pair, and the global driver's handle writes every
 record to its host's shard ledger ``<ledger>.h<p>.jsonl`` while the main
-file keeps the coordinator's (the ``write`` gate).  The autotune note is
-not here, and a flight dump carries the data summary without the JAX
-``data_health`` verdict (its classifier is not ported yet).
+file keeps the coordinator's (the ``write`` gate).  A flight dump carries
+the latest data summary and its ``data_health`` verdict
+(:func:`...obs.datahealth.classify`), and :meth:`Telemetry.note_tune`
+keeps a hint run's ``tune`` recommendation for callers that never see the
+``RunResult`` (the command line).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import uuid
 import weakref
 from typing import Any, Optional
 
+from mapreduce_tpu_torch.obs import datahealth
 from mapreduce_tpu_torch.obs import flight as flight_mod
 from mapreduce_tpu_torch.obs import ledger as ledger_mod
 from mapreduce_tpu_torch.obs import registry as registry_mod
@@ -109,6 +112,10 @@ class Telemetry:
         self.ledger = ledger
         self.flight = flight
         self.flight_path = flight_path
+        # The run's id: the ledger's, or a fresh one (a hint run without a
+        # ledger still tags the records it gives the tuner).
+        self.run_id = ledger.run_id if ledger is not None \
+            else uuid.uuid4().hex[:12]
         # Several hosts (attach_host): the record stamp, run_start's
         # topology and the host's shard ledger; empty on one host, so its
         # records keep their shapes.
@@ -117,6 +124,9 @@ class Telemetry:
         self.shard: Optional[ledger_mod.RunLedger] = None
         # The latest data-plane summary: a flight dump carries it.
         self.last_data: Optional[dict] = None
+        # A hint run's autotune recommendation (the ``tune`` record's
+        # payload), for callers that never see the RunResult.
+        self.last_tune: Optional[dict] = None
         self.progress_every_s = float(progress_every_s)
         self._last_progress_t: Optional[float] = None
         self._progress_t0: Optional[float] = None
@@ -329,10 +339,16 @@ class Telemetry:
         if self.enabled and data is not None:
             self.last_data = data
 
+    def note_tune(self, tune: Optional[dict]) -> None:
+        """Keep the run's autotune recommendation (a dict assignment)."""
+        if self.enabled and tune is not None:
+            self.last_tune = tune
+
     def flight_dump(self, context: Optional[dict] = None,
                     state: Any = None) -> Optional[str]:
         """Dump the flight ring, a summary of ``state`` (metadata only),
-        the registry snapshot and the latest data summary.  Returns the
+        the registry snapshot, the latest data summary and its
+        ``data_health`` classification.  Returns the
         dump's path (None when disabled or pathless); the first dump of a
         run owns the file."""
         if not (self.enabled and self.flight is not None
@@ -344,10 +360,17 @@ class Telemetry:
                 summary = flight_mod.summarize_state(state)
             except Exception:
                 summary = {"error": "state summary failed"}
+        data_health = None
+        if self.last_data is not None:
+            try:  # a dump must never mask the failure it records
+                data_health = datahealth.classify(self.last_data)
+            except Exception:
+                data_health = {"error": "classification failed"}
         return self.flight.dump(self.flight_path, context=context,
                                 state_summary=summary,
                                 registry_snapshot=self.registry.snapshot(),
-                                data=self.last_data)
+                                data=self.last_data,
+                                data_health=data_health)
 
     def close(self) -> None:
         """Close the ledger (and the shard) and stop receiving builds."""

@@ -31,7 +31,8 @@ retire      ``token_ready_at -> retired_at``: retire bookkeeping
 
 ``reconstruct(..., with_collective=True)`` adds a ``collective`` lane from
 the ``collective`` records (the finish), kept out of the ``bottleneck``
-election.
+election.  :func:`to_chrome_trace` renders the same records as Chrome
+trace-event JSON (Perfetto), and ``obs/fleet.py`` renders a fleet's.
 """
 
 from __future__ import annotations
@@ -310,3 +311,102 @@ def reconstruct(records: Iterable[dict],
                         "blocked_on": blocked_on},
         "bottleneck": bottleneck,
     }
+
+
+# -- Chrome trace-event rendering -------------------------------------------
+
+# Slice names per lane (what a Perfetto track shows on each group's slice).
+_SLICE = {"reader": "read", "staging": "stage", "h2d": "h2d",
+          "device": "compute", "retire": "retire",
+          "collective": "collective"}
+
+
+def to_chrome_trace(records: Iterable[dict],
+                    run_id: Optional[str] = None) -> Optional[dict]:
+    """Ledger records -> Chrome trace-event JSON (the JAX package's
+    ``trace_export`` payload): one **pid per resource lane**, one **tid
+    per group**, complete (``ph="X"``) slices for every lifecycle
+    interval, flow arrows dispatch -> token_ready, and instant markers on
+    the device lane for every attributed idle gap.  Open the written file
+    in Perfetto (ui.perfetto.dev) or ``chrome://tracing``.
+
+    Returns None when the run has no usable ``group`` records.
+    """
+    records = list(records)
+    art = reconstruct(records, run_id)
+    if art is None:
+        return None
+    pid = {lane: i + 1 for i, lane in enumerate(LANES)}
+    events = []
+    for lane in LANES:
+        events.append({"ph": "M", "name": "process_name", "pid": pid[lane],
+                       "args": {"name": lane}})
+        events.append({"ph": "M", "name": "process_sort_index",
+                       "pid": pid[lane], "args": {"sort_index": pid[lane]}})
+    t0 = art["t0"]
+
+    def us(t: float) -> float:
+        return round((t - t0) * 1e6, 3)
+
+    named_threads = set()
+    for rec in iter_groups(records, art["run_id"]):
+        iv = group_intervals(rec)
+        if iv is None:
+            continue
+        gid = int(rec.get("step_first", 0))
+        label = f"g{rec.get('step_first', '?')}-{rec.get('step_last', '?')}"
+        args = {k: rec.get(k) for k in
+                ("step_first", "step_last", "steps", "group_bytes",
+                 "retries", "retire_wait_s") if rec.get(k) is not None}
+        # Data-plane annotations: the group's spill/rescue/
+        # occupancy counters ride every slice's args (click a slice in
+        # Perfetto to see what the data did), and groups that took the
+        # spill-fallback or rescue-escalation cond get an instant marker
+        # on the device lane — the 2x-map-cost chunks are visible as
+        # events, not just numbers.
+        data = rec.get("data")
+        if isinstance(data, dict):
+            args["data"] = data
+        for lane, (s, e) in iv.items():
+            if (pid[lane], gid) not in named_threads:
+                named_threads.add((pid[lane], gid))
+                events.append({"ph": "M", "name": "thread_name",
+                               "pid": pid[lane], "tid": gid,
+                               "args": {"name": f"group {label}"}})
+            events.append({"ph": "X", "cat": "lane",
+                           "name": f"{_SLICE[lane]} {label}",
+                           "pid": pid[lane], "tid": gid, "ts": us(s),
+                           "dur": round((e - s) * 1e6, 3), "args": args})
+        if isinstance(data, dict) and "device" in iv:
+            marks = []
+            if data.get("fallback_chunks"):
+                marks.append(f"{data['fallback_chunks']} spill fallback(s)")
+            if data.get("rescue_escalations"):
+                marks.append(f"{data['rescue_escalations']} rescue "
+                             "escalation(s)")
+            if marks:
+                events.append({"ph": "i", "s": "t", "cat": "data",
+                               "name": f"data: {', '.join(marks)} {label}",
+                               "pid": pid["device"], "tid": gid,
+                               "ts": us(iv["device"][0]),
+                               "args": dict(data)})
+        # Flow arrow: the dispatch hand-off from the staging lane into the
+        # device lane (binds to the enclosing slices at each end).
+        if "staging" in iv and "device" in iv:
+            events.append({"ph": "s", "cat": "dispatch", "name": "dispatch",
+                           "id": gid, "pid": pid["staging"], "tid": gid,
+                           "ts": us(iv["staging"][1])})
+            events.append({"ph": "f", "bp": "e", "cat": "dispatch",
+                           "name": "dispatch", "id": gid,
+                           "pid": pid["device"], "tid": gid,
+                           "ts": us(iv["device"][1])})
+    for gap in art["device_idle"]["gaps"]:
+        events.append({"ph": "i", "s": "p", "cat": "idle",
+                       "name": f"device idle {gap['s']:.3f}s: "
+                               f"blocked on {gap['blocking']}",
+                       "pid": pid["device"], "tid": 0,
+                       "ts": round(gap["start"] * 1e6, 3),
+                       "args": dict(gap)})
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": {"run_id": art["run_id"], "groups": art["groups"],
+                          "bottleneck": art["bottleneck"]}}

@@ -185,8 +185,8 @@ class DataAggregator:
     def for_run(cls, config, devices: int = 1) -> "DataAggregator":
         return cls(capacity=config.table_capacity,
                    backend=config.resolved_backend(),
-                   map_impl=config.map_impl, combiner=config.combiner,
-                   devices=devices)
+                   map_impl=config.map_impl,
+                   combiner=config.resolved_combiner, devices=devices)
 
     def group_data(self, stats: DataStats) -> dict:
         """One retired group's statistics (ints) -> its ``data`` dict

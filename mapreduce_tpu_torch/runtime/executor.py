@@ -115,7 +115,10 @@ merge the ranks' local states into a replicated accumulator every
 ``inflight_groups`` retired groups and at checkpoint, file and preemption
 boundaries, and the finish merges only the residual.
 
-Not ported yet (ROADMAP A8b (ii)): the autotuner.
+Under ``Config(autotune='hint')`` :func:`run_job` runs the autotuner over
+the run's own ledger records (:func:`_autotune_hint`) and writes its
+recommendation as a ``tune`` record between ``data`` and ``run_end``, as
+the JAX package does; the live run is never changed.
 """
 
 from __future__ import annotations
@@ -143,6 +146,7 @@ from mapreduce_tpu_torch.models.wordcount import (
     SketchedState, SketchedWordCountJob, TopKTable, TopKWordCountJob,
     WordCountJob, WordCountResult, _reported_distinct, apply_top_k,
     job_with_config)
+from mapreduce_tpu_torch.obs import ledger as obs_ledger
 from mapreduce_tpu_torch.obs import telemetry as obs_telemetry
 from mapreduce_tpu_torch.obs.spans import span, timing_into
 from mapreduce_tpu_torch.ops import datastats
@@ -175,6 +179,51 @@ class RunResult:
     bases: np.ndarray  # int64[steps, D] row base offsets (string recovery)
     pipeline: Optional[dict] = None  # the window statistics (``pipe``)
     rank: int = 0  # this process's rank on the data axis
+    # Config(autotune='hint') runs: the autotuner's recommendation (the
+    # ``tune`` record's payload: proposal, changed knobs, rule, reason,
+    # signals and the decision trail).  None otherwise.
+    tune: Optional[dict] = None
+
+
+def _autotune_hint(config: Config, tel, pipe: dict, timer,
+                   data_rec: Optional[dict], logger) -> Optional[dict]:
+    """The online autotune hint: the tuner (:func:`...tuning.propose`)
+    over this run's own ledger records, folded into a ``tune`` record and
+    the run's result; the live run is never changed.  The records are read
+    back from the run's ledger (flushed per record); without a ledger the
+    in-memory ``data`` record still gives a phase-classified hint.
+    ``run_end`` is written after the ``tune`` record (a run without
+    ``run_end`` did not complete), so its view is synthesized here.
+    Advisory, as in the JAX package: a failure is logged, never raised."""
+    try:
+        from mapreduce_tpu_torch import tuning
+
+        if tel.enabled and tel.ledger is not None:
+            records = [r for r in obs_ledger.read_ledger(tel.ledger.path)
+                       if r.get("run_id") == tel.run_id]
+        else:
+            records = []
+            if data_rec is not None:
+                records.append({"run_id": tel.run_id, "kind": "data",
+                                **data_rec})
+        records.append({"run_id": tel.run_id, "kind": "run_end",
+                        "phases": dict(timer.phases), "pipeline": pipe})
+        prop = tuning.propose(records, run_id=tel.run_id, current={
+            "chunk_bytes": config.chunk_bytes,
+            "superstep": config.superstep,
+            "inflight_groups": config.inflight_groups,
+            "prefetch_depth": config.resolved_prefetch_depth})
+        # A proposal that the Config refuses never reaches the ledger.
+        tuning.validate_knobs(prop["proposal"], config.backend)
+        prop["mode"] = "hint"
+        tel.ledger_write("tune", **prop)
+        tel.note_tune(prop)
+        log_event(logger, "autotune hint", rule=prop["rule"],
+                  changed=prop["changed"], converged=prop["converged"])
+        return prop
+    except Exception as e:  # noqa: BLE001 - advisory, never fatal
+        log_event(logger, "autotune hint failed", error=repr(e))
+        return None
 
 
 def _overlap_fraction(timer) -> Optional[float]:
@@ -1888,10 +1937,15 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
         if pipe["overlap_fraction"] is not None:
             tel.registry.gauge("executor.overlap_fraction").set(
                 pipe["overlap_fraction"])
+        data_rec = None
         if data_agg is not None and data_agg.groups:
             data_rec = data_agg.run_record()
             tel.ledger_write("data", **data_rec)
             tel.note_data(data_rec)
+        # The hint, after the data record and before run_end; the global
+        # driver ignores the knob, as in the JAX package.
+        tune = _autotune_hint(config, tel, pipe, timer, data_rec, logger) \
+            if config.autotune == "hint" and not glob else None
         # The bytes this run streamed (a resumed run starts at its cursor).
         m = metrics_mod.RunMetrics(bytes_processed=bytes_done - start_offset,
                                    words_counted=_metrics_word_count(value),
@@ -1902,7 +1956,7 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
     bases = np.stack(bases_list) if bases_list \
         else np.zeros((0, n_dev), np.int64)
     return RunResult(value=value, metrics=m, bases=bases, pipeline=pipe,
-                     rank=axis.rank)
+                     rank=axis.rank, tune=tune)
 
 
 def absolute_offsets(chunk_id: np.ndarray, pos: np.ndarray,

@@ -2,13 +2,14 @@
 
 ``python -m mapreduce_tpu_torch ... --platform cpu`` must print stdout
 byte-identical to ``./main`` (the JAX CLI) for the flags the port takes,
-refuse every other JAX flag with a usage error, and refuse to run without a
-card unless asked for the CPU.  Outputs are compared as bytes: exact.
+resolve the ``auto`` values and print the ``--autotune`` hint as the JAX
+CLI does, and refuse to run without a card unless asked for the CPU.  Outputs are compared as bytes: exact.
 """
 
 import contextlib
 import functools
 import io
+import json
 import os
 import pathlib
 import subprocess
@@ -74,20 +75,42 @@ def test_kernel_flags_stdout_identical_to_jax_cli(flags):
 
 
 @pytest.mark.parametrize("mode", ["salt", "auto"])
-def test_unported_combiners_are_refused(mode, capsys):
-    """'salt' runs and prints the JAX CLI's stdout; 'auto' resolves
-    through the autotuner's prior, which is not ported: exit 2 naming
-    its item."""
+def test_unported_combiners_are_refused(mode, capsysbinary, tmp_path):
+    """'salt' runs and prints the JAX CLI's stdout.  'auto' resolves from
+    the ``--ledger`` file's latest ``data`` record, as the JAX CLI does:
+    'off (no ledger history)' on a fresh ledger, then 'hot-cache' after a
+    run whose data record is skew-hot (test.txt: 'Hello' is 2 of 9
+    tokens); the JAX resolver reads the port's ledger the same way, and
+    both runs print the JAX CLI's stdout."""
     if mode == "salt":
         flags = ("--combiner", "salt", "--format", "json")
         assert _port_stdout("test.txt", *flags) == \
             _jax_stdout("test.txt", *flags)
         return
-    with pytest.raises(SystemExit) as e:
-        cli.main(["test.txt", "--platform", "cpu", "--combiner", mode])
-    assert e.value.code == 2
-    assert "ROADMAP.md item A8b (ii), the autotuner" \
-        in capsys.readouterr().err
+    from mapreduce_tpu.obs import history as jhistory
+    from mapreduce_tpu_torch.obs.ledger import read_ledger
+
+    want = _jax_stdout("test.txt", "--format", "json")
+    led = str(tmp_path / "run.jsonl")
+    lines = []
+    old = os.getcwd()
+    os.chdir(REPO)
+    try:
+        for _ in range(2):
+            assert cli.main(["test.txt", "--platform", "cpu", "--combiner",
+                             mode, "--ledger", led, "--format", "json"]) == 0
+            got = capsysbinary.readouterr()
+            assert got.out == want
+            lines += [ln for ln in got.err.decode().splitlines()
+                      if ln.startswith("combiner: ")]
+    finally:
+        os.chdir(old)
+    assert lines == ["combiner: auto -> off (no ledger history)",
+                     "combiner: auto -> hot-cache"]
+    recs = list(read_ledger(led))
+    assert jhistory.resolve_prior(records=recs)["combiner"] == "hot-cache"
+    assert [r["combiner"] for r in recs if r["kind"] == "run_start"] \
+        == ["off", "hot-cache"]
 
 
 def test_in_process_flags_match_jax_cli(capsysbinary, tmp_path):
@@ -153,14 +176,21 @@ def test_version_flag_matches_jax_cli(capsysbinary):
     (("--geometry", "auto"), "A8b (ii), the autotuner"),
 ])
 def test_flags_the_port_refuses_name_their_item(flags, item, capsysbinary,
-                                                monkeypatch):
-    """The autotuner's flags exit 2 naming its item.  ``--sort-mode
-    segmin`` runs on the CPU (the JAX CLI's stdout); off the CPU the JAX
-    CLI's guard exits 2 before any device work unless
-    ``MAPREDUCE_ALLOW_SEGMIN`` says yes, in both command lines."""
+                                                monkeypatch, tmp_path):
+    """The autotuner's flags run as in the JAX CLI.  ``--merge-strategy
+    auto`` resolves from a reduction-planner profile over the single-axis
+    strategies ('keyrange' here; no profile: 'tree' with the JAX note);
+    ``--geometry auto`` from the freshest searched profile ('combiner16'
+    here; no profile: 'default'); each prints its ``auto -> X`` line and
+    the stdout of the run with the resolved value.  ``--autotune`` without
+    ``--stream`` is the JAX CLI's usage error.  ``--sort-mode segmin`` runs
+    on the CPU (the JAX CLI's stdout); off the CPU the JAX CLI's guard
+    exits 2 before any device work unless ``MAPREDUCE_ALLOW_SEGMIN`` says
+    yes, in both command lines.  ``item`` names the ROADMAP item that
+    ported the flag."""
+    monkeypatch.chdir(REPO)
     if item is None:
         monkeypatch.delenv("MAPREDUCE_ALLOW_SEGMIN", raising=False)
-        monkeypatch.chdir(REPO)
         run = ["test.txt", *flags, "--format", "tsv"]
         assert cli.main(run + ["--platform", "cpu"]) == 0
         assert capsysbinary.readouterr().out == _jax_stdout(*run)
@@ -168,11 +198,44 @@ def test_flags_the_port_refuses_name_their_item(flags, item, capsysbinary,
         err = capsysbinary.readouterr().err.decode()
         assert "MAPREDUCE_ALLOW_SEGMIN=1" in err and "segmin" in err
         return
-    with pytest.raises(SystemExit) as e:
-        cli.main(["test.txt", "--platform", "cpu", *flags])
-    assert e.value.code == 2
-    assert f"(ROADMAP.md item {item})" \
-        in capsysbinary.readouterr().err.decode()
+    if flags == ("--autotune",):
+        errs = []
+        for main in (jcli.main, cli.main):
+            with pytest.raises(SystemExit) as e:
+                main(["test.txt", *flags] + (["--platform", "cpu"]
+                                             if main is cli.main else []))
+            assert e.value.code == 2
+            errs.append(capsysbinary.readouterr().err.decode()
+                        .strip().splitlines()[-1].split("error: ", 1)[1])
+        assert errs[1] == errs[0] == ("--autotune requires --stream (the "
+                                      "single-buffer path has no pipeline "
+                                      "knobs to tune)")
+        return
+    prof = tmp_path / "tuned.json"
+    prof.write_text(json.dumps({"profiles": {
+        "wordcount-geometry/g": {"recorded_at": "2026-02-01",
+                                 "config": {"geometry": "combiner16"}},
+        "wordcount-redplan/static/2dx4i-cap262144": {
+            "recorded_at": "2026-03-01", "mesh": {"label": "2dx4i"},
+            "config": {"merge_strategy": "hier-kr-tree"}},
+        "wordcount-redplan/static/8i-cap262144": {
+            "recorded_at": "2026-01-01", "mesh": {"label": "8i"},
+            "config": {"merge_strategy": "keyrange"}}}}))
+    knob = flags[-2][2:]
+    resolved = {"merge-strategy": ("keyrange", "tree (no redplan profile; "
+                                   "tree)"),
+                "geometry": ("combiner16", "default")}[knob]
+    want = _jax_stdout("test.txt", "--format", "tsv")
+    lines = []
+    for extra in (["--geometry-profile", str(prof)],
+                  ["--geometry-profile", str(tmp_path / "none.json")]):
+        assert cli.main(["test.txt", *flags, *extra, "--format", "tsv",
+                         "--platform", "cpu"]) == 0
+        got = capsysbinary.readouterr()
+        assert got.out == want
+        lines += [ln for ln in got.err.decode().splitlines()
+                  if ln.startswith(f"{knob}: ")]
+    assert lines == [f"{knob}: auto -> {r}" for r in resolved]
 
 
 @pytest.mark.parametrize("flags", [

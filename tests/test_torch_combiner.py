@@ -289,11 +289,13 @@ def test_config_and_the_no_op_rule():
             Config(combiner="hot-cache", combiner_slots=bad)
     with pytest.raises(ValueError, match="hot-cache"):
         Config(combiner_slots=8)
-    # 'salt' runs (tests/test_torch_knobs.py); 'auto' resolves through
-    # the autotuner's prior, which is not ported.
+    # 'salt' runs (tests/test_torch_knobs.py); an unresolved 'auto' runs
+    # as 'off', as in the JAX package (the command line resolves it).
     assert Config(combiner="salt").resolved_salt_bits == 3
-    with pytest.raises(ValueError, match=r"A8b \(ii\), the autotuner"):
-        Config(combiner="auto")
+    auto = Config(map_impl="fused", combiner="auto", combiner_slots=16)
+    assert (auto.resolved_combiner, auto.resolved_combiner_slots) == (
+        "off", 0) == (JConfig(map_impl="fused", combiner="auto",
+                              combiner_slots=16).resolved_combiner, 0)
     # 'hot-cache' off the fused path is a no-op: the same table as 'off'.
     data = _wc_corpus("zipf")
     off = Config(chunk_bytes=NW, table_capacity=4096, pallas_max_token=W)

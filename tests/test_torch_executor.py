@@ -245,6 +245,15 @@ def test_cli_stream_checkpoint_matches_jax_cli(tmp_path, capsysbinary):
     assert ckpt.exists(ck)
 
 
+def _jax_tune_lines(tune) -> list:
+    """The JAX CLI's ``autotune:`` stderr lines for a proposal."""
+    import types
+
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        jcli._print_tune(types.SimpleNamespace(last_tune=tune))
+    return err.getvalue().splitlines()
+
+
 def _port_stdout(capsysbinary, *args: str, rc: int = 0) -> bytes:
     old = os.getcwd()
     os.chdir(REPO)
@@ -265,13 +274,52 @@ def _port_stdout(capsysbinary, *args: str, rc: int = 0) -> bytes:
     ["--stream", "--ledger", "LEDGER"],
 ])
 def test_cli_refusals(argv, capsysbinary, tmp_path):
-    """Flags of planes not ported are refused with a usage error naming
-    their ROADMAP item; ``--retry`` and ``--fault-plan`` run, and a fault
-    the budget absorbs leaves the output exact; ``--merge-overlap`` runs
-    and prints what the plain run prints, and with ``--retry`` it is the
-    JAX CLI's usage error; ``--ledger`` runs, prints what the plain run
-    prints and leaves a ledger that parses."""
+    """``--checkpoint`` without ``--stream`` is a usage error; ``--retry``
+    and ``--fault-plan`` run, and a fault the budget absorbs leaves the
+    output exact; ``--merge-overlap`` runs and prints what the plain run
+    prints, and with ``--retry`` it is the JAX CLI's usage error;
+    ``--ledger`` runs, prints what the plain run prints and leaves a
+    ledger that parses; ``--autotune`` runs, prints what the plain run
+    prints, and its stderr ``autotune:`` lines are the JAX CLI's
+    ``_print_tune`` of the JAX tuner's proposal over the run's records
+    (and of no proposal, when the hint is unavailable)."""
     overlap = "--merge-overlap" in argv
+    if "--autotune" in argv:
+        import types
+
+        from mapreduce_tpu import tuning as jtuning
+
+        ledger = str(tmp_path / "tune.jsonl")
+        want = _port_stdout(capsysbinary, "test.txt")
+        old = os.getcwd()
+        os.chdir(REPO)
+        try:
+            assert cli.main(["test.txt", *argv, "--ledger", ledger,
+                             "--platform", "cpu"]) == 0
+        finally:
+            os.chdir(old)
+        got = capsysbinary.readouterr()
+        assert got.out == want
+        recs = list(read_ledger(ledger))
+        kinds = [r["kind"] for r in recs]
+        assert kinds.count("tune") == 1 and kinds[-1] == "run_end"
+        end, start = recs[-1], recs[0]
+        prop = jtuning.propose(
+            recs[:kinds.index("tune")] + [
+                {"run_id": end["run_id"], "kind": "run_end",
+                 "phases": end["phases"], "pipeline": end["pipeline"]}],
+            run_id=end["run_id"], current={
+                "chunk_bytes": start["chunk_bytes"],
+                "superstep": start["superstep"],
+                "inflight_groups": end["pipeline"]["inflight_groups"],
+                "prefetch_depth": end["pipeline"]["prefetch_depth"]})
+        lines = [ln for ln in got.err.decode().splitlines()
+                 if ln.startswith("autotune: ")]
+        assert lines == _jax_tune_lines(prop) and len(lines) == 2
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            cli._print_tune(types.SimpleNamespace(last_tune=None))
+        assert err.getvalue().splitlines() == _jax_tune_lines(None)
+        return
     if ("--retry" in argv and not overlap) or "--ledger" in argv \
             or argv == ["--stream", "--merge-overlap"]:
         ledger = tmp_path / "run.jsonl"
@@ -288,9 +336,8 @@ def test_cli_refusals(argv, capsysbinary, tmp_path):
     assert e.value.code == 2
     err = capsysbinary.readouterr().err
     assert (b"--checkpoint requires --stream" in err) \
-        if argv[0] == "--checkpoint" else (
-            b"--merge-overlap requires --retry 0" in err if overlap else
-            b"ROADMAP.md item A8b (ii), the autotuner" in err)
+        if argv[0] == "--checkpoint" else \
+        b"--merge-overlap requires --retry 0" in err
 
 
 def test_cli_preempted_run_exits_75_and_resumes_like_jax(tmp_path,
@@ -348,9 +395,9 @@ def test_config_pipeline_knobs_map_from_jax():
             assert convert.config_from_dict(dataclasses.asdict(
                 JConfig(**kw))).merge_overlap is True
             continue
-        item = r"A8b \(ii\), the autotuner"
-        with pytest.raises(ValueError, match=item):
-            convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
+        # The autotuner's mode carries across, as the JAX field is.
+        cfg = convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
+        assert cfg.autotune == JConfig(**kw).autotune == "hint"
     for kw in ({"superstep": 0}, {"inflight_groups": 0},
                {"prefetch_depth": 0}):
         with pytest.raises(ValueError):

@@ -9,7 +9,8 @@ field compared exactly as uint32.
   with the radix seam, with salt and with an explicit rescue; presets,
   ``Geometry`` instances and dicts mapped across by
   ``convert.config_from_dict`` with the same resolved values; the
-  autotuner's 'auto' values still refused.
+  autotuner's 'auto' values validated and, unresolved, run as the JAX
+  package's.
 - The packed build (``ops/table.py:from_packed_rows``) on position-ordered
   rows with poison and filler rows: salted and not, stable2 and sort3,
   the torch sort and both radix seams, with and without batch spill and
@@ -137,12 +138,16 @@ def test_config_refusals_equal_jax(kw):
 
 
 def test_autotuner_values_stay_refused():
+    """The autotuner's 'auto' values validate in both packages (the
+    command lines resolve them before a run) and, unresolved, run as the
+    JAX ``Config``'s do: 'off' and the default geometry."""
     for kw in ({"combiner": "auto"}, {"geometry": "auto"}):
-        JConfig(**kw)  # the JAX command line resolves them before a run
-        with pytest.raises(ValueError,
-                           match=r"ROADMAP.md item A8b \(ii\), the "
-                                 r"autotuner"):
-            Config(**kw)
+        j, c = JConfig(**kw), Config(**kw)
+        assert (c.resolved_combiner, c.geometry_label,
+                c.resolved_geometry.as_dict(), c.resolved_combiner_slots) \
+            == (j.resolved_combiner, j.geometry_label,
+                j.resolved_geometry.as_dict(), j.resolved_combiner_slots) \
+            == ("off", "default", jconfig.DEFAULT_GEOMETRY.as_dict(), 0)
 
 
 @pytest.mark.parametrize("geometry", [

@@ -337,6 +337,13 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "'test.txt', mesh=mesh.two_level_mesh(1, 1), "
             "merge_strategy='hier-kr-tree'); "
             "assert rr.value.total_count() == 9; "
+            "from mapreduce_tpu_torch import tuning; "
+            "from mapreduce_tpu_torch.obs import datahealth, fleet, history; "
+            "from mapreduce_tpu_torch.analysis import geometry; "
+            "r = m.count_file('test.txt', m.Config(autotune='hint'), "
+            "device='cpu'); "
+            "assert tuning.validate_knobs(r.run.tune['proposal']) is None; "
+            "assert geometry.resolve_auto('no-such.json') == 'default'; "
             "assert distributed.process_count() == 1; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'mapreduce_tpu')]; "
@@ -352,15 +359,14 @@ def test_config_from_jax_dict():
     assert cfg == wc.Config()
     assert cfg.rescue_slots_max == JConfig().rescue_slots_max == 32768
     assert cfg.batch_uniques == JConfig().batch_uniques
-    # The map's knobs map across as they are; only the autotuner's 'auto'
-    # values stay refused.
+    # The map's knobs map across as they are, the autotuner's 'auto'
+    # values and its hint mode too.
     for kw in ({"combiner": "salt"}, {"geometry": "combiner16"},
-               {"sort_mode": "segmin"}, {"merge_every": 3}):
+               {"sort_mode": "segmin"}, {"merge_every": 3},
+               {"combiner": "auto"}, {"geometry": "auto"},
+               {"merge_strategy": "auto"}, {"autotune": "hint"}):
         assert convert.config_from_dict(dataclasses.asdict(
             JConfig(**kw))) == wc.Config(**kw)
-    for kw in ({"combiner": "auto"}, {"geometry": "auto"}):
-        with pytest.raises(ValueError, match=r"A8b \(ii\), the autotuner"):
-            convert.config_from_dict(dataclasses.asdict(JConfig(**kw)))
     # The fused map, the hot-key combiner and the radix seam map across.
     jcfg = JConfig(map_impl="fused", combiner="hot-cache", combiner_slots=16,
                    sort_impl="radix")
