@@ -269,7 +269,23 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               (tree, with the JAX note); (f) ``obs.fleet.from_ledger``
               over phase 12's gloo 2 x 2 shard ledgers, its
               ``fleet_bottleneck`` and the tuner's answer (rule 0);
-15. times  -- each kernel's median time per 32 MB chunk beside its bound,
+15. analysis -- the port's static analysis on the card
+              (``analysis_phase``): every registry model's pipeline on the
+              card equal to the same pipeline on the CPU in this process,
+              finding for finding, and each model's op traces (hooks, the
+              Engine's step and finish) equal node for node (names,
+              shapes, dtypes, kernel nodes and their plans); every
+              kernel's ``cudaFuncGetAttributes`` held to its plan (static
+              shared bytes exactly), its registers, occupancy and spills
+              printed; one default ``Config()`` step on the 32 MB chunk:
+              the analysis's static launches and host syncs beside the
+              profiler's launches and the syncs of CUDA's sync debug
+              mode, which must equal the static count; the card fixture
+              ``analysis/baselines/measured_rates.json`` (the aggregation
+              sort's ms on that chunk's cut stream, the copy rate, the
+              card's name and power limit) written, and copied to
+              ``chiprun_out/``;
+16. times  -- each kernel's median time per 32 MB chunk beside its bound,
               its plain version's time and a library call's where one
               exists (the segmented sort's: one lexsort with the group
               index first), and the time of each launch of the combiner
@@ -277,7 +293,7 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               chunk's end-to-end time by stage; the step time (map +
               merge) of every path's configuration on one chunk, with the
               rows each step's sort sees;
-16. profile -- where the device time of a default, a combiner and a
+17. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
 Phases 3 to 14 each drive a main path: the launch counters are set to 0
@@ -285,7 +301,9 @@ just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
 sort; the combiner paths the pair-mode rerun of the chunk that spills;
-every streamed run one launch a chunk).
+every streamed run one launch a chunk).  Phase 15 is read the same way
+(``launches_by_path["analysis"]``): the models it analyses on the card
+must have launched K1a, K1c, K1d and K2.
 No path but the combiner's may take a spill fallback: the dense regions
 of the other paths' corpora must not.  A kernel's ``launches`` in the kernels line are those of the
 first path that runs it; ``launches_by_path`` gives every path.  Before the
@@ -4017,6 +4035,178 @@ def tuner_phase(drive, by_path: dict, tmp: Path, path: Path,
     emit("tuner", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
+def analysis_phase(by_path: dict, chunk32: bytes, dev) -> dict:
+    """Phase 15: the port's static analysis on the card (see the module
+    docstring).  Returns ``{kernel: cudaFuncGetAttributes fields}``."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mapreduce_tpu_torch import Config
+    from mapreduce_tpu_torch import models as models_mod
+    from mapreduce_tpu_torch.analysis import core, costmodel, kernel_info
+    from mapreduce_tpu_torch.analysis import trace as atrace
+    from mapreduce_tpu_torch.analysis.passes import cost as cost_pass
+    from mapreduce_tpu_torch.analysis.passes import smem
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.ops import table as table_ops
+    from mapreduce_tpu_torch.ops.cuda import radix
+    from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def findings(report) -> list:
+        return sorted((f.severity, f.pass_id, f.model, f.hook, f.message,
+                       f.location) for f in report.findings)
+
+    def first_difference(a: list, b: list):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return i, x, y
+        return min(len(a), len(b)), a[len(b):len(b) + 1], b[len(a):len(a) + 1]
+
+    # (a) every model: the pipeline on the card and on the CPU, and each
+    # model's op traces (the hooks and the Engine's step and finish), equal
+    # node for node; the kernels the card runs counted around it.
+    torch.cuda.synchronize()
+    ktok.LAUNCHES.clear()
+    radix.LAUNCHES.clear()
+    per_model = {}
+    for name in models_mod.model_names():
+        ctxs = {d.type: core.AnalysisContext(
+            models_mod.build_model(name, device=d), name, d)
+            for d in (dev, cpu)}
+        reports = {k: core.run_pipeline(c) for k, c in ctxs.items()}
+        got, want = findings(reports["cuda"]), findings(reports["cpu"])
+        if got != want:
+            raise SystemExit(f"analysis of {name}: card findings differ from "
+                             f"the CPU's at {first_difference(got, want)}")
+        nodes = {}
+        for hook in ("init_state", "map_chunk", "combine", "merge",
+                     "finalize", "step", "finish"):
+            traces = [c.engine_traces.get(hook) or c.hook_traces.get(hook)
+                      for c in (ctxs["cuda"], ctxs["cpu"])]
+            if any(isinstance(t, atrace.TraceFailure) for t in traces):
+                if repr(traces[0]) != repr(traces[1]):
+                    raise SystemExit(f"{name}.{hook}: the trace failed on one "
+                                     f"device only: {traces}")
+                continue
+            a, b = (t.signature() for t in traces)
+            if a != b:
+                raise SystemExit(f"{name}.{hook}: the card's op trace differs "
+                                 f"from the CPU's at {first_difference(a, b)}")
+            nodes[hook] = len(a)
+        counts = {s: len(reports["cuda"].by_severity(s))
+                  for s in (core.ERROR, core.WARNING, core.INFO)}
+        per_model[name] = {"findings": counts, "nodes": nodes,
+                           "kernel_nodes": len(ctxs["cuda"].kernel_nodes)}
+    by_path["analysis"] = {**ktok.LAUNCHES, **radix.LAUNCHES}
+    for kernel in ("tokenize_compact", "tokenize_fused", "tokenize_combiner",
+                   "radix_partition", "radix_sort"):
+        if not by_path["analysis"].get(kernel):
+            raise SystemExit(f"the analysis launched no {kernel}")
+    emit("analysis", case="models", card=card_name(), models=per_model,
+         launches=by_path["analysis"], card_equals_cpu=True)
+
+    # (b) each kernel's cudaFuncGetAttributes against its plan, and the
+    # shipped plans against the budgets.
+    attrs = kernel_info.card_attributes()
+    checked = smem.certify_card_attributes(attrs) \
+        + smem.certify_production_kernels()
+    bad = [f.format() for f in checked if f.severity == core.ERROR]
+    emit("analysis", case="kernel_attributes", card=card_name(),
+         kernels=attrs, plan_smem={k: smem.plans.spec_of(k).static_smem
+                                   for k in attrs},
+         spills={k: a["local_bytes"] for k, a in attrs.items()
+                 if a["local_bytes"]},
+         static_smem_equal=not bad)
+    if bad:
+        raise SystemExit("kernel budgets:\n" + "\n".join(bad))
+
+    # (c) one default Config() step on the 32 MB chunk: the analysis's
+    # static launches and host syncs beside the profiler's launches and
+    # the syncs CUDA's sync debug mode counts.
+    job = wc.WordCountJob(Config(), dev)
+    eng = atrace.engine_for(job, dev)
+    chunk = torch.frombuffer(bytearray(chunk32), dtype=torch.uint8).to(dev)
+    state = eng.init_states()
+    eng.step(state, chunk, 0)
+    torch.cuda.synchronize()
+    _, step_trace = atrace.record("step", eng.step, state, chunk, 0)
+    static = costmodel.program_cost(step_trace)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step(state, chunk, 0)
+        torch.cuda.synchronize()
+    card_launches = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total)
+    # The mode is set outside the recording: only the step's own
+    # synchronising calls are counted.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng.step(state, chunk, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # (not the mode's own first-use note, a "prototype feature" warning)
+    syncs = sum("synchroniz" in str(c.message)
+                and "prototype" not in str(c.message) for c in caught)
+    where = [f"{n.kind}@{n.location}" for n in step_trace.nodes if n.syncs]
+    emit("analysis", case="default_step", card=card_name(),
+         chunk_bytes=len(chunk32), static_nodes=static.nodes,
+         static_launches=static.launches, kernel_nodes=static.kernel_nodes,
+         card_launches=card_launches, static_host_syncs=static.host_reads,
+         card_syncs=syncs, sync_sites=where, flags=step_trace.flags)
+    if syncs != static.host_reads:
+        raise SystemExit(f"the step synced {syncs} times on the card; the "
+                         f"analysis declares {static.host_reads}: {where}")
+
+    # (d) the hbm-cost pass's card fixture: the aggregation sort of this
+    # chunk's cut stream (the stable2 argsort and its gathers) and the
+    # card's copy rate.
+    sort = costmodel.find_aggregation_sort(step_trace)
+    spill_h, over_h, tokens_h = step_trace.flags[0][:3]
+    rows = tokens_h + over_h + 1
+    if sort is None or sort.rows != rows:
+        raise SystemExit(f"the step's sort saw {sort}, not {rows} rows")
+    stream = ktok.tokenize_split_compact(chunk, Config().pallas_max_token)[0]
+    stream = stream.cut(tokens_h + over_h)
+    k64 = table_ops._key64(stream.key_hi, stream.key_lo)
+
+    def aggregation_sort():
+        order = torch.argsort(k64, stable=True)
+        return k64[order], stream.packed[order]
+
+    src = torch.empty(256 * MB, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src))
+    rates = {"card": card_name().split(", ")[0],
+             "power_limit": card_name().split(", ")[-1],
+             "chunk_bytes": len(chunk32), "tokens": tokens_h,
+             "overlong": over_h, "sort_rows": rows,
+             "sort_ms": cuda_ms(aggregation_sort),
+             "copy_gbps": 2 * src.numel() / (copy_ms * 1e6),
+             "_written_by": "chip_smoke.py phase 15 (analysis)"}
+    del src, dst
+    for path in (Path(cost_pass.RATES_PATH),
+                 ROOT / "chiprun_out" / "measured_rates.json"):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(rates, indent=2) + "\n")
+    emit("analysis", case="measured_rates", **rates,
+         passes=rates["sort_ms"] / (2 * rows * 3 * 8
+                                    / (rates["copy_gbps"] * 1e6)))
+    wall = time.perf_counter() - t_phase
+    emit("analysis", case="wall", seconds=wall, limit_s=30,
+         within_limit=wall <= 30)
+    return attrs
+
+
 def main() -> int:
     import torch
 
@@ -4444,7 +4634,11 @@ def main() -> int:
         mark("tuner")
         del stream_data, want_stream, one_rank
 
-    # 15. times at the main path's shape: one 32 MB chunk
+    # 15. the static analysis on the card
+    attrs = analysis_phase(by_path, chunk32, dev)
+    mark("analysis")
+
+    # 16. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -4639,7 +4833,7 @@ def main() -> int:
 
     mark("times")
 
-    # 16. Where a step's device time goes, for the default, combiner and
+    # 17. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.
@@ -4678,6 +4872,17 @@ def main() -> int:
     emit("phase_time", name="total",
          seconds=round(time.perf_counter() - t_start, 3))
 
+    # Each row's __global__ functions as the card reports them (phase 15).
+    prefix = {"tokenize_compact": "tokenize_stream",
+              "tokenize_pair": "tokenize_stream",
+              "tokenize_fused": "tokenize_stream",
+              "tokenize_combiner": "combiner_", "radix_partition": "sort_",
+              "radix_sort": "sort_"}
+    for k in kernels:
+        k["card_attributes"] = {
+            g: {f: a[f] for f in ("static_smem", "registers", "local_bytes",
+                                  "blocks_per_sm")}
+            for g, a in attrs.items() if g.startswith(prefix[k["name"]])}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {

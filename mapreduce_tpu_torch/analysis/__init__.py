@@ -1,2 +1,25 @@
-"""The port's share of the JAX package's ``analysis/``: so far only the
-``geometry='auto'`` resolution (:mod:`.geometry`)."""
+"""graphcheck: static analysis of the port's map/reduce programs.
+
+Counterpart of :mod:`mapreduce_tpu.analysis`, with the JAX module names
+and pass ids.  A job is certified before a streamed run: its hooks and
+the Engine's step/finish are recorded as op traces (:mod:`.trace`), and a
+pass pipeline checks reducer algebra, accumulator lanes against corpus
+scale, host syncs, device-memory cost against baselines, the kernels'
+shared-memory and register budgets, and fusion leads.  CLI:
+``python -m mapreduce_tpu_torch.analysis``.  The mesh and race passes
+(``sharding-lint``, ``collective-cost``, ``kernel-race``) and the rest of
+``geometry`` are ROADMAP A13b; of :mod:`.geometry` the port has
+``resolve_auto``.
+"""
+
+from mapreduce_tpu_torch.analysis.core import (AnalysisContext, Finding,
+                                               Report, ERROR, WARNING, INFO,
+                                               analyze_job, default_pipeline,
+                                               pass_ids, register_pass,
+                                               run_pipeline)
+# Importing the package registers the built-in pipeline.
+from mapreduce_tpu_torch.analysis import passes as _passes  # noqa: F401
+
+__all__ = ["AnalysisContext", "Finding", "Report", "ERROR", "WARNING",
+           "INFO", "analyze_job", "default_pipeline", "pass_ids",
+           "register_pass", "run_pipeline"]

@@ -539,3 +539,70 @@ extern "C" int mr_sort_scatter(const void* hi, const void* lo, const void* pk,
                                        opk, ff, s, grid);
   return static_cast<int>(cudaGetLastError());
 }
+
+// What the static analysis asks the card of each kernel (analysis/
+// kernel_info.py): its name (a template instance by its arguments), and
+// for kernel i, out[0..5] = static shared bytes, registers, local bytes,
+// max threads per block, constant bytes, and active blocks an SM at its
+// launch block size.  Returns a CUDA error.
+namespace {
+struct KernelEntry {
+  const char* name;
+  const void* fn;
+  int threads;
+};
+template <typename F>
+const void* fn_ptr(F* f) {
+  return reinterpret_cast<const void*>(f);
+}
+const KernelEntry kKernels[] = {
+    {"sort_tiles", fn_ptr(&sort_tiles), kMaxSegments},
+    {"sort_hist<int64,drop>", fn_ptr(&sort_hist<int64_t, true>), kThreads},
+    {"sort_hist<int64,keep>", fn_ptr(&sort_hist<int64_t, false>), kThreads},
+    {"sort_hist<uint32,drop>", fn_ptr(&sort_hist<uint32_t, true>), kThreads},
+    {"sort_hist<uint32,keep>", fn_ptr(&sort_hist<uint32_t, false>), kThreads},
+    {"sort_scan", fn_ptr(&sort_scan), kRadix},
+    {"sort_scatter<int64,int64,drop>",
+     fn_ptr(&sort_scatter<int64_t, int64_t, true>), kThreads},
+    {"sort_scatter<int64,int64,keep>",
+     fn_ptr(&sort_scatter<int64_t, int64_t, false>), kThreads},
+    {"sort_scatter<int64,uint32,drop>",
+     fn_ptr(&sort_scatter<int64_t, uint32_t, true>), kThreads},
+    {"sort_scatter<int64,uint32,keep>",
+     fn_ptr(&sort_scatter<int64_t, uint32_t, false>), kThreads},
+    {"sort_scatter<uint32,int64,drop>",
+     fn_ptr(&sort_scatter<uint32_t, int64_t, true>), kThreads},
+    {"sort_scatter<uint32,int64,keep>",
+     fn_ptr(&sort_scatter<uint32_t, int64_t, false>), kThreads},
+    {"sort_scatter<uint32,uint32,drop>",
+     fn_ptr(&sort_scatter<uint32_t, uint32_t, true>), kThreads},
+    {"sort_scatter<uint32,uint32,keep>",
+     fn_ptr(&sort_scatter<uint32_t, uint32_t, false>), kThreads},
+};
+constexpr int kKernelCount = sizeof(kKernels) / sizeof(kKernels[0]);
+}  // namespace
+
+extern "C" int mr_radix_kernel_count() { return kKernelCount; }
+
+extern "C" const char* mr_radix_kernel_name(int i) {
+  return i >= 0 && i < kKernelCount ? kKernels[i].name : nullptr;
+}
+
+extern "C" int mr_radix_kernel_attrs(int i, long long* out) {
+  if (i < 0 || i >= kKernelCount || !out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kKernels[i].fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kKernels[i].fn,
+                                                    kKernels[i].threads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = static_cast<long long>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = static_cast<long long>(a.localSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = static_cast<long long>(a.constSizeBytes);
+  out[5] = blocks;
+  return 0;
+}

@@ -757,3 +757,51 @@ extern "C" int mr_combiner_thin(long long n, int slots, int cslots,
 extern "C" int mr_tokenize_window_bytes() { return kWindow; }
 
 extern "C" int mr_tokenize_tile_bytes() { return kTile; }
+
+// What the static analysis asks the card of each kernel (analysis/
+// kernel_info.py): its name, and for kernel i, out[0..5] = static shared
+// bytes, registers, local bytes, max threads per block, constant bytes,
+// and active blocks an SM at its launch block size.  Returns a CUDA error.
+namespace {
+struct KernelEntry {
+  const char* name;
+  const void* fn;
+  int threads;
+};
+const KernelEntry kKernels[] = {
+    {"tokenize_stream", reinterpret_cast<const void*>(&tokenize_stream),
+     kThreads},
+    {"combiner_heads", reinterpret_cast<const void*>(&combiner_heads),
+     kThreads},
+    {"combiner_merge", reinterpret_cast<const void*>(&combiner_merge),
+     kMergeWarps * 32},
+    {"combiner_thin", reinterpret_cast<const void*>(&combiner_thin),
+     kThreads},
+};
+constexpr int kKernelCount = sizeof(kKernels) / sizeof(kKernels[0]);
+}  // namespace
+
+extern "C" int mr_tokenize_kernel_count() { return kKernelCount; }
+
+extern "C" const char* mr_tokenize_kernel_name(int i) {
+  return i >= 0 && i < kKernelCount ? kKernels[i].name : nullptr;
+}
+
+extern "C" int mr_tokenize_kernel_attrs(int i, long long* out) {
+  if (i < 0 || i >= kKernelCount || !out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kKernels[i].fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kKernels[i].fn,
+                                                    kKernels[i].threads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = static_cast<long long>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = static_cast<long long>(a.localSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = static_cast<long long>(a.constSizeBytes);
+  out[5] = blocks;
+  return 0;
+}

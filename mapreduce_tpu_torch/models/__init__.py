@@ -7,7 +7,8 @@ device and return a constructed job; jobs that are config-free by
 construction (grep: the pattern is the job) accept and ignore the config.
 The pinned ``wordcount_*`` configurations are the JAX package's analysis
 configurations, which the port's ``Config`` accepts as they are; the
-analysis passes that read them are not ported yet (ROADMAP.md item A13).
+port's static analysis (:mod:`...analysis`, ``python -m
+mapreduce_tpu_torch.analysis --all-models``) traces every model here.
 The ``wordcount_fleet*`` names are the JAX package's fleet twins: a word
 count at the pinned analysis configuration marked with the fleet it is
 certified over (``analysis_fleet``: hosts and ranks a host) and the merge
@@ -40,15 +41,19 @@ NOCOMBINER_ANALYSIS_CONFIG = Config(chunk_bytes=128 * 512,
                                     backend="pallas", map_impl="fused")
 
 
-def _wordcount_with(pinned: Config | None = None):
+def _wordcount_with(pinned: Config | None = None,
+                    data_stats: bool = False):
     """A word-count factory; ``pinned`` replaces the caller's config (the
     model exists to put that program in front of the analysis passes).
-    The JAX registry's ``*_telemetry`` twins differ from theirs only in a
-    mark its analysis reads, so here they build the same job."""
+    The ``*_telemetry`` twins differ from theirs only in the mark the
+    analysis reads (``analysis_data_stats``: trace the stats-mode step)."""
     def build(config: Config, device):
         from mapreduce_tpu_torch.models.wordcount import WordCountJob
 
-        return WordCountJob(pinned or config, device)
+        job = WordCountJob(pinned or config, device)
+        if data_stats:
+            job.analysis_data_stats = True
+        return job
 
     return build
 
@@ -107,8 +112,9 @@ _REGISTRY: Dict[str, Callable] = {
     "wordcount_fused": _wordcount_with(FUSED_ANALYSIS_CONFIG),
     "wordcount_combiner": _wordcount_with(COMBINER_ANALYSIS_CONFIG),
     "wordcount_nocombiner": _wordcount_with(NOCOMBINER_ANALYSIS_CONFIG),
-    "wordcount_telemetry": _wordcount_with(PALLAS_ANALYSIS_CONFIG),
-    "wordcount_fused_telemetry": _wordcount_with(FUSED_ANALYSIS_CONFIG),
+    "wordcount_telemetry": _wordcount_with(PALLAS_ANALYSIS_CONFIG, True),
+    "wordcount_fused_telemetry": _wordcount_with(FUSED_ANALYSIS_CONFIG,
+                                                 True),
     # 2 hosts x 4 ranks on the per-level tree, the same fleet on the
     # placed hier-kr-tree, and 8 hosts x 1 rank on keyrange.
     "wordcount_fleet2": _fleet(2, 4),

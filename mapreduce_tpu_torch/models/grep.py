@@ -420,6 +420,14 @@ class GrepJob:
         total = state.matches_lo + (state.matches_hi << 32)
         return stats._replace(tokens=total.sum())
 
+    def analysis_observables(self, state: GrepState):
+        """The leaves the analysis's merge property check compares: the
+        counts.  ``line_carry`` is coordination state, equal on every rank
+        within a run, but states of DIFFERENT chunks disagree on it, which
+        a bitwise commutativity check would misread as a reducer bug."""
+        return (state.matches_lo, state.matches_hi,
+                state.lines_lo, state.lines_hi)
+
     def merge(self, a: GrepState, b: GrepState) -> GrepState:
         """Two states of one run (their carries agree: either will do)."""
         m_lo, m_hi = add64(a.matches_lo, a.matches_hi,

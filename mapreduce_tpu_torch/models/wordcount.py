@@ -49,6 +49,7 @@ from mapreduce_tpu_torch.ops import rescue as rescue_ops
 from mapreduce_tpu_torch.ops import sketch as sketch_ops
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
+from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.ops.cuda import tokenize as kernel_tok
 from mapreduce_tpu_torch.ops.ngram import ChunkSummary
 from mapreduce_tpu_torch.runtime.platform import resolve_device
@@ -170,9 +171,8 @@ def _read_flags(flags: torch.Tensor) -> list:
     """The map's one host read of a chunk: ``flags`` as a list, under the
     ``host_read`` span, through :func:`host_read_by`'s reader when one is
     set.  It waits for the card (the streamed loop's too)."""
-    read = _HOST_READ.get()
     with span("host_read"):
-        return flags.tolist() if read is None else read(flags)
+        return tracepoints.host_read(flags, _HOST_READ.get())
 
 
 def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi,
@@ -432,6 +432,10 @@ class WordCountJob:
     so first occurrence is file order.  With ``config.merge_every`` = K >
     1 the batch tables stage into a :class:`BufferedTableState` and one
     K-way build (:func:`...ops.table.merge_batched`) replaces K merges."""
+
+    # The staged batches' counts are bounded by a chunk, not the corpus:
+    # the analysis's overflow lint leaves them out.
+    analysis_overflow_exempt = frozenset({"pend_count"})
 
     def __init__(self, config: Config = DEFAULT_CONFIG, device=None):
         self.config = config
@@ -716,6 +720,14 @@ class NGramCountJob(WordCountJob):
         return NGramState(table=table_ops.merge(a.table, b.table,
                                                 capacity=self.capacity),
                           carry=a.carry)
+
+    def analysis_observables(self, state):
+        """The analysis's merge property check compares the gram table
+        only: the seam carry is coordination state, equal on every rank
+        within a run, but states of different chunks disagree on it."""
+        if self.n == 1 or not isinstance(state, NGramState):
+            return state
+        return state.table
 
     def keyrange_merge(self, state, axis) -> table_ops.CountTable:
         """The key-range reduce of the gram table (the carry is spent once

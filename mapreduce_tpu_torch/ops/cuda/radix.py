@@ -37,7 +37,8 @@ from collections import Counter
 
 import torch
 
-from mapreduce_tpu_torch.ops.cuda import _build
+from mapreduce_tpu_torch.ops import tracepoints
+from mapreduce_tpu_torch.ops.cuda import _build, plans
 from mapreduce_tpu_torch.ops.table import _key64, _lexsort
 from mapreduce_tpu_torch.ops.tokenize import SENT
 
@@ -302,11 +303,16 @@ def partition_level(key_hi, key_lo, packed, shift: int, bits: int,
     Returns the planes and each bucket's end row (int64, on the planes'
     device; the last is the live count).  A later level's input holds its
     dead rows at ``[group_ends[-1], n)``, as a level writes them."""
-    if key_hi.device.type == "cpu":
-        return partition_level_plain(key_hi, key_lo, packed, shift, bits,
-                                     group_ends)
-    return partition_level_kernel(key_hi, key_lo, packed, shift, bits,
-                                  group_ends)
+    groups = 1 if group_ends is None else group_ends.shape[0]
+    with tracepoints.kernel_scope(
+            "radix_partition",
+            lambda: plans.partition_level(key_hi.shape[0], bits, groups),
+            key_hi, key_lo, packed, group_ends) as k:
+        if key_hi.device.type == "cpu":
+            return k.result(partition_level_plain(
+                key_hi, key_lo, packed, shift, bits, group_ends))
+        return k.result(partition_level_kernel(
+            key_hi, key_lo, packed, shift, bits, group_ends))
 
 
 def segmented_sort_kernel(key_hi, key_lo, packed, ends, digit_bits: int,
@@ -328,11 +334,16 @@ def segmented_sort(key_hi, key_lo, packed, ends, digit_bits: int,
     ``key_hi`` bits below its top ``digit_bits`` (which the partition
     decided), ``key_lo``, and ``packed`` when ``with_packed``.  All ``n``
     rows come back, the dead fill after the live ones."""
-    if key_hi.device.type == "cpu":
-        return segmented_sort_plain(key_hi, key_lo, packed, ends, digit_bits,
-                                    with_packed)
-    return segmented_sort_kernel(key_hi, key_lo, packed, ends, digit_bits,
-                                 with_packed)
+    with tracepoints.kernel_scope(
+            "radix_sort",
+            lambda: plans.segmented_sort(key_hi.shape[0], ends.shape[0],
+                                         digit_bits, with_packed),
+            key_hi, key_lo, packed, ends) as k:
+        if key_hi.device.type == "cpu":
+            return k.result(segmented_sort_plain(
+                key_hi, key_lo, packed, ends, digit_bits, with_packed))
+        return k.result(segmented_sort_kernel(
+            key_hi, key_lo, packed, ends, digit_bits, with_packed))
 
 
 def radix_sort3_kernel(key_hi, key_lo, packed, impl: str, bits: int,
@@ -389,7 +400,13 @@ def radix_sort3(key_hi, key_lo, packed, *, impl: str = "radix_partition",
     _check(key_hi, key_lo, packed, impl, bits)
     if key_hi.shape[0] == 0:
         return key_hi, key_lo, packed
-    if key_hi.device.type == "cpu":
-        return radix_sort3_plain(key_hi, key_lo, packed)
-    return radix_sort3_kernel(key_hi.contiguous(), key_lo.contiguous(),
-                              packed.contiguous(), impl, bits, packed_ordered)
+    with tracepoints.kernel_scope(
+            f"radix_sort3[{impl}]",
+            lambda: plans.radix_sort3(key_hi.shape[0], impl, bits,
+                                      packed_ordered),
+            key_hi, key_lo, packed) as k:
+        if key_hi.device.type == "cpu":
+            return k.result(radix_sort3_plain(key_hi, key_lo, packed))
+        return k.result(radix_sort3_kernel(
+            key_hi.contiguous(), key_lo.contiguous(), packed.contiguous(),
+            impl, bits, packed_ordered))

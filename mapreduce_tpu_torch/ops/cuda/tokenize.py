@@ -54,7 +54,8 @@ import torch
 
 from mapreduce_tpu_torch import constants
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
-from mapreduce_tpu_torch.ops.cuda import _build
+from mapreduce_tpu_torch.ops import tracepoints
+from mapreduce_tpu_torch.ops.cuda import _build, plans
 from mapreduce_tpu_torch.ops.table import _key64, _lexsort
 
 TILE = 8192  # bytes per block of the dense stream; csrc/tokenize.cu kTile
@@ -117,9 +118,10 @@ class PackedTokenStream(NamedTuple):
             return self
         if live is None:
             live = int(self.live)
-        elif self.live.device.type == "cpu" and live != int(self.live):
+        elif self.live.device.type == "cpu" \
+                and live != self.live.tolist():  # (no aten op: not traced)
             raise ValueError(f"the caller's live count {live} is not the "
-                             f"stream's {int(self.live)}")
+                             f"stream's {self.live.tolist()}")
         return PackedTokenStream(self.key_hi[:live + 1],
                                  self.key_lo[:live + 1],
                                  self.packed[:live + 1], self.total)
@@ -535,12 +537,30 @@ def tokenize_combiner_kernel(data: torch.Tensor, w: int, slots: int,
     return (*out[:6], cache)
 
 
+def _as_allocated(out, n: int):
+    """The plain version's stream in the kernel's planes: ``ceil(n / 2) +
+    1`` rows, the rows after the dead row dead too (the kernel leaves them
+    unwritten; every reader cuts them off).  Used while a recorder traces
+    the CPU, so the traced program's shapes are the card's."""
+    stream, over, spill = out
+    rows = -(-n // 2) + 1
+    planes = (torch.cat([p, p.new_full((rows - p.shape[0],), fill)])
+              for p, fill in zip(stream[:3], (_SENT, _SENT, _ALL_ONES)))
+    return PackedTokenStream(*planes, stream.total, stream.live), over, spill
+
+
 def _tokenize_stream(data: torch.Tensor, w: int, mode: str):
-    if data.device.type == "cpu":
-        return tokenize_stream_plain(data, w)
-    out = tokenize_stream_kernel(data, w)
-    LAUNCHES[mode] += 1
-    return out
+    n = data.shape[0]
+    with tracepoints.kernel_scope(
+            mode, lambda: plans.tokenize_stream(n, w, mode), data) as k:
+        if data.device.type == "cpu":
+            out = tokenize_stream_plain(data, w)
+            if k.recording:
+                out = _as_allocated(out, n)
+        else:
+            out = tokenize_stream_kernel(data, w)
+            LAUNCHES[mode] += 1
+        return k.result(out)
 
 
 def tokenize_split_compact(data: torch.Tensor,
@@ -603,11 +623,16 @@ def tokenize_fused(data: torch.Tensor, *, compact: bool = True,
         raise ValueError(f"the combiner needs a chunk of a multiple of "
                          f"{SEGMENTS} bytes (its cache is per segment), got "
                          f"{data.shape[0]}")
-    if data.device.type == "cpu":
-        out = tokenize_combiner_plain(data, w, COMBINER_SLOTS, combiner_slots)
-    else:
-        out = tokenize_combiner_kernel(data, w, COMBINER_SLOTS,
-                                       combiner_slots)
-        LAUNCHES["tokenize_combiner"] += 1
-    khi, klo, packed, over, ntok, spill, cache = out
+    with tracepoints.kernel_scope(
+            "tokenize_combiner",
+            lambda: plans.combiner(data.shape[0], w, combiner_slots),
+            data) as k:
+        if data.device.type == "cpu":
+            out = tokenize_combiner_plain(data, w, COMBINER_SLOTS,
+                                          combiner_slots)
+        else:
+            out = tokenize_combiner_kernel(data, w, COMBINER_SLOTS,
+                                           combiner_slots)
+            LAUNCHES["tokenize_combiner"] += 1
+        khi, klo, packed, over, ntok, spill, cache = k.result(out)
     return PackedTokenStream(khi, klo, packed, ntok), over, spill, cache

@@ -37,6 +37,7 @@ import torch
 from mapreduce_tpu_torch import constants
 from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
+from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.ops.cuda import tokenize as kernel_tok
 from mapreduce_tpu_torch.ops.tokenize import POS_INF, SENT, TokenStream
 
@@ -167,7 +168,7 @@ def ngram_map_with_summary(chunk: torch.Tensor, n: int, capacity: int,
     """
     stream, overlong = _tokenize(chunk, config)
     flags = torch.stack([stream.total, overlong])
-    tokens_h, over_h = flags.tolist() if read is None else read(flags)
+    tokens_h, over_h = tracepoints.host_read(flags, read)
     all_tokens = tokens_h + over_h  # live rows: tokens and poison rows
     key_hi, key_lo, packed = position_sorted(stream.cut(all_tokens))
     gs = mark_long_spans(grams_from_sorted(key_hi, key_lo, packed, n))

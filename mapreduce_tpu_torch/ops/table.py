@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from mapreduce_tpu_torch import constants
+from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.ops.tokenize import MASK32
 
 SENT = int(constants.SENTINEL_KEY)
@@ -144,11 +145,18 @@ def _segment_heads(seg: torch.Tensor, capacity: int) -> torch.Tensor:
     return torch.searchsorted(seg, q)
 
 
+def _on_device(pos_hi, device) -> torch.Tensor:
+    """A chunk id (a host int, or a tensor) as an int64 tensor on
+    ``device``; a host int crosses as a declared host-scalar copy."""
+    if isinstance(pos_hi, torch.Tensor):
+        return torch.as_tensor(pos_hi, dtype=torch.int64, device=device)
+    return tracepoints.host_scalars(int(pos_hi), device)
+
+
 def _first_key_geq(k64: torch.Tensor, q_hi: int, q_lo: int) -> torch.Tensor:
     """Index of the first sorted row with 64-bit key >= (q_hi, q_lo)
     (``n`` if none)."""
-    q = torch.tensor([_key64(q_hi, q_lo)], dtype=torch.int64,
-                     device=k64.device)
+    q = tracepoints.host_scalars([_key64(q_hi, q_lo)], k64.device)
     return torch.searchsorted(k64, q)[0]
 
 
@@ -311,7 +319,7 @@ def from_packed_rows(key_hi, key_lo, packed, total, capacity: int,
     occupied = (head[:capacity] < n) & (count_u > 0) \
         & ~_reserved(key_hi_u, key_lo_u)
     count_u = torch.where(occupied, count_u, 0)
-    pos_hi = torch.as_tensor(pos_hi, dtype=torch.int64, device=k.device)
+    pos_hi = _on_device(pos_hi, k.device)
     zero = torch.zeros((), dtype=torch.int64, device=k.device)
     table = CountTable(
         key_hi=torch.where(occupied, key_hi_u, SENT),
@@ -369,8 +377,7 @@ def from_stream(stream, capacity: int, pos_hi=0,
         raise ValueError("rescue_slots requires the packed fast path "
                          "(bounded max_token_bytes/max_pos)")
     ph = torch.where(stream.count > 0,
-                     torch.as_tensor(pos_hi, dtype=torch.int64,
-                                     device=stream.count.device), INF)
+                     _on_device(pos_hi, stream.count.device), INF)
     z = torch.zeros((), dtype=torch.int64, device=stream.count.device)
     return _build(stream.key_hi, stream.key_lo, ph, stream.pos, stream.count,
                   torch.zeros_like(stream.count), stream.length, capacity,

@@ -1,0 +1,77 @@
+"""The step's trace points: kernel launches and declared host syncs.
+
+Two kinds of work in a step leave no aten op a dispatch mode could see,
+or leave ops that differ between the CPU and the card:
+
+* the hand-written kernels, reached through ctypes (on the CPU their
+  wrappers run the plain PyTorch version instead: dozens of aten ops);
+* the host syncs the step means to make: the map's one read of its flags
+  (``models/wordcount.py:_read_flags``; ``.tolist()`` reaches no aten op
+  on the CPU and an ``aten._to_copy`` on the card) and the pageable copies
+  of host scalars to the device (``ops/table.py``).
+
+Each goes through one function here, which the static analysis's recorder
+(:mod:`...analysis.trace`) logs as ONE node: :func:`kernel_scope` around a
+kernel wrapper's launch (or its plain version), :func:`host_read` and
+:func:`host_scalars` for the syncs.  With no recorder active
+(:data:`RECORDER` is None, always outside the analysis) each is one branch
+and then exactly the call it replaces.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: The active recorder (``analysis.trace.Recorder``), or None.
+RECORDER = None
+
+
+class _Idle:
+    """The scope a kernel wrapper enters when nothing records."""
+
+    recording = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def result(self, out):
+        return out
+
+
+_IDLE = _Idle()
+
+
+def kernel_scope(name: str, plan, *operands):
+    """The scope of one kernel wrapper's launch: ``with kernel_scope(name,
+    plan, *operands) as k: ...; return k.result(out)``.  ``plan`` is a
+    callable giving the launch's :class:`...ops.cuda.plans.KernelPlan`
+    (built only when recorded).  Inside an active recorder the ops the
+    wrapper issues (the plain version's, or the kernel's allocations) are
+    not logged: the node stands for them."""
+    rec = RECORDER
+    if rec is None:
+        return _IDLE
+    return rec.kernel_scope(name, plan, operands)
+
+
+def host_read(flags: torch.Tensor, read=None) -> list:
+    """The step's declared device-to-host read: ``flags`` as a list, by
+    ``read(flags)`` when given (the streamed driver's deadline reader),
+    else a blocking ``tolist``."""
+    rec = RECORDER
+    if rec is None:
+        return flags.tolist() if read is None else read(flags)
+    return rec.host_read(flags, read)
+
+
+def host_scalars(values, device) -> torch.Tensor:
+    """The step's declared host-to-device copy: the host ints ``values``
+    (an int or a list) as an int64 tensor on ``device``.  On the card a
+    pageable copy, which waits for the host."""
+    rec = RECORDER
+    if rec is None:
+        return torch.tensor(values, dtype=torch.int64, device=device)
+    return rec.host_copy(values, device)

@@ -348,27 +348,34 @@ def _jax_cli(argv: list[str]) -> subprocess.CompletedProcess:
                           capture_output=True, timeout=300)
 
 
+def _jax_argv(argv: tuple) -> tuple:
+    """The JAX reference's command line for the port's ``argv``: a streamed
+    run of test.txt (30 bytes, one chunk at any size) at 4 KB chunks
+    instead of the default 32 MB.  Its stdout is the same (a run's output
+    does not depend on its chunk size: the JAX CLI's own tests and the
+    seams-file cases here pin that), and the JAX CLI no longer runs its
+    XLA map over a 32 MB chunk of padding, ~55 s a case on one core."""
+    if argv[0] == "test.txt" and "--stream" in argv \
+            and "--chunk-bytes" not in argv:
+        return (*argv, "--chunk-bytes", "4096")
+    return argv
+
+
 @pytest.fixture(scope="module")
 def jax_family_stdout(seams_file):
     """The JAX CLI's (``./main``, one CPU device) stdout for every family
-    case, the processes run two at a time: a streamed JAX run at the
-    default 32 MB chunk interprets its kernel over the whole chunk, ~45 s
-    on one core."""
+    case, as futures: the processes run two at a time in the background,
+    in the tests' order, while the tests run the port in this process."""
     from concurrent.futures import ThreadPoolExecutor
 
     jobs = {(case, path): (path, *(flags if path == "test.txt"
                                    else _on_seams(flags)))
             for case, flags in FAMILY_CASES.items()
             for path in ("test.txt", seams_file)}
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        procs = {k: pool.submit(_jax_cli, list(argv))
-                 for k, argv in jobs.items()}
-        out = {}
-        for k, fut in procs.items():
-            proc = fut.result()
-            assert proc.returncode == 0, proc.stderr.decode()
-            out[k] = (jobs[k], proc.stdout)
-    return out
+    pool = ThreadPoolExecutor(max_workers=2)
+    yield {k: (argv, pool.submit(_jax_cli, list(_jax_argv(argv))))
+           for k, argv in jobs.items()}
+    pool.shutdown(wait=True)
 
 
 @pytest.mark.parametrize("case", list(FAMILY_CASES))
@@ -379,14 +386,18 @@ def test_family_flags_stdout_identical_to_jax_cli(case, seams_file,
     CLI on test.txt and on a multi-chunk file (streamed there at 4 KB
     chunks, sketches flushed every 4 steps)."""
     for path in ("test.txt", seams_file):
-        argv, want = jax_family_stdout[(case, path)]
+        argv, future = jax_family_stdout[(case, path)]
         old = os.getcwd()
         os.chdir(REPO)
         try:
             assert cli.main([*argv, "--platform", "cpu"]) == 0
         finally:
             os.chdir(old)
-        assert capsysbinary.readouterr().out == want, argv
+        got = capsysbinary.readouterr().out
+        proc = future.result()
+        assert proc.returncode == 0, proc.stderr.decode()
+        want = proc.stdout
+        assert got == want, argv
     if case == "estimate":
         assert b"estimate:the\t" in want and b"estimate:zzz\t0" in want
 

@@ -151,10 +151,11 @@ def _cases(d: int) -> list:
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """Every size's world, each running all its cases once."""
-    return {d: torch_world.spawn_world(d, _cases(d),
-                                       tmp_path_factory.mktemp(f"w{d}"))
-            for d in SIZES}
+    """Every size's world, each running all its cases once, in the
+    background while the tests compute their JAX references."""
+    tmp = {d: tmp_path_factory.mktemp(f"w{d}") for d in SIZES}
+    return torch_world.Later(lambda: {
+        d: torch_world.spawn_world(d, _cases(d), tmp[d]) for d in SIZES})
 
 
 def _port(worlds, d: int, name: str):

@@ -114,9 +114,12 @@ def _cases(d: int, corpus) -> list:
 
 @pytest.fixture(scope="module")
 def worlds(corpus, tmp_path_factory):
-    return {d: torch_world.spawn_world(d, _cases(d, corpus),
-                                       tmp_path_factory.mktemp(f"w{d}"))
-            for d in (2, 3, 4)}
+    """The port's worlds, spawned in the background while ``jax_runs``
+    computes the references."""
+    tmp = {d: tmp_path_factory.mktemp(f"w{d}") for d in (2, 3, 4)}
+    return torch_world.Later(lambda: {
+        d: torch_world.spawn_world(d, _cases(d, corpus), tmp[d])
+        for d in (2, 3, 4)})
 
 
 @pytest.fixture(scope="module")

@@ -179,14 +179,17 @@ def test_cli_keyrange_on_two_ranks_prints_jax_stdout(corpus,
                                                      tmp_path_factory):
     flags = ["--stream", "--chunk-bytes", "4096", "--merge-strategy",
              "keyrange"]
-    world = torch_world.spawn_world(
+    # The world runs in the background while the JAX CLI computes.
+    world = torch_world.Later(
+        torch_world.spawn_world,
         2, [{"name": fmt, "kind": "cli",
              "args": {"argv": [corpus, *flags, "--format", fmt,
                                "--platform", "cpu"]}}
             for fmt in ("reference", "json")],
         tmp_path_factory.mktemp("cli"))
-    for fmt in ("reference", "json"):
-        want = _jax_stdout(corpus, *flags, "--format", fmt)
+    wants = {fmt: _jax_stdout(corpus, *flags, "--format", fmt)
+             for fmt in ("reference", "json")}
+    for fmt, want in wants.items():
         assert world[0][fmt] == (0, want), fmt
         assert world[1][fmt] == (0, b"")  # only the coordinator prints
         one = io.TextIOWrapper(io.BytesIO(), encoding="utf-8",
@@ -265,6 +268,13 @@ def test_ledger_of_two_ranks_equals_jax(corpus, tmp_path, strategy):
     a ``step`` and a ``group`` record a step, the ``collective`` finish,
     and the ``data`` record summed over the ranks."""
     led = {name: str(tmp_path / f"{name}.jsonl") for name in ("jax", "port")}
+    # The world runs in the background while the JAX run computes.
+    world = torch_world.Later(
+        torch_world.spawn_world,
+        2, [{"name": "run", "kind": "run_job",
+             "args": {"job": "wordcount", "path": corpus, "config": CFG,
+                      "merge_strategy": strategy, "ledger": led["port"]}}],
+        tmp_path / "w")
     with torch_world.shared_jax_engines():
         tel = jobs.Telemetry.create(ledger_path=led["jax"],
                                     progress_every_s=3600)
@@ -274,11 +284,6 @@ def test_ledger_of_two_ranks_equals_jax(corpus, tmp_path, strategy):
                               telemetry=tel)
         finally:
             tel.close()
-    world = torch_world.spawn_world(
-        2, [{"name": "run", "kind": "run_job",
-             "args": {"job": "wordcount", "path": corpus, "config": CFG,
-                      "merge_strategy": strategy, "ledger": led["port"]}}],
-        tmp_path / "w")
     assert type(world[0]["run"]) is dict, world[0]["run"]
     want, got = _normalized(led["jax"]), _normalized(led["port"])
     assert [r["kind"] for r in got] == [r["kind"] for r in want]

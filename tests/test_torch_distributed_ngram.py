@@ -63,9 +63,10 @@ def worlds(corpus, tmp_path_factory):
         cases.append({"name": f"count-{s}", "kind": "count_file",
                       "args": {"path": corpus, "config": CFG, "ngram": 2,
                                "merge_strategy": s}})
-    return {d: torch_world.spawn_world(d, cases,
-                                       tmp_path_factory.mktemp(f"w{d}"))
-            for d in SIZES}
+    # Spawned in the background while ``jax_runs`` computes the references.
+    tmp = {d: tmp_path_factory.mktemp(f"w{d}") for d in SIZES}
+    return torch_world.Later(lambda: {
+        d: torch_world.spawn_world(d, cases, tmp[d]) for d in SIZES})
 
 
 @pytest.fixture(scope="module")

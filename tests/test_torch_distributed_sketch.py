@@ -61,9 +61,10 @@ def worlds(corpus, tmp_path_factory):
                   "args": {"path": corpus, "distinct_sketch": True,
                            "config": dict(CFG, sketch_flush_every=3),
                            "merge_strategy": "keyrange"}})
-    return {d: torch_world.spawn_world(d, cases,
-                                       tmp_path_factory.mktemp(f"w{d}"))
-            for d in SIZES}
+    # Spawned in the background while ``jax_runs`` computes the references.
+    tmp = {d: tmp_path_factory.mktemp(f"w{d}") for d in SIZES}
+    return torch_world.Later(lambda: {
+        d: torch_world.spawn_world(d, cases, tmp[d]) for d in SIZES})
 
 
 @pytest.fixture(scope="module")

@@ -93,19 +93,8 @@ def runs(corpus, tmp_path_factory):
     jobs = {"ngram": {"n": 2}, "grep_multi": {"patterns": FOUR}}
     with torch_world.shared_jax_engines():
         m22, m41 = two_level_mesh(2, 2), two_level_mesh(4, 1)
-        for s in STRATEGIES:
-            out["jax", "wordcount", s] = jexecutor.run_job(
-                _jjob("wordcount"), corpus, JCFG, mesh=m22,
-                merge_strategy=s)
-        out["jax", "ngram", "tree"] = jexecutor.run_job(
-            _jjob("ngram"), corpus, JCFG, mesh=m22)
-        for s in ("tree", "gather"):
-            out["jax", "grep_multi", s] = jexecutor.run_job(
-                _jjob("grep"), corpus, JCFG, mesh=m22, merge_strategy=s)
-        for s in ("tree", "hier-kr-tree"):
-            out["jax41", "wordcount", s] = jexecutor.run_job(
-                _jjob("wordcount"), corpus, JCFG, mesh=m41,
-                merge_strategy=s)
+        # The JAX snapshot the port's world resumes comes first; then the
+        # worlds run in the background while the JAX references compute.
         out["jax-count"] = jexecutor.count_file(
             corpus, JCFG, mesh=m22, merge_strategy="hier-kr-tree",
             checkpoint_path=str(d / "jax.npz"), checkpoint_every=1)
@@ -133,9 +122,6 @@ def runs(corpus, tmp_path_factory):
                   {"name": "bad-mesh", "kind": "topology",
                    "args": {"size": SIZE, "shards": SHARDS,
                             "mesh": [3, 1]}}]
-        out["w22"] = torch_world.spawn_world(
-            4, cases, tmp_path_factory.mktemp("w22"), hosts=2,
-            group_timeout_s=60)
         cases41 = [_run(f"wordcount-{s}", "wordcount", corpus, s, (4, 1))
                    for s in ("tree", "hier-kr-tree")]
         cases41 += [_run("grep_multi-gather", "grep_multi", corpus,
@@ -143,9 +129,26 @@ def runs(corpus, tmp_path_factory):
                     {"name": "topology", "kind": "topology",
                      "args": {"size": SIZE, "shards": SHARDS,
                               "mesh": [4, 1]}}]
-        out["w41"] = torch_world.spawn_world(
-            4, cases41, tmp_path_factory.mktemp("w41"), hosts=4,
-            group_timeout_s=60)
+        tmp22, tmp41 = (tmp_path_factory.mktemp(n) for n in ("w22", "w41"))
+        worlds = torch_world.Later(lambda: (
+            torch_world.spawn_world(4, cases, tmp22, hosts=2,
+                                    group_timeout_s=60),
+            torch_world.spawn_world(4, cases41, tmp41, hosts=4,
+                                    group_timeout_s=60)))
+        for s in STRATEGIES:
+            out["jax", "wordcount", s] = jexecutor.run_job(
+                _jjob("wordcount"), corpus, JCFG, mesh=m22,
+                merge_strategy=s)
+        out["jax", "ngram", "tree"] = jexecutor.run_job(
+            _jjob("ngram"), corpus, JCFG, mesh=m22)
+        for s in ("tree", "gather"):
+            out["jax", "grep_multi", s] = jexecutor.run_job(
+                _jjob("grep"), corpus, JCFG, mesh=m22, merge_strategy=s)
+        for s in ("tree", "hier-kr-tree"):
+            out["jax41", "wordcount", s] = jexecutor.run_job(
+                _jjob("wordcount"), corpus, JCFG, mesh=m41,
+                merge_strategy=s)
+        out["w22"], out["w41"] = worlds.result()
         out["jax-resume"] = jexecutor.count_file(
             corpus, JCFG, mesh=m22, merge_strategy="hier-kr-tree",
             checkpoint_path=_copy(d / "port.npz.prev", d / "from-port.npz"))

@@ -88,11 +88,51 @@ def _case(name, corpus, **kw):
 
 @pytest.fixture(scope="module")
 def runs(corpus, tmp_path_factory):
-    """The JAX references, then the port's worlds: the main 2 x 2 world,
-    the killed one and the resuming one."""
+    """The JAX references and, in the background meanwhile, the port's
+    worlds: the main 2 x 2 world, the killed one and the resuming one."""
     d = tmp_path_factory.mktemp("mhrun")
     out = {"dir": d, "jax": {}}
     size = os.path.getsize(corpus)
+    led = str(d / "port.jsonl")
+    out["ledger"] = led
+    cases = [
+        _case("host", corpus, mesh="local", byte_range="host"),
+        _case("global", corpus, driver="run_job_global"),
+        _case("global22", corpus, driver="run_job_global", mesh=[2, 2],
+              merge_strategy="hier-kr-tree", ledger=led, ledger_every=True),
+        _case("failed", corpus, driver="run_job_global",
+              ledger=str(d / "failed.jsonl"), ledger_every=True,
+              config=dict(CFG, fault_plan="at=dispatch:1:permanent"))]
+    ck = str(d / "kill.npz")
+    kill = dict(driver="run_job_global", checkpoint_path=ck,
+                checkpoint_every=1, ledger=str(d / "kill.jsonl"),
+                ledger_every=True)
+    rk = str(d / "range.npz")
+    tmp = {n: tmp_path_factory.mktemp(n) for n in ("w", "wk", "wr")}
+
+    def worlds():
+        return (torch_world.spawn_world(
+            4, cases, tmp["w"], hosts=2, group_timeout_s=60),
+            torch_world.spawn_world(
+            4, [_case("kill", corpus, config=dict(
+                CFG, fault_plan="at=process-kill:1:permanent"), **kill)],
+            tmp["wk"], hosts=2, group_timeout_s=60, expect_rc=113),
+            torch_world.spawn_world(
+            4, [_case("resume", corpus, driver="run_job_global",
+                      checkpoint_path=ck, checkpoint_every=1),
+                _case("range-vs-whole", corpus, byte_range="host",
+                      checkpoint_path=ck),
+                _case("range-save", corpus, byte_range=[0, 8192],
+                      checkpoint_path=rk, checkpoint_every=1),
+                _case("range-other", corpus, byte_range=[0, 12288],
+                      checkpoint_path=rk),
+                _case("peer-dies", corpus, driver="run_job_global",
+                      plan_ranks=[3], config=dict(
+                          CFG, fault_plan="at=process-kill:0:permanent"))],
+            tmp["wr"], hosts=2, group_timeout_s=20,
+            expect_rc=[0, 0, 0, 113]))
+
+    ports = torch_world.Later(worlds)
     with torch_world.shared_jax_engines():
         for p in range(2):
             lo, hi = jdist.align_range_to_separator(
@@ -115,43 +155,7 @@ def runs(corpus, tmp_path_factory):
                 telemetry=tel)
         finally:
             tel.close()
-
-    led = str(d / "port.jsonl")
-    out["ledger"] = led
-    cases = [
-        _case("host", corpus, mesh="local", byte_range="host"),
-        _case("global", corpus, driver="run_job_global"),
-        _case("global22", corpus, driver="run_job_global", mesh=[2, 2],
-              merge_strategy="hier-kr-tree", ledger=led, ledger_every=True),
-        _case("failed", corpus, driver="run_job_global",
-              ledger=str(d / "failed.jsonl"), ledger_every=True,
-              config=dict(CFG, fault_plan="at=dispatch:1:permanent"))]
-    out["world"] = torch_world.spawn_world(
-        4, cases, tmp_path_factory.mktemp("w"), hosts=2, group_timeout_s=60)
-    ck = str(d / "kill.npz")
-    kill = dict(driver="run_job_global", checkpoint_path=ck,
-                checkpoint_every=1, ledger=str(d / "kill.jsonl"),
-                ledger_every=True)
-    out["killed"] = torch_world.spawn_world(
-        4, [_case("kill", corpus, config=dict(
-            CFG, fault_plan="at=process-kill:1:permanent"), **kill)],
-        tmp_path_factory.mktemp("wk"), hosts=2, group_timeout_s=60,
-        expect_rc=113)
-    rk = str(d / "range.npz")
-    out["resumed"] = torch_world.spawn_world(
-        4, [_case("resume", corpus, driver="run_job_global",
-                  checkpoint_path=ck, checkpoint_every=1),
-            _case("range-vs-whole", corpus, byte_range="host",
-                  checkpoint_path=ck),
-            _case("range-save", corpus, byte_range=[0, 8192],
-                  checkpoint_path=rk, checkpoint_every=1),
-            _case("range-other", corpus, byte_range=[0, 12288],
-                  checkpoint_path=rk),
-            _case("peer-dies", corpus, driver="run_job_global",
-                  plan_ranks=[3], config=dict(
-                      CFG, fault_plan="at=process-kill:0:permanent"))],
-        tmp_path_factory.mktemp("wr"), hosts=2, group_timeout_s=20,
-        expect_rc=[0, 0, 0, 113])
+    out["world"], out["killed"], out["resumed"] = ports.result()
     return out
 
 

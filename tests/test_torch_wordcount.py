@@ -345,6 +345,13 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "assert tuning.validate_knobs(r.run.tune['proposal']) is None; "
             "assert geometry.resolve_auto('no-such.json') == 'default'; "
             "assert distributed.process_count() == 1; "
+            "import torch; "
+            "from mapreduce_tpu_torch.analysis import cli as acli, "
+            "kernel_info; "
+            "rep = acli.analyze_models(['wordcount_pallas'], "
+            "torch.device('cpu')); "
+            "assert rep.models == ['wordcount_pallas', '<kernels>']; "
+            "assert not rep.errors and kernel_info.ATTR_FIELDS; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'mapreduce_tpu')]; "
             "assert not bad, bad") % ((tmp_path / "ck.npz",) * 4)

@@ -453,6 +453,27 @@ def shared_jax_engines():
         jexecutor.Engine = real
 
 
+class Later:
+    """A value computed in a background thread: ``later[key]`` (or
+    :meth:`result`) waits for it and re-raises what it raised.  A test
+    module starts its port worlds this way before it computes its JAX
+    references, so the two overlap instead of running one after the
+    other."""
+
+    def __init__(self, fn, *args, **kwargs):
+        import concurrent.futures
+
+        self._pool = concurrent.futures.ThreadPoolExecutor(1)
+        self._future = self._pool.submit(fn, *args, **kwargs)
+        self._pool.shutdown(wait=False)
+
+    def result(self):
+        return self._future.result()
+
+    def __getitem__(self, key):
+        return self.result()[key]
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
