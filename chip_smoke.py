@@ -22,9 +22,13 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               takes every occurrence), a chunk of two-letter tokens whose
               thinned windows must spill, runs at combiner window and
               segment edges, a 4 MB single-key chunk and a 32 MB chunk
-              dominated by one word, and each of its three launches
-              (heads, merge, thin) against its plain version on the two
-              32 MB chunks; the radix seam on the 32 MB chunk's compact
+              dominated by one word (its dense thinned stream cut to
+              its rows), at cache depths 16, 24 and 32 too on the two
+              32 MB chunks, and the
+              fold of each chunk's flushed cache into its thinned
+              stream's table (at 2**18 rows and at 1,000, which spills)
+              against its plain version, the JAX package's merge; the
+              radix seam on the 32 MB chunk's compact
               stream, the one-word chunk's, the same rows in one bucket,
               random triples with ``key_hi >= 2**31``, random triples with
               one hot key and an all-dead stream: each level on its own
@@ -284,12 +288,26 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               ``analysis/baselines/measured_rates.json`` (the aggregation
               sort's ms on that chunk's cut stream, the copy rate, the
               card's name and power limit) written, and copied to
-              ``chiprun_out/``;
-16. times  -- each kernel's median time per 32 MB chunk beside its bound,
+              ``chiprun_out/``; then (``analysis_checks``) the combiner
+              gate priced from the card's traces (the twin strictly below
+              the combiner-off twin); the combiner step against the
+              default's on the 32 MB chunk (CUDA-event ms in turns, device
+              ms from the profiler) and K1d's launch's ms beside K1a's,
+              with the rows it writes; the three fleet twins through
+              sharding-lint and
+              collective-cost over the fake world, their findings equal
+              to the CPU's, no error, the bytes priced equal to those
+              ``collectives.bytes_sent`` counted; the kernel-race
+              certificate of every ``__global__``, and each kernel's probe
+              run 8 times, the odd runs behind a concurrent kernel on
+              another stream, every output bit-identical to its plain
+              version;
+16. times  -- each kernel's median time per 32 MB chunk beside its bound
+              (the combiner's fold at the 2**18-row batch table),
               its plain version's time and a library call's where one
               exists (the segmented sort's: one lexsort with the group
-              index first), and the time of each launch of the combiner
-              and the radix seam (CUDA events between launches); the
+              index first), and the time of each launch of the radix seam
+              (CUDA events between launches); the
               chunk's end-to-end time by stage; the step time (map +
               merge) of every path's configuration on one chunk, with the
               rows each step's sort sees;
@@ -4201,10 +4219,219 @@ def analysis_phase(by_path: dict, chunk32: bytes, dev) -> dict:
     emit("analysis", case="measured_rates", **rates,
          passes=rates["sort_ms"] / (2 * rows * 3 * 8
                                     / (rates["copy_gbps"] * 1e6)))
+
+    analysis_checks(chunk32, chunk, rows, dev)
     wall = time.perf_counter() - t_phase
-    emit("analysis", case="wall", seconds=wall, limit_s=30,
-         within_limit=wall <= 30)
+    # The budget was 30 s before the phase took the combiner gate and
+    # step, the fleet twins on two devices and the kernel-race repeats.
+    emit("analysis", case="wall", seconds=wall, limit_s=60,
+         within_limit=wall <= 60)
     return attrs
+
+
+def analysis_checks(chunk32: bytes, chunk, rows: int, dev) -> None:
+    """Phase 15's second half: the combiner gate and step, the fleet twins
+    over the fake world, and the kernel-race certificate with its repeats
+    (``chunk`` is ``chunk32`` on the card, ``rows`` its dense stream's
+    rows)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mapreduce_tpu_torch import Config
+    from mapreduce_tpu_torch import models as models_mod
+    from mapreduce_tpu_torch.analysis import core
+    from mapreduce_tpu_torch.analysis import trace as atrace
+    from mapreduce_tpu_torch.analysis.passes import collective as coll_pass
+    from mapreduce_tpu_torch.analysis.passes import cost as cost_pass
+    from mapreduce_tpu_torch.analysis.passes import kernelrace, sharding
+    from mapreduce_tpu_torch.models import wordcount as wc
+    from mapreduce_tpu_torch.ops import table as table_ops
+    from mapreduce_tpu_torch.ops.cuda import radix
+    from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+
+    cpu = torch.device("cpu")
+
+    def findings(report) -> list:
+        return sorted((f.severity, f.pass_id, f.model, f.hook, f.message,
+                       f.location) for f in report.findings)
+
+    # (e) the combiner gate on the card: the twin certified strictly below
+    # the combiner-off twin, each priced from its card trace.
+    gate = {}
+    for name in ("wordcount_nocombiner", "wordcount_combiner"):
+        ctx = core.AnalysisContext(models_mod.build_model(name, device=dev),
+                                   name, dev)
+        report = core.run_pipeline(ctx, [cost_pass.CostPass()])
+        gate[name] = ctx.artifacts["cost"]["effective_input_passes"]
+        if report.errors:
+            raise SystemExit(f"{name} on the card:\n" + report.format_text(
+                min_severity="error"))
+    certified = [f.message for f in report.findings
+                 if f.message.startswith("combiner certified:")]
+    if not certified or gate["wordcount_combiner"] \
+            >= gate["wordcount_nocombiner"]:
+        raise SystemExit(f"the combiner gate did not certify on the card: "
+                         f"{gate}")
+    emit("analysis", case="combiner_gate", card=card_name(),
+         combiner_passes=gate["wordcount_combiner"],
+         off_passes=gate["wordcount_nocombiner"],
+         off_baseline=cost_pass.load_baseline("wordcount_nocombiner")[
+             "effective_input_passes"], finding=certified[0])
+
+    # (f) the combiner step against the default's on the 32 MB Zipf chunk,
+    # device-resident: CUDA-event ms in turns (default, combiner,
+    # combiner, default), each config's device ms from the profiler, and
+    # K1d's launch against K1a's by CUDA events, with the rows it writes.
+    configs = {"default": Config(),
+               "combiner": Config(map_impl="fused", combiner="hot-cache")}
+    running = table_ops.empty(Config().table_capacity, dev)
+
+    def step(c):
+        upd = wc._map_stream(chunk, c, c.batch_uniques, pos_hi=0)
+        return table_ops.merge(running, upd, capacity=c.table_capacity)
+
+    for c in configs.values():
+        step(c)
+    turns = {k: [] for k in configs}
+    for _ in range(6):
+        for name in ("default", "combiner", "combiner", "default"):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(configs[name])
+            b.record()
+            b.synchronize()
+            turns[name].append(a.elapsed_time(b))
+    device_ms = {}
+    for name, c in configs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(c)
+            torch.cuda.synchronize()
+        device_ms[name] = sum(e.self_device_time_total for e in
+                              prof.key_averages()
+                              if e.device_type == DeviceType.CUDA) / 3e3
+    cslots = configs["combiner"].resolved_combiner_slots
+    w = Config().pallas_max_token
+    thin = ktok.tokenize_combiner_kernel(chunk, w, ktok.COMBINER_SLOTS,
+                                         cslots)
+    launch_ms = {
+        "combiner_stream": cuda_ms(lambda: ktok.tokenize_combiner_kernel(
+            chunk, w, ktok.COMBINER_SLOTS, cslots)),
+        "tokenize_stream": cuda_ms(lambda: ktok.tokenize_stream_kernel(
+            chunk, w))}
+    emit("analysis", case="combiner_step", card=card_name(),
+         chunk_bytes=len(chunk32),
+         event_ms={k: statistics.median(v) for k, v in turns.items()},
+         event_ms_all={k: [round(x, 4) for x in v] for k, v in turns.items()},
+         device_ms=device_ms, launch_ms=launch_ms,
+         thin_rows=int(thin[0].live) + 1, thin_planes=thin[0].packed.shape[0],
+         dense_rows=rows, hits=int(thin[3].count.sum()),
+         spill=int(thin[2]))
+    del thin, running
+
+    # (g) the fleet twins over the fake world on the card: sharding-lint
+    # and collective-cost findings equal to the CPU's, no error, and the
+    # bytes priced equal to what ``collectives.bytes_sent`` counted.
+    fleet = {}
+    for name in ("wordcount_fleet2", "wordcount_fleet2x4",
+                 "wordcount_fleet8"):
+        got = []
+        for d in (dev, cpu):
+            ctx = core.AnalysisContext(models_mod.build_model(name, device=d),
+                                       name, d)
+            report = core.run_pipeline(ctx, [sharding.ShardingPass(),
+                                             coll_pass.CollectivePass()])
+            art = ctx.artifacts.get("collective_cost", {})
+            sent = sum(t.bytes_sent for t in ctx.engine_traces.values()
+                       if not isinstance(t, atrace.TraceFailure))
+            got.append((findings(report), art.get("total_bytes"), sent,
+                        art.get("modeled_total_s")))
+            if report.errors or art.get("total_bytes") != sent:
+                raise SystemExit(f"{name} on {d.type}: {report.format_text()}"
+                                 f" (bytes {art.get('total_bytes')} vs sent "
+                                 f"{sent})")
+        if got[0] != got[1]:
+            raise SystemExit(f"{name}: card {got[0]} != cpu {got[1]}")
+        fleet[name] = {"total_bytes": got[0][1],
+                       "modeled_total_s": got[0][3],
+                       "verdicts": sorted({f[:4] for f in got[0][0]})}
+    emit("analysis", case="fleet_twins", card=card_name(), fleet=fleet,
+         card_equals_cpu=True)
+
+    # (h) the kernel-race certificate, and its dynamic half: each kernel's
+    # probe 8 times, the odd runs behind a concurrent kernel on another
+    # stream so that blocks start out of order, every output bit-identical
+    # to the plain version's.
+    cert = kernelrace.certify_sources()
+    bad = [f.format() for f in cert if f.severity != core.INFO]
+    if bad:
+        raise SystemExit("kernel-race:\n" + "\n".join(bad))
+    side = torch.cuda.Stream()
+    hog = torch.ones(64 * MB, dtype=torch.float32, device=dev)
+
+    def concurrent():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                hog.mul_(1.0000001)
+
+    stream0 = ktok.tokenize_split_compact(chunk, w)[0].cut()
+    srows = (stream0.key_hi, stream0.key_lo, stream0.packed)
+    cache0 = ktok.tokenize_combiner_kernel(chunk, w, ktok.COMBINER_SLOTS,
+                                           cslots)
+    table0 = table_ops.from_stream(
+        cache0[0].cut(), Config().batch_uniques, pos_hi=0,
+        max_token_bytes=w, max_pos=len(chunk32), sort_mode="stable2")
+
+    def stream_fields(out):
+        cut = out[0].cut()
+        return (cut.key_hi, cut.key_lo, cut.packed, cut.total, out[0].live,
+                *out[1:])
+
+    def comb_fields(out):
+        return (*stream_fields(out[:3]), *out[3])
+
+    probes = {
+        "tokenize_stream": (
+            lambda: stream_fields(ktok.tokenize_split_compact(chunk, w)),
+            lambda: stream_fields(ktok.tokenize_stream_plain(chunk, w))),
+        "combiner_stream": (
+            lambda: comb_fields(ktok.tokenize_combiner_kernel(
+                chunk, w, ktok.COMBINER_SLOTS, cslots)),
+            lambda: comb_fields(ktok.tokenize_combiner_plain(
+                chunk, w, ktok.COMBINER_SLOTS, cslots))),
+        "combiner_fold_keys+merge": (
+            lambda: ktok.combiner_fold_kernel(table0, cache0[3], 0),
+            lambda: ktok.combiner_fold_plain(table0, cache0[3], 0)),
+        **{f"sort_tiles+hist+scan+scatter[{impl}]": (
+            lambda impl=impl: radix.radix_sort3_kernel(
+                *srows, impl, radix.DEFAULT_BITS, packed_ordered=False),
+            lambda: radix.radix_sort3_plain(*srows))
+           for impl in radix.IMPLS},
+    }
+    repeats = {}
+    for name, (kernel, plain) in probes.items():
+        want = plain()
+        errs = []
+        for i in range(8):
+            torch.cuda.synchronize()
+            if i % 2:
+                concurrent()
+            got = kernel()
+            torch.cuda.synchronize()
+            errs.append(max_err(want, got))
+        if any(errs):
+            raise SystemExit(f"kernel-race repeats of {name}: {errs}")
+        repeats[name] = errs
+    del hog, stream0, srows, cache0, table0
+    emit("analysis", case="kernel_race", card=card_name(),
+         certified=sorted(f.message.split(":")[0] for f in cert),
+         repeats=repeats, runs=8, concurrent_runs=4, bit_identical=True)
 
 
 def main() -> int:
@@ -4247,7 +4474,7 @@ def main() -> int:
     }
     errs = {k: 0 for k in ("tokenize_compact", "tokenize_pair",
                            "tokenize_fused", "tokenize_combiner",
-                           "radix_partition", "radix_sort")}
+                           "combiner_fold", "radix_partition", "radix_sort")}
 
     def on_card(data: bytes) -> torch.Tensor:
         return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
@@ -4321,75 +4548,76 @@ def main() -> int:
         "one_word_32MB": one_word32,
     }
     comb_counts = {}
+
+    def comb_fields(out):
+        """The combiner's dense stream cut to its rows, its counters and
+        its cache planes: what kernel and plain version must agree on."""
+        stream, over, spill, cache = out
+        cut = stream.cut()
+        return (cut.key_hi, cut.key_lo, cut.packed, cut.total, stream.live,
+                over, spill, *cache)
+
+    def fold_err(stream, cache, cap):
+        """The fold of ``cache`` into the table of ``stream`` against its
+        plain version, at capacity ``cap``."""
+        tbl = table_ops.from_stream(stream.cut(), cap, pos_hi=9,
+                                    max_token_bytes=w, max_pos=n_max,
+                                    sort_mode="stable2")
+        return max_err(ktok.combiner_fold_plain(tbl, cache, 9),
+                       ktok.combiner_fold(tbl, cache, 9))
+
+    n_max = 1 << 26
     for name, data in comb_probes.items():
         t = on_card(data)
         want = ktok.tokenize_combiner_plain(t, w, ktok.COMBINER_SLOTS, cslots)
         got = ktok.tokenize_fused(t, max_token_bytes=w, combiner_slots=cslots)
-        got = (got[0].key_hi, got[0].key_lo, got[0].packed, got[1],
-               got[0].total, got[2], *got[3])
-        err = max_err((*want[:6], *want[6]), got)
+        err = max_err(comb_fields(want), comb_fields(got))
         errs["tokenize_combiner"] = max(errs["tokenize_combiner"], err)
         if err:
             raise SystemExit(f"combiner kernel differs from its plain "
                              f"version on {name}: {err}")
-        over, ntok, spill = (int(x) for x in got[3:6])
-        hits = int(got[8].sum())
-        flushes = int((got[8] > 0).sum())
+        over, spill = int(got[1]), int(got[2])
+        ntok, live = int(got[0].total), int(got[0].live)
+        hits = int(got[3].count.sum())
+        flushes = int((got[3].count > 0).sum())
         comb_counts[name] = {"tokens_left": ntok, "hits": hits,
-                             "flush_rows": flushes,
-                             "stream_rows": got[0].shape[0]}
+                             "flush_rows": flushes, "stream_rows": live + 1,
+                             "planes_rows": got[0].packed.shape[0]}
+        # The fold into the thinned stream's table: at the batch capacity
+        # and at one that spills.
+        ferr = 0 if spill else max(fold_err(got[0], got[3], 1 << 18),
+                                   fold_err(got[0], got[3], 1000))
+        errs["combiner_fold"] = max(errs["combiner_fold"], ferr)
+        if ferr:
+            raise SystemExit(f"the combiner fold differs from its plain "
+                             f"version on {name}: {ferr}")
         emit("kernel", probe=name, mode="tokenize_combiner", bytes=len(data),
-             overlong=over, spill=spill, **comb_counts[name], equal=True)
+             overlong=over, spill=spill, **comb_counts[name],
+             fold_checked=not spill, equal=True)
         if (spill > 0) != (name == "dense_pairs_spills"):
             raise SystemExit(f"combiner spill {spill} on {name}")
         if name == "single_key_4MB" and ntok:
             raise SystemExit("single-key chunk left tokens in the stream")
         if name not in ("zipf_32MB", "one_word_32MB"):
             continue
-        # Each launch on its own against its plain version, same inputs.
-        heads, scratch = ktok.combiner_heads_kernel(t, w, cslots)
-        cache = ktok.combiner_merge_kernel(heads, t.shape[0], cslots)
-        thin = ktok.combiner_thin_kernel(
-            t.shape[0], ktok.COMBINER_SLOTS,
-            cache._replace(count=cache.count.clone()), scratch)
-        err = max(max_err(ktok.combiner_heads_plain(t, w, cslots), heads),
-                  max_err(ktok.combiner_merge_plain(heads, cslots), cache),
-                  max_err(ktok.combiner_thin_plain(t, w, ktok.COMBINER_SLOTS,
-                                                   cache), thin))
-        errs["tokenize_combiner"] = max(errs["tokenize_combiner"], err)
-        if err:
-            raise SystemExit(f"a combiner phase differs from its plain "
-                             f"version on {name}: {err}")
-        emit("kernel", probe=name, mode="tokenize_combiner",
-             phases=["heads", "merge", "thin"], equal=True)
         # The cache depths a geometry or ``combiner_slots`` picks: the
-        # whole kernel and each launch against the plain versions.
+        # kernel and the fold against the plain versions.
         for depth in (16, 24, 32):
             want = ktok.tokenize_combiner_plain(t, w, ktok.COMBINER_SLOTS,
                                                 depth)
             got = ktok.tokenize_fused(t, max_token_bytes=w,
                                       combiner_slots=depth)
-            err = max_err((*want[:6], *want[6]),
-                          (got[0].key_hi, got[0].key_lo, got[0].packed,
-                           got[1], got[0].total, got[2], *got[3]))
-            heads, scratch = ktok.combiner_heads_kernel(t, w, depth)
-            cache = ktok.combiner_merge_kernel(heads, t.shape[0], depth)
-            thin = ktok.combiner_thin_kernel(
-                t.shape[0], ktok.COMBINER_SLOTS,
-                cache._replace(count=cache.count.clone()), scratch)
-            err = max(err, max_err(ktok.combiner_heads_plain(t, w, depth),
-                                   heads),
-                      max_err(ktok.combiner_merge_plain(heads, depth),
-                              cache),
-                      max_err(ktok.combiner_thin_plain(
-                          t, w, ktok.COMBINER_SLOTS, cache), thin))
+            err = max_err(comb_fields(want), comb_fields(got))
             errs["tokenize_combiner"] = max(errs["tokenize_combiner"], err)
-            if err:
+            ferr = fold_err(got[0], got[3], 1 << 18)
+            errs["combiner_fold"] = max(errs["combiner_fold"], ferr)
+            if err or ferr:
                 raise SystemExit(f"the combiner at depth {depth} differs "
-                                 f"from its plain version on {name}: {err}")
+                                 f"from its plain version on {name}: "
+                                 f"{err}, fold {ferr}")
             emit("kernel", probe=name, mode="tokenize_combiner",
                  combiner_slots=depth, hits=int(got[3].count.sum()),
-                 phases=["whole", "heads", "merge", "thin"], equal=True)
+                 checked=["combiner_stream", "fold"], equal=True)
 
     # K2: the radix seam, each launch kind and both impls, against the
     # plain versions and the 3-key sort.
@@ -4567,6 +4795,8 @@ def main() -> int:
         comb_path = Path(tmp) / "combiner.txt"
         comb_path.write_bytes(comb_file_data)
         comb_need = {"tokenize_combiner": None, "tokenize_pair": None}
+        # The file's chunks that do not spill fold their caches.
+        comb_file_need = {**comb_need, "combiner_fold": None}
         runs = [
             ("count_words_fused", lambda: count_words(words_data, fused_cfg),
              want, {"tokenize_fused": 1}, len(words_data)),
@@ -4575,7 +4805,7 @@ def main() -> int:
              word_counts(comb_words), comb_need, len(comb_words)),
             ("count_file_combiner",
              lambda: count_file(str(comb_path), comb_cfg),
-             word_counts(comb_file_data), comb_need,
+             word_counts(comb_file_data), comb_file_need,
              len(comb_file_data)),
             ("count_words_radix_partition",
              lambda: count_words(words_data,
@@ -4687,15 +4917,39 @@ def main() -> int:
             t, w, ktok.COMBINER_SLOTS, cslots)),
         cuda_ms(lambda: ktok.tokenize_combiner_plain(
             t, w, ktok.COMBINER_SLOTS, cslots), iters=5),
-        n + 3 * 8 * comb_rows + 4 * 8 * cslots * ktok.SEGMENTS + 3 * 8,
+        n + 3 * 8 * comb_rows + 4 * 8 * cslots * ktok.SEGMENTS + 4 * 8,
         stream_rows=comb_rows, dense_rows=dense_rows,
         hits=comb_counts["zipf_32MB"]["hits"],
         flush_rows=comb_counts["zipf_32MB"]["flush_rows"],
         windows=ktok.SEGMENTS * ktok._combiner_geometry(n)[1],
-        phase_ms=staged_ms(lambda timer: ktok.tokenize_combiner_kernel(
-            t, w, ktok.COMBINER_SLOTS, cslots, timer=timer)),
         one_word_ms=cuda_ms(lambda: ktok.tokenize_combiner_kernel(
             one_word_chunk, w, ktok.COMBINER_SLOTS, cslots)))
+    # The fold of the chunk's flushed cache into its thinned stream's
+    # table at Config()'s batch capacity.  Bound: the table's live rows'
+    # seven planes read (its holes are known from the sorted-table
+    # invariant and never read), all its rows' seven planes written, the
+    # cache's four planes read, and the dropped totals in and out.
+    comb_stream, _, _, comb_cache = ktok.tokenize_combiner_kernel(
+        t, w, ktok.COMBINER_SLOTS, cslots)
+    cap = cfg.batch_uniques
+    comb_table = table_ops.from_stream(
+        comb_stream.cut(), cap, pos_hi=0, max_token_bytes=w, max_pos=n,
+        sort_mode="stable2")
+    table_live = int((comb_table.count > 0).sum())
+    row("combiner_fold", "tokenize.cu",
+        "mapreduce_tpu/models/wordcount.py:297",
+        cuda_ms(lambda: ktok.combiner_fold_kernel(comb_table, comb_cache, 0)),
+        cuda_ms(lambda: ktok.combiner_fold_plain(comb_table, comb_cache, 0),
+                iters=5),
+        7 * 8 * (table_live + cap) + 4 * 8 * cslots * ktok.SEGMENTS
+        + 2 * 4 * 8,
+        capacity=cap, table_live_rows=table_live,
+        entries=cslots * ktok.SEGMENTS,
+        live_entries=int((comb_cache.count > 0).sum()),
+        phase_ms=staged_ms(lambda timer: (
+            ktok.combiner_fold_kernel(comb_table, comb_cache, 0),
+            timer("fold"))))
+    del comb_stream, comb_cache, comb_table
     # K2 on the dense stream of the chunk: the seam (radix_sort3, 3-key)
     # against its plain version, the 3-key sort; yardsticks the port's own
     # 3-key sort call (table._lexsort, the sort3 build's) and the default
@@ -4873,11 +5127,12 @@ def main() -> int:
          seconds=round(time.perf_counter() - t_start, 3))
 
     # Each row's __global__ functions as the card reports them (phase 15).
-    prefix = {"tokenize_compact": "tokenize_stream",
-              "tokenize_pair": "tokenize_stream",
-              "tokenize_fused": "tokenize_stream",
-              "tokenize_combiner": "combiner_", "radix_partition": "sort_",
-              "radix_sort": "sort_"}
+    prefix = {"tokenize_compact": ("tokenize_stream",),
+              "tokenize_pair": ("tokenize_stream",),
+              "tokenize_fused": ("tokenize_stream",),
+              "tokenize_combiner": ("combiner_stream",),
+              "combiner_fold": ("combiner_fold_",),
+              "radix_partition": ("sort_",), "radix_sort": ("sort_",)}
     for k in kernels:
         k["card_attributes"] = {
             g: {f: a[f] for f in ("static_smem", "registers", "local_bytes",

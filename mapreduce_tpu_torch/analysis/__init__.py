@@ -5,11 +5,11 @@ and pass ids.  A job is certified before a streamed run: its hooks and
 the Engine's step/finish are recorded as op traces (:mod:`.trace`), and a
 pass pipeline checks reducer algebra, accumulator lanes against corpus
 scale, host syncs, device-memory cost against baselines, the kernels'
-shared-memory and register budgets, and fusion leads.  CLI:
-``python -m mapreduce_tpu_torch.analysis``.  The mesh and race passes
-(``sharding-lint``, ``collective-cost``, ``kernel-race``) and the rest of
-``geometry`` are ROADMAP A13b; of :mod:`.geometry` the port has
-``resolve_auto``.
+shared-memory and register budgets, each kernel's cross-block protocol,
+fusion leads, and the collectives of a fleet's finish (their process
+groups and their cost over the link levels, :mod:`.meshcost`, recorded
+over an in-process fake world).  :mod:`.geometry` certifies, prices and
+ranks kernel geometries.  CLI: ``python -m mapreduce_tpu_torch.analysis``.
 """
 
 from mapreduce_tpu_torch.analysis.core import (AnalysisContext, Finding,

@@ -7,7 +7,8 @@ non-zero when any error-severity finding fires; ``--platform cpu`` runs
 the same analysis on the host.  Without a card and without
 ``--platform cpu`` it raises (``runtime/platform.py:resolve_device``),
 like every entry point of the port.  ``--write-baselines`` regenerates
-the port's cost baselines (``analysis/baselines/<model>.json``).
+the port's cost baselines (``analysis/baselines/<model>.json`` and, for
+the fleet twins, ``<model>.collective.json``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="graphcheck",
         description="static analyzer for mapreduce_tpu_torch jobs, over "
                     "op traces (reducer algebra, overflow/dtype, "
-                    "host-sync; costcheck: device-memory cost, "
-                    "shared-memory and register budgets, fusion leads).")
+                    "host-sync, collective groups; costcheck: "
+                    "device-memory cost, shared-memory and register "
+                    "budgets, kernel cross-block protocols, fusion leads, "
+                    "collective cost over the fleet's links).")
     p.add_argument("models", nargs="*",
                    help="built-in model names to analyze "
                         "(default: all; see --list)")
@@ -59,7 +62,7 @@ def analyze_models(names, device, corpus_bytes: int = 1 << 40,
     kernel).  Returns the :class:`~.core.Report`."""
     from mapreduce_tpu_torch import analysis
     from mapreduce_tpu_torch import models as models_mod
-    from mapreduce_tpu_torch.analysis.passes import smem
+    from mapreduce_tpu_torch.analysis.passes import kernelrace, smem
 
     report = analysis.Report()
     for name in names:
@@ -75,6 +78,7 @@ def analyze_models(names, device, corpus_bytes: int = 1 << 40,
     # cover the production chunk the toy analysis configs never trace.
     report.models.append("<kernels>")
     report.extend(smem.certify_production_kernels())
+    report.extend(kernelrace.certify_sources())
     if card_attributes is None:
         card_attributes = device.type == "cuda"
     if card_attributes:

@@ -182,7 +182,7 @@ def pass_ids() -> list[str]:
 
 class AnalysisContext:
     """Everything a pass may inspect for ONE job: the job, its per-hook op
-    traces, the Engine's step/finish traces on an axis of one rank, the
+    traces, the Engine's step/finish traces, the mesh they ran over, the
     device they ran on and the corpus-scale bound the overflow lint checks
     dtypes against.
 
@@ -192,8 +192,11 @@ class AnalysisContext:
     :class:`~mapreduce_tpu_torch.analysis.trace.TraceFailure` value rather
     than raising, so one opaque hook cannot take down the whole pipeline.
     A job that declares a fleet (``analysis_fleet``, the ``*_fleet``
-    registry twins) is analysed on one rank all the same: its many-rank
-    finish belongs to the mesh passes (ROADMAP A13b).
+    registry twins: ``{"processes": P, "local_devices": L}``) has its step
+    and finish recorded on rank 0 of an in-process fake world of P x L
+    ranks (:func:`...trace.fake_world`), over the mesh that fleet runs;
+    :attr:`mesh_spec` attributes its axes to link levels.  Every other job
+    is recorded on one rank with no world.
     """
 
     def __init__(self, job: Any, model: str, device=None, *,
@@ -247,8 +250,22 @@ class AnalysisContext:
         if self._engine_traces is None:
             from mapreduce_tpu_torch.analysis import trace
 
-            self._engine_traces = trace.trace_engine(self.job, self.device)
+            self._engine_traces = trace.trace_engine(self.job, self.device,
+                                                     fleet=self.fleet)
         return self._engine_traces
+
+    @property
+    def mesh_spec(self):
+        """The traced mesh with its link levels
+        (:class:`...meshcost.MeshSpec`): the fleet's (outer axis over the
+        network between nodes, inner over NVLink), else one rank."""
+        from mapreduce_tpu_torch.analysis import meshcost
+
+        p = int(self.fleet.get("processes", 1))
+        ld = int(self.fleet.get("local_devices", 1))
+        if ld > 1:
+            return meshcost.MeshSpec.fleet(p, ld)
+        return meshcost.MeshSpec.from_mesh(("data",), (p,), processes=p)
 
     @property
     def kernel_nodes(self) -> list:
@@ -301,17 +318,6 @@ def run_pipeline(ctx: AnalysisContext,
                 hook="<pipeline>",
                 message=f"pass crashed: {type(e).__name__}: {e}",
                 hint="fix the pass (or report a graphcheck bug)"))
-    if ctx.fleet and passes is None:
-        report.findings.append(Finding(
-            severity=INFO, pass_id="<pipeline>", model=ctx.model,
-            hook="finish",
-            message=(f"analysed on one rank: the fleet's many-rank finish "
-                     f"({ctx.fleet.get('processes', 1)} hosts x "
-                     f"{ctx.fleet.get('local_devices', 1)} ranks, "
-                     f"{getattr(ctx.job, 'analysis_merge_strategy', 'tree')}"
-                     ") is not certified here"),
-            hint="the mesh passes (sharding-lint, collective-cost) are "
-                 "ROADMAP A13b"))
     if ctx.artifacts:
         report.artifacts[ctx.model] = ctx.artifacts
     return report

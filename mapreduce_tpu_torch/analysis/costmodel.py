@@ -10,8 +10,15 @@ operand and result shapes and dtypes alone -- no device, no profiler:
   because XLA fuses them into their consumers: eager PyTorch fuses
   nothing, so every op moves its operands through device memory;
 * a kernel node (a hand-written kernel's wrapper) reads its operands and
-  writes its results, and launches what its plan says;
+  writes its results, moves the scratch its plan declares (work words
+  cleared and polled, planes one launch writes and the next reads back:
+  :attr:`...ops.cuda.plans.KernelPlan.scratch`), and launches what its
+  plan says;
 * a view charges nothing and launches nothing;
+* a collective (a ``c10d`` op, recorded over a fleet's fake world) is
+  tallied in its own family, the bytes this rank sends, and left out of
+  device memory: those bytes price the interconnect, which the
+  collective-cost pass models (:mod:`.meshcost`); it launches one;
 * a declared host sync charges nothing on device memory and counts as a
   host read (so does an undeclared syncing op).
 
@@ -50,6 +57,7 @@ class Cost:
     launches: int = 0
     host_reads: int = 0
     kernel_nodes: int = 0
+    collective_bytes: int = 0
     families: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -68,13 +76,14 @@ class Cost:
                 "nodes": self.nodes, "launches": self.launches,
                 "kernel_nodes": self.kernel_nodes,
                 "host_reads": self.host_reads,
+                "collective_bytes": self.collective_bytes,
                 "family_bytes": dict(sorted(self.families.items()))}
 
 
 def classify(node) -> str:
     """The family a node's bytes are charged to."""
-    if node.kind == "kernel":
-        return "kernel"
+    if node.kind in ("kernel", "collective"):
+        return node.kind
     if node.kind != "op":
         return "host"
     name = node.name.split(".")[1] if node.name.startswith("aten.") \
@@ -113,8 +122,18 @@ def program_cost(program) -> Cost:
             cost.host_reads += 1
         if node.kind in ("host_read", "host_copy") or node.is_view:
             continue
-        cost.charge(classify(node), meta_bytes(node.operands),
-                    meta_bytes(node.results))
+        if node.kind == "collective":
+            sent = int(node.attr("sent_bytes", 0))
+            cost.collective_bytes += sent
+            cost.families["collective"] = \
+                cost.families.get("collective", 0) + sent
+            cost.launches += 1
+            continue
+        read, written = meta_bytes(node.operands), meta_bytes(node.results)
+        if node.kind == "kernel" and node.plan:
+            scratch_read, scratch_written = node.plan.scratch_bytes
+            read, written = read + scratch_read, written + scratch_written
+        cost.charge(classify(node), read, written)
         if node.kind == "kernel":
             cost.kernel_nodes += 1
             cost.launches += len(node.plan.launches) if node.plan else 1

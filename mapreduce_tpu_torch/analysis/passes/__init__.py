@@ -1,7 +1,10 @@
 """Built-in graphcheck passes.  Import order = pipeline run order (the JAX
-package's, without the mesh and race passes: ROADMAP A13b)."""
+package's, with ``smem`` for its ``vmem``)."""
 
 from mapreduce_tpu_torch.analysis.passes import (algebra, overflow, hostsync,
-                                                 cost, smem, fusion)
+                                                 sharding, cost, smem,
+                                                 kernelrace, fusion,
+                                                 collective)
 
-__all__ = ["algebra", "overflow", "hostsync", "cost", "smem", "fusion"]
+__all__ = ["algebra", "overflow", "hostsync", "sharding", "cost", "smem",
+           "kernelrace", "fusion", "collective"]

@@ -107,6 +107,7 @@ class CostPass:
             report["geometry"] = config.geometry_label
 
         step_cost = None
+        collective_bytes: dict = {}
         for hook, traced in ctx.engine_traces.items():
             if isinstance(traced, trace.TraceFailure):
                 out.append(core.Finding(
@@ -114,14 +115,39 @@ class CostPass:
                     model=ctx.model, hook=hook,
                     message=(f"the {hook} program failed on the sample "
                              f"chunk ({traced.error_type}: {traced.error})"),
-                    hint="the Engine must run the job on one rank"))
+                    hint="the Engine must run the job on its mesh"))
                 continue
             cost = costmodel.program_cost(traced)
             report["programs"][hook] = cost.as_dict()
+            collective_bytes[hook] = cost.collective_bytes
             if hook == "step":
                 step_cost = cost
         if step_cost is None:
             return out
+
+        # The collective family, as in the JAX report: interconnect bytes,
+        # left out of the device total; ``priced`` stays False here and
+        # the collective-cost pass sets it with the modeled seconds.
+        total_coll = sum(collective_bytes.values())
+        report["collective"] = {
+            "per_program_bytes": collective_bytes,
+            "total_bytes": total_coll,
+            "priced": False,
+            "note": "interconnect bytes this rank sends, excluded from the "
+                    "device total; priced by the collective-cost pass "
+                    "(meshcost link model) over a fleet's mesh"}
+        if total_coll:
+            out.append(core.Finding(
+                severity=core.INFO, pass_id=self.pass_id, model=ctx.model,
+                hook="finish" if collective_bytes.get("finish") else "step",
+                message=(f"collective family: {total_coll >> 10} KiB "
+                         "interconnect traffic ("
+                         + ", ".join(f"{h}={b}" for h, b in
+                                     sorted(collective_bytes.items()))
+                         + " bytes), excluded from the device total"),
+                hint="the collective-cost pass prices these bytes per "
+                     "link level (NVLink / network) via "
+                     "analysis/meshcost.py"))
 
         passes = step_cost.device_bytes / max(chunk_bytes, 1)
         report["effective_input_passes"] = round(passes, 3)
@@ -307,11 +333,11 @@ class CostPass:
     def _combiner_gate_findings(self, ctx, report) -> list[core.Finding]:
         """The JAX gate, as it is: a hot-key combiner model must price
         STRICTLY below its combiner-off twin at the same chunk -- the
-        cache exists to delete sort rows.  The port's combiner keeps the
-        windowed stream with its dead filler (``COMBINER_SLOTS`` rows a
-        3,072-byte window against the dense stream's live rows), so on
-        text the cache cannot thin enough this gate can fail: that is a
-        finding of the port (ROADMAP A15), not a gate to loosen."""
+        cache exists to delete sort rows.  The port's combiner leaves the
+        dense stream of the rows it keeps and folds its cache into the
+        chunk's table in one kernel pass; a combiner that prices at or
+        above its twin is a finding of the port (ROADMAP A15), not a gate
+        to loosen."""
         config = getattr(ctx.job, "config", None)
         passes = report.get("effective_input_passes")
         off_model = _UNCOMBINED_COUNTERPART.get(ctx.model)

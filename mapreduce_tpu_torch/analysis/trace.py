@@ -21,7 +21,18 @@ not see the way a jaxpr does, and what the recorder does about each:
   (:data:`SYNCING_OPS`) is an undeclared host read (the host-sync pass);
 * **branches**: a jaxpr ``cond`` holds both branches; an eager trace holds
   the one the sample took.  The values every host read returned are kept
-  (:attr:`OpTrace.flags`), so a pass can name the branches not taken.
+  (:attr:`OpTrace.flags`), so a pass can name the branches not taken, and
+  a read can be given other values (:func:`record`'s ``overrides``) to
+  record the branch it did not take.
+
+Collectives (the ``c10d`` ops of ``torch.distributed``) are ``collective``
+nodes: the op, the process group as the mesh names it
+(:class:`GroupInfo`), the link level it rides and the bytes this rank
+sends.  A fleet twin (``analysis_fleet``) is traced on rank 0 of an
+in-process world of ``processes x local_devices`` ranks over
+``torch.distributed``'s ``fake`` backend (:func:`fake_world`): its
+collectives record and move nothing, so their outputs are zeros and a
+trace holds the branch those zeros take.
 
 A hook that raises is recorded as a :class:`TraceFailure` value instead of
 propagating, as in the JAX package.
@@ -29,11 +40,12 @@ propagating, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
 import weakref
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -76,8 +88,9 @@ class Node:
 
     ``kind`` is ``'op'`` (an aten op, ``name`` its overload), ``'kernel'``
     (a kernel wrapper's launch, ``name`` the wrapper, ``plan`` its
-    :class:`...ops.cuda.plans.KernelPlan`), ``'host_read'`` or
-    ``'host_copy'`` (a declared sync).  ``operands`` and ``results`` are
+    :class:`...ops.cuda.plans.KernelPlan`), ``'collective'`` (a ``c10d``
+    op; ``attrs`` name its group, level, size and bytes), ``'host_read'``
+    or ``'host_copy'`` (a declared sync).  ``operands`` and ``results`` are
     ``(shape, dtype)`` pairs of the tensors in and out; ``attrs`` the
     arguments a pass reads (``index_put``'s ``accumulate``); ``ins`` and
     ``outs`` are the tensors' value ids (dataflow, not part of
@@ -106,6 +119,24 @@ class Node:
         return (self.kind, self.name, self.operands, self.results,
                 self.is_view, plan, self.attrs)
 
+    def attr(self, key: str, default=None):
+        return dict(self.attrs).get(key, default)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupInfo:
+    """A process group as the mesh names it: ``label`` its axis name
+    (``data``, ``replica``, ``world`` for the flattened mesh, ``control``
+    for the agreements' gloo groups, ``<unknown>`` for a group the mesh
+    does not hold), the mesh axes it spans (outermost first), its size
+    and the link level it rides (``nvlink`` within a node, ``net``
+    across nodes)."""
+
+    label: str
+    axes: tuple
+    size: int
+    level: str
+
 
 @dataclasses.dataclass
 class OpTrace:
@@ -117,6 +148,12 @@ class OpTrace:
     nodes: list
     flags: list
     outputs: tuple = ()
+    #: ``collectives.bytes_sent`` counted while the program ran.
+    bytes_sent: int = 0
+    #: The branches of its rank-local reads: ``(read index, the program
+    #: recorded with that read's values flipped)`` (see
+    #: :func:`rank_local_reads`).
+    branches: tuple = ()
 
     def signature(self) -> list:
         return [n.signature() for n in self.nodes]
@@ -129,6 +166,10 @@ class OpTrace:
     def host_syncs(self) -> list:
         return [n for n in self.nodes if n.kind in ("host_read",
                                                      "host_copy")]
+
+    @property
+    def collectives(self) -> list:
+        return [n for n in self.nodes if n.kind == "collective"]
 
 
 def _tensors(tree) -> list:
@@ -195,14 +236,51 @@ class _KernelScope:
         return out
 
 
+#: Where a ``c10d`` op keeps its output and input tensors: argument
+#: positions ``(outputs, inputs)`` (None: none).  An op not listed reads
+#: and writes every tensor it is given.
+_C10D_ARGS = {
+    "allreduce_": (0, 0), "allreduce_coalesced_": (0, 0),
+    "allgather_": (0, 1), "_allgather_base_": (0, 1),
+    "allgather_into_tensor_coalesced_": (0, 1),
+    "reduce_scatter_": (0, 1), "_reduce_scatter_base_": (0, 1),
+    "alltoall_": (0, 1), "alltoall_base_": (0, 1),
+    "broadcast_": (0, 0), "send": (None, 0), "recv_": (0, None),
+}
+
+
+def sent_bytes(op: str, payload: int, size: int) -> int:
+    """The bytes this rank sends for one collective of ``payload`` input
+    bytes over ``size`` ranks: what ``parallel/collectives.py`` adds to
+    ``collectives.bytes_sent`` for it."""
+    if size <= 1 or op == "recv_":
+        return 0
+    if op in ("alltoall_", "alltoall_base_", "reduce_scatter_",
+              "_reduce_scatter_base_"):
+        return (size - 1) * (payload // size)
+    if op in ("send", "broadcast_"):
+        return payload
+    return (size - 1) * payload
+
+
 class Recorder(TorchDispatchMode):
     """Logs every aten op dispatched while active (see the module note);
-    install it with :func:`record`."""
+    install it with :func:`record`.  ``groups`` maps each process group
+    of the mesh to its :class:`GroupInfo`; ``overrides`` maps the index of
+    a declared host read to a function of the values it read, whose
+    result the program sees instead; with ``zero_collectives`` a
+    collective's outputs are zeroed (a fake world's collectives write
+    nothing)."""
 
-    def __init__(self):
+    def __init__(self, groups: Optional[dict] = None,
+                 overrides: Optional[dict] = None,
+                 zero_collectives: bool = False):
         super().__init__()
         self.nodes: list = []
         self.flags: list = []
+        self.groups = groups or {}
+        self.overrides = overrides or {}
+        self.zero_collectives = zero_collectives
         self._quiet = 0
         self._next = 0
         self._vids: dict = {}
@@ -242,6 +320,9 @@ class Recorder(TorchDispatchMode):
         # device work, so both are left out.
         if self._quiet or func is _DETACH or func.namespace == "profiler":
             return out
+        if func.namespace == "c10d":
+            self._collective(func, args)
+            return out
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         name = str(func)
@@ -256,6 +337,44 @@ class Recorder(TorchDispatchMode):
                        outs=self._fresh(outs), location=_location()))
         return out
 
+    def _collective(self, func, args) -> None:
+        """One ``collective`` node for a ``c10d`` op: its process group as
+        the mesh names it and the bytes this rank sends."""
+        import torch.distributed as dist
+
+        op = str(func).split(".")[1]
+        pg = next((torch._C._distributed_c10d.ProcessGroup.unbox(a)
+                   for a in args if isinstance(a, torch._C.ScriptObject)),
+                  None)
+        info = self.groups.get(pg) if pg is not None else None
+        if info is None:
+            size = pg.size() if pg is not None else 1
+            info = GroupInfo("<unknown>", (), size, "")
+        where = _C10D_ARGS.get(op)
+        if where is None:
+            outs = ins = _tensors(args)
+        else:
+            outs = [] if where[0] is None else _tensors(args[where[0]])
+            ins = [] if where[1] is None else _tensors(args[where[1]])
+        payload = sum(t.numel() * t.element_size() for t in ins)
+        ranks = tuple(dist.get_process_group_ranks(pg)) \
+            if pg is not None and info.label == "<unknown>" else ()
+        if self.zero_collectives:
+            self._quiet += 1
+            try:
+                for t in outs:
+                    t.zero_()
+            finally:
+                self._quiet -= 1
+        self.nodes.append(Node(
+            "collective", str(func), _meta(ins), _meta(outs),
+            attrs=(("group", info.label), ("axes", info.axes),
+                   ("size", info.size), ("level", info.level),
+                   ("ranks", ranks), ("payload_bytes", payload),
+                   ("sent_bytes", sent_bytes(op, payload, info.size))),
+            ins=self._ids(ins), outs=self._fresh(outs),
+            location=_location()))
+
     # -- the trace points (ops/tracepoints.py) -------------------------------
 
     def kernel_scope(self, name: str, plan, operands) -> _KernelScope:
@@ -269,6 +388,9 @@ class Recorder(TorchDispatchMode):
         finally:
             self._quiet -= 1
         if not quiet:
+            change = self.overrides.get(len(self.flags))
+            if change is not None:
+                values = change(values)
             self.flags.append(list(values))
             self.nodes.append(Node("host_read", "host_read", _meta([flags]), (),
                            ins=self._ids([flags]), location=_location()))
@@ -287,12 +409,23 @@ class Recorder(TorchDispatchMode):
         return t
 
 
-def record(hook: str, fn, *args) -> tuple[Any, OpTrace]:
+def _bytes_sent() -> int:
+    from mapreduce_tpu_torch.obs import registry
+
+    return int(sum(v for k, v in registry.get_registry().snapshot()[
+        "counters"].items() if k.startswith("collectives.bytes_sent")))
+
+
+def record(hook: str, fn, *args, groups: Optional[dict] = None,
+           overrides: Optional[dict] = None,
+           zero_collectives: bool = False) -> tuple[Any, OpTrace]:
     """Run ``fn(*args)`` under a fresh recorder: ``(its value, its
-    OpTrace)``.  Only one recorder is active at a time."""
+    OpTrace)``.  Only one recorder is active at a time.  ``groups``,
+    ``overrides`` and ``zero_collectives`` are :class:`Recorder`'s."""
     if tracepoints.RECORDER is not None:
         raise RuntimeError("a recorder is already active")
-    rec = Recorder()
+    rec = Recorder(groups, overrides, zero_collectives)
+    sent0 = _bytes_sent()
     tracepoints.RECORDER = rec
     try:
         with rec:
@@ -300,7 +433,7 @@ def record(hook: str, fn, *args) -> tuple[Any, OpTrace]:
     finally:
         tracepoints.RECORDER = None
     return out, OpTrace(hook, rec.nodes, rec.flags,
-                        rec._ids(_tensors(out)))
+                        rec._ids(_tensors(out)), _bytes_sent() - sent0)
 
 
 # -- the sample input ---------------------------------------------------------
@@ -416,28 +549,105 @@ def trace_hooks(job: Any, device=None, chunk: torch.Tensor | None = None
 _FLAT = {"hier-tree-tree": "tree", "hier-kr-tree": "keyrange"}
 
 
-def engine_for(job: Any, device):
-    """The Engine the analysis records: one rank, no world; the job's
-    declared stats mode (``analysis_data_stats``) and merge strategy
-    (``analysis_merge_strategy``, a two-level one flattened)."""
+def engine_for(job: Any, device, mesh=None):
+    """The Engine the analysis records: the job's declared stats mode
+    (``analysis_data_stats``) and merge strategy
+    (``analysis_merge_strategy``), on ``mesh`` (a fleet's fake world), or
+    on one rank with no world (a two-level strategy flattened)."""
     from mapreduce_tpu_torch.parallel.mapreduce import Engine
     from mapreduce_tpu_torch.parallel.mesh import DataAxis
 
     strategy = getattr(job, "analysis_merge_strategy", "tree")
-    return Engine(job, device, mesh=DataAxis(device=device),
+    if mesh is None:
+        mesh = DataAxis(device=device)
+        strategy = _FLAT.get(strategy, strategy)
+    return Engine(job, device, mesh=mesh,
                   data_stats=getattr(job, "analysis_data_stats", False),
-                  merge_strategy=_FLAT.get(strategy, strategy))
+                  merge_strategy=strategy)
 
 
-def trace_engine(job: Any, device=None, chunk: torch.Tensor | None = None
-                 ) -> dict:
+def _level(outer: bool, processes: int) -> str:
+    return "net" if outer and processes > 1 else "nvlink"
+
+
+@contextlib.contextmanager
+def fake_world(processes: int, local_devices: int, device, rank: int = 0):
+    """An in-process world of ``processes x local_devices`` ranks over
+    ``torch.distributed``'s ``fake`` backend, as rank ``rank``: yields
+    ``(mesh, groups)``, the mesh a fleet of that shape runs
+    (``parallel/mesh.py``: a ``DataAxis`` of P ranks for P x 1, a
+    ``two_level_mesh(P, L)`` otherwise) and each of its process groups'
+    :class:`GroupInfo`.  Collectives over it record and move nothing.  The
+    world is torn down after, and the mesh module's group caches
+    cleared.  Refuses to run beside a real world."""
+    import torch.distributed as dist
+
+    from mapreduce_tpu_torch.parallel import mesh as mesh_mod
+
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError(
+            "a torch.distributed world is already initialised in this "
+            "process: the fleet's fake world is not built beside it "
+            "(analyse the fleet twins in a process of their own)")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = processes * local_devices
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device(device)
+        if local_devices > 1:
+            mesh = mesh_mod.two_level_mesh(processes, local_devices,
+                                           device=dev)
+            names = (mesh.outer.name, mesh.inner.name)
+            groups = {
+                mesh.outer.group: GroupInfo(names[0], names[:1], processes,
+                                            _level(True, processes)),
+                mesh.inner.group: GroupInfo(names[1], names[1:],
+                                            local_devices,
+                                            _level(False, processes)),
+                mesh.group: GroupInfo("world", names, world,
+                                      _level(True, processes))}
+        else:
+            mesh = mesh_mod.data_mesh(processes, device=dev)
+            groups = {mesh.group: GroupInfo(mesh.name, (mesh.name,),
+                                            processes,
+                                            _level(True, processes))}
+        groups.pop(None, None)
+        for ranks, group in mesh_mod._CONTROL.items():
+            groups[group] = GroupInfo("control", (), len(ranks), "net")
+        yield mesh, groups
+    finally:
+        dist.destroy_process_group()
+        mesh_mod._GROUPS.clear()
+        mesh_mod._CONTROL.clear()
+
+
+def trace_engine(job: Any, device=None, chunk: torch.Tensor | None = None,
+                 fleet: Optional[dict] = None) -> dict:
     """Record the Engine's ``step`` (map + combine of the sample chunk into
     the initial state, as chunk 0) and ``finish`` (merge + finalize of the
-    stepped state) on an axis of one rank.  Returns ``{'step'|'finish':
-    OpTrace | TraceFailure}``."""
+    stepped state).  On one rank with no world; with ``fleet``
+    (``{"processes": P, "local_devices": L}``) on rank 0 of a
+    :func:`fake_world` of that shape.  Returns ``{'step'|'finish': OpTrace
+    | TraceFailure}``."""
     dev = _device_of(job, device)
+    if not fleet:
+        return _trace_engine(job, dev, chunk, None, {})
     try:
-        eng = engine_for(job, dev)
+        world = fake_world(int(fleet.get("processes", 1)),
+                           int(fleet.get("local_devices", 1)), dev)
+        with world as (mesh, groups):
+            return _trace_engine(job, dev, chunk, mesh, groups)
+    except Exception as e:
+        f = TraceFailure.of("engine", e)
+        return {"step": f, "finish": f}
+
+
+def _trace_engine(job, dev, chunk, mesh, groups: dict) -> dict:
+    kw = {"groups": groups, "zero_collectives": mesh is not None}
+    try:
+        eng = engine_for(job, dev, mesh)
         state = eng.init_states()
         if chunk is None:
             chunk = sample_chunk(job, dev)
@@ -446,7 +656,8 @@ def trace_engine(job: Any, device=None, chunk: torch.Tensor | None = None
         return {"step": f, "finish": f}
     out: dict[str, Any] = {}
     try:
-        stepped, out["step"] = record("step", eng.step, state, chunk, 0)
+        stepped, out["step"] = record("step", eng.step, state, chunk, 0,
+                                      **kw)
     except Exception as e:
         out["step"] = TraceFailure.of("step", e)
         out["finish"] = TraceFailure.of("finish", RuntimeError(
@@ -455,10 +666,70 @@ def trace_engine(job: Any, device=None, chunk: torch.Tensor | None = None
     if eng.data_stats:
         stepped = stepped[0]
     try:
-        out["finish"] = record("finish", eng.finish, stepped)[1]
+        out["finish"] = record("finish", eng.finish, stepped, **kw)[1]
     except Exception as e:
         out["finish"] = TraceFailure.of("finish", e)
+        return out
+    if mesh is None:
+        return out
+    # The other branch of each rank-local read that a collective follows
+    # (the collective-cost pass's divergence lint), recorded while the
+    # world stands.
+    runs = {"step": (eng.step, state, chunk, 0), "finish": (eng.finish,
+                                                           stepped)}
+    for hook, program in out.items():
+        branches = []
+        for r in rank_local_reads(program, mesh.size):
+            try:
+                alt = record(hook, *runs[hook], overrides={r: flipped},
+                             **kw)[1]
+            except Exception as e:
+                alt = TraceFailure.of(hook, e)
+            branches.append((r, alt))
+        out[hook] = dataclasses.replace(program, branches=tuple(branches))
     return out
+
+
+def flipped(values: list) -> list:
+    """A read's values on the branch it did not take: each zero one, each
+    nonzero zero."""
+    return [0 if v else 1 for v in values]
+
+
+#: Collectives whose outputs are the same on every rank they cover.
+_UNIFORMING = frozenset({"allreduce_", "allreduce_coalesced_", "allgather_",
+                         "_allgather_base_",
+                         "allgather_into_tensor_coalesced_", "broadcast_"})
+
+
+def rank_local_reads(program: OpTrace, world: int) -> list:
+    """Indices of the program's declared host reads whose value is this
+    rank's own and that a collective follows: a rank may branch on such a
+    value where its peers take the other branch.  A value is this rank's
+    own when it depends on an input the program did not make (the job's
+    state, the chunk) other than through a collective over the whole mesh
+    (``world`` ranks) whose result every rank shares (an all-reduce, an
+    all-gather, a broadcast; an agreement over the control group is one)."""
+    varying: set = set()
+    made: set = set()
+    reads = []
+    n_read = 0
+    for i, node in enumerate(program.nodes):
+        own = any(v in varying or v not in made for v in node.ins)
+        if node.kind == "host_read":
+            if own and any(n.kind == "collective"
+                           for n in program.nodes[i + 1:]):
+                reads.append(n_read)
+            n_read += 1
+            continue
+        made.update(node.outs)
+        if node.kind == "collective" and node.name.split(".")[1] in \
+                _UNIFORMING and node.attr("size") == world \
+                and node.attr("group") != "<unknown>":
+            continue
+        if own:
+            varying.update(node.outs)
+    return reads
 
 
 def _check_chunk(job: Any, n_bytes: int) -> None:

@@ -132,25 +132,6 @@ def _accounted(t: table_ops.CountTable, n_over) -> table_ops.CountTable:
                       dropped_count=t.dropped_count + n_over)
 
 
-def _combiner_table(cache: kernel_tok.CombinerCache,
-                    pos_hi) -> table_ops.CountTable:
-    """One chunk's flushed hot-key cache as an exact small table: one row
-    per resident entry, with its count and first in-segment occurrence.  A
-    key resident in several segments coalesces in the generic build
-    (counts add, the smallest position wins), so merging this table with
-    the thinned stream's gives the uncombined build.  Capacity is the
-    plane size, so the build cannot spill."""
-    khi, klo, cnt, packed = (x.reshape(-1) for x in cache)
-    live = cnt > 0
-    stream = tok_ops.TokenStream(
-        key_hi=torch.where(live, khi, tok_ops.SENT),
-        key_lo=torch.where(live, klo, tok_ops.SENT),
-        count=torch.where(live, cnt, 0),
-        pos=torch.where(live, packed >> 6, tok_ops.POS_INF),
-        length=torch.where(live, packed & 63, 0))
-    return table_ops.from_stream(stream, khi.shape[0], pos_hi=pos_hi)
-
-
 def _tokenize(chunk: torch.Tensor, config: Config):
     """The configured kernel mode: ``(stream, overlong, spill, cache)``,
     ``cache`` None unless the hot-key combiner runs."""
@@ -214,8 +195,7 @@ def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi,
     t, rescued = _aggregate(chunk, stream, overlong, over_h, config,
                             capacity, pos_hi)
     if cache is not None:
-        t = table_ops.merge(t, _combiner_table(cache, pos_hi),
-                            capacity=capacity)
+        t = kernel_tok.combiner_fold(t, cache, pos_hi)
     if not with_stats:
         return t
     r1 = config.rescue_slots

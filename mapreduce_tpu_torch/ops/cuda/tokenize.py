@@ -30,13 +30,17 @@ Limits from the packed row word stay: chunks of at most 2**26 bytes and
 even rows) are gone, except under the combiner: its cache belongs to one
 of :data:`SEGMENTS` contiguous segments (the TPU kernel's lanes), so the
 chunk length must be a multiple of 128 for its flushed planes to equal the
-JAX package's.  Under the combiner a window of :data:`WINDOW` bytes holds
-:data:`COMBINER_SLOTS` rows (the JAX package's 128 per 512 bytes there),
-dead filler after its live rows, and a window that overflows spills.
-The combiner runs in three launches whose grids scale with the windows
-(heads, merge, thin: :func:`tokenize_combiner_kernel`), each with its own
-plain version; :func:`tokenize_combiner_plain` is the one-pass definition
-they are held to.
+JAX package's.  The rows the combiner leaves form the same dense stream
+(every kept row in ascending position, then one dead row, cut by the
+caller); a window of :data:`WINDOW` bytes that keeps more than
+:data:`COMBINER_SLOTS` rows (the JAX package's 128 per 512 bytes there)
+counts the excess as ``spill``, so the caller's combiner-free rerun fires
+on the chunks where the JAX package's does.  The combiner is one launch,
+a block a window (:func:`tokenize_combiner_kernel`), held to the one-pass
+plain version :func:`tokenize_combiner_plain`.  The flushed cache folds
+into the chunk's table in two more launches (:func:`combiner_fold`), whose
+plain version is the JAX package's merge of the table with the cache's own
+table.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version of the same
 function (:func:`tokenize_stream_plain`, :func:`tokenize_combiner_plain`);
@@ -53,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from mapreduce_tpu_torch import constants
+from mapreduce_tpu_torch.ops import table as table_ops
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
 from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.ops.cuda import _build, plans
@@ -60,7 +65,7 @@ from mapreduce_tpu_torch.ops.table import _key64, _lexsort
 
 TILE = 8192  # bytes per block of the dense stream; csrc/tokenize.cu kTile
 WINDOW = 3072  # bytes per combiner block; csrc/tokenize.cu kWindow
-COMBINER_SLOTS = 768  # rows per window under the hot-key combiner
+COMBINER_SLOTS = 768  # kept rows a combiner window holds before it spills
 SEGMENTS = 128  # combiner cache segments per chunk; csrc kSegments
 DEFAULT_MAX_TOKEN = 32  # W
 MAX_CHUNK = 1 << 26  # positions are packed into 26 bits
@@ -69,7 +74,8 @@ _SENT = tok_ops.SENT
 _ALL_ONES = 0xFFFFFFFF
 
 #: Kernel launches on the card, by wrapper ("tokenize_compact",
-#: "tokenize_pair", "tokenize_fused", "tokenize_combiner").  CPU calls run
+#: "tokenize_pair", "tokenize_fused", "tokenize_combiner",
+#: "combiner_fold").  CPU calls run
 #: the plain version and count nothing.
 LAUNCHES: Counter = Counter()
 
@@ -97,11 +103,11 @@ class PackedTokenStream(NamedTuple):
     from ``packed`` on demand, so the aggregation path, which sorts
     ``packed`` directly, never materializes it.
 
-    ``live`` is set on the dense stream: the int64 device count of its
-    token and poison rows.  Its planes hold those rows, the dead row at
-    index ``live`` and, from the kernel, unwritten rows after it: read its
-    rows through :meth:`cut`.  It is None on a stream whose planes are
-    whole (the combiner's windows, or a stream already cut).
+    ``live`` is set on the dense stream (the compact, pair, fused and
+    combiner kernels'): the int64 device count of its token and poison
+    rows.  Its planes hold those rows, the dead row at index ``live`` and,
+    from the kernel, unwritten rows after it: read its rows through
+    :meth:`cut`.  It is None on a stream already cut.
     """
 
     key_hi: torch.Tensor
@@ -200,24 +206,6 @@ def _token_ends(data: torch.Tensor, w: int):
     return p, key_hi, key_lo, packed, over
 
 
-def _compact(win: torch.Tensor, windows: int, slots: int, rows):
-    """Rows (ascending in ``win``, the window of each) into ``slots`` rows
-    per window, dead filler after them.  Returns the three planes and the
-    spill (rows beyond a window's budget)."""
-    per_win = torch.bincount(win, minlength=windows)
-    first = torch.cumsum(per_win, 0) - per_win
-    rank = torch.arange(win.shape[0], device=win.device) - first[win]
-    keep = rank < slots
-    slot = (win * slots + rank)[keep]
-    out = []
-    for vals, fill in zip(rows, (_SENT, _SENT, _ALL_ONES)):
-        plane = torch.full((windows * slots,), fill, dtype=torch.int64,
-                           device=win.device)
-        plane[slot] = vals[keep]
-        out.append(plane)
-    return (*out, (per_win - slots).clamp(min=0).sum())
-
-
 def tokenize_stream_plain(data: torch.Tensor, w: int):
     """Plain PyTorch version of ``tokenize_stream``: :func:`_token_ends`
     and the one dead row after them.
@@ -271,13 +259,19 @@ def _combiner_geometry(n: int) -> tuple[int, int]:
     return seg_len, -(-seg_len // WINDOW)
 
 
-def _leftover_stream(p, key_hi, key_lo, packed, left, seg_len: int,
+def _leftover_stream(p, key_hi, key_lo, packed, over, left, seg_len: int,
                      wps: int, slots: int):
-    """The rows in ``left`` compacted ``[segment][window][slot]``."""
+    """The rows in ``left`` as one dense stream (ascending position, then
+    one dead row) with its token count and live count, and the spill:
+    each window's kept rows past ``slots``."""
     pl = p[left]
     win = (pl // seg_len) * wps + (pl % seg_len) // WINDOW
-    return _compact(win, SEGMENTS * wps, slots,
-                    (key_hi[left], key_lo[left], packed[left]))
+    spill = (torch.bincount(win, minlength=SEGMENTS * wps) - slots) \
+        .clamp(min=0).sum()
+    planes = (torch.cat([x[left], x.new_full((1,), fill)]) for x, fill in (
+        (key_hi, _SENT), (key_lo, _SENT), (packed, _ALL_ONES)))
+    return PackedTokenStream(*planes, (left & ~over).sum(), left.sum()), \
+        spill
 
 
 def tokenize_combiner_plain(data: torch.Tensor, w: int, slots: int,
@@ -287,9 +281,10 @@ def tokenize_combiner_plain(data: torch.Tensor, w: int, slots: int,
     :func:`_token_ends`; a stable sort of the emissions by (segment, key)
     gives each key's first position and count in each segment; ranking
     those by first position keeps each segment's first ``cslots`` distinct
-    keys; their rows leave the stream and the rest are compacted
-    ``[segment][window][slot]``.  Returns ``(key_hi, key_lo, packed,
-    overlong, ntok, spill, cache)`` in the kernels' layout.
+    keys; their rows leave the stream and the rest form the dense stream.
+    Returns ``(stream, overlong, spill, cache)``: a
+    :class:`PackedTokenStream` of exactly ``live + 1`` rows whose ``total``
+    counts the emissions left, and two int64 scalars.
     """
     seg_len, wps = _combiner_geometry(data.shape[0])
     p, key_hi, key_lo, packed, over = _token_ends(data, w)
@@ -306,98 +301,24 @@ def tokenize_combiner_plain(data: torch.Tensor, w: int, slots: int,
         cslots * SEGMENTS)
     gone = torch.zeros_like(p, dtype=torch.bool)
     gone[emit] = cached[cls]
-    left = ~gone
-    khi, klo, pck, spill = _leftover_stream(p, key_hi, key_lo, packed, left,
-                                            seg_len, wps, slots)
-    return (khi, klo, pck, over.sum(), (left & ~over).sum(), spill,
+    stream, spill = _leftover_stream(p, key_hi, key_lo, packed, over, ~gone,
+                                     seg_len, wps, slots)
+    return (stream, over.sum(), spill,
             CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in cache)))
-
-
-def combiner_heads_plain(data: torch.Tensor, w: int, cslots: int):
-    """Plain version of ``combiner_heads``: each window's first ``cslots``
-    distinct emission keys in position order, with their first ``packed``.
-    Returns three int64 planes of ``windows * cslots`` rows (window-major,
-    empty slots ``(sent, sent, all-ones)``) and each window's int32 count."""
-    seg_len, wps = _combiner_geometry(data.shape[0])
-    p, key_hi, key_lo, packed, over = _token_ends(data, w)
-    win = (p // seg_len) * wps + (p % seg_len) // WINDOW
-    emit = torch.nonzero(~over).squeeze(1)
-    _, first, rank = _first_distinct(
-        win[emit], _key64(key_hi[emit], key_lo[emit]), p[emit],
-        SEGMENTS * wps)
-    heads = emit[first][rank < cslots]
-    at = win[heads] * cslots + rank[rank < cslots]
-    planes = _slot_planes(at, ((key_hi[heads], _SENT), (key_lo[heads], _SENT),
-                               (packed[heads], _ALL_ONES)),
-                          SEGMENTS * wps * cslots)
-    count = torch.bincount(win[heads], minlength=SEGMENTS * wps)
-    return (*planes, count.to(torch.int32))
-
-
-def combiner_merge_plain(heads, cslots: int) -> CombinerCache:
-    """Plain version of ``combiner_merge``: each segment's first ``cslots``
-    distinct keys over its windows' head lists in window order; counts 0."""
-    h_hi, h_lo, h_pk, h_n = heads
-    wps = h_n.shape[0] // SEGMENTS
-    idx = torch.arange(h_hi.shape[0], device=h_hi.device)
-    rows = idx[(idx % cslots) < h_n.to(torch.int64)[idx // cslots]]
-    seg = rows // (wps * cslots)
-    _, first, rank = _first_distinct(seg, _key64(h_hi[rows], h_lo[rows]),
-                                     rows, SEGMENTS)
-    keep = rank < cslots
-    hr = rows[first][keep]
-    at = rank[keep] * SEGMENTS + seg[first][keep]
-    planes = _slot_planes(at, ((h_hi[hr], _SENT), (h_lo[hr], _SENT),
-                               (torch.zeros_like(hr), 0),
-                               (h_pk[hr], _ALL_ONES)), cslots * SEGMENTS)
-    return CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in planes))
-
-
-def combiner_thin_plain(data: torch.Tensor, w: int, slots: int,
-                        cache: CombinerCache):
-    """Plain version of ``combiner_thin``: every emission whose key is in
-    its segment's cache leaves the stream and counts in that slot.  Returns
-    ``(key_hi, key_lo, packed, overlong, ntok, spill, counts)``, ``counts``
-    the (C, 128) hits."""
-    seg_len, wps = _combiner_geometry(data.shape[0])
-    p, key_hi, key_lo, packed, over = _token_ends(data, w)
-    seg = p // seg_len
-    cached = _key64(cache.key_hi, cache.key_lo)[:, seg].T \
-        == _key64(key_hi, key_lo)[:, None]
-    cached &= ~over[:, None]  # empty slots hold (sent, sent): no emission
-    hit = cached.any(1)
-    slot = cached.to(torch.int8).argmax(1)
-    cslots = cache.key_hi.shape[0]
-    counts = torch.bincount((slot * SEGMENTS + seg)[hit],
-                            minlength=cslots * SEGMENTS)
-    left = ~hit
-    khi, klo, pck, spill = _leftover_stream(p, key_hi, key_lo, packed, left,
-                                            seg_len, wps, slots)
-    return (khi, klo, pck, over.sum(), (left & ~over).sum(), spill,
-            counts.reshape(cslots, SEGMENTS))
-
-
-def tokenize_combiner_phases_plain(data: torch.Tensor, w: int, slots: int,
-                                   cslots: int):
-    """The three plain phases in a row, the kernels' way: what
-    :func:`tokenize_combiner_plain` returns."""
-    cache = combiner_merge_plain(combiner_heads_plain(data, w, cslots),
-                                 cslots)
-    *out, counts = combiner_thin_plain(data, w, slots, cache)
-    return (*out, cache._replace(count=counts))
 
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "mr_tokenize_stream": [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
                            _P, ctypes.c_longlong, _P],
-    "mr_combiner_heads": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          _P, _P, _P, _P, _P, _P, _P],
-    "mr_combiner_window_rows": [],
-    "mr_combiner_merge": [ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P],
-    "mr_combiner_thin": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
-                         _P, _P, _P, _P, _P, _P, _P, _P],
+    "mr_combiner_work_words": [ctypes.c_longlong],
+    "mr_combiner_stream": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                           ctypes.c_longlong, _P],
+    "mr_combiner_fold_words": [ctypes.c_int],
+    "mr_combiner_fold": [_P, _P, _P, _P, ctypes.c_int, _P, _P,
+                         ctypes.c_longlong, _P, ctypes.c_longlong, _P,
+                         ctypes.c_longlong, _P, _P, _P],
 }
 
 
@@ -410,7 +331,8 @@ def _kernel_fn(name: str):
                 != (WINDOW, TILE):
             raise RuntimeError("csrc/tokenize.cu and ops/cuda/tokenize.py "
                                "disagree on WINDOW or TILE")
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_longlong if name.endswith("_words") \
+            else ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
     return fn
 
@@ -446,8 +368,8 @@ def tokenize_stream_kernel(data: torch.Tensor, w: int):
     dev = data.device
     tiles = -(-(n + data.data_ptr() % 16) // TILE)  # tiles sit on 16 B
     # Counters (overlong, tokens, spill, live), then the uint32 ticket and
-    # look-back status words, zeroed in one fill.
-    work = torch.zeros(4 + (tiles + 2) // 2, dtype=torch.int64, device=dev)
+    # look-back status words, zeroed by the launcher.
+    work = torch.empty(4 + (tiles + 2) // 2, dtype=torch.int64, device=dev)
     khi, klo, packed = _planes(-(-n // 2) + 1, dev)
     _launched(_kernel_fn("mr_tokenize_stream")(
         data.data_ptr(), n, w, khi.data_ptr(), klo.data_ptr(),
@@ -457,96 +379,117 @@ def tokenize_stream_kernel(data: torch.Tensor, w: int):
             work[2])
 
 
-class RowScratch(NamedTuple):
-    """Each combiner window's hashed rows, kept by phase 1 for phase 3:
-    uint32 ``[window][key_hi, key_lo, packed][rank]`` (in an int32 tensor)
-    and each window's row count."""
-
-    rows: torch.Tensor
-    count: torch.Tensor
-
-
-def combiner_heads_kernel(data: torch.Tensor, w: int, cslots: int):
-    """Phase 1 of the combiner on the card: what
-    :func:`combiner_heads_plain` returns, and the :class:`RowScratch` for
-    phase 3.  Does not synchronise."""
+def tokenize_combiner_kernel(data: torch.Tensor, w: int, slots: int,
+                             cslots: int):
+    """Launch ``combiner_stream`` on ``data``'s device and current stream:
+    what :func:`tokenize_combiner_plain` returns, except that the stream's
+    planes have ``ceil(n / 2) + 1`` rows, of which only the first ``live +
+    1`` are written (:meth:`PackedTokenStream.cut`).  Does not
+    synchronise."""
     _check_cuda(data)
     n = data.shape[0]
     dev = data.device
-    windows = SEGMENTS * _combiner_geometry(n)[1]
-    heads = _planes(windows * cslots, dev)
-    count = torch.empty(windows, dtype=torch.int32, device=dev)
-    per = _kernel_fn("mr_combiner_window_rows")()
-    scratch = RowScratch(
-        torch.empty(windows * 3 * per, dtype=torch.int32, device=dev),
-        torch.empty(windows, dtype=torch.int32, device=dev))
-    _launched(_kernel_fn("mr_combiner_heads")(
-        data.data_ptr(), n, w, cslots, *(h.data_ptr() for h in heads),
-        count.data_ptr(), scratch.rows.data_ptr(), scratch.count.data_ptr(),
-        _stream(data)), "combiner_heads")
-    return (*heads, count), scratch
+    cache = _planes(cslots * SEGMENTS, dev, 4)
+    khi, klo, packed = _planes(-(-n // 2) + 1, dev)
+    # Counters (overlong, tokens, spill, live), then the uint32 ticket,
+    # look-back status, head-list words and full flags, zeroed by the
+    # launcher (as is the count plane).
+    work = torch.empty(_kernel_fn("mr_combiner_work_words")(n),
+                       dtype=torch.int64, device=dev)
+    _launched(_kernel_fn("mr_combiner_stream")(
+        data.data_ptr(), n, w, slots, cslots, *(c.data_ptr() for c in cache),
+        khi.data_ptr(), klo.data_ptr(), packed.data_ptr(), work.data_ptr(),
+        work.shape[0], _stream(data)), "combiner_stream")
+    return (PackedTokenStream(khi, klo, packed, work[1], work[3]), work[0],
+            work[2],
+            CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in cache)))
 
 
-def combiner_merge_kernel(heads, n: int, cslots: int) -> CombinerCache:
-    """Phase 2 on the card, for a chunk of ``n`` bytes: what
-    :func:`combiner_merge_plain` returns."""
-    _check_cuda(heads[0])
-    cache = _planes(cslots * SEGMENTS, heads[0].device, 4)
-    _launched(_kernel_fn("mr_combiner_merge")(
-        n, cslots, *(h.data_ptr() for h in heads),
-        *(c.data_ptr() for c in cache), _stream(heads[0])), "combiner_merge")
-    return CombinerCache(*(c.reshape(cslots, SEGMENTS) for c in cache))
+def cache_table(cache: CombinerCache, pos_hi) -> table_ops.CountTable:
+    """One chunk's flushed hot-key cache as an exact small table: one row
+    per resident entry, with its count and first in-segment occurrence.  A
+    key resident in several segments coalesces in the generic build
+    (counts add, the smallest position wins), so merging this table with
+    the thinned stream's gives the uncombined build.  Capacity is the
+    plane size, so the build cannot spill."""
+    khi, klo, cnt, packed = (x.reshape(-1) for x in cache)
+    live = cnt > 0
+    stream = tok_ops.TokenStream(
+        key_hi=torch.where(live, khi, _SENT),
+        key_lo=torch.where(live, klo, _SENT),
+        count=torch.where(live, cnt, 0),
+        pos=torch.where(live, packed >> 6, tok_ops.POS_INF),
+        length=torch.where(live, packed & 63, 0))
+    return table_ops.from_stream(stream, khi.shape[0], pos_hi=pos_hi)
 
 
-def combiner_thin_kernel(n: int, slots: int, cache: CombinerCache,
-                         scratch: RowScratch):
-    """Phase 3 on the card, for a chunk of ``n`` bytes, from phase 1's
-    rows: what :func:`combiner_thin_plain` returns.  The hits are added to
-    ``cache.count`` in place (phase 2 zeroes it), which is returned as
-    ``counts``."""
-    _check_cuda(scratch.rows)
-    dev = scratch.rows.device
-    khi, klo, packed = _planes(
-        SEGMENTS * _combiner_geometry(n)[1] * slots, dev)
-    counters = torch.zeros(3, dtype=torch.int64, device=dev)
-    _launched(_kernel_fn("mr_combiner_thin")(
-        n, slots, cache.key_hi.shape[0], scratch.rows.data_ptr(),
-        scratch.count.data_ptr(), cache.key_hi.data_ptr(),
-        cache.key_lo.data_ptr(), cache.count.data_ptr(), khi.data_ptr(),
-        klo.data_ptr(), packed.data_ptr(), counters.data_ptr(),
-        _stream(scratch.rows)), "combiner_thin")
-    return (khi, klo, packed, counters[0], counters[1], counters[2],
-            cache.count)
+def combiner_fold_plain(t: table_ops.CountTable, cache: CombinerCache,
+                        pos_hi) -> table_ops.CountTable:
+    """Plain version of the fold: the JAX package's merge of the chunk's
+    table with :func:`cache_table`, at the table's capacity."""
+    return table_ops.merge(t, cache_table(cache, pos_hi),
+                           capacity=t.capacity)
 
 
-def tokenize_combiner_kernel(data: torch.Tensor, w: int, slots: int,
-                             cslots: int, timer=None):
-    """The three combiner launches on ``data``'s device and current stream:
-    what :func:`tokenize_combiner_plain` returns.  ``timer(label)``, when
-    given, is called after each launch is enqueued.  Does not
-    synchronise."""
-    heads, scratch = combiner_heads_kernel(data, w, cslots)
-    if timer:
-        timer("heads")
-    cache = combiner_merge_kernel(heads, data.shape[0], cslots)
-    if timer:
-        timer("merge")
-    out = combiner_thin_kernel(data.shape[0], slots, cache, scratch)
-    if timer:
-        timer("thin")
-    return (*out[:6], cache)
+def combiner_fold_kernel(t: table_ops.CountTable, cache: CombinerCache,
+                         pos_hi) -> table_ops.CountTable:
+    """``combiner_fold_keys`` and ``combiner_fold_merge`` on the card: what
+    :func:`combiner_fold_plain` returns.  ``t`` is a built table (its live
+    rows first, ascending by key, then holes); ``pos_hi`` the chunk id, a
+    host int or a device scalar.  Does not synchronise."""
+    _check_cuda(t.key_hi)
+    dev = t.key_hi.device
+    cap = t.capacity
+    planes = [c.reshape(-1).contiguous() for c in cache]
+    entries = planes[0].shape[0]
+    fold = torch.empty(_kernel_fn("mr_combiner_fold_words")(entries),
+                       dtype=torch.int64, device=dev)
+    t_in = [x.contiguous() for x in t[:7]]
+    t_drop = torch.stack(list(t[7:])).contiguous()
+    out = _planes(cap, dev, 7)
+    out_drop = torch.empty(4, dtype=torch.int64, device=dev)
+    chunk = pos_hi.reshape(()).to(device=dev, dtype=torch.int64) \
+        if isinstance(pos_hi, torch.Tensor) else None
+    ptrs = ctypes.c_void_p * 7
+    _launched(_kernel_fn("mr_combiner_fold")(
+        *(c.data_ptr() for c in planes), entries,
+        ptrs(*(x.data_ptr() for x in t_in)), t_drop.data_ptr(), cap,
+        None if chunk is None else chunk.data_ptr(),
+        0 if chunk is not None else int(pos_hi), fold.data_ptr(),
+        fold.shape[0], ptrs(*(x.data_ptr() for x in out)),
+        out_drop.data_ptr(), _stream(t.key_hi)), "combiner_fold")
+    return table_ops.CountTable(*out, *out_drop.unbind())
 
 
-def _as_allocated(out, n: int):
+def combiner_fold(t: table_ops.CountTable, cache: CombinerCache,
+                  pos_hi) -> table_ops.CountTable:
+    """Fold a chunk's flushed cache into the table built from its thinned
+    stream: the uncombined chunk's table (every key's count, its first
+    occurrence, the dropped totals), as the JAX package's merge gives it.
+    A CPU tensor runs :func:`combiner_fold_plain`; a CUDA tensor launches
+    the two fold kernels.  Launches count under ``"combiner_fold"``."""
+    entries = cache.key_hi.numel()
+    with tracepoints.kernel_scope(
+            "combiner_fold",
+            lambda: plans.combiner_fold(entries, t.capacity),
+            t, cache, pos_hi) as k:
+        if t.key_hi.device.type == "cpu":
+            out = combiner_fold_plain(t, cache, pos_hi)
+        else:
+            out = combiner_fold_kernel(t, cache, pos_hi)
+            LAUNCHES["combiner_fold"] += 1
+        return k.result(out)
+
+
+def _as_allocated(stream: PackedTokenStream, n: int) -> PackedTokenStream:
     """The plain version's stream in the kernel's planes: ``ceil(n / 2) +
     1`` rows, the rows after the dead row dead too (the kernel leaves them
     unwritten; every reader cuts them off).  Used while a recorder traces
     the CPU, so the traced program's shapes are the card's."""
-    stream, over, spill = out
     rows = -(-n // 2) + 1
     planes = (torch.cat([p, p.new_full((rows - p.shape[0],), fill)])
               for p, fill in zip(stream[:3], (_SENT, _SENT, _ALL_ONES)))
-    return PackedTokenStream(*planes, stream.total, stream.live), over, spill
+    return PackedTokenStream(*planes, stream.total, stream.live)
 
 
 def _tokenize_stream(data: torch.Tensor, w: int, mode: str):
@@ -556,7 +499,7 @@ def _tokenize_stream(data: torch.Tensor, w: int, mode: str):
         if data.device.type == "cpu":
             out = tokenize_stream_plain(data, w)
             if k.recording:
-                out = _as_allocated(out, n)
+                out = (_as_allocated(out[0], n), *out[1:])
         else:
             out = tokenize_stream_kernel(data, w)
             LAUNCHES[mode] += 1
@@ -603,12 +546,13 @@ def tokenize_fused(data: torch.Tensor, *, compact: bool = True,
     ``len(data) % 128 == 0``) runs the hot-key combiner: each of the
     chunk's 128 segments counts every occurrence of its first C distinct
     keys in the cache instead of the stream, so ``stream.total`` counts only
-    the rows left in the stream, and the window holds
-    :data:`COMBINER_SLOTS` rows.  The cache's ``packed`` records in-chunk
-    positions (the caller applies the chunk id as ``pos_hi``).  A nonzero
-    ``spill`` means the thinned stream is incomplete: discard it AND the
-    cache, and rerun with :func:`tokenize_split` (combiner-free).  The
-    thinned stream keeps its windows: its planes are whole.
+    the rows left in the stream.  The cache's ``packed`` records in-chunk
+    positions (the caller applies the chunk id as ``pos_hi``).  The rows
+    left are the dense stream (cut it, as the compact one); a nonzero
+    ``spill`` (a :data:`WINDOW`-byte window kept more than
+    :data:`COMBINER_SLOTS` rows) means the chunk takes the JAX package's
+    exact fallback: discard the stream AND the cache, and rerun with
+    :func:`tokenize_split` (combiner-free).
     """
     w = _resolve_args(data, max_token_bytes)
     if not combiner_slots:
@@ -623,16 +567,17 @@ def tokenize_fused(data: torch.Tensor, *, compact: bool = True,
         raise ValueError(f"the combiner needs a chunk of a multiple of "
                          f"{SEGMENTS} bytes (its cache is per segment), got "
                          f"{data.shape[0]}")
+    n = data.shape[0]
     with tracepoints.kernel_scope(
             "tokenize_combiner",
-            lambda: plans.combiner(data.shape[0], w, combiner_slots),
-            data) as k:
+            lambda: plans.combiner(n, w, combiner_slots), data) as k:
         if data.device.type == "cpu":
             out = tokenize_combiner_plain(data, w, COMBINER_SLOTS,
                                           combiner_slots)
+            if k.recording:
+                out = (_as_allocated(out[0], n), *out[1:])
         else:
             out = tokenize_combiner_kernel(data, w, COMBINER_SLOTS,
                                            combiner_slots)
             LAUNCHES["tokenize_combiner"] += 1
-        khi, klo, packed, over, ntok, spill, cache = k.result(out)
-    return PackedTokenStream(khi, klo, packed, ntok), over, spill, cache
+        return k.result(out)

@@ -39,8 +39,9 @@ from typing import Iterable, Optional
 #: The named seams of a streamed run.  The executor checks the active
 #: :class:`FaultPlan` at each crossing; the plan counts crossings per seam,
 #: so ``(seam, index)`` names one moment of the run.  The port crosses all
-#: but ``ledger-append`` (its ledger is not ported) and ``checkpoint-load``
-#: (real faults only).
+#: but ``checkpoint-load`` (real faults only); ``ledger-append`` when a
+#: ledger is attached (``runtime/executor.py``, before each group's
+#: ``step`` record, where an append fault is absorbed).
 SEAMS = (
     "reader-read",       # a batch leaving the prefetching reader
     "stage-acquire",     # host staging of a group

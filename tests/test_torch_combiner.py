@@ -97,26 +97,6 @@ def test_flushed_cache_planes_match_jax(kind):
         assert int(stream.total) == 0  # every segment caches the one key
 
 
-@pytest.mark.parametrize("kind", CACHE_KINDS)
-def test_three_phases_match_one_pass_and_jax(kind):
-    """The card's three phases (window heads, the merge of each segment's
-    head lists, the thin pass), as plain versions, equal the one-pass plain
-    version field for field and the JAX cache planes."""
-    data = _u8(_corpus(kind))
-    phases = ktok.tokenize_combiner_phases_plain(data, 32,
-                                                 ktok.COMBINER_SLOTS, 8)
-    one = ktok.tokenize_combiner_plain(data, 32, ktok.COMBINER_SLOTS, 8)
-    for a, b in zip((*phases[:6], *phases[6]), (*one[:6], *one[6])):
-        assert torch.equal(a, b)
-    got = convert.combiner_cache_to_numpy(phases[6])
-    want_cache = _jax_combined(kind)[3]
-    for f in want_cache._fields:
-        np.testing.assert_array_equal(np.asarray(getattr(want_cache, f)),
-                                      got[f], err_msg=f)
-    heads = ktok.combiner_heads_plain(data, 32, 8)
-    assert int(heads[3].max()) <= 8  # one short list per window
-
-
 def _first_distinct(keys, c):
     out = []
     for k in keys:
@@ -138,6 +118,28 @@ def test_window_heads_lemma(keys, window, c):
             if k not in merged and len(merged) < c:
                 merged.append(k)
     assert merged == _first_distinct(keys, c)
+
+
+@settings(max_examples=200, deadline=None)
+@given(keys=st.lists(st.integers(0, 7), max_size=48),
+       window=st.integers(1, 9), c=st.integers(1, 5))
+def test_a_window_needs_only_the_list_up_to_itself(keys, window, c):
+    """The one-launch combiner: each window extends its segment's list
+    with its own first new keys, in window order, and drops the keys on
+    the list as it stands after that.  Every key of a window that the
+    whole segment caches is already on that list (a key cached later
+    first appears later), so the windows drop exactly the segment's
+    cached occurrences."""
+    final = _first_distinct(keys, c)
+    listed, dropped = [], []
+    for i in range(0, len(keys), window):
+        part = keys[i:i + window]
+        for k in part:
+            if k not in listed and len(listed) < c:
+                listed.append(k)
+        dropped += [k for k in part if k in listed]
+    assert listed == final
+    assert dropped == [k for k in keys if k in final]
 
 
 def _occurrences(stream, cache=None):
@@ -172,15 +174,69 @@ def test_stream_plus_cache_is_the_uncombined_stream(kind):
     assert int(spill) == 0 and int(over) == int(over0)
     assert _occurrences(thin, cache) == _occurrences(full)
     assert int(thin.total) + int(cache.count.sum()) == int(full.total)
-    # The thinned stream stays in global byte order (stable2's contract),
-    # [segment][window][slot], COMBINER_SLOTS rows per window.
+    # The thinned stream stays in global byte order (stable2's contract)
+    # and is dense: its live rows, then one dead row.
     pk = thin.packed.numpy()
     pos = pk[pk != 0xFFFFFFFF] >> 6
     assert (np.diff(pos) > 0).all()
-    wps = -(-(N // ktok.SEGMENTS) // ktok.WINDOW)
-    assert pk.shape[0] == ktok.SEGMENTS * wps * ktok.COMBINER_SLOTS
+    assert pk.shape[0] == int(thin.live) + 1 == int(thin.total) + int(over) + 1
+    assert pk[-1] == 0xFFFFFFFF and (pk[:-1] != 0xFFFFFFFF).all()
     if kind == "overlong":
         assert int(over) > 0  # poison rows stay in the stream, uncached
+
+
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+def test_dense_thinned_stream_is_the_dense_stream_less_the_cached_rows(kind):
+    """The thinned stream is the combiner-free dense stream with every
+    cached emission taken out, row for row in the same order, and cutting
+    it at the host count the map reads keeps every row."""
+    data = _u8(_corpus(kind))
+    thin, over, spill, cache = ktok.tokenize_combiner_plain(
+        data, 32, ktok.COMBINER_SLOTS, 8)
+    full = ktok.tokenize_stream_plain(data, 32)[0]
+    rows = [x[:-1] for x in full[:3]]  # its live rows, without the dead row
+    # A row belongs to the segment of its last byte.
+    end = (rows[2] >> 6) + torch.where((rows[2] & 63) > 0,
+                                        (rows[2] & 63) - 1, 0)
+    seg = end // (N // ktok.SEGMENTS)
+    k = ktok._key64(rows[0], rows[1])
+    ck = ktok._key64(cache.key_hi, cache.key_lo)[:, seg].T
+    cached = ((ck == k[:, None]) & (cache.count[:, seg].T > 0)).any(1) \
+        & ((rows[2] & 63) != 0)
+    keep = torch.cat([~cached, torch.ones(1, dtype=torch.bool)])
+    for a, b in ((thin.key_hi, full.key_hi[keep]),
+                 (thin.key_lo, full.key_lo[keep]),
+                 (thin.packed, full.packed[keep])):
+        assert torch.equal(a, b)
+    assert int(thin.live) == int(keep.sum()) - 1
+    assert int(cache.count.sum()) == int(cached.sum())
+    cut = thin.cut(int(thin.total) + int(over))
+    assert torch.equal(cut.packed, thin.packed)
+
+
+@pytest.mark.parametrize("kind", ["zipf", "overlong"])
+def test_combiner_fold_matches_jax_merge(kind):
+    """The fold's plain version (the path a CPU tensor takes) against the
+    JAX package's merge of the thinned stream's table with its cache
+    table, every field, at a capacity that spills and one that does
+    not."""
+    from mapreduce_tpu.ops import table as jtable
+
+    data = _u8(_corpus(kind))
+    thin, over, _, cache = ktok.tokenize_combiner_plain(
+        data, 32, ktok.COMBINER_SLOTS, 8)
+    for cap in (16, 4096):
+        t = wc.table_ops.from_stream(thin, cap, pos_hi=5, max_token_bytes=32,
+                                     max_pos=N, sort_mode="stable2")
+        got = convert.table_to_numpy(ktok.combiner_fold(t, cache, 5))
+        jt = jax.tree.map(jnp.asarray, convert.table_to_numpy(t))
+        jcache = jax.tree.map(jnp.asarray, convert.combiner_cache_to_numpy(
+            cache))
+        want = jtable.merge(jtable.CountTable(**jt), jwc._combiner_table(
+            type(_jax_combined(kind)[3])(**jcache), 5), capacity=cap)
+        for f in want._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(want, f)),
+                                          got[f], err_msg=(cap, f))
 
 
 def test_combiner_table_matches_jax():
@@ -188,8 +244,8 @@ def test_combiner_table_matches_jax():
     _, _, _, want_cache = _jax_combined("zipf")
     fields = {f: getattr(want_cache, f) for f in want_cache._fields}
     want = jwc._combiner_table(jax.tree.map(jnp.asarray, want_cache), 3)
-    got = wc._combiner_table(convert.combiner_cache_from_numpy(fields, "cpu"),
-                             3)
+    got = ktok.cache_table(convert.combiner_cache_from_numpy(fields, "cpu"),
+                           3)
     got = convert.table_to_numpy(got)
     for f in want._fields:
         np.testing.assert_array_equal(np.asarray(getattr(want, f)), got[f],

@@ -31,7 +31,9 @@ from mapreduce_tpu_torch.analysis import core, trace
 from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.parallel.mapreduce import MapReduceJob
 
-#: The passes both packages have (the mesh and race passes are A13b's).
+#: The passes compared here: the mesh passes over the fleet twins are held
+#: to the JAX package's in ``test_torch_mesh_analysis.py``; the race pass
+#: certifies the CUDA sources (``test_torch_kernelrace.py``).
 SHARED_PASSES = ("reducer-algebra", "overflow-dtype", "host-sync",
                  "hbm-cost", "fusion-opportunity")
 CPU = torch.device("cpu")
@@ -294,9 +296,10 @@ def test_cli_lists_the_jax_models(janalysis, capsys):
     assert acli.main(["--list"]) == 0
     got = capsys.readouterr().out.splitlines()
     assert got[0] == want[0]  # models: ...
-    assert set(got[1].split(": ")[1].split(", ")) == {
-        "reducer-algebra", "overflow-dtype", "host-sync", "hbm-cost",
-        "smem-budget", "fusion-opportunity"}
+    # The same passes in the same order, smem-budget for vmem-budget.
+    assert got[1] == want[1].replace("vmem-budget", "smem-budget")
+    assert {"sharding-lint", "collective-cost", "kernel-race"} \
+        <= set(got[1].split(": ")[1].split(", "))
 
 
 def test_cli_runs_on_the_cpu_when_asked_and_raises_without_a_card(
@@ -381,11 +384,16 @@ def test_traces_are_deterministic():
 
 
 def test_fleet_twins_say_their_finish_is_not_certified_here():
+    """The fleet twins' finish is now certified over their fake world: no
+    "analysed on one rank" note, and the mesh passes' verdicts are in the
+    report (the name is the test's from before the mesh passes)."""
     job = models_mod.build_model("wordcount_fleet2x4", device=CPU)
     report = analysis.analyze_job(job, "wordcount_fleet2x4", device=CPU)
-    notes = [f for f in report.findings if f.pass_id == "<pipeline>"]
-    assert len(notes) == 1 and "A13b" in notes[0].hint
-    assert notes[0].severity == "info"
+    assert not [f for f in report.findings if f.pass_id == "<pipeline>"]
+    assert not [f for f in report.findings if "one rank" in f.message]
+    assert ("info", "collective-cost", "step") in {
+        (f.severity, f.pass_id, f.hook) for f in report.findings}
+    assert "collective_cost" in report.artifacts["wordcount_fleet2x4"]
     assert not report.errors, report.format_text()
 
 
