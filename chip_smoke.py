@@ -302,7 +302,30 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               run 8 times, the odd runs behind a concurrent kernel on
               another stream, every output bit-identical to its plain
               version;
-16. times  -- each kernel's median time per 32 MB chunk beside its bound
+16. offline -- the offline drivers that write ``tuned.json``
+              (``offline_phase``, ``mapreduce_tpu_torch/tools/``), each
+              through its ``main(argv)`` in this process, into the temp
+              dir; it runs after phase 14, before the temp dir with phase
+              12's shard ledgers goes: (a) the autotuner over the 64 MB
+              Zipf corpus (``tools/corpora.py``) at 2 MB chunks, budget 3,
+              with ``--last-good``: each pass's result against the oracle
+              and its launches against its config (one compact launch a
+              chunk, or K1d at the cache depth), the profile and the
+              last-good record written for ``gpu``; (b) the geometry
+              search: the shortlist equal to the CPU's, the gate keeping
+              it, then ``--probe --top 5`` and ``--probe --axis
+              combiner_slots`` at 32 MB chunks, each probe pass (fused,
+              hot-cache, ``sort_impl='radix'``) against the oracle with K1d
+              at the candidate's depth and K2/K2s at its digit width, the
+              skipped (inert or duplicate) candidates printed; (c) the
+              reduction planner: 1 x 1 and 2 x 4 plans (the latter into
+              ``tuned.json``), the prior of phase 12's gloo shard ledgers,
+              ``--check`` on them, which must flag (gloo through the host
+              is not NVLink), and ``--gate`` keeping every strategy; (d)
+              ``cli.main`` with ``--geometry auto --merge-strategy auto``
+              over the drivers' ``tuned.json``: stdout against the oracle,
+              the winners named on stderr, K1d at the winner's depth;
+17. times  -- each kernel's median time per 32 MB chunk beside its bound
               (the combiner's fold at the 2**18-row batch table),
               its plain version's time and a library call's where one
               exists (the segmented sort's: one lexsort with the group
@@ -311,10 +334,10 @@ non-zero when no card is present.  Phases, each printing JSON lines:
               chunk's end-to-end time by stage; the step time (map +
               merge) of every path's configuration on one chunk, with the
               rows each step's sort sees;
-17. profile -- where the device time of a default, a combiner and a
+18. profile -- where the device time of a default, a combiner and a
               radix_partition step goes.
 
-Phases 3 to 14 each drive a main path: the launch counters are set to 0
+Phases 3 to 14 and 16 each drive a main path: the launch counters are set to 0
 just before each and read just after it, and each must have launched
 every kernel of its path (one tokenize launch per chunk; the radix paths
 one partition level per chunk, two under 'radix', and one segmented
@@ -4053,6 +4076,292 @@ def tuner_phase(drive, by_path: dict, tmp: Path, path: Path,
     emit("tuner", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
+def offline_phase(by_path: dict, tmp: Path) -> None:
+    """Phase 16: the offline drivers that write ``tuned.json``, on the card
+    (see the module docstring).  Every driver runs in this process through
+    its ``main(argv)``, into ``tmp``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mapreduce_tpu_torch import Config, cli
+    from mapreduce_tpu_torch.ops.cuda import radix
+    from mapreduce_tpu_torch.ops.cuda import tokenize as ktok
+    from mapreduce_tpu_torch.runtime import executor
+    from mapreduce_tpu_torch.tools import (autotune, corpora, geomsearch,
+                                           redplan)
+
+    t_phase = time.perf_counter()
+    out_dir = tmp / "offline"
+    out_dir.mkdir()
+    tuned = out_dir / "tuned.json"
+    zipf = corpora.GENERATORS["zipf"](64 * MB)
+    want = word_counts(zipf)
+
+    def same(got) -> bool:
+        return got.as_dict() == want and list(got.words) == list(want) \
+            and got.total == sum(want.values())
+
+    def run(main, argv: list) -> tuple:
+        """``main(argv)`` with its stdout and stderr captured."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    # Every run_job the drivers make is counted on its own: the counters at
+    # 0 just before it and read just after, with the cache depth and digit
+    # width each wrapper was called with.  The analysis gates' launches
+    # fall outside (they trace, they do not run a job).
+    seen: list = []
+    runs: list = []
+    real_run, real_sort = executor.run_job, radix.radix_sort3
+    real_fused = ktok.tokenize_fused
+
+    def sort_seen(*a, bits=radix.DEFAULT_BITS, **kw):
+        seen.append(("radix_bits", bits))
+        return real_sort(*a, bits=bits, **kw)
+
+    def fused_seen(*a, combiner_slots=0, **kw):
+        seen.append(("combiner_slots", combiner_slots))
+        return real_fused(*a, combiner_slots=combiner_slots, **kw)
+
+    def run_seen(*a, **kw):
+        torch.cuda.synchronize()
+        ktok.LAUNCHES.clear()
+        radix.LAUNCHES.clear()
+        seen.clear()
+        rr = real_run(*a, **kw)
+        torch.cuda.synchronize()
+        runs.append({"config": kw["config"],
+                     "launches": {**ktok.LAUNCHES, **radix.LAUNCHES},
+                     "args": sorted(set(seen))})
+        return rr
+
+    def hold(name: str, rec: dict, rr, path: str) -> dict:
+        """One pass against the oracle and against the launches its config
+        must make: one compact launch a chunk (the reader's chunks end at
+        separators, so there are ``rr.bases``' rows of them), or the
+        combiner at its depth; the radix seam at its digit width."""
+        c, launches = rec["config"], rec["launches"]
+        got = executor.recover_from_file(rr.value, path, rr.bases)
+        by_path[name] = launches
+        depth = c.resolved_combiner_slots
+        bits = c.resolved_geometry.radix_bits
+        want_args = {("combiner_slots", depth)} if depth else set()
+        if c.sort_impl == "radix":
+            want_args.add(("radix_bits", bits))
+        ok = same(got) and set(rec["args"]) == want_args
+        if depth:
+            ok = ok and launches.get("tokenize_combiner", 0) > 0
+        else:
+            ok = ok and launches.get("tokenize_compact") \
+                == rr.bases.shape[0] and not launches.get("tokenize_pair")
+        if c.sort_impl == "radix":
+            ok = ok and launches.get("radix_partition", 0) > 0 \
+                and launches.get("radix_sort", 0) > 0
+        if not ok:
+            raise SystemExit(f"offline {name}: equal to the oracle "
+                             f"{same(got)}, launches {launches}, wrapper "
+                             f"arguments {rec['args']} (want {want_args})")
+        return {"chunks": int(rr.bases.shape[0]), "launches": launches,
+                "wrapper_arguments": rec["args"]}
+
+    # (a) the autotuner: each pass's result against the oracle and its
+    # launches against its config.
+    passes: list = []
+    real_make = autotune.make_measure
+
+    def make_measure(corpus_path, device, ledger_dir, log):
+        measure, state = real_make(corpus_path, device, ledger_dir, log)
+
+        def checked(knobs):
+            recs = measure(knobs)
+            rr = state["result"]
+            name = f"offline_autotune_{state['pass']}"
+            held = hold(name, runs[-1], rr, corpus_path)
+            passes.append({"pass": state["pass"], "knobs": dict(knobs),
+                           "gb_per_s": state["gbps"], **held})
+            return recs
+
+        return checked, state
+
+    last_good = out_dir / "last_good.json"
+    executor.run_job, radix.radix_sort3 = run_seen, sort_seen
+    ktok.tokenize_fused = fused_seen
+    autotune.make_measure = make_measure
+    try:
+        t_a = time.perf_counter()
+        rc, out, err = run(autotune.main, [
+            "--corpus", "zipf", "--mb", "64", "--chunk-mb", "2",
+            "--budget", "3", "--out", str(tuned), "--last-good",
+            str(last_good), "--keep-ledgers", str(out_dir / "autotune")])
+        seconds = time.perf_counter() - t_a
+    finally:
+        autotune.make_measure = real_make
+    line = json.loads(out.splitlines()[-1])
+    key = "wordcount/gpu/zipf-64mb-chunk2mb"
+    profile = json.loads(tuned.read_text())["profiles"].get(key) or {}
+    best = json.loads(last_good.read_text())["best"]["tuned"] \
+        if last_good.exists() else {}
+    if rc or line["profile"] != key or profile.get("backend") != "gpu" \
+            or best.get("profile") != key \
+            or len(passes) != line["passes"]:
+        raise SystemExit(f"offline autotune: rc {rc}, profile {profile}, "
+                         f"last-good {best}: {err[-2000:]}")
+    for p, t in zip(passes, line["trail"]):
+        p.update(rule=t["rule"], changed=t["changed"])
+    emit("offline", case="autotune", seconds=round(seconds, 3),
+         bytes=len(zipf), passes=passes, stopped=line["stopped"],
+         winner=line["config"], winner_gbps=line["measured_gbps"],
+         profile=key, last_good=best.get("value"), equal_to_oracle=True)
+
+    # (b) the geometry search: the shortlist on the card equals the CPU's,
+    # the gate keeps it, and each probe pass runs its candidate's depth
+    # and digit width, equal to the oracle.
+    rc_g, art, _ = run(geomsearch.main, [])
+    rc_c, art_cpu, _ = run(geomsearch.main, ["--platform", "cpu"])
+    rc_gate, gated, err = run(geomsearch.main, ["--gate"])
+    gated = json.loads(gated)
+    short = [c["label"] for c in gated["shortlist"]]
+    if rc_g or rc_c or art != art_cpu or rc_gate \
+            or gated["gated"] != short:
+        raise SystemExit(f"offline geomsearch stage 1/2: rc {rc_g} "
+                         f"{rc_c} {rc_gate}, equal {art == art_cpu}, gated "
+                         f"{gated['gated']} of {short}: {err[-2000:]}")
+    emit("offline", case="geomsearch_shortlist", shortlist=short,
+         equal_to_cpu=True, gated=gated["gated"])
+    probes: list = []
+    search = {"label": None}
+    real_probe = geomsearch.probe_pass
+
+    def probe_pass(cfg, path, ledger, device):
+        rr, dt = real_probe(cfg, path, ledger, device)
+        geom = cfg.resolved_geometry
+        held = hold(f"offline_probe_{search['label']}_{len(probes)}",
+                    runs[-1], rr, path)
+        probes.append({"combiner_slots": geom.combiner_slots,
+                       "radix_bits": geom.radix_bits, "seconds": round(dt, 4),
+                       "gb_per_s": rr.metrics.bytes_processed / dt / 1e9,
+                       **held})
+        return rr, dt
+
+    winners = {}
+    geomsearch.probe_pass = probe_pass
+    try:
+        for label, extra in (("top5", ["--top", "5"]),
+                             ("combiner_slots", ["--axis",
+                                                 "combiner_slots"])):
+            probes.clear()
+            search["label"] = label
+            t_a = time.perf_counter()
+            rc, out, err = run(geomsearch.main, [
+                "--probe", *extra, "--mb", "64", "--chunk-mb", "32",
+                "--out", str(tuned)])
+            seconds = time.perf_counter() - t_a
+            line = json.loads(out.splitlines()[-1])
+            skipped = [ln.split("probe skipped ", 1)[1].split(":")[0]
+                       for ln in err.splitlines() if "probe skipped " in ln]
+            if rc or len(probes) != line["passes"] \
+                    or not any(p["combiner_slots"] == 8
+                               and p["radix_bits"] == 3 for p in probes):
+                raise SystemExit(f"offline geomsearch {label}: rc {rc}, "
+                                 f"{len(probes)} probes: {err[-2000:]}")
+            winners[label] = line["config"]["geometry"]
+            emit("offline", case="geomsearch_probe", search=label,
+                 seconds=round(seconds, 3), bytes=len(zipf), probes=probes,
+                 skipped=skipped, winner=winners[label],
+                 winner_gbps=line["measured_gbps"], trail=line["trail"],
+                 equal_to_oracle=True)
+    finally:
+        geomsearch.probe_pass = real_probe
+        executor.run_job, radix.radix_sort3 = real_run, real_sort
+        ktok.tokenize_fused = real_fused
+
+    # (c) the reduction planner: plans of 1 x 1 and 2 x 4 (the latter
+    # into tuned.json), the prior of phase 12's gloo 2 x 2 shard ledgers,
+    # --check on them (gloo through the host is not NVLink: it must flag),
+    # and the gate over the fake world.
+    hosts = str(tmp / "hosts_ledger.jsonl")
+    plans = {}
+    for label, argv in (("1x1", ["--processes", "1", "--local-devices", "1"]),
+                        ("2x4", ["--processes", "2", "--local-devices", "4",
+                                 "--out", str(tuned)]),
+                        ("ledger", ["--ledger", hosts])):
+        rc, out, err = run(redplan.main, argv)
+        if rc:
+            raise SystemExit(f"offline redplan {label}: rc {rc}: "
+                             f"{err[-2000:]}")
+        plans[label] = json.loads(out)
+        emit("offline", case="redplan_plan", plan=label,
+             mesh=plans[label]["mesh"]["label"],
+             capacity=plans[label]["capacity"], top=plans[label]["top"],
+             ranked=[(r["strategy"], r["modeled_s"])
+                     for r in plans[label]["ranked"]],
+             prior=plans[label].get("prior"), note=plans[label].get("note"),
+             profile_key=plans[label].get("profile_key"))
+    rc, out, err = run(redplan.main, ["--check", "--ledger", hosts])
+    check = json.loads(out)
+    if rc != 1 or not check["check"]["flag"]:
+        raise SystemExit(f"offline redplan --check did not flag the gloo "
+                         f"ledger: rc {rc}, {check}")
+    emit("offline", case="redplan_check", transport="gloo",
+         strategy=check["strategy"], mesh=check["mesh"]["label"],
+         capacity=check["capacity"], **check["check"], flagged=True)
+    rc, out, err = run(redplan.main, ["--gate"])
+    gate = json.loads(out)
+    if rc or gate["gated"] != [r["strategy"] for r in gate["ranked"]]:
+        raise SystemExit(f"offline redplan --gate: rc {rc}, "
+                         f"{gate['gated']}: {err[-2000:]}")
+    emit("offline", case="redplan_gate", mesh=gate["mesh"]["label"],
+         gated=gate["gated"])
+
+    # (d) the command line reads what the drivers wrote: the freshest
+    # non-default geometry winner (the axis search's, else the
+    # autotuner's), the 2 x 4 plan's strategy (a hier-* winner cannot run
+    # on one rank's mesh: then the JAX fallback to tree).
+    geom = next((g for g in (winners["combiner_slots"],
+                             profile["config"]["geometry"])
+                 if g != "default"), "default")
+    want_cfg = Config(geometry=None if geom == "default" else geom)
+    top = plans["2x4"]["top"]
+    want_lines = [f"geometry: auto -> {want_cfg.geometry_label}",
+                  f"merge-strategy: auto -> {top}"
+                  if not top.startswith("hier-") else
+                  "merge-strategy: auto -> tree (no redplan profile; tree)"]
+    zipf_path = out_dir / "zipf.txt"
+    zipf_path.write_bytes(zipf)
+    seen.clear()
+    torch.cuda.synchronize()
+    ktok.LAUNCHES.clear()
+    radix.LAUNCHES.clear()
+    ktok.tokenize_fused = fused_seen
+    try:
+        rc, out, err = run(cli.main, [
+            str(zipf_path), "--stream", "--geometry", "auto",
+            "--merge-strategy", "auto", "--geometry-profile", str(tuned),
+            "--combiner", "hot-cache", "--map-impl", "fused", "--format",
+            "tsv"])
+    finally:
+        ktok.tokenize_fused = real_fused
+    by_path["offline_cli_auto"] = {**ktok.LAUNCHES, **radix.LAUNCHES}
+    lines = [ln for ln in err.splitlines()
+             if ln.startswith(("geometry: ", "merge-strategy: "))]
+    depth = want_cfg.resolved_geometry.combiner_slots
+    if rc or out != "".join(f"{w.decode()}\t{n}\n" for w, n in want.items()) \
+            or lines != want_lines \
+            or set(seen) != {("combiner_slots", depth)} \
+            or not by_path["offline_cli_auto"].get("tokenize_combiner"):
+        raise SystemExit(f"offline cli: rc {rc}, {lines} (want "
+                         f"{want_lines}), wrapper arguments {set(seen)}, "
+                         f"launches {by_path['offline_cli_auto']}: "
+                         f"{err[-2000:]}")
+    emit("offline", case="cli_auto", stderr=lines, combiner_slots=depth,
+         launches=by_path["offline_cli_auto"], stdout_equal_to_oracle=True)
+    emit("offline", phase_s=round(time.perf_counter() - t_phase, 3))
+
+
 def analysis_phase(by_path: dict, chunk32: bytes, dev) -> dict:
     """Phase 15: the port's static analysis on the card (see the module
     docstring).  Returns ``{kernel: cudaFuncGetAttributes fields}``."""
@@ -4862,13 +5171,17 @@ def main() -> int:
         tuner_phase(drive, by_path, Path(tmp), path, stream_data,
                     want_stream, one_word32)
         mark("tuner")
+        # 16. the offline drivers that write tuned.json (they read phase
+        # 12's shard ledgers, so they run before the temp dir goes)
+        offline_phase(by_path, Path(tmp))
+        mark("offline")
         del stream_data, want_stream, one_rank
 
     # 15. the static analysis on the card
     attrs = analysis_phase(by_path, chunk32, dev)
     mark("analysis")
 
-    # 16. times at the main path's shape: one 32 MB chunk
+    # 17. times at the main path's shape: one 32 MB chunk
     t = on_card(chunk32)
     n = t.shape[0]
     kernels = []
@@ -5087,7 +5400,7 @@ def main() -> int:
 
     mark("times")
 
-    # 17. Where a step's device time goes, for the default, combiner and
+    # 18. Where a step's device time goes, for the default, combiner and
     # both radix configurations: torch.profiler over 3 steps, device kernels
     # only (the aten ops that launch them would count twice).  The busy
     # share divides it by the unprofiled step time measured above.

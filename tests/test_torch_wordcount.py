@@ -282,7 +282,8 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "mapreduce_tpu"), src
+                assert root not in ("jax", "jaxlib", "mapreduce_tpu",
+                                    "bench", "tools"), src
     code = ("import sys; import mapreduce_tpu_torch as m; "
             "r = m.count_words(b'a b a', device='cpu'); "
             "assert r.as_dict() == {b'a': 2, b'b': 1}; "
@@ -352,8 +353,17 @@ def test_package_imports_neither_jax_nor_the_jax_package(tmp_path):
             "torch.device('cpu')); "
             "assert rep.models == ['wordcount_pallas', '<kernels>']; "
             "assert not rep.errors and kernel_info.ATTR_FIELDS; "
+            "from mapreduce_tpu_torch.tools import (autotune, corpora, "
+            "geomsearch, redplan); "
+            "assert len(corpora.GENERATORS['zipf'](4096)) <= 4096; "
+            "assert redplan.check_disagreement(1.0, 0.1)['flag']; "
+            "assert autotune.probe_config({'chunk_bytes': 1 << 20, "
+            "'superstep': 1, 'inflight_groups': 4, 'prefetch_depth': 4, "
+            "'combiner': 'hot-cache'}).map_impl == 'fused'; "
+            "assert geomsearch.probe_config(None, 1 << 20).sort_impl "
+            "== 'radix'; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'jaxlib', 'mapreduce_tpu')]; "
+            "('jax', 'jaxlib', 'mapreduce_tpu', 'bench', 'tools')]; "
             "assert not bad, bad") % ((tmp_path / "ck.npz",) * 4)
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
