@@ -37,6 +37,7 @@ class Batch:
     lengths: np.ndarray  # int64[n_shards], valid bytes per row
     step: int
     file_index: int = 0  # corpus member the batch came from (never spans two)
+    fill_s: float = 0.0  # seconds in the native fill, not the buffer's take
 
 
 def iter_batches(path, n_shards: int, chunk_bytes: int,
@@ -69,12 +70,15 @@ def iter_batches(path, n_shards: int, chunk_bytes: int,
             else out().reshape(n_shards, chunk_bytes)
         bases = np.empty((n_shards,), dtype=np.int64)
         lengths = np.empty((n_shards,), dtype=np.int64)
+        t0 = time.perf_counter()
         consumed = native.fill_batch(raw, at_eof, n_shards, chunk_bytes,
                                      max_token_bytes, data, bases, lengths)
+        fill_s = time.perf_counter() - t0
         if consumed <= 0:  # cannot happen: a first cut takes >= 1 byte
             raise RuntimeError("ingest made no progress")
         bases += offset
-        yield Batch(data=data, base_offsets=bases, lengths=lengths, step=step)
+        yield Batch(data=data, base_offsets=bases, lengths=lengths, step=step,
+                    fill_s=fill_s)
         offset += consumed
         step += 1
 
@@ -122,9 +126,12 @@ def prefetch(batches: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
 
     The metrics registry gets the JAX reader's instruments: the depth
     (``reader.prefetch_depth``), each batch's production time
-    (``reader.produce_seconds``, ``reader.batches_prefetched``) and the
-    producer's time blocked on a full queue
-    (``reader.stall_full_queue_seconds``)."""
+    (``reader.produce_seconds``, ``reader.batches_prefetched``: the
+    buffer's take and the fill together) and the producer's time blocked
+    on a full queue (``reader.stall_full_queue_seconds``).  The thread
+    opens no profiler region: a profile's idle gaps are labelled by the
+    innermost region open on any thread, and the consumer's spans own
+    them.  Its fill time travels with each batch (``Batch.fill_s``)."""
     if depth < 1:
         raise ValueError(f"prefetch depth must be >= 1, got {depth}")
     reg = obs_registry.get_registry()

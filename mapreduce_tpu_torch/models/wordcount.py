@@ -215,7 +215,8 @@ def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
                capacity: int, pos_hi):
     """One packed build of a complete stream and the tiered rescue:
     ``(table, rescued)``, ``rescued`` the overlong occurrences the rescue
-    recovered (0 when it did not run)."""
+    recovered (0 when it did not run).  The rescue's table and its merge
+    are the ``rescue`` span (inside the streamed loop's ``dispatch``)."""
     w = config.pallas_max_token
     # The poison rows sort just before the dense stream's one dead row and
     # its end, so the rescue slice takes at most over_h + 1 rows: a longer
@@ -242,12 +243,13 @@ def _aggregate(chunk, stream, overlong, over_h: int, config: Config,
             BRANCHES["rescue_escalations"] += 1
         else:
             rescue_packed = rescue_packed[:r1]
-    rt, rescued = rescue_ops.rescue_table(chunk, rescue_packed, w,
-                                          config.rescue_window, pos_hi)
-    # rescued <= overlong by construction (one poison per overlong run).
-    ok = torch.minimum(rescued, overlong)
-    return _accounted(table_ops.merge(t, rt, capacity=capacity),
-                      overlong - ok), ok
+    with span("rescue"):
+        rt, rescued = rescue_ops.rescue_table(chunk, rescue_packed, w,
+                                              config.rescue_window, pos_hi)
+        # rescued <= overlong by construction (one poison per overlong run).
+        ok = torch.minimum(rescued, overlong)
+        merged = table_ops.merge(t, rt, capacity=capacity)
+    return _accounted(merged, overlong - ok), ok
 
 
 def _map_stream(chunk: torch.Tensor, config: Config, capacity: int,

@@ -118,6 +118,9 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._instruments: Dict[Tuple[str, str, _LabelKey], object] = {}
+        # Bumped by reset(): an instrument a caller keeps from an earlier
+        # generation is no longer in the registry.
+        self.generation = 0
 
     def _get(self, kind: str, name: str, labels: dict, factory):
         key = (kind, name, _label_key(labels))
@@ -170,6 +173,7 @@ class MetricsRegistry:
         """Drop every instrument (tests; a long-lived process between runs)."""
         with self._lock:
             self._instruments.clear()
+            self.generation += 1
 
 
 _DEFAULT = MetricsRegistry()

@@ -15,15 +15,33 @@ Each goes through one function here, which the static analysis's recorder
 kernel wrapper's launch (or its plain version), :func:`host_read` and
 :func:`host_scalars` for the syncs.  With no recorder active
 (:data:`RECORDER` is None, always outside the analysis) each is one branch
-and then exactly the call it replaces.
+and then exactly the call it replaces, and each sync adds one to the
+process registry's ``executor.host_syncs{site=flags|scalars}`` (the
+streamed loop counts the steps it runs as ``executor.chunks``, so the two
+give the syncs a chunk).
 """
 
 from __future__ import annotations
 
 import torch
 
+from mapreduce_tpu_torch.obs import registry as obs_registry
+
 #: The active recorder (``analysis.trace.Recorder``), or None.
 RECORDER = None
+
+#: ``site -> (registry generation, executor.host_syncs counter)``: looked
+#: up once, and again only after the registry's reset.
+_SYNCS: dict = {}
+
+
+def _count_sync(site: str) -> None:
+    reg = obs_registry.get_registry()
+    held = _SYNCS.get(site)
+    if held is None or held[0] != reg.generation:
+        held = _SYNCS[site] = (reg.generation,
+                               reg.counter("executor.host_syncs", site=site))
+    held[1].inc()
 
 
 class _Idle:
@@ -63,6 +81,7 @@ def host_read(flags: torch.Tensor, read=None) -> list:
     else a blocking ``tolist``."""
     rec = RECORDER
     if rec is None:
+        _count_sync("flags")
         return flags.tolist() if read is None else read(flags)
     return rec.host_read(flags, read)
 
@@ -73,5 +92,6 @@ def host_scalars(values, device) -> torch.Tensor:
     pageable copy, which waits for the host."""
     rec = RECORDER
     if rec is None:
+        _count_sync("scalars")
         return torch.tensor(values, dtype=torch.int64, device=device)
     return rec.host_copy(values, device)

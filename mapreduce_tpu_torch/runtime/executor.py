@@ -147,6 +147,7 @@ from mapreduce_tpu_torch.models.wordcount import (
     WordCountJob, WordCountResult, _reported_distinct, apply_top_k,
     job_with_config)
 from mapreduce_tpu_torch.obs import ledger as obs_ledger
+from mapreduce_tpu_torch.obs import registry as obs_registry
 from mapreduce_tpu_torch.obs import telemetry as obs_telemetry
 from mapreduce_tpu_torch.obs.spans import span, timing_into
 from mapreduce_tpu_torch.ops import datastats
@@ -299,6 +300,7 @@ class _HostStage:
     every token is ready)."""
 
     take = None
+    pin_s = 0.0
 
     def __init__(self, row: int = 0):
         self.row = row
@@ -342,7 +344,9 @@ class _PinnedStage:
     may hold at once, on top of the reader's.  The device chunk is
     allocated on the copy stream and marked as used by the compute stream
     (``record_stream``), so the caching allocator does not reuse its memory
-    while a kernel reads it.
+    while a kernel reads it.  ``pin_s`` sums the seconds :meth:`take`
+    spends allocating new pinned buffers (on the reader thread); the run
+    adds it to its timer as ``stage_pin`` at the stream's end.
     """
 
     def __init__(self, device: torch.device, nbytes: int, depth: int,
@@ -361,6 +365,7 @@ class _PinnedStage:
         self._held: dict[int, tuple] = {}  # address -> (buffer, last copy)
         self._pinned: dict[int, torch.Tensor] = {}  # address -> buffer
         self._copies: list = []  # (start, done) events of every copy
+        self.pin_s = 0.0
 
     def take(self) -> np.ndarray:
         """A free pinned buffer (``nbytes`` uint8): a returned one whose
@@ -372,8 +377,10 @@ class _PinnedStage:
                     del self._returned[i]
                     return buf.numpy()
             if len(self._pinned) < self.cap:
+                t0 = time.perf_counter()
                 buf = torch.empty(self.nbytes, dtype=torch.uint8,
                                   pin_memory=True)
+                self.pin_s += time.perf_counter() - t0
                 self._pinned[buf.data_ptr()] = buf
                 return buf.numpy()
             if not self._returned:
@@ -780,6 +787,10 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     """
     cur_config = config
     replayable = replay
+    # Every step run, replays included, as the map's host syncs are
+    # (``executor.host_syncs``).  Telemetry's ``executor.steps`` is the JAX
+    # package's count (dispatched, with telemetry on), and stays so.
+    chunks_run = obs_registry.get_registry().counter("executor.chunks")
     bytes_done = int(start_offset)
     step_index = start_step
     last_ckpt = start_step // checkpoint_every if checkpoint_every else 0
@@ -951,6 +962,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
                 stage.wait_copies([ev for _, (_, ev) in group])
                 stats = None
                 for b, (chunk, _) in group:
+                    chunks_run.inc()
                     out = engine.step(state, chunk, b.step)
                     if engine.data_stats:
                         state, chunk_stats = out
@@ -1421,6 +1433,9 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
             settle(err, "reader-read", safe=True)
             if batch is None:
                 break
+            # The reader thread's fill time, timed there (a region on that
+            # thread would take over the main thread's idle gaps).
+            timer.phases["read_fill"] = timer["read_fill"] + batch.fill_s
             read_t[batch.step] = time.perf_counter()
             with span("stage", timer):
                 staged = stage.stage(batch, hold=replayable)
@@ -1526,6 +1541,8 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
     if overlap is not None:
         pipe["partial_merges"] = overlap.partials
     pipe.update(stage.summary())
+    if stage.pin_s:
+        timer.phases["stage_pin"] = timer["stage_pin"] + stage.pin_s
     return state, bytes_done, pipe
 
 
@@ -1967,42 +1984,79 @@ def absolute_offsets(chunk_id: np.ndarray, pos: np.ndarray,
     return bases[step, dev] + pos
 
 
-def recover_from_file(tbl: table_ops.CountTable, path, bases: np.ndarray,
+def recover_from_file(state, path, bases: np.ndarray,
                       n_devices: int = 1, ngram: int = 1,
-                      estimate_distinct: bool = True) -> WordCountResult:
+                      estimate_distinct: bool = True,
+                      top_k: Optional[int] = None,
+                      capacity: Optional[int] = None) -> WordCountResult:
     """Host-side string recovery for a streamed run, words in file order of
     first occurrence.
+
+    ``state`` is a run's value: a :class:`...ops.table.CountTable`, or one
+    carried in a :class:`...models.wordcount.TopKTable` (its KMV distinct
+    estimate needs the job's table ``capacity``; ``top_k`` then orders the
+    result) and in a sketch's state (``distinct_estimate`` from a
+    HyperLogLog, ``cms`` from a Count-Min sketch).
 
     An entry of length ``SEAM_GRAM_LENGTH`` is a cross-chunk gram (or a
     span of 127 bytes or more): the device knew its start, not its end,
     so its span is scanned ``ngram`` entries forward from the start, in
     one batch call, with the row bases as the chunker's force-split
-    entry ends."""
-    count = tbl.count.cpu().numpy()
-    count_hi = tbl.count_hi.cpu().numpy()
-    valid = (count > 0) | (count_hi > 0)
-    chunk_id = tbl.pos_hi.cpu().numpy()[valid]
-    pos = tbl.pos_lo.cpu().numpy()[valid]
-    length = tbl.length.cpu().numpy()[valid]
-    cnt = (count + (count_hi << 32))[valid]
-    absolute = absolute_offsets(chunk_id, pos, bases, n_devices)
-    seam = np.flatnonzero(length == ngram_ops.SEAM_GRAM_LENGTH)
-    if len(seam):
-        length[seam] = reader_mod.scan_gram_lengths(
-            path, absolute[seam], ngram, cut_offsets=bases.ravel())
-    order = np.argsort(absolute, kind="stable")
-    spans = [(int(absolute[i]), int(length[i])) for i in order]
-    words = reader_mod.read_words_at_multi(path, spans)
-    dropped_uniques, dropped_count = tbl.dropped_totals()
-    return WordCountResult(
-        words=words,
-        counts=[int(c) for c in cnt[order]],
-        total=tbl.total_count(),
-        distinct=_reported_distinct(tbl, len(words), dropped_uniques,
-                                    estimate_distinct),
-        dropped_uniques=dropped_uniques,
-        dropped_count=dropped_count,
-    )
+    entry ends.
+
+    Its four parts are spans (``recover.fetch``: every read of the card;
+    ``recover.order``: the file-order sort and the span list;
+    ``recover.read``: the words' bytes; ``recover.assemble``: the
+    result), which add to the timer of an enclosing :func:`timing_into`
+    (:func:`count_file`'s)."""
+    with span("recover.fetch"):
+        tbl, kmv_est, registers, cms = state, None, None, None
+        if isinstance(tbl, SketchedState):
+            tbl, registers = tbl.table, tbl.registers.cpu().numpy()
+        elif isinstance(tbl, FreqSketchedState):
+            tbl, cms = tbl.table, tbl.cms.cpu().numpy().astype(np.uint32)
+        if isinstance(tbl, TopKTable):
+            kmv_est = table_ops.kmv_from_snapshot(
+                int(tbl.kmv_n_valid), int(tbl.kmv_kth_hi),
+                int(tbl.kmv_kth_lo), capacity)
+            tbl = tbl.table
+        count = tbl.count.cpu().numpy()
+        count_hi = tbl.count_hi.cpu().numpy()
+        chunk_id = tbl.pos_hi.cpu().numpy()
+        pos = tbl.pos_lo.cpu().numpy()
+        length = tbl.length.cpu().numpy()
+        dropped_uniques, dropped_count = tbl.dropped_totals()
+        total = tbl.total_count()
+    with span("recover.order"):
+        valid = (count > 0) | (count_hi > 0)
+        chunk_id, pos, length = chunk_id[valid], pos[valid], length[valid]
+        cnt = (count + (count_hi << 32))[valid]
+        absolute = absolute_offsets(chunk_id, pos, bases, n_devices)
+        seam = np.flatnonzero(length == ngram_ops.SEAM_GRAM_LENGTH)
+        if len(seam):
+            length[seam] = reader_mod.scan_gram_lengths(
+                path, absolute[seam], ngram, cut_offsets=bases.ravel())
+        order = np.argsort(absolute, kind="stable")
+        spans = [(int(absolute[i]), int(length[i])) for i in order]
+    with span("recover.read"):
+        words = reader_mod.read_words_at_multi(path, spans)
+    with span("recover.assemble"):
+        distinct = _reported_distinct(tbl, len(words), dropped_uniques,
+                                      estimate_distinct)
+        if kmv_est is not None:
+            distinct = max(len(words), int(round(kmv_est)))
+        result = WordCountResult(
+            words=words,
+            counts=[int(c) for c in cnt[order]],
+            total=total,
+            distinct=distinct,
+            dropped_uniques=dropped_uniques,
+            dropped_count=dropped_count,
+            distinct_estimate=None if registers is None
+            else sketch_ops.estimate(registers),
+            cms=cms,
+        )
+        return apply_top_k(result, top_k) if top_k else result
 
 
 def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
@@ -2022,7 +2076,9 @@ def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
     ``distinct_estimate``; ``count_sketch`` carries a Count-Min sketch and
     fills ``cms`` (``result.estimate_count(word)``); one or the other per
     run.  The result's ``run`` is the run's :class:`RunResult` (its value
-    dropped), with the host string recovery as the ``recover`` phase.
+    dropped), with the host string recovery as the ``recover`` phase and
+    its parts as ``recover.fetch``, ``.order``, ``.read`` and
+    ``.assemble`` (:func:`recover_from_file`).
     Across the ranks of an initialised world (or of a ``mesh`` given in
     ``kw``) every rank calls it alike; the mesh's coordinator recovers
     and returns the result, the other ranks return None.  With a
@@ -2044,28 +2100,10 @@ def count_file(path, config: Config = DEFAULT_CONFIG, device=None,
     if rr.rank != 0:
         return None
     timer = metrics_mod.PhaseTimer(phases=rr.metrics.phases)
-    with span("recover", timer):
-        tbl, kmv_est, registers, cms = rr.value, None, None, None
-        if isinstance(tbl, SketchedState):
-            tbl, registers = tbl.table, tbl.registers
-        elif isinstance(tbl, FreqSketchedState):
-            tbl, cms = tbl.table, tbl.cms.cpu().numpy().astype(np.uint32)
-        if isinstance(tbl, TopKTable):
-            kmv_est = table_ops.kmv_from_snapshot(
-                int(tbl.kmv_n_valid), int(tbl.kmv_kth_hi),
-                int(tbl.kmv_kth_lo), config.table_capacity)
-            tbl = tbl.table
-        result = recover_from_file(tbl, path, rr.bases, rr.bases.shape[1],
-                                   ngram=ngram, estimate_distinct=not top_k)
-        if kmv_est is not None:
-            result = dataclasses.replace(
-                result, distinct=max(len(result.words), int(round(kmv_est))))
-        if registers is not None:
-            result = dataclasses.replace(
-                result, distinct_estimate=sketch_ops.estimate(registers))
-        if cms is not None:
-            result = dataclasses.replace(result, cms=cms)
-        if top_k:
-            result = apply_top_k(result, top_k)
+    with span("recover", timer), timing_into(timer):
+        result = recover_from_file(rr.value, path, rr.bases,
+                                   rr.bases.shape[1], ngram=ngram,
+                                   estimate_distinct=not top_k, top_k=top_k,
+                                   capacity=config.table_capacity)
     return dataclasses.replace(result,
                                run=dataclasses.replace(rr, value=None))

@@ -1,18 +1,19 @@
-"""Profiler hooks: a Chrome trace of a run and named regions in it.
+"""Profiler hooks: a Chrome trace of a run.
 
 Counterpart of :mod:`mapreduce_tpu.runtime.profiling`.  :func:`trace`
 runs ``torch.profiler.profile`` around a block, with CPU activity and, on
 a machine with a card, CUDA activity, and writes one Chrome trace
 (``trace-<pid>.json``, readable in Perfetto) into a directory, also when
 the block raises.  The
-executor's phase spans (``obs/spans.py``) are ``record_function`` regions,
-so the trace shows ``read_wait``, ``stage``, ``dispatch``, ``host_read``
-and ``retire_wait`` beside the kernels they launch or wait for.
+executor's phase spans (:func:`...obs.spans.span`, the one way to mark a
+region) are ``record_function`` regions, so the trace shows
+``read_wait``, ``stage``, ``dispatch``, ``host_read`` and ``retire_wait``
+beside the kernels they launch or wait for.
 
 Usage::
 
     with profiling.trace("/tmp/trace"):     # no-op when the path is falsy
-        with profiling.region("step"):
+        with span("step"):
             state = engine.step(state, chunk, step)
 
 There is no compile cache to enable: the port's kernel builds are cached
@@ -51,10 +52,3 @@ def trace(path: Optional[str]) -> Iterator[None]:
         prof.export_chrome_trace(
             os.path.join(path, f"trace-{os.getpid()}.json"))
 
-
-@contextlib.contextmanager
-def region(name: str) -> Iterator[None]:
-    """A named region on the profiler timeline (a few microseconds when no
-    profiler runs)."""
-    with torch.profiler.record_function(name):
-        yield

@@ -58,8 +58,8 @@ from mapreduce_tpu_torch import cli, convert, native
 from mapreduce_tpu_torch.data import reader as reader_mod
 from mapreduce_tpu_torch.models import grep, sample
 from mapreduce_tpu_torch.models import wordcount as wc
-from mapreduce_tpu_torch.obs import flight, ledger, registry, telemetry, \
-    timeline
+from mapreduce_tpu_torch.obs import flight, ledger, registry, spans, \
+    telemetry, timeline
 from mapreduce_tpu_torch.ops import datastats
 from mapreduce_tpu_torch.ops.cuda import _build
 from mapreduce_tpu_torch.parallel import mapreduce as pmr
@@ -1003,7 +1003,7 @@ def test_cli_unopenable_ledger_exits_2(tmp_path, capsysbinary):
 def test_profile_trace_writes_on_failure(tmp_path):
     with pytest.raises(RuntimeError):
         with profiling.trace(str(tmp_path / "p")):
-            with profiling.region("inside"):
+            with spans.span("inside"):
                 raise RuntimeError("boom")
     (trace,) = (tmp_path / "p").glob("*.json")
     assert "inside" in {e.get("name") for e in
