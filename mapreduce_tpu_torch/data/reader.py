@@ -16,6 +16,7 @@ reader in a thread ahead of the consumer.
 from __future__ import annotations
 
 import dataclasses
+import mmap
 import os
 import queue
 import threading
@@ -185,29 +186,46 @@ class _ProducerError:
         self.error = error
 
 
-def read_words_at(path, spans: list[tuple[int, int]]) -> list[bytes]:
-    """Exact bytes for ``(absolute_offset, length)`` spans of one file."""
-    if not spans:
-        return []
-    mm = np.memmap(path, dtype=np.uint8, mode="r")
-    return [bytes(mm[off: off + ln]) for off, ln in spans]
+def read_words_at_multi(paths, offsets, lengths) -> list[bytes]:
+    """Exact bytes of the spans at virtual corpus ``offsets`` (``int64``
+    arrays, in any order) of ``lengths`` bytes, over one file or a list of
+    files (one corpus): the host's string recovery, words in the order of
+    the spans.
 
-
-def read_words_at_multi(paths, spans: list[tuple[int, int]]) -> list[bytes]:
-    """:func:`read_words_at` over a multi-file corpus (virtual offsets)."""
-    if isinstance(paths, (str, bytes, os.PathLike)):
-        return read_words_at(paths, spans)
-    if not spans:
+    Spans go to files by one ``searchsorted`` over the files' starts;
+    each touched file is mapped once (``mmap``, read-only) and its words
+    are sliced from the map by plain Python ints (``tolist``), with no
+    numpy scalar or array view per word.  A file with no span (an empty
+    one among them, which cannot be mapped) is never opened."""
+    plist = [paths] if isinstance(paths, (str, bytes, os.PathLike)) \
+        else list(paths)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    if offsets.shape[0] == 0:
         return []
-    starts = np.cumsum([0] + [os.path.getsize(p) for p in paths])
-    offs = np.asarray([s[0] for s in spans], dtype=np.int64)
-    file_idx = np.searchsorted(starts, offs, side="right") - 1
-    out: list[bytes] = [b""] * len(spans)
-    for k in np.unique(file_idx):
-        group = np.flatnonzero(file_idx == k)
-        local = [(int(offs[g] - starts[k]), spans[g][1]) for g in group]
-        for g, word in zip(group, read_words_at(paths[k], local)):
-            out[g] = word
+    starts = np.cumsum([0] + [os.path.getsize(p) for p in plist])
+    file_idx = np.searchsorted(starts, offsets, side="right") - 1
+    # Group the spans by file; spans in file order (recovery's) are
+    # grouped already, and no permutation is made or undone.
+    by_file = None if np.all(file_idx[1:] >= file_idx[:-1]) \
+        else np.argsort(file_idx, kind="stable")
+    if by_file is not None:
+        file_idx, offsets, lengths = (file_idx[by_file], offsets[by_file],
+                                      lengths[by_file])
+    local = offsets - starts[file_idx]
+    ends = local + lengths
+    cuts = np.flatnonzero(file_idx[1:] != file_idx[:-1]) + 1
+    words: list[bytes] = []
+    for lo, hi in zip([0, *cuts.tolist()], [*cuts.tolist(), len(local)]):
+        with open(plist[int(file_idx[lo])], "rb") as f, \
+                mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            words += [mm[o:e] for o, e in zip(local[lo:hi].tolist(),
+                                              ends[lo:hi].tolist())]
+    if by_file is None:
+        return words
+    out: list[bytes] = [b""] * len(words)
+    for i, word in zip(by_file.tolist(), words):
+        out[i] = word
     return out
 
 

@@ -241,5 +241,5 @@ def sample_file(path, k: int, config: Config = DEFAULT_CONFIG, device=None,
     chunk_id, pos, length, total = _host_sample(rr.value)
     absolute = executor.absolute_offsets(chunk_id, pos, rr.bases,
                                          rr.bases.shape[1])
-    spans = [(int(a), int(n)) for a, n in zip(absolute, length)]
-    return SampleResult(reader.read_words_at_multi(path, spans), total)
+    return SampleResult(reader.read_words_at_multi(path, absolute, length),
+                        total)

@@ -2005,7 +2005,7 @@ def recover_from_file(state, path, bases: np.ndarray,
     entry ends.
 
     Its four parts are spans (``recover.fetch``: every read of the card;
-    ``recover.order``: the file-order sort and the span list;
+    ``recover.order``: the file-order sort, offsets and lengths;
     ``recover.read``: the words' bytes; ``recover.assemble``: the
     result), which add to the timer of an enclosing :func:`timing_into`
     (:func:`count_file`'s)."""
@@ -2037,9 +2037,9 @@ def recover_from_file(state, path, bases: np.ndarray,
             length[seam] = reader_mod.scan_gram_lengths(
                 path, absolute[seam], ngram, cut_offsets=bases.ravel())
         order = np.argsort(absolute, kind="stable")
-        spans = [(int(absolute[i]), int(length[i])) for i in order]
+        offsets, lengths = absolute[order], length[order]
     with span("recover.read"):
-        words = reader_mod.read_words_at_multi(path, spans)
+        words = reader_mod.read_words_at_multi(path, offsets, lengths)
     with span("recover.assemble"):
         distinct = _reported_distinct(tbl, len(words), dropped_uniques,
                                       estimate_distinct)
@@ -2047,7 +2047,7 @@ def recover_from_file(state, path, bases: np.ndarray,
             distinct = max(len(words), int(round(kmv_est)))
         result = WordCountResult(
             words=words,
-            counts=[int(c) for c in cnt[order]],
+            counts=cnt[order].tolist(),
             total=total,
             distinct=distinct,
             dropped_uniques=dropped_uniques,

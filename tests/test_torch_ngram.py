@@ -10,7 +10,8 @@ runs it; the seam carry (``compose_carry``, ``seam_gram_table``, a chunk
 of no tokens) against the JAX functions; and streamed ``count_file`` runs
 over a 3-file corpus at 4 KB chunks, superstep 2 and window 2 against the
 JAX executor, the JAX single-buffer result of each file and an n-gram
-oracle.  Tolerance zero: this is integer hashing and counting.
+oracle; host recovery of such a run against the JAX recovery of the same
+table.  Tolerance zero: this is integer hashing and counting.
 """
 
 import collections
@@ -25,6 +26,7 @@ import torch
 from mapreduce_tpu.config import Config as JConfig
 from mapreduce_tpu.models import wordcount as jwc
 from mapreduce_tpu.ops import ngram as jngram
+from mapreduce_tpu.ops import table as jtable
 from mapreduce_tpu.ops import tokenize as jtok
 from mapreduce_tpu.parallel.mesh import data_mesh
 from mapreduce_tpu.runtime import executor as jexecutor
@@ -281,6 +283,42 @@ def test_force_split_run_recovers_like_jax(tmp_path):
     got = executor.count_file(str(p), cfg, device="cpu", ngram=2)
     assert _result(got) == _result(want)
     assert any(w.startswith(b"r") and w.endswith(b"cc") for w in got.words)
+
+
+def test_recover_from_file_equals_jax_over_three_files(tmp_path):
+    """Host recovery of a streamed bigram run over three files of 4 KB
+    chunks, with cross-chunk seam entries and words past W = 32 bytes:
+    ``recover_from_file``'s words, counts and first-occurrence order equal
+    the JAX package's recovery of the same table and row bases, and the
+    grams equal the oracle's."""
+    long_word = b"L" * 40
+    parts = (_corpus(7, 1200) + b" " + long_word + b" tail",
+             b"m" * 36 + b" x",
+             _corpus(8, 900) + b" " + long_word + b" end")
+    paths = []
+    for i, data in enumerate(parts):
+        p = tmp_path / f"part{i}.txt"
+        p.write_bytes(data)
+        paths.append(str(p))
+    cfg = dataclasses.replace(STREAM, backend="xla")
+    rr = executor.run_job(wc.NGramCountJob(2, cfg, "cpu"), paths, cfg)
+    live = (rr.value.count > 0) | (rr.value.count_hi > 0)
+    assert int((live & (rr.value.length == ngram_ops.SEAM_GRAM_LENGTH))
+               .sum()) > 0
+    got = executor.recover_from_file(rr.value, paths, rr.bases,
+                                     rr.bases.shape[1], ngram=2)
+    jtbl = jtable.CountTable(**{
+        f: jnp.asarray(v) for f, v in convert.table_to_numpy(rr.value)
+        .items()})
+    want = jexecutor.recover_from_file(jtbl, paths, rr.bases,
+                                       rr.bases.shape[1], ngram=2)
+    assert _result(got) == _result(want)
+    merged: collections.Counter = collections.Counter()
+    for data in parts:
+        merged.update(oracle_ngrams(data, 2))
+    assert _as_grams(got) == dict(merged)
+    assert any(long_word in w for w in got.words)
+    assert any(w.startswith(b"m" * 36) for w in got.words)
 
 
 def test_replay_and_resume_keep_the_carry(corpus, tmp_path):

@@ -6,8 +6,11 @@ batch: data, row bases, lengths, step and ``file_index`` are equal
 exactly, from the start and from resume cursors in every member of the
 corpus.  The JAX side runs its numpy path (its own tests hold its native
 chunker to it).  ``prefetch`` re-raises a producer error and stops on early exit.
+``read_words_at_multi`` cuts the words the JAX reader cuts, in the order
+of the spans, over one file and over a corpus with an empty member.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -147,3 +150,47 @@ def test_prefetch_keeps_order_and_batch_fields(corpus):
     got = list(reader.prefetch(reader.iter_batches_multi(corpus, 1, CHUNK),
                                depth=1))
     assert _fields(got) == _fields(want)
+
+
+@pytest.fixture(scope="module")
+def span_files(tmp_path_factory):
+    """One file, and a corpus of three whose middle member is empty."""
+    d = tmp_path_factory.mktemp("spans")
+    paths = []
+    for i, data in enumerate((_text(20, 3000), b"", _text(21, 2000))):
+        p = d / f"part{i}.txt"
+        p.write_bytes(data)
+        paths.append(str(p))
+    return {"one": paths[0], "three": paths}
+
+
+def _spans(paths, shuffled: bool):
+    """Spans at each file's first and last bytes (both sides of every
+    seam), and random spans inside each file."""
+    rng = np.random.default_rng(22)
+    spans, start = [], 0
+    for size in map(os.path.getsize, paths):
+        if size:
+            spans += [(start, 3), (start + size - 1, 1),
+                      (start + size - 4, 4)]
+            offs = rng.integers(0, size - 20, 60)
+            spans += [(start + int(o), int(n))
+                      for o, n in zip(offs, rng.integers(1, 20, 60))]
+        start += size
+    spans.sort()
+    if shuffled:
+        spans = [spans[i] for i in rng.permutation(len(spans))]
+    return spans
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "empty"])
+@pytest.mark.parametrize("files", ["one", "three"])
+def test_read_words_at_multi_matches_jax(span_files, files, order):
+    paths = span_files[files]
+    spans = [] if order == "empty" else _spans(
+        [paths] if files == "one" else paths, order == "shuffled")
+    offsets = np.array([o for o, _ in spans], dtype=np.int64)
+    lengths = np.array([n for _, n in spans], dtype=np.int64)
+    got = reader.read_words_at_multi(paths, offsets, lengths)
+    assert got == jreader.read_words_at_multi(paths, spans)
+    assert len(got) == len(spans)
