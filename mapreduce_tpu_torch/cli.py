@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`mapreduce_tpu.cli` for word count, n-grams
 (``--ngram``), the sketched runs (``--distinct-sketch``,
-``--count-sketch``, ``--estimate``), grep (``--grep``, ``--grep-syntax``),
-the reservoir sample (``--sample``) and the exact recount
+``--count-sketch``, ``--estimate``), grep (``--grep``, ``--grep-syntax``;
+``--grep-records`` prints the matching lines too, a flag of the port's
+own), the reservoir sample (``--sample``) and the exact recount
 (``--verify-sample``).  Its stdout is byte-identical to the JAX CLI's for
 the flags it takes; every other flag of the JAX CLI is refused with a
 usage error.  The run goes to the card unless ``--platform cpu`` asks for
@@ -150,6 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "regex-lite byte classes — '.' (any byte but "
                         "newline), '[a-z0-9]', '[^...]', '\\\\x' escapes; "
                         "fixed length, no repetition/alternation")
+    p.add_argument("--grep-records", action="store_true",
+                   help="with one --grep: print every matching line, in "
+                        "file order, before the counts (the streamed "
+                        "executor; a pattern that can match LF is "
+                        "refused)")
     p.add_argument("--sample", type=int, default=None, metavar="K",
                    help="report a uniform random sample of K token "
                         "occurrences instead of counts (mergeable bottom-k "
@@ -543,9 +549,17 @@ def _grep_main(args, paths, data, config: Config, device, input_bytes: int,
     if batch_tel is not None:
         _batch_run_start(batch_tel, "grep", paths, config, input_bytes)
     t0 = time.perf_counter()
+    records = None
     try:
         with profiling.trace(args.profile):
-            if args.stream and len(patterns) == 1:
+            if args.grep_records:  # no snapshot: a usage error
+                found = grep.grep_records(paths, patterns[0], **{
+                    k: v for k, v in kw.items()
+                    if not k.startswith("checkpoint")})
+                records = found.records
+                results = [grep.GrepResult(found.pattern, found.matches,
+                                           found.lines)]
+            elif args.stream and len(patterns) == 1:
                 results = [grep.grep_file(paths, patterns[0], **kw)]
             elif args.stream:
                 results = grep.grep_file_multi(paths, patterns, **kw)
@@ -570,7 +584,17 @@ def _grep_main(args, paths, data, config: Config, device, input_bytes: int,
                                elapsed_s=round(elapsed, 6))
     out = sys.stdout
     multi = len(results) > 1
-    if args.format == "json":
+    if records is not None and args.format != "json":
+        out.flush()  # the lines go out as their bytes
+        out.buffer.write(b"".join(r + b"\n" for r in records))
+        out.buffer.flush()
+    if records is not None and args.format == "json":
+        out.write(json.dumps({
+            "pattern": args.grep[0], "matches": results[0].matches,
+            "lines": results[0].lines,
+            "records": [r.decode("utf-8", errors="backslashreplace")
+                        for r in records]}) + "\n")
+    elif args.format == "json":
         if multi:
             out.write(json.dumps({"patterns": [
                 {"pattern": g, "matches": r.matches, "lines": r.lines}
@@ -649,11 +673,33 @@ def _sample_main(args, paths, data, config: Config, device,
     return 0
 
 
+def _check_grep_records(parser, args) -> None:
+    """``--grep-records``' usage errors: one pattern, no sample, no
+    autotune, no snapshot and one rank (records mode's state grows with
+    its output)."""
+    if args.grep is None:
+        parser.error("--grep-records requires --grep")
+    if len(args.grep) > 1:
+        parser.error("--grep-records takes one --grep pattern, got "
+                     f"{len(args.grep)}")
+    for flag, present in (("--sample", args.sample is not None),
+                          ("--autotune", args.autotune),
+                          ("--checkpoint", bool(args.checkpoint))):
+        if present:
+            parser.error(f"{flag} is not supported with --grep-records")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1:
+        parser.error(f"--grep-records runs on one rank, not {world}")
+
+
 def main(argv: list[str] | None = None) -> int:
     from mapreduce_tpu_torch.parallel import distributed
 
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.grep_records:
+        _check_grep_records(parser, args)
+        args.stream = True  # records mode runs on the streamed executor
     if args.ngram < 1:
         parser.error(f"--ngram must be >= 1, got {args.ngram}")
     if (args.count_sketch or args.estimate) and not args.stream:

@@ -229,6 +229,36 @@ def read_words_at_multi(paths, offsets, lengths) -> list[bytes]:
     return out
 
 
+def line_bounds_at_multi(paths, offsets) -> tuple[np.ndarray, np.ndarray]:
+    """The LF-delimited line around each virtual corpus offset (``int64``,
+    in any order), over one file or a list of files (one corpus): its
+    start and its end (the LF, or the end of its file), both virtual.  A
+    line never crosses a file.  Each touched file is mapped once and each
+    bound is one ``rfind`` or ``find`` of the map."""
+    plist = [paths] if isinstance(paths, (str, bytes, os.PathLike)) \
+        else list(paths)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    lo, hi = np.empty_like(offsets), np.empty_like(offsets)
+    if offsets.shape[0] == 0:
+        return lo, hi
+    starts = np.cumsum([0] + [os.path.getsize(p) for p in plist])
+    file_idx = np.searchsorted(starts, offsets, side="right") - 1
+    for k in np.unique(file_idx).tolist():
+        at = np.flatnonzero(file_idx == k)
+        base = int(starts[k])
+        with open(plist[k], "rb") as f, \
+                mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            size = len(mm)
+            first, last = [], []
+            for o in (offsets[at] - base).tolist():
+                first.append(mm.rfind(b"\n", 0, o) + 1)
+                e = mm.find(b"\n", o)
+                last.append(size if e < 0 else e)
+        lo[at] = np.asarray(first, np.int64) + base
+        hi[at] = np.asarray(last, np.int64) + base
+    return lo, hi
+
+
 _SEP_LUT = np.zeros(256, dtype=bool)
 _SEP_LUT[list(constants.SEPARATOR_BYTES)] = True
 

@@ -31,19 +31,29 @@ Envelope (as in the JAX package):
   so each rank composes its incoming carry as the JAX package does;
 * counts are 64-bit: uint32 ``lo``/``hi`` lanes with an explicit carry,
   each held in an int64 tensor (the port's uint32 convention).
+
+Records mode (:func:`grep_records`, the port's own; the Pavlo et al.
+grep task): one pattern's counts and every matching line, in file order.
+The map also emits, a chunk at a time, the positions of the matches that
+open their line within the chunk, compacted on the card and copied to the
+host behind one declared sync (:func:`_emit`); the host reads the lines
+around them from the files after the stream (:func:`recover_records`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
+from mapreduce_tpu_torch.obs.spans import span
 from mapreduce_tpu_torch.ops import datastats
 from mapreduce_tpu_torch.ops import tokenize as tok_ops
+from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.ops.table import add64
 from mapreduce_tpu_torch.runtime.platform import resolve_device
 
@@ -220,10 +230,13 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8))
 
 
-def _row_summary_multi(chunk: torch.Tensor, patterns: list):
+def _row_summary_multi(chunk: torch.Tensor, patterns: list,
+                       marks: Optional[list] = None):
     """Per-chunk line-boundary summaries for a pattern list: ``[P]`` int64
     tensors ``(matches, seg_cnt, nl, first_m, last_m)``, the JAX
-    package's, on the device and without a host read.
+    package's, on the device and without a host read.  ``marks``, when
+    given, gets each pattern's bool mask of the matches that are the first
+    of their line within the chunk (the records mode's emit).
 
     ``seg_cnt`` counts newline-delimited segments with >= 1 match (leading
     and trailing partial segments included), ``nl`` = the chunk has a
@@ -254,6 +267,8 @@ def _row_summary_multi(chunk: torch.Tensor, patterns: list):
         inc = best == seg
         first_in_line = hit.clone()
         first_in_line[1:] &= ~inc[:-1]
+        if marks is not None:
+            marks.append(first_in_line)
         first_hit = _first_true(hit)
         last_hit = n - 1 - _first_true(hit.flip(0))
         out.append(torch.stack([
@@ -539,3 +554,202 @@ def grep_file_multi(path, patterns: list, config: Config = DEFAULT_CONFIG,
     rr = executor.run_job(MultiGrepJob(patterns, syntax, device), path,
                           config, **kw)
     return _multi_results(patterns, rr.value)
+
+
+# -- records mode: the matching lines themselves -----------------------------
+
+
+def _admits_newline(pattern) -> bool:
+    """Can some position of a compiled pattern match LF?"""
+    for neg, ranges in _classes(pattern):
+        inside = any(lo <= 0x0A <= hi for lo, hi in ranges)
+        if inside != neg:
+            return True
+    return False
+
+
+class GrepRecordsState(NamedTuple):
+    """The records mode's running state: the counts, and the emitted
+    positions as a list of ``(chunk_id, positions)`` cells, newest first
+    (``(item, rest)``, None when empty), so a combine adds one cell and
+    never copies or edits the list it extends."""
+
+    counts: GrepState
+    emitted: Any = None
+
+
+class GrepRecordsUpdate(NamedTuple):
+    """One chunk's counts update and its emitted positions: the in-chunk
+    offsets, ascending, of the matches that open their line within the
+    chunk (int64, on the host)."""
+
+    counts: GrepUpdate
+    chunk_id: int
+    positions: torch.Tensor
+
+
+def _emit(marks: torch.Tensor) -> torch.Tensor:
+    """The marked positions of a chunk, compacted on the device and copied
+    to the host: one declared host read of their count
+    (``executor.host_syncs{site=emit}``, through the streamed driver's
+    deadline reader when it sets one), a compaction of that size, and a
+    copy into pinned memory on the compute stream, which the host reads
+    only after the run's last completion token.  No cap: every marked
+    position is kept; positions that memory cannot hold raise an
+    out-of-memory ``MemoryError`` with their count, which the failure
+    policy classes as ``resource``."""
+    with span("grep.emit"):
+        n = tracepoints.host_read(marks.sum().view(1), site="emit")[0]
+        if not n:
+            return torch.empty(0, dtype=torch.int64)
+        try:
+            pos = torch.nonzero_static(marks, size=n).view(-1)
+            if pos.device.type != "cuda":
+                return pos
+            host = torch.empty(n, dtype=torch.int64, pin_memory=True)
+        except (torch.cuda.OutOfMemoryError, MemoryError) as e:
+            raise MemoryError(
+                f"grep records: out of memory for a chunk's {n} "
+                f"matching-line positions ({8 * n} bytes on the card and in "
+                "pinned host memory)") from e
+        host.copy_(pos, non_blocking=True)
+        return host
+
+
+def _cells(emitted) -> list:
+    """The ``(chunk_id, positions)`` items of an emitted list."""
+    out = []
+    while emitted is not None:
+        item, emitted = emitted
+        out.append(item)
+    return out
+
+
+class GrepRecordsJob(GrepJob):
+    """One pattern's counts and the positions of its matching lines, as a
+    MapReduce job (:func:`grep_records`).
+
+    The counts are :class:`GrepJob`'s.  Each chunk also emits the first
+    match of each line within it (:func:`_emit`); the host finds the lines
+    around them (:func:`recover_records`).  A line cut by a chunk seam may
+    be emitted by both chunks: the host merges by line.  The state grows
+    with the emitted positions, so the executor refuses a snapshot, a byte
+    range and a mesh of more than one rank for it (``fixed_state``).
+    Under ``retry`` a replay restarts from a kept state, which holds only
+    the positions of the chunks before it, so a replayed chunk emits once.
+    """
+
+    fixed_state = False
+
+    def __init__(self, pattern: bytes, syntax: str = "literal", device=None):
+        super().__init__(pattern, syntax, device)
+        if _admits_newline(self.pattern):
+            raise ValueError("a grep records pattern must not match LF: a "
+                             "record is one line")
+
+    def init_state(self) -> GrepRecordsState:
+        return GrepRecordsState(super().init_state())
+
+    def map_chunk_sharded(self, chunk: torch.Tensor, chunk_id, axis=None,
+                          device_index: int = 0) -> GrepRecordsUpdate:
+        """:class:`GrepJob`'s streamed map, and the chunk's emit."""
+        from mapreduce_tpu_torch.parallel import collectives
+
+        marks: list = []
+        summ = tuple(x[0] for x in _row_summary_multi(chunk, [self.pattern],
+                                                      marks))
+        gathered = collectives.all_gather(torch.stack(summ[2:]), axis)
+        return GrepRecordsUpdate(
+            _seam_corrected_update(*summ, gathered, device_index),
+            int(chunk_id), _emit(marks[0]))
+
+    def combine(self, state: GrepRecordsState,
+                update: GrepRecordsUpdate) -> GrepRecordsState:
+        counts = super().combine(state.counts, update.counts)
+        emitted = state.emitted
+        if update.positions.numel():
+            emitted = ((update.chunk_id, update.positions), emitted)
+        return GrepRecordsState(counts, emitted)
+
+    def on_input_boundary(self, state: GrepRecordsState) -> GrepRecordsState:
+        return state._replace(counts=super().on_input_boundary(state.counts))
+
+    def partial_reset(self, local: GrepRecordsState) -> GrepRecordsState:
+        """Fresh counts that keep the carry, and no positions: they went
+        into the accumulator."""
+        return GrepRecordsState(super().init_state()._replace(
+            line_carry=local.counts.line_carry))
+
+    def state_stats(self, state: GrepRecordsState, stats):
+        return super().state_stats(state.counts, stats)
+
+    def merge(self, a: GrepRecordsState,
+              b: GrepRecordsState) -> GrepRecordsState:
+        emitted = b.emitted  # in any order: recovery sorts by chunk
+        for item in _cells(a.emitted):
+            emitted = (item, emitted)
+        return GrepRecordsState(super().merge(a.counts, b.counts), emitted)
+
+    def identity(self) -> str:
+        return "records-" + super().identity()
+
+
+@dataclasses.dataclass
+class GrepRecords:
+    """The records mode's result: :class:`GrepResult`'s counts and the
+    matching lines."""
+
+    pattern: bytes
+    matches: int  # overlapping occurrences
+    lines: int  # matching lines
+    records: list  # each matching line's bytes without its LF, file order
+    run: Any = None  # the run's RunResult, its value dropped
+
+
+def recover_records(emitted, path, bases: np.ndarray) -> list:
+    """The matching lines of a records run, in file order: each emitted
+    position as a virtual corpus offset (the row ``bases``), its line's
+    bounds from the file (:func:`...data.reader.line_bounds_at_multi`),
+    one record a line however many positions fall in it, and the lines'
+    bytes (:func:`...data.reader.read_words_at_multi`, under
+    ``recover.read``)."""
+    from mapreduce_tpu_torch.data import reader as reader_mod
+    from mapreduce_tpu_torch.runtime.executor import absolute_offsets
+
+    cells = sorted(_cells(emitted), key=lambda cell: cell[0])
+    if not cells:
+        return []
+    chunk_id = np.repeat([c for c, _ in cells],
+                         [p.numel() for _, p in cells])
+    pos = np.concatenate([p.numpy() for _, p in cells])
+    offsets = absolute_offsets(chunk_id, pos, bases, bases.shape[1])
+    starts, ends = reader_mod.line_bounds_at_multi(path, offsets)
+    first = np.flatnonzero(np.r_[True, starts[1:] != starts[:-1]])
+    with span("recover.read"):
+        return reader_mod.read_words_at_multi(path, starts[first],
+                                              ends[first] - starts[first])
+
+
+def grep_records(path, pattern: bytes, config: Config = DEFAULT_CONFIG,
+                 device=None, syntax: str = "literal", **kw) -> GrepRecords:
+    """The Pavlo et al. grep task over a file (or a list of files, one
+    corpus): the counts of :func:`grep_file` and every matching line, in
+    file order, without its LF.  Runs through ``run_job`` (``kw``: retry,
+    telemetry, logger, progress); the host's work after the stream is the
+    ``recover`` phase of the result's ``run``, and its span
+    ``grep.records`` (line bounds, reads and the result).  One pattern,
+    which may not match LF, with the counts' envelope (a pattern holding a
+    separator never matches across a chunk seam); one rank, the whole
+    corpus and no snapshot (the executor refuses the rest)."""
+    from mapreduce_tpu_torch.obs.spans import timing_into
+    from mapreduce_tpu_torch.runtime import executor
+    from mapreduce_tpu_torch.runtime.metrics import PhaseTimer
+
+    rr = executor.run_job(GrepRecordsJob(pattern, syntax, device), path,
+                          config, **kw)
+    timer = PhaseTimer(phases=rr.metrics.phases)
+    with span("recover", timer), timing_into(timer), span("grep.records"):
+        counts = _state_result(pattern, rr.value.counts)
+        records = recover_records(rr.value.emitted, path, rr.bases)
+    return GrepRecords(pattern, counts.matches, counts.lines, records,
+                       run=dataclasses.replace(rr, value=None))

@@ -30,8 +30,6 @@ the job's combine is the plain two-way merge.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import copy
 import dataclasses
 from collections import Counter
@@ -60,25 +58,6 @@ from mapreduce_tpu_torch.runtime.platform import resolve_device
 #: the combiner "combiner_hits" (occurrences the cache absorbed) and
 #: "combiner_flushes" (cache rows folded back), read in the chunk's one sync.
 BRANCHES: Counter = Counter()
-
-#: How the map reads its flags to the host (see :func:`host_read_by`);
-#: None is a blocking ``tolist``.
-_HOST_READ: contextvars.ContextVar = contextvars.ContextVar("host_read",
-                                                           default=None)
-
-
-@contextlib.contextmanager
-def host_read_by(read):
-    """Within, the map's one host read of a chunk is ``read(flags)`` (a
-    list) instead of a blocking ``flags.tolist()``.  On the card that read
-    waits for every kernel queued before it, a hung one included: the
-    streamed driver puts it under its completion deadline this way."""
-    token = _HOST_READ.set(read)
-    try:
-        yield
-    finally:
-        _HOST_READ.reset(token)
-
 
 @dataclasses.dataclass(frozen=True)
 class WordCountResult:
@@ -150,10 +129,11 @@ def _tokenize(chunk: torch.Tensor, config: Config):
 
 def _read_flags(flags: torch.Tensor) -> list:
     """The map's one host read of a chunk: ``flags`` as a list, under the
-    ``host_read`` span, through :func:`host_read_by`'s reader when one is
-    set.  It waits for the card (the streamed loop's too)."""
+    ``host_read`` span, through :func:`...ops.tracepoints.host_read_by`'s
+    reader when one is set.  It waits for the card (the streamed loop's
+    too)."""
     with span("host_read"):
-        return tracepoints.host_read(flags, _HOST_READ.get())
+        return tracepoints.host_read(flags)
 
 
 def _map_kernel(chunk: torch.Tensor, config: Config, capacity: int, pos_hi,

@@ -16,12 +16,15 @@ kernel wrapper's launch (or its plain version), :func:`host_read` and
 :func:`host_scalars` for the syncs.  With no recorder active
 (:data:`RECORDER` is None, always outside the analysis) each is one branch
 and then exactly the call it replaces, and each sync adds one to the
-process registry's ``executor.host_syncs{site=flags|scalars}`` (the
+process registry's ``executor.host_syncs{site=flags|scalars|emit}`` (the
 streamed loop counts the steps it runs as ``executor.chunks``, so the two
 give the syncs a chunk).
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -29,6 +32,11 @@ from mapreduce_tpu_torch.obs import registry as obs_registry
 
 #: The active recorder (``analysis.trace.Recorder``), or None.
 RECORDER = None
+
+#: How the declared host reads are made (see :func:`host_read_by`); None is
+#: a blocking ``tolist``.
+_HOST_READ: contextvars.ContextVar = contextvars.ContextVar("host_read",
+                                                           default=None)
 
 #: ``site -> (registry generation, executor.host_syncs counter)``: looked
 #: up once, and again only after the registry's reset.
@@ -75,13 +83,30 @@ def kernel_scope(name: str, plan, *operands):
     return rec.kernel_scope(name, plan, operands)
 
 
-def host_read(flags: torch.Tensor, read=None) -> list:
+@contextlib.contextmanager
+def host_read_by(read):
+    """Within, a step's declared host read is ``read(flags)`` (a list)
+    instead of a blocking ``flags.tolist()``.  On the card that read waits
+    for every kernel queued before it, a hung one included: the streamed
+    driver puts it under its completion deadline this way."""
+    token = _HOST_READ.set(read)
+    try:
+        yield
+    finally:
+        _HOST_READ.reset(token)
+
+
+def host_read(flags: torch.Tensor, read=None, site: str = "flags") -> list:
     """The step's declared device-to-host read: ``flags`` as a list, by
-    ``read(flags)`` when given (the streamed driver's deadline reader),
-    else a blocking ``tolist``."""
+    ``read(flags)`` when given, else by the reader :func:`host_read_by`
+    set (the streamed driver's deadline reader), else a blocking
+    ``tolist``.  ``site`` names it in the registry: the word count's
+    flags, or grep's ``emit`` (the records mode's count)."""
+    if read is None:
+        read = _HOST_READ.get()
     rec = RECORDER
     if rec is None:
-        _count_sync("flags")
+        _count_sync(site)
         return flags.tolist() if read is None else read(flags)
     return rec.host_read(flags, read)
 

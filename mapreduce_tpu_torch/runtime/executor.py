@@ -3,12 +3,14 @@
 ``run_job`` runs any job whose state is a NamedTuple of tensors (nested,
 or with host ints): the word-count family (the word count, its top-k, the
 n-gram job and the sketch wrappers, through ``count_file(ngram=,
-distinct_sketch=, count_sketch=)``), grep (``models/grep.py:grep_file``)
-and the reservoir sample (``models/sample.py:sample_file``).  A job
-supplies ``init_state``, ``map_chunk`` (or the streamed
-``map_chunk_sharded``), ``combine``, ``finalize``, ``identity`` and a
-``device``; ``on_input_boundary`` and the data-statistics hooks
-(``map_chunk_stats``, ``state_stats``) are optional.
+distinct_sketch=, count_sketch=)``), grep (``models/grep.py:grep_file``;
+``grep_records``, whose state grows with its output and so runs on one
+rank, over the whole corpus, without a snapshot) and the reservoir sample
+(``models/sample.py:sample_file``).  A job supplies ``init_state``,
+``map_chunk`` (or the streamed ``map_chunk_sharded``), ``combine``,
+``finalize``, ``identity`` and a ``device``; ``on_input_boundary``, the
+data-statistics hooks (``map_chunk_stats``, ``state_stats``) and
+``fixed_state = False`` (a state that grows) are optional.
 
 Counterpart of :mod:`mapreduce_tpu.runtime.executor` (``run_job`` and its
 ``_drive_stream`` loop, ``count_file``, ``recover_from_file``,
@@ -140,7 +142,6 @@ import torch.distributed as dist
 from mapreduce_tpu_torch import convert, native
 from mapreduce_tpu_torch.config import DEFAULT_CONFIG, Config
 from mapreduce_tpu_torch.data import reader as reader_mod
-from mapreduce_tpu_torch.models import wordcount as wc
 from mapreduce_tpu_torch.models.wordcount import (
     FreqSketchedState, FreqSketchedWordCountJob, NGramCountJob,
     SketchedState, SketchedWordCountJob, TopKTable, TopKWordCountJob,
@@ -154,6 +155,7 @@ from mapreduce_tpu_torch.ops import datastats
 from mapreduce_tpu_torch.ops import ngram as ngram_ops
 from mapreduce_tpu_torch.ops import sketch as sketch_ops
 from mapreduce_tpu_torch.ops import table as table_ops
+from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.parallel import collectives, distributed
 from mapreduce_tpu_torch.parallel.mapreduce import Engine
 from mapreduce_tpu_torch.parallel.mesh import control_group, data_mesh
@@ -1479,7 +1481,7 @@ def _drive_stream(engine, config: Config, path, state, stage, *,
         return state
 
     bounded = contextlib.nullcontext() if policy.token_timeout_s is None \
-        else wc.host_read_by(
+        else tracepoints.host_read_by(
             lambda flags: stage.read(flags, policy.token_timeout_s))
     with bounded:
         try:
@@ -1801,6 +1803,17 @@ def _run_streamed(job, path, config: Config, device, *, driver: str, mesh,
     axis = data_mesh(device=dev) if mesh is None \
         else dataclasses.replace(mesh, device=dev)
     n_dev = axis.size
+    if not getattr(job, "fixed_state", True):
+        # A state that grows with the job's output (grep's emitted
+        # records) fits no snapshot's fixed leaves and no collective merge.
+        carried = ("a snapshot" if checkpoint_path else "a byte range"
+                   if byte_range is not None else f"{n_dev} ranks"
+                   if n_dev > 1 or glob else None)
+        if carried:
+            raise ValueError(
+                f"{type(job).__name__} keeps a state that grows with its "
+                f"output, which {carried} cannot carry: run it on one "
+                "rank, over the whole corpus, without checkpoint_path")
     merge_strategy = config.resolved_merge_strategy \
         if merge_strategy is None else merge_strategy
     tel = _host_telemetry(obs_telemetry.maybe(telemetry), axis, driver)

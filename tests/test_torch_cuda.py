@@ -914,3 +914,42 @@ def test_grep_and_sample_never_read_the_host_in_a_step(cuda_device, tmp_path,
                              "ops/cuda/tokenize.py", "ops/table.py",
                              "ops/tokenize.py")}
     assert not [p for p in syncs if p in own]
+
+
+@pytest.mark.cuda
+def test_grep_records_on_the_card_equal_the_cpu(cuda_device, tmp_path):
+    """Records mode on the card (the emit's compaction and its copy into
+    pinned memory, read after the stream) equals the CPU's at 64 KB
+    chunks, a replayed group included; in the stream its one sync a chunk
+    is the declared count read (``ops/tracepoints.py``)."""
+    import warnings
+
+    from mapreduce_tpu_torch.models import grep
+
+    paths, _ = _stream_files(tmp_path, n_files=2)
+    cfg = wc.Config(chunk_bytes=1 << 16, superstep=2, inflight_groups=2)
+    want = grep.grep_records(paths, b"w1", cfg, device="cpu")
+    assert want.lines > 100
+    for retry, plan in ((0, None), (1, "at=token-wait:3:transient")):
+        got = grep.grep_records(
+            paths, b"w1", wc.Config(chunk_bytes=1 << 16, superstep=2,
+                                    inflight_groups=2, fault_plan=plan),
+            retry=retry)
+        assert (got.records, got.matches, got.lines) \
+            == (want.records, want.matches, want.lines)
+    job = grep.GrepRecordsJob(b"w1")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rr = executor.run_job(job, paths, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [pathlib.Path(w.filename).resolve() for w in caught
+             if "synchroniz" in str(w.message)]
+    pkg = REPO / "mapreduce_tpu_torch"
+    own = {pkg / f for f in ("runtime/executor.py", "data/reader.py",
+                             "parallel/mapreduce.py", "models/grep.py")}
+    assert not [p for p in syncs if p in own]
+    assert 1 <= len([p for p in syncs if p == pkg / "ops/tracepoints.py"]) \
+        <= rr.bases.size

@@ -40,6 +40,7 @@ from mapreduce_tpu_torch import convert
 from mapreduce_tpu_torch.data import reader as reader_mod
 from mapreduce_tpu_torch.models import wordcount as wc
 from mapreduce_tpu_torch.ops import table as table_ops
+from mapreduce_tpu_torch.ops import tracepoints
 from mapreduce_tpu_torch.parallel import mapreduce as pmr
 from mapreduce_tpu_torch.runtime import checkpoint as ckpt
 from mapreduce_tpu_torch.runtime import executor, faults
@@ -819,7 +820,7 @@ def test_the_maps_host_read_goes_through_the_stage_under_a_timeout(
     got = executor.count_file(path, cfg, device="cpu")
     assert got.as_dict() == want
     assert reads == ([] if timeout is None else [timeout] * 5)
-    assert wc._HOST_READ.get() is None
+    assert tracepoints._HOST_READ.get() is None
 
 
 def test_a_second_sigint_during_the_preemption_drain_keeps_preempted(
